@@ -1,0 +1,174 @@
+"""PaiNN forward for the rigid static-edge MC path, batched over chains and
+ensemble members.
+
+The counterpart of ``surface_sampling_tpu/models/painn.py`` restricted to
+what rigid-lattice MC runs: the configuration, the radial basis and
+envelope, the rigid trunk (``_painn_features_rigid``) and the readout with
+the excluded-volume term and the overflow override. Parameters are a tree
+of tensors with a leading member axis K (``models/weights.py``); features
+carry two batch axes, chains C and members K: s is (C, K, n_pad, F) and
+the vector features are kept x-major as vcat (C, K, n_pad, 3F) =
+[v_x | v_y | v_z], the layout of the JAX package's fused kernels.
+
+The three blocks of every layer run through ``ops/painn_kernels.py``: the
+layer-1 message from a per-species table, the general message for layers
+2+, and the update block. Between them only the per-atom dense layers run
+here, as batched matrix products.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as tnf
+
+from surface_sampling_tpu_torch.ops.painn_kernels import (
+    painn_message_fused,
+    painn_message_l1,
+    painn_update_fused,
+)
+
+
+@dataclass(frozen=True)
+class PaiNNConfig:
+    feat_dim: int = 128
+    n_rbf: int = 20
+    cutoff: float = 5.0
+    n_layers: int = 3
+    max_z: int = 100
+    excl_vol: bool = False
+    power: float = 12.0
+    sigma: float = 1.5
+    readout_hidden: int = 64
+    max_neighbors: int = 64
+
+
+def _rbf(d: torch.Tensor, n_rbf: int, cutoff: float) -> torch.Tensor:
+    """Bessel/sinc radial basis: sin(n pi d / rc) / d."""
+    n = torch.arange(1, n_rbf + 1, dtype=d.dtype, device=d.device)
+    dsafe = torch.clamp(d, min=1e-8)[..., None]
+    return torch.sin(n * math.pi * dsafe / cutoff) / dsafe
+
+
+def _cosine_envelope(d: torch.Tensor, cutoff: float) -> torch.Tensor:
+    return torch.where(d < cutoff, 0.5 * (torch.cos(math.pi * d / cutoff) + 1.0),
+                       torch.zeros_like(d))
+
+
+def _dense(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Per-member dense layer: x (..., K, n, i) @ w (K, i, o) + b (K, o)."""
+    y = torch.matmul(x, p["w"])
+    if "b" in p:
+        y = y + p["b"][:, None, :]
+    return y
+
+
+def rigid_member_weights(params: dict, cfg: PaiNNConfig, l1_types, r_pad: int) -> dict:
+    """Weights of the rigid trunk derived once per potential.
+
+    ``philt`` (K, T+1, 2F) is the layer-1 phi of each species, sliced to
+    the live s|unit channels (v == 0 at layer 1 kills the vv third); row T
+    is zero and stands for dead and padded slots. ``dw``/``db`` are every
+    layer's dist_embed weights with the radial axis zero-padded to
+    ``r_pad``; ``dw2``/``db2`` layer 1's, sliced like ``philt``.
+    """
+    F = cfg.feat_dim
+    emb = params["atom_embed"]                                       # (K, max_z, F)
+    types = torch.as_tensor([min(max(int(z), 0), cfg.max_z - 1) for z in l1_types],
+                            device=emb.device)
+    mp0 = params["message"][0]
+    s_rows = emb[:, types]                                           # (K, T, F)
+    phi_t = _dense(mp0["inv_dense1"], tnf.silu(_dense(mp0["inv_dense0"], s_rows)))
+    philt = tnf.pad(phi_t[..., F:], (0, 0, 0, 1)).contiguous()       # (K, T+1, 2F)
+    dw = [tnf.pad(mp["dist_embed"]["w"], (0, 0, 0, r_pad - cfg.n_rbf)).contiguous()
+          for mp in params["message"]]
+    db = [mp["dist_embed"]["b"].contiguous() for mp in params["message"]]
+    return {
+        "philt": philt,
+        "dw": dw,
+        "db": db,
+        "dw2": dw[0][..., F:].contiguous(),
+        "db2": db[0][..., F:].contiguous(),
+        "species_of_z": _species_table(l1_types, cfg.max_z, emb.device),
+    }
+
+
+def _species_table(l1_types, max_z: int, device) -> torch.Tensor:
+    """(max_z,) int32 map from atomic number to its row of ``philt``; every
+    other number (0 = dead slot included) maps to the zero row T."""
+    table = torch.full((max_z,), len(l1_types), dtype=torch.int32)
+    for t, z in enumerate(l1_types):
+        table[int(z)] = t
+    return table.to(device)
+
+
+def species_rows(rw: dict, cfg: PaiNNConfig, numbers: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """(C, n_pad) int32 row of ``rw["philt"]`` for every slot of a (C, N)
+    batch of atomic numbers; padded rows get the zero row."""
+    z = torch.clamp(numbers, 0, cfg.max_z - 1)
+    return tnf.pad(rw["species_of_z"][z], (0, n_pad - numbers.shape[1]),
+                   value=rw["philt"].shape[1] - 1)
+
+
+def _painn_features_rigid(params: dict, rw: dict, cfg: PaiNNConfig,
+                          numbers: torch.Tensor, alive: torch.Tensor,
+                          msg_geom) -> torch.Tensor:
+    """Rigid trunk over padded rows; returns s (C, K, N, F).
+
+    ``numbers``/``alive`` are (C, N); ``msg_geom`` comes from
+    ``ops.static_edges.static_edge_geometry``."""
+    rbf, envm, nbr, unit, n_pad = msg_geom
+    C, N = numbers.shape
+    K = params["atom_embed"].shape[0]
+    F = cfg.feat_dim
+    pad_n = n_pad - N
+
+    z = torch.clamp(numbers, 0, cfg.max_z - 1)
+    species = species_rows(rw, cfg, numbers, n_pad)
+    alive_f = tnf.pad(alive.to(torch.float32), (0, pad_n))           # (C, n_pad)
+    s = params["atom_embed"][:, z].transpose(0, 1)                   # (C, K, N, F)
+    s = tnf.pad(s * alive_f[:, None, :N, None], (0, 0, 0, pad_n)).contiguous()
+    vcat = torch.zeros((C, K, n_pad, 3 * F), dtype=s.dtype, device=s.device)
+
+    for li, (mp, up) in enumerate(zip(params["message"], params["update"])):
+        if li == 0:
+            ds, dv = painn_message_l1(species, rw["philt"], rbf, envm, nbr, unit,
+                                      rw["dw2"], rw["db2"])
+        else:
+            phi = _dense(mp["inv_dense1"], tnf.silu(_dense(mp["inv_dense0"], s)))
+            ds, dv = painn_message_fused(phi.contiguous(), vcat, rbf, envm, nbr, unit,
+                                         rw["dw"][li], rw["db"][li])
+        s = s + ds
+        vcat = vcat + dv
+        s, vcat = painn_update_fused(
+            s, vcat, up["u_mat"]["w"], up["v_mat"]["w"], up["s_dense0"]["w"],
+            up["s_dense0"]["b"], up["s_dense1"]["w"], up["s_dense1"]["b"], alive_f)
+    return s[:, :, :N]
+
+
+def painn_apply_rigid(params: dict, rw: dict, cfg: PaiNNConfig,
+                      numbers: torch.Tensor, alive: torch.Tensor,
+                      msg_geom, edges) -> dict:
+    """Full rigid forward of every member (training units).
+
+    Returns ``energy`` (C, K) per member and ``per_atom_energy``
+    (C, K, N). A chain whose neighbor graph overflowed gets the energy
+    1e6 in place of the sum: a truncated graph makes the network emit
+    arbitrary values, and an override (not a penalty) lets the
+    Metropolis/OOB machinery reject the state whatever they are.
+    """
+    r, nbr_mask, overflow = edges
+    s = _painn_features_rigid(params, rw, cfg, numbers, alive, msg_geom)
+    h = tnf.silu(_dense(params["readout"]["dense0"], s))
+    e_atom = _dense(params["readout"]["dense1"], h)[..., 0]          # (C, K, N)
+    e_atom = torch.where(alive[:, None, :], e_atom, torch.zeros_like(e_atom))
+    if cfg.excl_vol:
+        # pairwise (sigma/d)^power over directed selected pairs
+        r_pow = (cfg.sigma / torch.clamp(r, min=1e-3)) ** cfg.power
+        e_excl = torch.where(nbr_mask, r_pow, torch.zeros_like(r_pow)).sum(dim=-1)
+        e_atom = e_atom + e_excl[:, None, :]
+    e_tot = torch.where(overflow[:, None], torch.full_like(e_atom[..., 0], 1e6),
+                        e_atom.sum(dim=-1))
+    return {"energy": e_tot, "per_atom_energy": e_atom}

@@ -1,0 +1,84 @@
+"""PaiNN weights: the npz checkpoints and the JAX package's parameter tree
+as trees of torch tensors with a leading ensemble-member axis.
+
+A checkpoint npz holds flat keys
+``message.{l}.{dist_embed,inv_dense0,inv_dense1}.{w,b}``,
+``update.{l}.{u_mat,v_mat,s_dense0,s_dense1}.{w[,b]}``,
+``readout.{dense0,dense1}.{w,b}``, ``atom_embed`` and the configuration
+as ``__cfg__<field>``. Weights are stored as ``x @ w`` matrices (inputs
+first), the convention both packages compute with.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from surface_sampling_tpu_torch.models.painn import PaiNNConfig
+
+
+def _unflatten(flat: dict) -> dict:
+    """Dotted keys -> nested dicts, with all-digit levels as lists."""
+    tree: dict = {}
+    for key, val in flat.items():
+        parts = key.split(".")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+
+    def listify(node):
+        if isinstance(node, dict):
+            keys = list(node.keys())
+            if keys and all(k.isdigit() for k in keys):
+                return [listify(node[str(i)]) for i in range(len(keys))]
+            return {k: listify(v) for k, v in node.items()}
+        return node
+
+    return listify(tree)
+
+
+def _tree_map(fn, *trees):
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, list):
+        return [_tree_map(fn, *(t[i] for t in trees)) for i in range(len(t0))]
+    return fn(*trees)
+
+
+def load_painn_npz(path) -> tuple[dict, PaiNNConfig]:
+    """One checkpoint as a tree of numpy arrays plus its configuration.
+
+    ``max_neighbors`` is a runtime padding choice, not a property of the
+    checkpoint: a stored value is dropped and the caller's default kept."""
+    with np.load(path) as d:
+        flat = {k: d[k] for k in d.files if not k.startswith("__cfg__")}
+        cfg_kw = {k[len("__cfg__"):]: d[k].item() for k in d.files if k.startswith("__cfg__")}
+    cfg_kw.pop("max_neighbors", None)
+    for int_key in ("feat_dim", "n_rbf", "n_layers", "max_z", "readout_hidden"):
+        if int_key in cfg_kw:
+            cfg_kw[int_key] = int(cfg_kw[int_key])
+    for float_key in ("cutoff", "power", "sigma"):
+        if float_key in cfg_kw:
+            cfg_kw[float_key] = float(cfg_kw[float_key])
+    if "excl_vol" in cfg_kw:
+        cfg_kw["excl_vol"] = bool(cfg_kw["excl_vol"])
+    return _unflatten(flat), PaiNNConfig(**cfg_kw)
+
+
+def load_painn_ensemble(paths, device) -> tuple[dict, PaiNNConfig]:
+    """Checkpoints of an ensemble stacked along a leading member axis, as
+    f32 tensors on ``device``. All members must share one configuration."""
+    trees, cfgs = zip(*(load_painn_npz(p) for p in paths))
+    if any(c != cfgs[0] for c in cfgs[1:]):
+        raise ValueError("ensemble members have different configurations")
+    stacked = _tree_map(lambda *xs: np.stack(xs), *trees)
+    return from_jax_params(stacked, device), cfgs[0]
+
+
+def from_jax_params(tree, device) -> dict:
+    """The JAX package's stacked ensemble parameter tree (leaves converted
+    to numpy arrays, leading member axis) as f32 tensors on ``device``."""
+    return _tree_map(
+        lambda x: torch.as_tensor(np.array(x, np.float32), device=device), tree)

@@ -1,0 +1,371 @@
+"""The three PaiNN blocks of the rigid MC path: CUDA kernels for Hopper,
+their plain PyTorch versions, launch counters, and the build.
+
+Each block replaces a Pallas TPU kernel of
+``surface_sampling_tpu/ops/pallas_painn.py``:
+
+    painn_message_l1     layer-1 message from a per-species phi table
+                         (replaces ``painn_message_l1`` / ``_msg_kernel_l1``)
+    painn_message_fused  general message, layers 2+
+                         (replaces ``painn_message_fused`` / ``_msg_kernel``)
+    painn_update_fused   update block, every layer
+                         (replaces ``painn_update_fused`` / ``_upd_kernel``)
+
+Every function is batched over chains C and ensemble members K in one
+call: edge geometry is indexed by chain (rbf (C, E, R), envm and nbr
+(C, E), unit (C, 3, n_pad, M), E = n_pad * M), weights by member, and
+features by both ((C, K, n_pad, .)). Vector features and the dv outputs
+are x-major rows of width 3F, [x | y | z], the JAX kernels' ``vcat``
+layout (their dv (3, n_pad, F) concatenated along features).
+
+A wrapper takes the plain version for tensors on the CPU and launches its
+kernel for tensors on a CUDA device; there is no fallback between the two.
+The kernels are built from ``csrc/<name>.cu`` at first use, one ``nvcc``
+per source run in parallel, into ``_build/`` (listed in .gitignore), and
+bound with ctypes through a plain C interface.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import torch
+import torch.nn.functional as tnf
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+KERNELS = ("painn_message_l1", "painn_message_fused", "painn_update_fused")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+# pointer arguments, int arguments of each C entry point (then the stream)
+_ARITY = {
+    "painn_message_l1": (10, 7),
+    "painn_message_fused": (10, 6),
+    "painn_update_fused": (11, 4),
+}
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+# ----------------------------------------------------------------------
+# Build and load
+# ----------------------------------------------------------------------
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("the CUDA toolkit (nvcc) was not found; set CUDA_HOME")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _lib_path(name: str) -> Path:
+    """Build output of one source, named by a hash of the source and the
+    flags so that an edited source is never served a stale library."""
+    tag = hashlib.sha256(
+        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build_kernels(names=KERNELS) -> dict[str, str]:
+    """Compile the named kernels that are not built yet, one ``nvcc`` per
+    source, all started together. Returns each one's compiler output (the
+    ``-Xptxas -v`` register and shared-memory report; "" if it was already
+    built). Raises if any build fails."""
+    BUILD_DIR.mkdir(exist_ok=True)
+    logs: dict[str, str] = {}
+    running = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            logs[name] = ""
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in running.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name} (exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return logs
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    if name not in _LIBS:
+        path = _lib_path(name)
+        if not path.exists():
+            build_kernels((name,))
+        lib = ctypes.CDLL(str(path))
+        n_ptr, n_int = _ARITY[name]
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def _launch(name: str, tensors, ints) -> None:
+    """Call a kernel's C entry point on PyTorch's current stream and raise
+    on the cudaGetLastError() it returns (a refused launch never runs, and
+    a later synchronize would not report it)."""
+    dev = tensors[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = getattr(_lib(name), name)(*[t.data_ptr() for t in tensors],
+                                        *[int(i) for i in ints], stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+
+
+def _check(name: str, dev: torch.device, **tensors) -> None:
+    """Every input on ``dev``, of its dtype and shape, and contiguous.
+    Each value is (tensor, dtype, shape)."""
+    for arg, (t, dtype, shape) in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, expected {dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _check_grid(name: str, C: int, K: int, R: int | None = None) -> None:
+    if C > 65535 or K > 65535:
+        raise ValueError(f"{name}: C={C} and K={K} must each be at most 65535 (grid limit)")
+    if R is not None and R not in (8, 16, 24, 32):
+        raise ValueError(f"{name}: the radial width must be 8, 16, 24 or 32, got {R}")
+
+
+# ----------------------------------------------------------------------
+# Layer-1 message
+# ----------------------------------------------------------------------
+def painn_message_l1_plain(species, philt, rbf, envm, nbr, unit, dw2, db2):
+    """Plain PyTorch version of :func:`painn_message_l1`."""
+    C, E, _ = rbf.shape
+    K, _, F2 = philt.shape
+    F = F2 // 2
+    n_pad = species.shape[1]
+    M = E // n_pad
+    w = (torch.matmul(rbf[:, None], dw2) + db2[None, :, None, :]) * envm[:, None, :, None]
+    sp_j = torch.gather(species, 1, nbr.long()).long()              # (C, E)
+    phij = philt[:, sp_j].transpose(0, 1)                           # (C, K, E, 2F)
+    inv = phij * w
+    c_s = inv[..., :F].reshape(C, K, n_pad, M, F)
+    c_u = inv[..., F:].reshape(C, K, n_pad, M, F)
+    ds = c_s.sum(dim=3)
+    dv = torch.einsum("ckimf,cxim->ckixf", c_u, unit).reshape(C, K, n_pad, 3 * F)
+    return ds, dv
+
+
+def painn_message_l1(species, philt, rbf, envm, nbr, unit, dw2, db2):
+    """Layer-1 PaiNN message, batched over chains and members.
+
+    At layer 1, v == 0 (the vv channels and the v_j term vanish) and s is
+    the alive-masked atom embedding, so phi_j is one of a few per-species
+    rows. Per edge e = (i, m) with neighbor j = nbr[e]:
+
+        w   = (rbf[e] @ dw2 + db2) * envm[e]                 (2F,)  s | unit
+        c   = philt[species[j]] * w
+        ds_i   = sum_m c_s
+        dv_i,x = sum_m c_unit * unit[x, i, m]
+
+    Args:
+        species: (C, n_pad) int32 row of ``philt`` per slot (T = dead/pad).
+        philt: (K, T+1, 2F) f32 layer-1 phi per species, s|unit channels;
+            row T zero.
+        rbf: (C, E, R) f32; envm, nbr: (C, E) f32 / int32;
+        unit: (C, 3, n_pad, M) f32.
+        dw2, db2: (K, R, 2F), (K, 2F) f32 dist_embed weights, s|unit channels.
+    Returns:
+        ds (C, K, n_pad, F), dv (C, K, n_pad, 3F) x-major.
+    """
+    C, E, R = rbf.shape
+    K, T1, F2 = philt.shape
+    F = F2 // 2
+    n_pad = species.shape[1]
+    M = E // n_pad
+    f32, i32 = torch.float32, torch.int32
+    dev = rbf.device
+    _check("painn_message_l1", dev,
+           species=(species, i32, (C, n_pad)), philt=(philt, f32, (K, T1, F2)),
+           rbf=(rbf, f32, (C, n_pad * M, R)), envm=(envm, f32, (C, E)),
+           nbr=(nbr, i32, (C, E)), unit=(unit, f32, (C, 3, n_pad, M)),
+           dw2=(dw2, f32, (K, R, F2)), db2=(db2, f32, (K, F2)))
+    if dev.type == "cpu":
+        return painn_message_l1_plain(species, philt, rbf, envm, nbr, unit, dw2, db2)
+    _check_grid("painn_message_l1", C, K, R)
+    ds = torch.empty((C, K, n_pad, F), dtype=f32, device=dev)
+    dv = torch.empty((C, K, n_pad, 3 * F), dtype=f32, device=dev)
+    _launch("painn_message_l1",
+            (species, philt, rbf, envm, nbr, unit, dw2, db2, ds, dv),
+            (C, K, n_pad, M, R, F, T1))
+    painn_message_l1.launches += 1
+    return ds, dv
+
+
+painn_message_l1.launches = 0
+
+
+# ----------------------------------------------------------------------
+# General message (layers 2+)
+# ----------------------------------------------------------------------
+def painn_message_fused_plain(phi, vcat, rbf, envm, nbr, unit, dw, db):
+    """Plain PyTorch version of :func:`painn_message_fused`."""
+    C, K, n_pad, F3 = phi.shape
+    F = F3 // 3
+    E = rbf.shape[1]
+    M = E // n_pad
+    w = (torch.matmul(rbf[:, None], dw) + db[None, :, None, :]) * envm[:, None, :, None]
+    idx = nbr.long()[:, None, :, None].expand(C, K, E, F3)
+    phij = torch.gather(phi, 2, idx)                                # (C, K, E, 3F)
+    vj = torch.gather(vcat, 2, idx)
+    inv = phij * w
+    c_vv = inv[..., :F].reshape(C, K, n_pad, M, F)
+    c_s = inv[..., F:2 * F].reshape(C, K, n_pad, M, F)
+    c_u = inv[..., 2 * F:].reshape(C, K, n_pad, M, F)
+    ds = c_s.sum(dim=3)
+    dv = [
+        (c_u * unit[:, None, x, :, :, None]
+         + c_vv * vj[..., x * F:(x + 1) * F].reshape(C, K, n_pad, M, F)).sum(dim=3)
+        for x in range(3)
+    ]
+    return ds, torch.cat(dv, dim=-1)
+
+
+def painn_message_fused(phi, vcat, rbf, envm, nbr, unit, dw, db):
+    """General PaiNN message block, batched over chains and members. Per
+    edge e = (i, m) with neighbor j = nbr[e]:
+
+        w   = (rbf[e] @ dw + db) * envm[e]                   (3F,) vv | s | unit
+        c   = phi[j] * w
+        ds_i   = sum_m c_s
+        dv_i,x = sum_m (c_unit * unit[x, i, m] + c_vv * v_j,x)
+
+    Args:
+        phi: (C, K, n_pad, 3F) f32 per-atom filter features.
+        vcat: (C, K, n_pad, 3F) f32 vector features, x-major.
+        rbf, envm, nbr, unit: edge geometry as in :func:`painn_message_l1`.
+        dw, db: (K, R, 3F), (K, 3F) f32 dist_embed weights.
+    Returns:
+        ds (C, K, n_pad, F), dv (C, K, n_pad, 3F) x-major.
+    """
+    C, K, n_pad, F3 = phi.shape
+    F = F3 // 3
+    E, R = rbf.shape[1], rbf.shape[2]
+    M = E // n_pad
+    f32, i32 = torch.float32, torch.int32
+    dev = phi.device
+    _check("painn_message_fused", dev,
+           phi=(phi, f32, (C, K, n_pad, F3)), vcat=(vcat, f32, (C, K, n_pad, F3)),
+           rbf=(rbf, f32, (C, n_pad * M, R)), envm=(envm, f32, (C, E)),
+           nbr=(nbr, i32, (C, E)), unit=(unit, f32, (C, 3, n_pad, M)),
+           dw=(dw, f32, (K, R, F3)), db=(db, f32, (K, F3)))
+    if dev.type == "cpu":
+        return painn_message_fused_plain(phi, vcat, rbf, envm, nbr, unit, dw, db)
+    _check_grid("painn_message_fused", C, K, R)
+    ds = torch.empty((C, K, n_pad, F), dtype=f32, device=dev)
+    dv = torch.empty((C, K, n_pad, F3), dtype=f32, device=dev)
+    _launch("painn_message_fused",
+            (phi, vcat, rbf, envm, nbr, unit, dw, db, ds, dv),
+            (C, K, n_pad, M, R, F))
+    painn_message_fused.launches += 1
+    return ds, dv
+
+
+painn_message_fused.launches = 0
+
+
+# ----------------------------------------------------------------------
+# Update block
+# ----------------------------------------------------------------------
+def painn_update_fused_plain(s, vcat, u, v, w0, b0, w1, b1, alive):
+    """Plain PyTorch version of :func:`painn_update_fused`."""
+    C, K, n_pad, F = s.shape
+    vx = vcat.reshape(C, K, n_pad, 3, F)
+    uv = torch.matmul(vx, u[:, None])                                # (C, K, n, 3, F)
+    vv = torch.matmul(vx, v[:, None])
+    vv_norm = torch.sqrt((vv * vv).sum(dim=3) + 1e-16)
+    h = tnf.silu(torch.matmul(torch.cat([s, vv_norm], dim=-1), w0) + b0[:, None, :])
+    a = torch.matmul(h, w1) + b1[:, None, :]
+    a_vv, a_sv, a_ss = a[..., :F], a[..., F:2 * F], a[..., 2 * F:]
+    inner = (uv * vv).sum(dim=3)
+    am = alive[:, None, :, None]
+    s_out = (s + a_sv * inner + a_ss) * am
+    v_out = (vx + a_vv[..., None, :] * uv) * am[..., None]
+    return s_out, v_out.reshape(C, K, n_pad, 3 * F)
+
+
+def painn_update_fused(s, vcat, u, v, w0, b0, w1, b1, alive):
+    """PaiNN update block over padded rows, batched over chains and members:
+
+        Uv_x = v_x @ u,  Vv_x = v_x @ v                 per axis x
+        a    = silu([s, |Vv|] @ w0 + b0) @ w1 + b1      split a_vv | a_sv | a_ss
+        s'   = (s + a_sv * <Uv, Vv> + a_ss) * alive
+        v'_x = (v_x + a_vv * Uv_x) * alive
+
+    with |Vv| = sqrt(sum_x Vv_x^2 + 1e-16).
+
+    Args:
+        s: (C, K, n_pad, F) f32; vcat: (C, K, n_pad, 3F) f32 x-major.
+        u, v: (K, F, F); w0: (K, 2F, F); b0: (K, F); w1: (K, F, 3F);
+            b1: (K, 3F) f32 update weights of the layer.
+        alive: (C, n_pad) f32 mask (0 on dead and padded rows).
+    Returns:
+        s' (C, K, n_pad, F), vcat' (C, K, n_pad, 3F).
+    """
+    C, K, n_pad, F = s.shape
+    f32 = torch.float32
+    dev = s.device
+    _check("painn_update_fused", dev,
+           s=(s, f32, (C, K, n_pad, F)), vcat=(vcat, f32, (C, K, n_pad, 3 * F)),
+           u=(u, f32, (K, F, F)), v=(v, f32, (K, F, F)), w0=(w0, f32, (K, 2 * F, F)),
+           b0=(b0, f32, (K, F)), w1=(w1, f32, (K, F, 3 * F)), b1=(b1, f32, (K, 3 * F)),
+           alive=(alive, f32, (C, n_pad)))
+    if dev.type == "cpu":
+        return painn_update_fused_plain(s, vcat, u, v, w0, b0, w1, b1, alive)
+    _check_grid("painn_update_fused", C, K)
+    if F > 256:
+        raise ValueError(f"painn_update_fused: F={F} exceeds the kernel's 256 "
+                         "(one thread per channel, rows staged in 48 KB of shared memory)")
+    s_out = torch.empty_like(s)
+    v_out = torch.empty_like(vcat)
+    _launch("painn_update_fused",
+            (s, vcat, u, v, w0, b0, w1, b1, alive, s_out, v_out),
+            (C, K, n_pad, F))
+    painn_update_fused.launches += 1
+    return s_out, v_out
+
+
+painn_update_fused.launches = 0
+
+
+WRAPPERS = (painn_message_l1, painn_message_fused, painn_update_fused)
+PLAIN = {
+    painn_message_l1: painn_message_l1_plain,
+    painn_message_fused: painn_message_fused_plain,
+    painn_update_fused: painn_update_fused_plain,
+}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {fn.__name__: fn.launches for fn in WRAPPERS}

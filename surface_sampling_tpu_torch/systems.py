@@ -1,0 +1,106 @@
+"""Prebuilt example systems: the SrTiO3(001) PaiNN-ensemble flagship.
+
+The counterpart of ``srtio3_001_painn`` in
+``surface_sampling_tpu/systems.py``. The slab geometry, the offset table
+and the PaiNN weights are the JAX package's data files, read by path from
+the repository checkout (data, not modules: nothing of the JAX package is
+imported).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from pathlib import Path
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from surface_sampling_tpu_torch.constants import Z_FROM_SYMBOL
+from surface_sampling_tpu_torch.core.energy import make_offset_surface_energy
+from surface_sampling_tpu_torch.core.engine import MCMCRun
+from surface_sampling_tpu_torch.core.spec import SurfaceSpec, make_spec
+from surface_sampling_tpu_torch.core.static_neighbors import build_static_neighbor_table
+from surface_sampling_tpu_torch.device import resolve_device
+from surface_sampling_tpu_torch.models.nn_calculator import (
+    RigidPaiNNPotential,
+    make_painn_potential,
+)
+from surface_sampling_tpu_torch.models.weights import load_painn_ensemble
+from surface_sampling_tpu_torch.structure import Structure, find_adsorption_sites
+
+_REFERENCE_PKG = Path(__file__).resolve().parent.parent / "surface_sampling_tpu"
+SYSTEMS_DATA = _REFERENCE_PKG / "systems_data"
+MODEL_DATA = _REFERENCE_PKG / "models" / "data"
+
+
+class ExampleSystem(NamedTuple):
+    spec: SurfaceSpec
+    potential: RigidPaiNNPotential
+    run: MCMCRun
+
+
+def srtio3_001_painn(
+    planar_distance: float = 1.5,
+    surface_depth: int = 1,
+    relax=None,
+    chem_pots: dict | None = None,
+    adsorbates: tuple[str, ...] = ("Sr", "Ti", "O"),
+    n_models: int = 3,
+    max_neighbors: int = 64,
+    supercell: tuple[int, int] = (1, 1),
+    pallas_routing: str | None = None,
+    dtype=None,
+    device: str | torch.device = "cuda",
+) -> ExampleSystem:
+    """SrTiO3(001) 2x2 slab with the reference's trained PaiNN ensemble:
+    semigrand sampling with chem_pots Sr=-2 Ti=0 O=0 and the offset
+    surface energy in atomic units, on a rigid lattice.
+
+    Arguments and defaults are those of the JAX package's function.
+    ``relax`` and ``supercell`` other than their defaults are not ported
+    yet and raise. ``pallas_routing`` selects a TPU routing precision and
+    is ignored: the port computes in float32. ``dtype`` must be None or
+    ``torch.float32``. ``device`` defaults to "cuda" and raises without a
+    card; pass "cpu" for the plain PyTorch path.
+    """
+    if relax is not None:
+        raise NotImplementedError("relaxation is not ported yet: pass relax=None")
+    if tuple(supercell) != (1, 1):
+        raise NotImplementedError("supercells are not ported yet: pass supercell=(1, 1)")
+    if dtype not in (None, torch.float32):
+        raise NotImplementedError("the port computes in float32 only")
+    dev = resolve_device(device)
+
+    data = np.load(SYSTEMS_DATA / "SrTiO3_001_2x2.npz")
+    slab = Structure(data["numbers"], data["positions"], data["cell"])
+    sites = find_adsorption_sites(
+        slab, planar_distance=planar_distance, near_reduce=0.01, no_obtuse_hollow=True
+    )["all"]
+    offset_data = json.loads((SYSTEMS_DATA / "srtio3_offset_data.json").read_text())
+    chem_pots = chem_pots or {"Sr": -2.0, "Ti": 0.0, "O": 0.0}
+
+    params, cfg = load_painn_ensemble(
+        [MODEL_DATA / f"srtio3_painn_{i:02d}.npz" for i in range(1, n_models + 1)], dev)
+    cfg = dataclasses.replace(cfg, max_neighbors=max_neighbors)
+
+    type_numbers = [Z_FROM_SYMBOL[s] for s in ("Sr", "Ti", "O")]
+    spec = make_spec(
+        slab,
+        sites,
+        list(adsorbates),
+        potential_numbers=type_numbers,
+        cutoff=cfg.cutoff,
+        surface_depth=surface_depth,
+        surface_name="SrTiO3_001",
+    )
+    static_nbr = build_static_neighbor_table(spec, cfg.cutoff, relax_slack=0.1)
+    pot = make_painn_potential(
+        params, cfg, type_numbers, units="kcal/mol", stoidict=offset_data["stoidict"],
+        static_nbr=static_nbr, spec=spec, device=dev,
+    )
+    se_fn = make_offset_surface_energy(spec, chem_pots, offset_data,
+                                       offset_units="atomic", device=dev)
+    run = MCMCRun(spec, pot, surface_energy_fn=se_fn, device=dev)
+    return ExampleSystem(spec, pot, run)

@@ -1,0 +1,76 @@
+"""The port stands alone: it imports with JAX blocked, contains no import
+of the JAX package or of JAX, and its entry points default to the card
+and raise without one."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "surface_sampling_tpu_torch"
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "sys.modules['jax'] = None\n"
+        "import surface_sampling_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "leaked = [m for m in sys.modules if m == 'surface_sampling_tpu'"
+        " or m.startswith('surface_sampling_tpu.')]\n"
+        "assert not leaked, leaked\n"
+        "print(len(names))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_no_import_of_the_jax_package_or_jax():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) >= 20
+    for path in files:
+        for name in _imports(path):
+            assert not (name == "surface_sampling_tpu"
+                        or name.startswith("surface_sampling_tpu.")), (path, name)
+            assert name.split(".")[0] != "jax", (path, name)
+
+
+def test_entry_point_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
+    from surface_sampling_tpu_torch.device import resolve_device
+    from surface_sampling_tpu_torch.systems import srtio3_001_painn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        srtio3_001_painn()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def test_chip_smoke_fails_without_a_card():
+    """Run with no arguments from the repository root, chip_smoke.py exits
+    non-zero and prints no result when no CUDA device is visible."""
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
