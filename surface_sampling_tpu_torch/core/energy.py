@@ -1,15 +1,16 @@
 """Surface-energy models and the per-move state evaluation, batched over
 chains.
 
-The counterpart of ``surface_sampling_tpu/core/energy.py`` without the
-relaxation branch: a surface-energy model maps (potential energy,
-per-element counts) to the acceptance energy, and
-``make_state_energy_fn`` assembles the rigid evaluation every MC step
-runs: realize the occupancy, score it, clamp out-of-bounds energies.
+The counterpart of ``surface_sampling_tpu/core/energy.py``: a
+surface-energy model maps (potential energy, per-element counts) to the
+acceptance energy, and ``make_state_energy_fn`` assembles the evaluation
+every MC step runs: realize the occupancy, relax it (FIRE) or take the
+rigid slot geometry, score it, clamp out-of-bounds energies.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -21,19 +22,12 @@ from surface_sampling_tpu_torch.core.state import (
     DeviceSpec,
     element_counts,
     realize_alive,
+    realize_free_mask,
     realize_positions,
     realize_type_idx,
 )
+from surface_sampling_tpu_torch.core.relax import FireConfig, energy_threshold, fire_relax
 from surface_sampling_tpu_torch.device import resolve_device
-
-ENERGY_THRESHOLD = 1000.0           # eV, absolute out-of-bounds bound
-ENERGY_THRESHOLD_PER_ATOM = 20.0    # eV/atom added to it, so large slabs'
-                                    # legitimate cohesive energies stay in bounds
-
-
-def energy_threshold(n_atoms) -> float:
-    """Size-aware OOB energy bound: 1000 eV + 20 eV/atom."""
-    return ENERGY_THRESHOLD + ENERGY_THRESHOLD_PER_ATOM * n_atoms
 
 
 def identity_surface_energy(e_pot, counts):
@@ -85,10 +79,28 @@ def make_offset_surface_energy(
     return surface_energy
 
 
+@dataclass(frozen=True)
+class RelaxConfig:
+    """Relaxation policy inside the acceptance energy (reference:
+    calc_settings relax_atoms / relax_steps).
+
+    ``refresh_edges``: "once" selects the edge topology at the start
+    geometry of each relaxation and recomputes only the geometry per force
+    call (the reference's neighbor-list semantics), for potentials with
+    the topology hooks; "every_step" re-ranks the candidate pairs at every
+    force call. Only ``method="fire"`` is ported."""
+
+    steps: int = 20
+    fmax: float = 0.01
+    max_step: float = 0.2
+    method: str = "fire"          # fire | lbfgs
+    refresh_edges: str = "once"   # once | every_step
+
+
 class StateEnergy(NamedTuple):
     surface_energy: torch.Tensor    # (C,) acceptance energy (OOB-clamped)
     potential_energy: torch.Tensor  # (C,)
-    positions: torch.Tensor         # (C, N, 3) ideal slot geometry
+    positions: torch.Tensor         # (C, N, 3) relaxed (or ideal) geometry
     oob: torch.Tensor               # (C,) bool
 
 
@@ -96,27 +108,81 @@ def make_state_energy_fn(
     d: DeviceSpec,
     potential,
     surface_energy_fn: Callable = identity_surface_energy,
+    relax: RelaxConfig | None = None,
+    symmetric=None,
+    relax_potential=None,
 ) -> Callable:
     """Build ``fn(site_state (C, S)) -> StateEnergy``, the evaluation of
-    every MC step on a rigid lattice. ``potential`` must expose
-    ``rigid_energy(type_idx, alive)`` (``models/nn_calculator.py``).
+    every MC step.
+
+    Without ``relax`` the state is scored at its ideal slot geometry,
+    through ``potential.rigid_energy(type_idx, alive)`` where the
+    potential has it, else ``potential.energy``. With ``relax`` every
+    chain's trial state is FIRE-relaxed (frozen bulk and dead slots held),
+    and:
+
+    - refresh_edges="once" with a potential carrying the topology hooks
+      (``edge_topology``, ``edges_of``, ``energy_with_edges``): the topology
+      is selected at the start geometry, each force call recomputes the
+      geometry under it, and the acceptance energy is ``potential.energy``
+      on fresh edges at the relaxed positions, checked against the bound
+      again, so relaxed and unrelaxed states are scored by one evaluator;
+    - otherwise the relaxation's own final energy.
 
     A NaN or an energy beyond ``energy_threshold(N)`` is out of bounds:
     both the potential and the surface energy are clamped to the bound, so
-    the Metropolis test rejects the state."""
-    if not hasattr(potential, "rigid_energy"):
-        raise NotImplementedError("only rigid-lattice potentials are ported")
+    the Metropolis test rejects the state. ``symmetric``, ``relax_potential``
+    and ``method="lbfgs"`` are not ported and raise."""
+    if symmetric is not None or relax_potential is not None:
+        raise NotImplementedError("symmetric slabs and a separate relax_potential "
+                                  "are not ported yet")
+    fire_cfg = None
+    fixed_topo = False
+    if relax is not None:
+        if relax.method != "fire":
+            raise NotImplementedError(f"relax method {relax.method!r} is not ported: "
+                                      "only 'fire'")
+        if relax.refresh_edges not in ("once", "every_step"):
+            raise ValueError(f"refresh_edges must be 'once' or 'every_step', "
+                             f"got {relax.refresh_edges!r}")
+        fire_cfg = FireConfig(steps=relax.steps, fmax=relax.fmax, max_step=relax.max_step)
+        fixed_topo = relax.refresh_edges == "once" and hasattr(potential, "edge_topology")
+    rigid = getattr(potential, "rigid_energy", None) if relax is None else None
 
     def state_energy(site_state: torch.Tensor) -> StateEnergy:
-        pos = realize_positions(d, site_state)
+        pos0 = realize_positions(d, site_state)
         type_idx = realize_type_idx(d, site_state)
         alive = realize_alive(d, site_state)
-        counts = element_counts(d, site_state, dtype=pos.dtype)
-        e_bound = energy_threshold(pos.shape[1])
-        e_pot = potential.rigid_energy(type_idx, alive)
-        oob = (e_pot.abs() > e_bound) | torch.isnan(e_pot)
-        bound = torch.full_like(e_pot, e_bound)
-        e_pot = torch.where(oob, bound, e_pot)
+        counts = element_counts(d, site_state, dtype=pos0.dtype)
+        e_bound = energy_threshold(pos0.shape[1])
+        bound = torch.full((pos0.shape[0],), e_bound, dtype=pos0.dtype, device=pos0.device)
+
+        def e_of(p):
+            return potential.energy(p, type_idx, alive)
+
+        if fire_cfg is None:
+            e_pot = rigid(type_idx, alive) if rigid is not None else e_of(pos0)
+            oob = (e_pot.abs() > e_bound) | torch.isnan(e_pot)
+            e_pot = torch.where(oob, bound, e_pot)
+            pos = pos0
+        else:
+            free = realize_free_mask(d, site_state)
+            if fixed_topo:
+                topo = potential.edge_topology(pos0, alive)
+
+                def relax_e_of(p):
+                    return potential.energy_with_edges(
+                        p, type_idx, alive, edges=potential.edges_of(p, topo))
+            else:
+                relax_e_of = e_of
+            res = fire_relax(relax_e_of, pos0, free, fire_cfg)
+            pos, oob = res.positions, res.oob
+            if fixed_topo:
+                e_pot = e_of(pos)
+                oob = oob | (e_pot.abs() > e_bound) | torch.isnan(e_pot)
+                e_pot = torch.where(oob, bound, e_pot)
+            else:
+                e_pot = res.energy
         se = torch.where(oob, bound, surface_energy_fn(e_pot, counts))
         return StateEnergy(surface_energy=se, potential_energy=e_pot, positions=pos, oob=oob)
 

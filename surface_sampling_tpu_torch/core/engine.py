@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from surface_sampling_tpu_torch.core.energy import (
+    RelaxConfig,
     identity_surface_energy,
     make_state_energy_fn,
 )
@@ -95,14 +96,17 @@ def make_run_fn(d, state_energy_fn: Callable, cfg: EngineConfig) -> Callable:
 @dataclass
 class MCMCRun:
     """Bundle of a spec and a potential staged on one device: the device
-    spec ``d`` and the batched ``state_energy_fn`` that runs and steps use."""
+    spec ``d`` and the batched ``state_energy_fn`` that runs and steps use
+    (every trial state FIRE-relaxed when ``relax`` is given)."""
 
     spec: SurfaceSpec
     potential: object
     surface_energy_fn: Callable | None = None
     device: torch.device | str = "cuda"
+    relax: RelaxConfig | None = None
 
     def __post_init__(self):
         self.d = device_spec(self.spec, resolve_device(self.device))
         self.state_energy_fn = make_state_energy_fn(
-            self.d, self.potential, self.surface_energy_fn or identity_surface_energy)
+            self.d, self.potential, self.surface_energy_fn or identity_surface_energy,
+            relax=self.relax)

@@ -23,8 +23,8 @@ class MCState(NamedTuple):
     Attributes:
         site_state: (C, S) int64 adsorbate code per site (0 = empty).
         energy: (C,) cached surface energy of the current state.
-        relaxed_positions: (C, N, 3) geometry of the current state (the
-            ideal slot realization: this slice runs rigid lattices only).
+        relaxed_positions: (C, N, 3) last accepted relaxed geometry (the
+            ideal slot realization when relaxation is off).
     """
 
     site_state: torch.Tensor
@@ -37,6 +37,7 @@ class DeviceSpec(NamedTuple):
 
     pristine_numbers: torch.Tensor     # (P,) int64
     pristine_positions: torch.Tensor   # (P, 3) f32
+    frozen_pristine: torch.Tensor      # (P,) bool bulk atoms
     site_coords: torch.Tensor          # (S, 3) f32
     code_numbers: torch.Tensor         # (K+1, G) int64
     code_offsets: torch.Tensor         # (K+1, G, 3) f32
@@ -58,6 +59,7 @@ def device_spec(spec: SurfaceSpec, device: torch.device) -> DeviceSpec:
     return DeviceSpec(
         pristine_numbers=i64(spec.pristine_numbers),
         pristine_positions=f32(spec.pristine_positions),
+        frozen_pristine=torch.as_tensor(np.asarray(spec.frozen_pristine, bool), device=device),
         site_coords=f32(spec.site_coords),
         code_numbers=i64(spec.code_numbers),
         code_offsets=f32(spec.code_offsets),
@@ -87,6 +89,14 @@ def realize_positions(d: DeviceSpec, site_state: torch.Tensor) -> torch.Tensor:
 def realize_alive(d: DeviceSpec, site_state: torch.Tensor) -> torch.Tensor:
     """(C, N) bool alive mask."""
     return realize_numbers(d, site_state) > 0
+
+
+def realize_free_mask(d: DeviceSpec, site_state: torch.Tensor) -> torch.Tensor:
+    """(C, N) bool: slots whose positions may relax (alive and not frozen
+    bulk; the analog of ase FixAtoms)."""
+    alive = realize_alive(d, site_state)
+    frozen = torch.nn.functional.pad(d.frozen_pristine, (0, alive.shape[1] - d.frozen_pristine.shape[0]))
+    return alive & ~frozen
 
 
 def realize_type_idx(d: DeviceSpec, site_state: torch.Tensor) -> torch.Tensor:

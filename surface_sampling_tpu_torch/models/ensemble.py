@@ -10,17 +10,16 @@ from __future__ import annotations
 
 import torch
 
-from surface_sampling_tpu_torch.models.painn import PaiNNConfig, painn_apply_rigid
+from surface_sampling_tpu_torch.models.painn import (
+    PaiNNConfig,
+    painn_apply,
+    painn_apply_rigid,
+    prepare_message_geometry,
+)
+from surface_sampling_tpu_torch.ops.neighbors import Edges
 
 
-def ensemble_apply(params: dict, rw: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
-                   alive: torch.Tensor, msg_geom, edges) -> dict:
-    """Forward all members on a (C, N) batch of structures.
-
-    Returns ``member_energy`` (C, K), the ensemble ``energy`` and
-    ``energy_std`` (C,) over members, and the member-mean
-    ``per_atom_energy`` (C, N), in training units."""
-    out = painn_apply_rigid(params, rw, cfg, numbers, alive, msg_geom, edges)
+def _stats(out: dict) -> dict:
     energies = out["energy"]
     return {
         "member_energy": energies,
@@ -28,3 +27,26 @@ def ensemble_apply(params: dict, rw: dict, cfg: PaiNNConfig, numbers: torch.Tens
         "energy_std": energies.std(dim=1, unbiased=False),
         "per_atom_energy": out["per_atom_energy"].mean(dim=1),
     }
+
+
+def ensemble_apply_rigid(params: dict, rw: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
+                         alive: torch.Tensor, msg_geom, edges) -> dict:
+    """Rigid forward of all members on a (C, N) batch of structures over
+    static edge geometry (``ops.static_edges``).
+
+    Returns ``member_energy`` (C, K), the ensemble ``energy`` and
+    ``energy_std`` (C,) over members, and the member-mean
+    ``per_atom_energy`` (C, N), in training units."""
+    return _stats(painn_apply_rigid(params, rw, cfg, numbers, alive, msg_geom, edges))
+
+
+def ensemble_apply(params: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
+                   alive: torch.Tensor, edges: Edges, msg_geom=None) -> dict:
+    """General forward of all members on a (C, N) batch of structures,
+    differentiable in the positions ``edges`` were built from
+    (``ops.neighbors``). The padded message geometry is member-invariant:
+    it is built once (or passed as ``msg_geom``) and shared by the K
+    members. Returns the same fields as :func:`ensemble_apply_rigid`."""
+    if msg_geom is None:
+        msg_geom = prepare_message_geometry(cfg, edges)
+    return _stats(painn_apply(params, cfg, numbers, alive, msg_geom, edges))

@@ -1,11 +1,13 @@
-"""Adapter: a PaiNN ensemble on a rigid lattice -> acceptance-ready
-potential energies in eV.
+"""Adapter: a PaiNN ensemble -> potential energies and forces in eV.
 
 The counterpart of ``make_painn_potential`` in
-``surface_sampling_tpu/models/nn_calculator.py``, covering its
-``rigid_energy`` hook: the MC path of a system built with a static
-candidate table on code-independent geometry. The other hooks (forces,
-relaxation topology, per-atom analysis) belong to later slices.
+``surface_sampling_tpu/models/nn_calculator.py`` and of the force methods
+of ``surface_sampling_tpu/potentials/base.py``, for systems built with a
+static candidate table: the energy of slot-realized geometries (edges
+ranked over the table), forces by autograd, the relaxation hooks that fix
+the edge topology once per relaxation, and, given the spec of a
+code-independent slot geometry, the ``rigid_energy`` hook of rigid MC.
+The per-atom analysis hooks belong to later slices.
 """
 
 from __future__ import annotations
@@ -14,8 +16,15 @@ import numpy as np
 import torch
 
 from surface_sampling_tpu_torch.constants import HARTREE_TO_EV, KCAL_MOL_TO_EV, SYMBOL_FROM_Z
-from surface_sampling_tpu_torch.models.ensemble import ensemble_apply
+from surface_sampling_tpu_torch.models.ensemble import ensemble_apply, ensemble_apply_rigid
 from surface_sampling_tpu_torch.models.painn import PaiNNConfig, rigid_member_weights
+from surface_sampling_tpu_torch.ops.neighbors import (
+    Edges,
+    EdgeTopology,
+    make_table_edge_fn,
+    make_table_topology_fns,
+    stage_candidate_table,
+)
 from surface_sampling_tpu_torch.ops.static_edges import (
     build_static_edge_pack,
     static_edge_geometry,
@@ -24,27 +33,29 @@ from surface_sampling_tpu_torch.ops.static_edges import (
 UNIT_FACTORS = {"kcal/mol": KCAL_MOL_TO_EV, "eV": 1.0, "ev": 1.0}
 
 
-class RigidPaiNNPotential:
-    """PaiNN ensemble energy of rigid slot geometries.
+class PaiNNPotential:
+    """PaiNN ensemble energy of (C, N) batches of slot-realized structures.
 
-    ``rigid_energy(type_idx, alive)`` maps a (C, N) batch of slot typings
-    to (C,) potential energies in eV: the member-mean network energy times
-    the units factor, plus the nff composition offset."""
+    ``energy(positions, type_idx, alive)`` is the member-mean network
+    energy times the units factor, plus the nff composition offset, (C,)
+    in eV. ``rigid_energy(type_idx, alive)`` exists only for a potential
+    built with the spec of a code-independent slot geometry."""
 
     name = "painn"
 
-    def __init__(self, params, rw, cfg, znums, factor, pack, per_type, const_off):
-        self.params, self.rw, self.cfg = params, rw, cfg
+    def __init__(self, params, cfg, znums, factor, table, per_type, const_off,
+                 rw=None, pack=None):
+        self.params, self.cfg = params, cfg
         self.cutoff = cfg.cutoff
         self.znums, self.factor = znums, factor
-        self.static_edge_pack = pack
         self.per_type, self.const_off = per_type, const_off
+        self.edge_fn = make_table_edge_fn(table)
+        self._topo_fn, self._geom_fn = make_table_topology_fns(table)
+        if pack is not None:
+            self.rw, self.static_edge_pack = rw, pack
+            self.rigid_energy = self._rigid_energy
 
-    def rigid_outputs(self, type_idx: torch.Tensor, alive: torch.Tensor) -> dict:
-        numbers = self.znums[type_idx] * alive.to(torch.int64)
-        msg_geom, edges = static_edge_geometry(self.static_edge_pack, alive)
-        return ensemble_apply(self.params, self.rw, self.cfg, numbers, alive, msg_geom, edges)
-
+    # -- energies --------------------------------------------------------
     def comp_offset(self, type_idx: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
         """(C,) nff composition offset: per-type linear term + constant."""
         if self.per_type is None:
@@ -52,7 +63,54 @@ class RigidPaiNNPotential:
         per_atom = self.per_type[type_idx] * alive.to(torch.float32)
         return per_atom.sum(dim=1) + self.const_off
 
-    def rigid_energy(self, type_idx: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    def _numbers(self, type_idx, alive):
+        return self.znums[type_idx] * alive.to(torch.int64)
+
+    def outputs(self, positions, type_idx, alive, shifts=None, edges: Edges | None = None):
+        """Ensemble outputs (training units). ``shifts`` is accepted for
+        the JAX signature and unused: the candidate table holds the image
+        shifts."""
+        if edges is None:
+            edges = self.edge_fn(positions, alive)
+        return ensemble_apply(self.params, self.cfg, self._numbers(type_idx, alive), alive,
+                              edges)
+
+    def energy(self, positions, type_idx, alive, shifts=None, edges: Edges | None = None):
+        """(C,) potential energies in eV of positions (C, N, 3)."""
+        e = self.outputs(positions, type_idx, alive, edges=edges)["energy"] * self.factor
+        return e + self.comp_offset(type_idx, alive)
+
+    energy_with_edges = energy
+
+    def energy_and_forces(self, positions, type_idx, alive, shifts=None):
+        """(C,) energies and (C, N, 3) forces -dE/dx, zero on dead slots,
+        from one backward pass of the chain-summed energy (chains are
+        independent, so each chain's gradient is its own)."""
+        with torch.enable_grad():
+            pos = positions.detach().requires_grad_(True)
+            e = self.energy(pos, type_idx, alive)
+            (g,) = torch.autograd.grad(e.sum(), pos)
+        return e.detach(), -torch.where(alive[..., None], g, torch.zeros_like(g))
+
+    def forces(self, positions, type_idx, alive, shifts=None):
+        return self.energy_and_forces(positions, type_idx, alive)[1]
+
+    # -- relaxation hooks ------------------------------------------------
+    def edge_topology(self, positions, alive) -> EdgeTopology:
+        """Select the edge topology once at the start of a relaxation."""
+        return self._topo_fn(positions, alive)
+
+    def edges_of(self, positions, topology: EdgeTopology) -> Edges:
+        """Edge geometry at ``positions`` under a fixed topology."""
+        return self._geom_fn(positions, topology)
+
+    # -- rigid lattice ---------------------------------------------------
+    def rigid_outputs(self, type_idx: torch.Tensor, alive: torch.Tensor) -> dict:
+        msg_geom, edges = static_edge_geometry(self.static_edge_pack, alive)
+        return ensemble_apply_rigid(self.params, self.rw, self.cfg,
+                                    self._numbers(type_idx, alive), alive, msg_geom, edges)
+
+    def _rigid_energy(self, type_idx: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
         e = self.rigid_outputs(type_idx, alive)["energy"] * self.factor
         return e + self.comp_offset(type_idx, alive)
 
@@ -66,9 +124,9 @@ def make_painn_potential(
     static_nbr=None,
     spec=None,
     device: torch.device | None = None,
-) -> RigidPaiNNPotential:
+) -> PaiNNPotential:
     """Wrap a stacked PaiNN ensemble (``models/weights.py``; one member is
-    K = 1) as a rigid-lattice potential.
+    K = 1) as a potential.
 
     Args:
         params: parameter tree of tensors with a leading member axis.
@@ -76,20 +134,18 @@ def make_painn_potential(
         units: training units of the checkpoint.
         stoidict: nff composition offsets in Hartree (per-element linear
             coefficients + an "offset" constant).
-        static_nbr: the spec's ``StaticNeighborTable``.
-        spec: the ``SurfaceSpec``; its slot geometry must be
-            code-independent.
-        device: where the static tables live (default: the parameters').
+        static_nbr: the spec's ``StaticNeighborTable``; positions passed in
+            must be slot-realized geometries of that spec.
+        spec: the ``SurfaceSpec``; when given and its slot geometry is
+            code-independent, the potential also carries ``rigid_energy``.
+            Relaxing systems pass None.
+        device: where the tables live (default: the parameters').
     """
-    if static_nbr is None or spec is None:
+    if static_nbr is None:
         raise NotImplementedError(
-            "only the rigid static-edge path is ported: pass static_nbr and spec")
+            "only the static-candidate-table edge path is ported: pass static_nbr")
     device = device if device is not None else params["atom_embed"].device
-    pack = build_static_edge_pack(spec, static_nbr, cfg, device)
-    if pack is None:
-        raise NotImplementedError(
-            "code-dependent slot geometry (mixed-offset adsorbate groups) needs "
-            "the dynamic edge path, which is not ported yet")
+    table = stage_candidate_table(static_nbr, cfg.cutoff, cfg.max_neighbors, device)
     type_numbers = np.asarray(type_numbers)
     znums = torch.as_tensor(type_numbers, dtype=torch.int64, device=device)
     if stoidict is not None:
@@ -99,9 +155,16 @@ def make_painn_potential(
         const_off = float(stoidict.get("offset", 0.0)) * HARTREE_TO_EV
     else:
         per_type, const_off = None, 0.0
-    # phi of layer 1 depends only on Z: deduplicate the species so that two
-    # type slots sharing an atomic number cannot double a table row
-    l1_types = tuple(sorted({int(z) for z in type_numbers}))
-    rw = rigid_member_weights(params, cfg, l1_types, pack.r_pad)
-    return RigidPaiNNPotential(params, rw, cfg, znums, UNIT_FACTORS[units], pack,
-                               per_type, const_off)
+    rw = pack = None
+    if spec is not None:
+        pack = build_static_edge_pack(spec, static_nbr, cfg, device)
+        if pack is None:
+            raise NotImplementedError(
+                "code-dependent slot geometry (mixed-offset adsorbate groups) has no "
+                "rigid static-edge path; pass spec=None to score it through energy()")
+        # phi of layer 1 depends only on Z: deduplicate the species so that
+        # two type slots sharing an atomic number cannot double a table row
+        l1_types = tuple(sorted({int(z) for z in type_numbers}))
+        rw = rigid_member_weights(params, cfg, l1_types, pack.r_pad)
+    return PaiNNPotential(params, cfg, znums, UNIT_FACTORS[units], table, per_type,
+                          const_off, rw=rw, pack=pack)

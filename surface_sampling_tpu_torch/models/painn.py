@@ -1,19 +1,26 @@
-"""PaiNN forward for the rigid static-edge MC path, batched over chains and
-ensemble members.
+"""PaiNN forward, batched over chains and ensemble members: the rigid
+static-edge trunk of the MC path and the general, differentiable trunk of
+forces and relaxation.
 
-The counterpart of ``surface_sampling_tpu/models/painn.py`` restricted to
-what rigid-lattice MC runs: the configuration, the radial basis and
-envelope, the rigid trunk (``_painn_features_rigid``) and the readout with
-the excluded-volume term and the overflow override. Parameters are a tree
+The counterpart of ``surface_sampling_tpu/models/painn.py``: the
+configuration, the radial basis and envelope, the rigid trunk
+(``_painn_features_rigid``), the general trunk (``painn_features`` in the
+JAX package's "pallas" message mode, without the layer-1 species table,
+banding or collected layers) and the readout with the excluded-volume term
+and the overflow override. Parameters are a tree
 of tensors with a leading member axis K (``models/weights.py``); features
 carry two batch axes, chains C and members K: s is (C, K, n_pad, F) and
 the vector features are kept x-major as vcat (C, K, n_pad, 3F) =
 [v_x | v_y | v_z], the layout of the JAX package's fused kernels.
 
-The three blocks of every layer run through ``ops/painn_kernels.py``: the
-layer-1 message from a per-species table, the general message for layers
-2+, and the update block. Between them only the per-atom dense layers run
-here, as batched matrix products.
+On the rigid trunk the three blocks of every layer run through
+``ops/painn_kernels.py``: the layer-1 message from a per-species table,
+the general message for layers 2+, and the update block. The general trunk
+runs the general message at every layer (layer 1 with v = 0, as the JAX
+package does on a differentiated path), whose backward is the message
+backward kernel; its update block is plain PyTorch, as the JAX package
+leaves it to XLA there. Between the blocks only the per-atom dense layers
+run here, as batched matrix products.
 """
 
 from __future__ import annotations
@@ -24,10 +31,12 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as tnf
 
+from surface_sampling_tpu_torch.ops.neighbors import Edges, padded_rows
 from surface_sampling_tpu_torch.ops.painn_kernels import (
     painn_message_fused,
     painn_message_l1,
     painn_update_fused,
+    painn_update_fused_plain,
 )
 
 
@@ -58,8 +67,10 @@ def _cosine_envelope(d: torch.Tensor, cutoff: float) -> torch.Tensor:
 
 
 def _dense(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Per-member dense layer: x (..., K, n, i) @ w (K, i, o) + b (K, o)."""
-    y = torch.matmul(x, p["w"])
+    """Per-member dense layer: x (..., K, n, i) @ w (K, i, o) + b (K, o),
+    batched over the member axis (a broadcast matmul would copy w once per
+    leading index)."""
+    y = torch.einsum("...kni,kio->...kno", x, p["w"])
     if "b" in p:
         y = y + p["b"][:, None, :]
     return y
@@ -148,19 +159,73 @@ def _painn_features_rigid(params: dict, rw: dict, cfg: PaiNNConfig,
     return s[:, :, :N]
 
 
-def painn_apply_rigid(params: dict, rw: dict, cfg: PaiNNConfig,
-                      numbers: torch.Tensor, alive: torch.Tensor,
-                      msg_geom, edges) -> dict:
-    """Full rigid forward of every member (training units).
+def prepare_message_geometry(cfg: PaiNNConfig, edges: Edges):
+    """Pad and flatten edge geometry for the message kernels, once per
+    structure batch (it is layer- and member-invariant). Differentiable in
+    ``edges.disp`` and ``edges.r``.
 
-    Returns ``energy`` (C, K) per member and ``per_atom_energy``
-    (C, K, N). A chain whose neighbor graph overflowed gets the energy
-    1e6 in place of the sum: a truncated graph makes the network emit
+    Returns ``(rbf (C, E, r_pad), envm (C, E), nbr (C, E) int32,
+    unit (C, 3, n_pad, M), n_pad, rev (C, n_pad, D) int32)`` with
+    E = n_pad * M and envm = envelope * edge mask."""
+    disp, d, nbr_j, nbr_mask = edges[:4]
+    C, N, M = d.shape
+    n_pad = padded_rows(N)
+    r_pad = ((cfg.n_rbf + 7) // 8) * 8
+    pad_n = n_pad - N
+    unit = disp / torch.clamp(d, min=1e-8)[..., None]                # (C, N, M, 3)
+    rbf = _rbf(d, cfg.n_rbf, cfg.cutoff)                             # (C, N, M, R)
+    envm = _cosine_envelope(d, cfg.cutoff) * nbr_mask.to(d.dtype)
+    rbf_p = tnf.pad(rbf, (0, r_pad - cfg.n_rbf, 0, 0, 0, pad_n)).reshape(C, n_pad * M, r_pad)
+    envm_p = tnf.pad(envm, (0, 0, 0, pad_n)).reshape(C, n_pad * M)
+    nbr_p = tnf.pad(nbr_j, (0, 0, 0, pad_n)).reshape(C, n_pad * M).to(torch.int32)
+    unit_p = tnf.pad(unit, (0, 0, 0, 0, 0, pad_n)).permute(0, 3, 1, 2)
+    return (rbf_p.contiguous(), envm_p.contiguous(), nbr_p.contiguous(),
+            unit_p.contiguous(), n_pad, edges.rev)
+
+
+def _painn_update(up: dict, s: torch.Tensor, vcat: torch.Tensor,
+                  alive_f: torch.Tensor):
+    """Update block of the differentiated path, plain PyTorch."""
+    return painn_update_fused_plain(
+        s, vcat, up["u_mat"]["w"], up["v_mat"]["w"], up["s_dense0"]["w"],
+        up["s_dense0"]["b"], up["s_dense1"]["w"], up["s_dense1"]["b"], alive_f)
+
+
+def painn_features(params: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
+                   alive: torch.Tensor, msg_geom) -> torch.Tensor:
+    """General trunk over padded rows, differentiable in the edge
+    geometry; returns s (C, K, N, F). ``msg_geom`` comes from
+    :func:`prepare_message_geometry`."""
+    rbf, envm, nbr, unit, n_pad, rev = msg_geom
+    C, N = numbers.shape
+    K = params["atom_embed"].shape[0]
+    F = cfg.feat_dim
+    pad_n = n_pad - N
+    r_pad = rbf.shape[-1]
+
+    z = torch.clamp(numbers, 0, cfg.max_z - 1)
+    alive_f = tnf.pad(alive.to(torch.float32), (0, pad_n))           # (C, n_pad)
+    s = params["atom_embed"][:, z].transpose(0, 1)                   # (C, K, N, F)
+    s = tnf.pad(s * alive_f[:, None, :N, None], (0, 0, 0, pad_n))
+    vcat = torch.zeros((C, K, n_pad, 3 * F), dtype=s.dtype, device=s.device)
+
+    for mp, up in zip(params["message"], params["update"]):
+        phi = _dense(mp["inv_dense1"], tnf.silu(_dense(mp["inv_dense0"], s)))
+        dw = tnf.pad(mp["dist_embed"]["w"], (0, 0, 0, r_pad - cfg.n_rbf)).contiguous()
+        ds, dv = painn_message_fused(phi.contiguous(), vcat.contiguous(), rbf, envm, nbr,
+                                     unit, dw, mp["dist_embed"]["b"].contiguous(), rev)
+        s, vcat = _painn_update(up, s + ds, vcat + dv, alive_f)
+    return s[:, :, :N]
+
+
+def _readout(params: dict, cfg: PaiNNConfig, s: torch.Tensor, alive: torch.Tensor,
+             r: torch.Tensor, nbr_mask: torch.Tensor, overflow: torch.Tensor) -> dict:
+    """Per-atom energies from the final features s (C, K, N, F), the
+    excluded-volume term over the selected edges, and the overflow
+    override. A chain whose neighbor graph overflowed gets the energy 1e6
+    in place of the sum: a truncated graph makes the network emit
     arbitrary values, and an override (not a penalty) lets the
-    Metropolis/OOB machinery reject the state whatever they are.
-    """
-    r, nbr_mask, overflow = edges
-    s = _painn_features_rigid(params, rw, cfg, numbers, alive, msg_geom)
+    Metropolis/OOB machinery reject the state whatever they are."""
     h = tnf.silu(_dense(params["readout"]["dense0"], s))
     e_atom = _dense(params["readout"]["dense1"], h)[..., 0]          # (C, K, N)
     e_atom = torch.where(alive[:, None, :], e_atom, torch.zeros_like(e_atom))
@@ -172,3 +237,22 @@ def painn_apply_rigid(params: dict, rw: dict, cfg: PaiNNConfig,
     e_tot = torch.where(overflow[:, None], torch.full_like(e_atom[..., 0], 1e6),
                         e_atom.sum(dim=-1))
     return {"energy": e_tot, "per_atom_energy": e_atom}
+
+
+def painn_apply_rigid(params: dict, rw: dict, cfg: PaiNNConfig,
+                      numbers: torch.Tensor, alive: torch.Tensor,
+                      msg_geom, edges) -> dict:
+    """Full rigid forward of every member (training units): ``energy``
+    (C, K) per member and ``per_atom_energy`` (C, K, N). ``edges`` is
+    (r, mask, overflow) from ``ops.static_edges.static_edge_geometry``."""
+    s = _painn_features_rigid(params, rw, cfg, numbers, alive, msg_geom)
+    return _readout(params, cfg, s, alive, *edges)
+
+
+def painn_apply(params: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
+                alive: torch.Tensor, msg_geom, edges: Edges) -> dict:
+    """Full general forward of every member, differentiable in the
+    positions the edges were built from: ``energy`` (C, K) and
+    ``per_atom_energy`` (C, K, N) in training units."""
+    s = painn_features(params, cfg, numbers, alive, msg_geom)
+    return _readout(params, cfg, s, alive, edges.r, edges.mask, edges.overflow)

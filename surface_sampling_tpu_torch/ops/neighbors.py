@@ -1,13 +1,41 @@
-"""Periodic image shifts for a cutoff (host side, numpy).
+"""Periodic image shifts for a cutoff (host side, numpy) and the dynamic
+edge path over a static candidate table (device side, batched over
+chains).
 
-The numpy ``pair_shifts`` and ``pair_shifts_for`` of
-``surface_sampling_tpu/ops/neighbors.py``; the spec and the static
-candidate table use them once, when a system is built.
+The counterpart of ``surface_sampling_tpu/ops/neighbors.py``:
+``pair_shifts`` and ``pair_shifts_for`` run once, when a system is built;
+``neighbor_list_from_table``, ``select_edge_topology`` and
+``edges_from_topology`` build the edges of displaced geometries, the path
+that forces and relaxation take.
+
+The rank-select is a cumsum plus a scatter of the kept candidates'
+indices (as in ``ops/static_edges.py``), not the JAX package's
+(N, Mc, M) one-hot einsum: the same edges in the same order with the same
+overflow flag. Selection runs on detached positions (it is piecewise
+constant); the edge geometry is then recomputed from the selected
+topology, differentiable in the positions. Every edge set carries a
+reverse-neighbor table (the incoming edges of each slot, in a fixed
+order), so that the backward of the neighbor gather, here and in the
+message kernel, is a gather with a fixed summation order instead of a
+scatter with float atomics: relaxed positions enter the MC state, and
+runs must repeat bitwise on the card.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
+import torch
+
+# Row padding of the (n_pad, M) edge layout, shared with
+# ``ops/static_edges.py``: the JAX package pads slots to its message
+# kernel's center block (16), so both packages' arrays have one shape.
+ROW_PAD = 16
+
+
+def padded_rows(n: int) -> int:
+    return ((n + ROW_PAD - 1) // ROW_PAD) * ROW_PAD
 
 
 def pair_shifts(
@@ -64,3 +92,203 @@ def pair_shifts_for(
     heights = np.array([np.linalg.norm(cell[i]) for i in range(3)])
     span = frac.max(axis=0) - frac.min(axis=0) + span_pad / np.maximum(heights, 1e-9)
     return pair_shifts(cell, cutoff, frac_span=span, pbc=pbc)
+
+
+# ----------------------------------------------------------------------
+# Dynamic edges over a static candidate table (device, batched over chains)
+# ----------------------------------------------------------------------
+class CandidateTable(NamedTuple):
+    """A ``StaticNeighborTable`` staged on the device. Column Mc of
+    ``slot_j`` and ``shift`` is a sentinel (slot 0, zero shift) that
+    unselected edges read, as the JAX one-hot selection reads zeros."""
+
+    slot_j: torch.Tensor     # (N, Mc + 1) int64
+    shift: torch.Tensor      # (N, Mc + 1, 3) f32
+    valid: torch.Tensor      # (N, Mc) bool
+    cutoff: float
+    max_neighbors: int       # M = min(max_neighbors, Mc)
+    max_in_degree: int       # bound on any slot's incoming selected edges
+
+
+class EdgeTopology(NamedTuple):
+    nbr_j: torch.Tensor      # (C, N, M) int64
+    shift: torch.Tensor      # (C, N, M, 3)
+    mask: torch.Tensor       # (C, N, M) bool
+    overflow: torch.Tensor   # (C,) bool
+    rev: torch.Tensor        # (C, n_pad, D) int32, see reverse_table
+
+
+class Edges(NamedTuple):
+    """Edge geometry; the first five fields are the JAX edge tuple."""
+
+    disp: torch.Tensor       # (C, N, M, 3), 0 on unselected edges
+    r: torch.Tensor          # (C, N, M), cutoff on unselected edges
+    nbr_j: torch.Tensor      # (C, N, M) int64
+    mask: torch.Tensor       # (C, N, M) bool
+    overflow: torch.Tensor   # (C,) bool
+    rev: torch.Tensor        # (C, n_pad, D) int32, see reverse_table
+
+
+def stage_candidate_table(static_nbr, cutoff: float, max_neighbors: int,
+                          device) -> CandidateTable:
+    """Stage a host ``StaticNeighborTable`` for the dynamic edge path."""
+    slot_j = np.asarray(static_nbr.slot_j, np.int64)
+    valid = np.asarray(static_nbr.valid, bool)
+    N, Mc = slot_j.shape
+    shift = np.zeros((N, Mc + 1, 3), np.float32)
+    shift[:, :Mc] = np.asarray(static_nbr.shift, np.float32)
+    # a selected edge i -> j is a valid candidate of i, so the candidates
+    # naming j bound the number of edges that can ever arrive at j
+    in_degree = int(np.bincount(slot_j[valid], minlength=N).max()) if valid.any() else 0
+    return CandidateTable(
+        slot_j=torch.as_tensor(np.pad(slot_j, ((0, 0), (0, 1))), device=device),
+        shift=torch.as_tensor(shift, device=device),
+        valid=torch.as_tensor(valid, device=device),
+        cutoff=float(cutoff),
+        max_neighbors=int(min(max_neighbors, Mc)),
+        max_in_degree=max(in_degree, 1),
+    )
+
+
+def _candidate_geometry(positions, alive, table: CandidateTable):
+    """Shared candidate-pair geometry: disp / r and the in-range mask over
+    the static table, (C, N, Mc[, 3])."""
+    Mc = table.valid.shape[1]
+    slot = table.slot_j[:, :Mc]
+    pj = positions[:, slot]                                          # (C, N, Mc, 3)
+    disp = positions[:, :, None, :] - (pj + table.shift[:, :Mc])
+    r = torch.sqrt(torch.clamp((disp * disp).sum(-1), min=1e-12))
+    mask = table.valid & alive[:, :, None] & alive[:, slot] & (r < table.cutoff)
+    return disp, r, mask
+
+
+def _rank_select(mask: torch.Tensor, max_neighbors: int):
+    """Masked-cumsum rank-select: the candidate index kept at each rank
+    (C, N, M), the first ``max_neighbors`` masked candidates of each row in
+    table order, Mc where a rank is unfilled; and the (C,) overflow flag."""
+    C, N, Mc = mask.shape
+    rank = torch.cumsum(mask, dim=-1, dtype=torch.int64) - 1
+    overflow = (rank[..., -1] + 1 > max_neighbors).any(dim=-1)
+    keep = mask & (rank < max_neighbors)
+    # dropped candidates all land in the extra column M, discarded
+    dest = torch.where(keep, rank, max_neighbors)
+    cand = torch.arange(Mc, device=mask.device).expand(C, N, Mc)
+    idx = torch.full((C, N, max_neighbors + 1), Mc, dtype=torch.int64, device=mask.device)
+    idx.scatter_(2, dest, cand)
+    return idx[..., :max_neighbors], overflow
+
+
+def reverse_table(nbr: torch.Tensor, mask: torch.Tensor, n_pad: int,
+                  depth: int | None = None) -> torch.Tensor:
+    """Reverse-neighbor table (C, n_pad, D) int32 of (C, E) neighbor
+    indices over padded rows: row j lists the ids e = i*M + m of the edges
+    whose neighbor is j, ascending (a stable sort by neighbor), then -1.
+    Only edges under ``mask`` are listed: unselected edges carry nbr = 0
+    and would pile thousands of zero-weight entries onto slot 0.
+
+    ``depth`` bounds any row's in-degree (``CandidateTable.max_in_degree``);
+    None measures it, which reads a number back from the device."""
+    C, E = nbr.shape
+    keys = torch.where(mask, nbr.long(), n_pad)
+    skeys, order = torch.sort(keys, dim=1, stable=True)
+    rows = torch.arange(n_pad + 1, device=nbr.device).expand(C, n_pad + 1).contiguous()
+    off = torch.searchsorted(skeys, rows)                            # (C, n_pad + 1)
+    if depth is None:
+        depth = max(int((off[:, 1:] - off[:, :-1]).max()), 1)
+    slot = off[:, :-1, None] + torch.arange(depth, device=nbr.device)
+    ok = slot < off[:, 1:, None]
+    got = torch.gather(order, 1, slot.clamp(max=E - 1).reshape(C, -1)).reshape(ok.shape)
+    return torch.where(ok, got, -1).to(torch.int32).contiguous()
+
+
+def select_edge_topology(positions, alive, table: CandidateTable) -> EdgeTopology:
+    """Rank-select the candidate pairs once, keeping per-edge image shifts,
+    so geometry can be recomputed at displaced positions with the topology
+    fixed (the reference's refresh-per-relaxation neighbor semantics).
+    ``positions`` (C, N, 3), ``alive`` (C, N) bool."""
+    with torch.no_grad():
+        _, _, mask = _candidate_geometry(positions.detach(), alive, table)
+        idx, overflow = _rank_select(mask, table.max_neighbors)
+        rows = torch.arange(idx.shape[1], device=idx.device)[None, :, None]
+        nbr_j = table.slot_j[rows, idx]                              # (C, N, M)
+        shift = table.shift[rows, idx]
+        sel = idx < mask.shape[-1]
+        C, N, M = nbr_j.shape
+        n_pad = padded_rows(N)
+        pad = (0, 0, 0, n_pad - N)
+        rev = reverse_table(torch.nn.functional.pad(nbr_j, pad).reshape(C, -1),
+                            torch.nn.functional.pad(sel, pad).reshape(C, -1),
+                            n_pad, table.max_in_degree)
+    return EdgeTopology(nbr_j, shift, sel, overflow, rev)
+
+
+class _GatherRows(torch.autograd.Function):
+    """positions[c, nbr_j[c]] whose backward sums each slot's incoming
+    edges through the reverse table: a gather and a sum over a fixed axis,
+    with no float atomics. Unselected edges are left out, which is exact
+    as long as their cotangent is 0 (``edges_from_topology`` masks them)."""
+
+    @staticmethod
+    def forward(ctx, positions, nbr_j, rev_edges):
+        ctx.save_for_backward(rev_edges)
+        ctx.shape = positions.shape
+        C, N, M = nbr_j.shape
+        flat = nbr_j.reshape(C, N * M, 1).expand(C, N * M, 3)
+        return torch.gather(positions, 1, flat).reshape(C, N, M, 3)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (rev_edges,) = ctx.saved_tensors
+        C, N, _ = ctx.shape
+        D = rev_edges.shape[-1]
+        gz = torch.cat([g.reshape(C, -1, 3), g.new_zeros((C, 1, 3))], dim=1)
+        idx = rev_edges[:, :N].long()
+        idx = torch.where(idx < 0, gz.shape[1] - 1, idx).reshape(C, N * D, 1)
+        return torch.gather(gz, 1, idx.expand(-1, -1, 3)).reshape(C, N, D, 3).sum(2), None, None
+
+
+def edges_from_topology(positions, topology: EdgeTopology, cutoff: float) -> Edges:
+    """Recompute edge geometry at new ``positions`` under a fixed topology
+    from :func:`select_edge_topology`, differentiable in ``positions``.
+    Edges that drift past the cutoff stay in the list with their true
+    distance: every radial envelope vanishes there."""
+    nbr_j, shift, mask, overflow, rev = topology
+    disp = positions[:, :, None, :] - (_GatherRows.apply(positions, nbr_j, rev) + shift)
+    r = torch.sqrt(torch.clamp((disp * disp).sum(-1), min=1e-12))
+    r = torch.where(mask, r, torch.full_like(r, cutoff))
+    disp = torch.where(mask[..., None], disp, torch.zeros_like(disp))
+    return Edges(disp, r, nbr_j, mask, overflow, rev)
+
+
+def neighbor_list_from_table(positions, alive, table: CandidateTable) -> Edges:
+    """Padded neighbor list from a static candidate table: in-range alive
+    candidates in table order, the first M kept. Equal, value for value,
+    to the JAX function, whose payload compaction copies the candidate
+    disp and r that :func:`edges_from_topology` recomputes here with the
+    same arithmetic."""
+    return edges_from_topology(positions, select_edge_topology(positions, alive, table),
+                               table.cutoff)
+
+
+def make_table_topology_fns(table: CandidateTable):
+    """(topo_fn, geom_fn): ``topo_fn(positions, alive)`` selects the fixed
+    topology once; ``geom_fn(positions, topology)`` rebuilds the edges per
+    force call (the relax loop's refresh_edges="once" mode)."""
+
+    def topo_fn(positions, alive):
+        return select_edge_topology(positions, alive, table)
+
+    def geom_fn(positions, topology):
+        return edges_from_topology(positions, topology, table.cutoff)
+
+    return topo_fn, geom_fn
+
+
+def make_table_edge_fn(table: CandidateTable):
+    """Close :func:`neighbor_list_from_table` over a staged table."""
+
+    def edge_fn(positions, alive):
+        return neighbor_list_from_table(positions, alive, table)
+
+    return edge_fn

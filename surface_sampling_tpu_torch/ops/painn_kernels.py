@@ -1,5 +1,5 @@
-"""The three PaiNN blocks of the rigid MC path: CUDA kernels for Hopper,
-their plain PyTorch versions, launch counters, and the build.
+"""The PaiNN blocks of the MC and relaxation paths: CUDA kernels for
+Hopper, their plain PyTorch versions, launch counters, and the build.
 
 Each block replaces a Pallas TPU kernel of
 ``surface_sampling_tpu/ops/pallas_painn.py``:
@@ -10,6 +10,11 @@ Each block replaces a Pallas TPU kernel of
                          (replaces ``painn_message_fused`` / ``_msg_kernel``)
     painn_update_fused   update block, every layer
                          (replaces ``painn_update_fused`` / ``_upd_kernel``)
+    painn_message_bwd    backward of the general message, for forces and
+                         relaxation (replaces ``_message_bwd_pallas`` /
+                         ``_msg_bwd_kernel``); ``painn_message_fused`` is a
+                         ``torch.autograd.Function`` whose backward
+                         launches it
 
 Every function is batched over chains C and ensemble members K in one
 call: edge geometry is indexed by chain (rbf (C, E, R), envm and nbr
@@ -36,10 +41,13 @@ from pathlib import Path
 import torch
 import torch.nn.functional as tnf
 
+from surface_sampling_tpu_torch.ops.neighbors import reverse_table
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("painn_message_l1", "painn_message_fused", "painn_update_fused")
+KERNELS = ("painn_message_l1", "painn_message_fused", "painn_update_fused",
+           "painn_message_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,6 +57,7 @@ _ARITY = {
     "painn_message_l1": (10, 7),
     "painn_message_fused": (10, 6),
     "painn_update_fused": (11, 4),
+    "painn_message_bwd": (17, 8),
 }
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -124,7 +133,7 @@ def _launch(name: str, tensors, ints) -> None:
     dev = tensors[0].device
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = getattr(_lib(name), name)(*[t.data_ptr() for t in tensors],
+        err = getattr(_lib(name), name)(*[0 if t is None else t.data_ptr() for t in tensors],
                                         *[int(i) for i in ints], stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
@@ -247,9 +256,10 @@ def painn_message_fused_plain(phi, vcat, rbf, envm, nbr, unit, dw, db):
     return ds, torch.cat(dv, dim=-1)
 
 
-def painn_message_fused(phi, vcat, rbf, envm, nbr, unit, dw, db):
-    """General PaiNN message block, batched over chains and members. Per
-    edge e = (i, m) with neighbor j = nbr[e]:
+def painn_message_fused(phi, vcat, rbf, envm, nbr, unit, dw, db, rev=None):
+    """General PaiNN message block, batched over chains and members,
+    differentiable in every float input. Per edge e = (i, m) with neighbor
+    j = nbr[e]:
 
         w   = (rbf[e] @ dw + db) * envm[e]                   (3F,) vv | s | unit
         c   = phi[j] * w
@@ -261,9 +271,22 @@ def painn_message_fused(phi, vcat, rbf, envm, nbr, unit, dw, db):
         vcat: (C, K, n_pad, 3F) f32 vector features, x-major.
         rbf, envm, nbr, unit: edge geometry as in :func:`painn_message_l1`.
         dw, db: (K, R, 3F), (K, 3F) f32 dist_embed weights.
+        rev: optional (C, n_pad, D) int32 reverse-neighbor table of the
+            edges (``ops.neighbors.reverse_table``) for the backward; built
+            from ``nbr`` and ``envm != 0`` when a backward needs it and it
+            is not given.
     Returns:
         ds (C, K, n_pad, F), dv (C, K, n_pad, 3F) x-major.
+
+    The backward launches :func:`painn_message_bwd` (the plain version on
+    the CPU). It is once-differentiable: grad-of-grad (force-loss
+    training) needs the second-order kernel, which is not ported, and
+    raises.
     """
+    return _MessageFused.apply(phi, vcat, rbf, envm, nbr, unit, dw, db, rev)
+
+
+def _message_fused_forward(phi, vcat, rbf, envm, nbr, unit, dw, db):
     C, K, n_pad, F3 = phi.shape
     F = F3 // 3
     E, R = rbf.shape[1], rbf.shape[2]
@@ -287,7 +310,134 @@ def painn_message_fused(phi, vcat, rbf, envm, nbr, unit, dw, db):
     return ds, dv
 
 
+class _MessageFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, phi, vcat, rbf, envm, nbr, unit, dw, db, rev):
+        ctx.save_for_backward(phi, vcat, rbf, envm, nbr, unit, dw, db)
+        ctx.rev = rev
+        return _message_fused_forward(phi, vcat, rbf, envm, nbr, unit, dw, db)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gds, gdv):
+        need = ctx.needs_input_grad
+        g = painn_message_bwd(*ctx.saved_tensors, gds.contiguous(), gdv.contiguous(),
+                              rev=ctx.rev, want_dw=need[6] or need[7])
+        g_phi, g_vcat, g_rbf, g_envm, g_unit, g_dw, g_db = (
+            x if n else None for x, n in zip(g, (*need[:4], need[5], need[6], need[7])))
+        return g_phi, g_vcat, g_rbf, g_envm, None, g_unit, g_dw, g_db, None
+
+
 painn_message_fused.launches = 0
+
+
+# ----------------------------------------------------------------------
+# Backward of the general message
+# ----------------------------------------------------------------------
+def painn_message_bwd_plain(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
+                            want_dw=True):
+    """Plain PyTorch version of :func:`painn_message_bwd`: the same
+    cotangents from explicit (C, K, E, 3F) per-edge tensors, with the
+    neighbor cotangents scattered by ``scatter_add_`` (it needs no reverse
+    table)."""
+    C, K, n_pad, F3 = phi.shape
+    F = F3 // 3
+    E = rbf.shape[1]
+    M = E // n_pad
+    wpre = torch.matmul(rbf[:, None], dw) + db[None, :, None, :]     # (C, K, E, 3F)
+    env = envm[:, None, :, None]
+    w = wpre * env
+    idx = nbr.long()[:, None, :, None].expand(C, K, E, F3)
+    phij = torch.gather(phi, 2, idx)
+    vj = torch.gather(vcat, 2, idx).reshape(C, K, E, 3, F)
+    gdv_e = gdv.repeat_interleave(M, dim=2).reshape(C, K, E, 3, F)  # center row per edge
+    gds_e = gds.repeat_interleave(M, dim=2)
+    u = unit.reshape(C, 3, E).transpose(1, 2)[:, None, :, :, None]   # (C, 1, E, 3, 1)
+    g_inv = torch.cat([(gdv_e * vj).sum(3), gds_e, (gdv_e * u).sum(3)], dim=-1)
+    g_w = g_inv * phij
+    gwe = g_w * env
+    c_u = phij[..., 2 * F:] * w[..., 2 * F:]
+    c_vv = phij[..., :F] * w[..., :F]
+    g_phi = torch.zeros_like(phi).scatter_add_(2, idx, g_inv * w)
+    g_vcat = torch.zeros_like(vcat).scatter_add_(
+        2, idx, (gdv_e * c_vv[..., None, :]).reshape(C, K, E, F3))
+    g_rbf = torch.matmul(gwe, dw.transpose(1, 2)).sum(1)             # (C, E, R)
+    g_envm = (g_w * wpre).sum(dim=(1, 3))
+    g_unit = (gdv_e * c_u[..., None, :]).sum(dim=(1, 4))             # (C, E, 3)
+    g_unit = g_unit.transpose(1, 2).reshape(C, 3, n_pad, M)
+    if not want_dw:
+        return g_phi, g_vcat, g_rbf, g_envm, g_unit, None, None
+    g_dw = torch.einsum("cer,ckef->krf", rbf, gwe)
+    return g_phi, g_vcat, g_rbf, g_envm, g_unit, g_dw, gwe.sum(dim=(0, 2))
+
+
+def painn_message_bwd(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
+                      rev=None, want_dw=False):
+    """Cotangents of every float input of :func:`painn_message_fused`,
+    batched over chains and members.
+
+    Args:
+        phi .. db: the forward's inputs.
+        gds: (C, K, n_pad, F), gdv: (C, K, n_pad, 3F) x-major, cotangents of
+            ds and dv.
+        rev: (C, n_pad, D) int32 reverse-neighbor table: row j lists the
+            ids of the edges whose neighbor is j, ascending, then -1
+            (``ops.neighbors.reverse_table``). Edges left out must have
+            envm == 0. None builds it from ``nbr`` and ``envm != 0``.
+        want_dw: also return g_dw (K, R, 3F) and g_db (K, 3F); else those
+            two are None and that part of the kernel does not run.
+    Returns:
+        (g_phi, g_vcat) (C, K, n_pad, 3F), g_rbf (C, E, R), g_envm (C, E),
+        g_unit (C, 3, n_pad, M), g_dw, g_db. The edge cotangents sum over
+        the members: rbf, envm and unit carry no member axis.
+    """
+    C, K, n_pad, F3 = phi.shape
+    F = F3 // 3
+    E, R = rbf.shape[1], rbf.shape[2]
+    M = E // n_pad
+    f32, i32 = torch.float32, torch.int32
+    dev = phi.device
+    _check("painn_message_bwd", dev,
+           phi=(phi, f32, (C, K, n_pad, F3)), vcat=(vcat, f32, (C, K, n_pad, F3)),
+           rbf=(rbf, f32, (C, n_pad * M, R)), envm=(envm, f32, (C, E)),
+           nbr=(nbr, i32, (C, E)), unit=(unit, f32, (C, 3, n_pad, M)),
+           dw=(dw, f32, (K, R, F3)), db=(db, f32, (K, F3)),
+           gds=(gds, f32, (C, K, n_pad, F)), gdv=(gdv, f32, (C, K, n_pad, F3)))
+    if dev.type == "cpu":
+        return painn_message_bwd_plain(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
+                                       want_dw=want_dw)
+    _check_grid("painn_message_bwd", C, K, R)
+    if R > 24:
+        raise ValueError(f"painn_message_bwd: the radial width must be 8, 16 or 24, got {R} "
+                         "(R + 4 per-edge sums share one warp's 32 lanes)")
+    if F > 128:
+        raise ValueError(f"painn_message_bwd: F={F} exceeds the kernel's 128 "
+                         "(one thread per channel, at most 128 threads a block)")
+    if rev is None:
+        rev = reverse_table(nbr, envm != 0, n_pad)
+    D = rev.shape[-1]
+    _check("painn_message_bwd", dev, rev=(rev, i32, (C, n_pad, D)))
+    g_phi = torch.empty_like(phi)
+    g_vcat = torch.empty_like(vcat)
+    g_rbf = torch.empty_like(rbf)
+    g_envm = torch.empty_like(envm)
+    g_unit = torch.empty_like(unit)
+    part = (torch.empty((C * n_pad, K, R + 1, F3), dtype=f32, device=dev)
+            if want_dw else None)
+    _launch("painn_message_bwd",
+            (phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv, rev,
+             g_phi, g_vcat, g_rbf, g_envm, g_unit, part),
+            (C, K, n_pad, M, R, F, D, int(want_dw)))
+    painn_message_bwd.launches += 1
+    if not want_dw:
+        return g_phi, g_vcat, g_rbf, g_envm, g_unit, None, None
+    painn_message_bwd.dw_launches += 1
+    gdw = part.sum(dim=0)                       # per-block partials, one fixed order
+    return g_phi, g_vcat, g_rbf, g_envm, g_unit, gdw[:, :R].contiguous(), gdw[:, R].contiguous()
+
+
+painn_message_bwd.launches = 0
+painn_message_bwd.dw_launches = 0   # launches that also computed g_dw / g_db
 
 
 # ----------------------------------------------------------------------
@@ -297,11 +447,14 @@ def painn_update_fused_plain(s, vcat, u, v, w0, b0, w1, b1, alive):
     """Plain PyTorch version of :func:`painn_update_fused`."""
     C, K, n_pad, F = s.shape
     vx = vcat.reshape(C, K, n_pad, 3, F)
-    uv = torch.matmul(vx, u[:, None])                                # (C, K, n, 3, F)
-    vv = torch.matmul(vx, v[:, None])
+    # einsum batches the member axis: a broadcast matmul would copy each
+    # member's weights once per (chain, row)
+    uv = torch.einsum("cknxf,kfg->cknxg", vx, u)                     # (C, K, n, 3, F)
+    vv = torch.einsum("cknxf,kfg->cknxg", vx, v)
     vv_norm = torch.sqrt((vv * vv).sum(dim=3) + 1e-16)
-    h = tnf.silu(torch.matmul(torch.cat([s, vv_norm], dim=-1), w0) + b0[:, None, :])
-    a = torch.matmul(h, w1) + b1[:, None, :]
+    h = tnf.silu(torch.einsum("ckni,kio->ckno", torch.cat([s, vv_norm], dim=-1), w0)
+                 + b0[:, None, :])
+    a = torch.einsum("ckni,kio->ckno", h, w1) + b1[:, None, :]
     a_vv, a_sv, a_ss = a[..., :F], a[..., F:2 * F], a[..., 2 * F:]
     inner = (uv * vv).sum(dim=3)
     am = alive[:, None, :, None]
@@ -354,18 +507,22 @@ def painn_update_fused(s, vcat, u, v, w0, b0, w1, b1, alive):
 painn_update_fused.launches = 0
 
 
-WRAPPERS = (painn_message_l1, painn_message_fused, painn_update_fused)
+WRAPPERS = (painn_message_l1, painn_message_fused, painn_update_fused, painn_message_bwd)
 PLAIN = {
     painn_message_l1: painn_message_l1_plain,
     painn_message_fused: painn_message_fused_plain,
     painn_update_fused: painn_update_fused_plain,
+    painn_message_bwd: painn_message_bwd_plain,
 }
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    painn_message_bwd.dw_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in WRAPPERS}
+    counts = {fn.__name__: fn.launches for fn in WRAPPERS}
+    counts["painn_message_bwd.g_dw"] = painn_message_bwd.dw_launches
+    return counts

@@ -27,11 +27,7 @@ import numpy as np
 import torch
 
 from surface_sampling_tpu_torch.models.painn import _cosine_envelope, _rbf
-
-# Row padding of the (n_pad, M) edge layout: the JAX package pads slots to
-# its message kernel's center block (16 at the flagship size); keeping the
-# same n_pad keeps both packages' geometry arrays the same shape.
-ROW_PAD = 16
+from surface_sampling_tpu_torch.ops.neighbors import padded_rows
 
 
 class StaticEdgePack(NamedTuple):
@@ -86,7 +82,7 @@ def build_static_edge_pack(spec, static_nbr, cfg, device) -> StaticEdgePack | No
     M = int(min(cfg.max_neighbors, Mc))
     n_rbf = int(cfg.n_rbf)
     r_pad = ((n_rbf + 7) // 8) * 8
-    n_pad = ((N + ROW_PAD - 1) // ROW_PAD) * ROW_PAD
+    n_pad = padded_rows(N)
 
     disp = pos[:, None, :] - (pos[torch.as_tensor(slot_j)] + shift)  # (N, Mc, 3)
     r = torch.sqrt(torch.clamp((disp**2).sum(-1), min=1e-24))

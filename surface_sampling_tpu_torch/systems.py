@@ -18,15 +18,12 @@ import numpy as np
 import torch
 
 from surface_sampling_tpu_torch.constants import Z_FROM_SYMBOL
-from surface_sampling_tpu_torch.core.energy import make_offset_surface_energy
+from surface_sampling_tpu_torch.core.energy import RelaxConfig, make_offset_surface_energy
 from surface_sampling_tpu_torch.core.engine import MCMCRun
 from surface_sampling_tpu_torch.core.spec import SurfaceSpec, make_spec
 from surface_sampling_tpu_torch.core.static_neighbors import build_static_neighbor_table
 from surface_sampling_tpu_torch.device import resolve_device
-from surface_sampling_tpu_torch.models.nn_calculator import (
-    RigidPaiNNPotential,
-    make_painn_potential,
-)
+from surface_sampling_tpu_torch.models.nn_calculator import PaiNNPotential, make_painn_potential
 from surface_sampling_tpu_torch.models.weights import load_painn_ensemble
 from surface_sampling_tpu_torch.structure import Structure, find_adsorption_sites
 
@@ -37,14 +34,14 @@ MODEL_DATA = _REFERENCE_PKG / "models" / "data"
 
 class ExampleSystem(NamedTuple):
     spec: SurfaceSpec
-    potential: RigidPaiNNPotential
+    potential: PaiNNPotential
     run: MCMCRun
 
 
 def srtio3_001_painn(
     planar_distance: float = 1.5,
     surface_depth: int = 1,
-    relax=None,
+    relax: RelaxConfig | None = None,
     chem_pots: dict | None = None,
     adsorbates: tuple[str, ...] = ("Sr", "Ti", "O"),
     n_models: int = 3,
@@ -56,17 +53,18 @@ def srtio3_001_painn(
 ) -> ExampleSystem:
     """SrTiO3(001) 2x2 slab with the reference's trained PaiNN ensemble:
     semigrand sampling with chem_pots Sr=-2 Ti=0 O=0 and the offset
-    surface energy in atomic units, on a rigid lattice.
+    surface energy in atomic units, on a rigid lattice, or with every
+    trial state FIRE-relaxed when ``relax`` is given (the static candidate
+    table then allows 0.6 A of relaxation slack and the potential carries
+    no rigid hook, as in the JAX package).
 
     Arguments and defaults are those of the JAX package's function.
-    ``relax`` and ``supercell`` other than their defaults are not ported
-    yet and raise. ``pallas_routing`` selects a TPU routing precision and
+    ``supercell`` other than (1, 1) and relax methods other than FIRE are
+    not ported yet and raise. ``pallas_routing`` selects a TPU routing precision and
     is ignored: the port computes in float32. ``dtype`` must be None or
     ``torch.float32``. ``device`` defaults to "cuda" and raises without a
     card; pass "cpu" for the plain PyTorch path.
     """
-    if relax is not None:
-        raise NotImplementedError("relaxation is not ported yet: pass relax=None")
     if tuple(supercell) != (1, 1):
         raise NotImplementedError("supercells are not ported yet: pass supercell=(1, 1)")
     if dtype not in (None, torch.float32):
@@ -95,12 +93,13 @@ def srtio3_001_painn(
         surface_depth=surface_depth,
         surface_name="SrTiO3_001",
     )
-    static_nbr = build_static_neighbor_table(spec, cfg.cutoff, relax_slack=0.1)
+    slack = 0.6 if relax is not None else 0.1
+    static_nbr = build_static_neighbor_table(spec, cfg.cutoff, relax_slack=slack)
     pot = make_painn_potential(
         params, cfg, type_numbers, units="kcal/mol", stoidict=offset_data["stoidict"],
-        static_nbr=static_nbr, spec=spec, device=dev,
+        static_nbr=static_nbr, spec=None if relax is not None else spec, device=dev,
     )
     se_fn = make_offset_surface_energy(spec, chem_pots, offset_data,
                                        offset_units="atomic", device=dev)
-    run = MCMCRun(spec, pot, surface_energy_fn=se_fn, device=dev)
+    run = MCMCRun(spec, pot, surface_energy_fn=se_fn, device=dev, relax=relax)
     return ExampleSystem(spec, pot, run)

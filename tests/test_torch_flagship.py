@@ -20,6 +20,7 @@ from surface_sampling_tpu.core import state as jstate
 from surface_sampling_tpu.core.events import make_semigrand_step as j_make_step
 from surface_sampling_tpu.ops.static_edges import static_edge_geometry as j_edge_geometry
 from surface_sampling_tpu_torch.core import state as tstate
+from surface_sampling_tpu_torch.core.energy import RelaxConfig
 from surface_sampling_tpu_torch.core.engine import EngineConfig, geometric_schedule, make_run_fn
 from surface_sampling_tpu_torch.core.events import make_semigrand_step
 from surface_sampling_tpu_torch.core.static_neighbors import build_static_neighbor_table
@@ -205,7 +206,7 @@ def test_short_run_energies_reevaluate_in_jax(tsys, jeval):
     np.testing.assert_array_equal(out.site_state.numpy(), recs.site_state[:, -1].numpy())
 
 
-@pytest.mark.parametrize("kwargs", [{"relax": object()}, {"supercell": (2, 2)},
+@pytest.mark.parametrize("kwargs", [{"relax": RelaxConfig(method="lbfgs")}, {"supercell": (2, 2)},
                                     {"dtype": torch.float64}])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError):

@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch/CUDA port, on one NVIDIA GPU.
+
+Traces three windows with ``torch.profiler`` at the flagship's shapes
+(SrTiO3(001) 2x2, 3-member PaiNN ensemble, 128 chains, seeded random
+occupancies with 75% of the sites empty):
+
+  rigid        one rigid-lattice state evaluation (the MC step's energy)
+  force_call   one force call of the relaxed path: energy and forces on a
+               fixed edge topology, as every FIRE iteration makes it
+  bwd          one launch of the message backward kernel
+
+For each window it prints the wall time (host clock around work that ends
+in a synchronize), the summed device time of every kernel, the device busy
+share (kernel time over wall time; the port runs on one stream, so kernels
+do not overlap) and the kernels by device time; the last line of its output
+is all of it as one JSON object. Each window runs twice untraced first.
+
+Run from the repository root:  python3 tools/port_profile.py
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+N_CHAINS = 128
+
+
+def _window(name: str, fn, top: int = 12) -> dict:
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = {}
+    for evt in prof.key_averages():
+        t_us = getattr(evt, "self_device_time_total", None)
+        if t_us is None:
+            t_us = getattr(evt, "self_cuda_time_total", 0)
+        if t_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[evt.key] = (kernels.get(evt.key, (0.0, 0))[0] + t_us / 1e3,
+                                kernels.get(evt.key, (0.0, 0))[1] + evt.count)
+    device_ms = sum(t for t, _ in kernels.values())
+    rows = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    out = {"wall_ms": wall_ms, "device_ms": device_ms,
+           "busy_share": device_ms / wall_ms if wall_ms else None,
+           "kernels": [{"name": k[:120], "ms": t, "count": n} for k, (t, n) in rows]}
+    print(f"[{name}] wall {wall_ms:.3f} ms, kernels {device_ms:.3f} ms, "
+          f"busy share {out['busy_share']:.3f}, {len(rows)} distinct kernels")
+    for k, (t, n) in rows[:top]:
+        print(f"    {t:9.3f} ms  {n:5d}x  {k[:110]}")
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("port_profile: no CUDA device is available", file=sys.stderr)
+        return 1
+    from surface_sampling_tpu_torch.core.energy import RelaxConfig
+    from surface_sampling_tpu_torch.core.state import (
+        realize_alive,
+        realize_positions,
+        realize_type_idx,
+    )
+    from surface_sampling_tpu_torch.models.painn import prepare_message_geometry
+    from surface_sampling_tpu_torch.ops import painn_kernels as pk
+    from surface_sampling_tpu_torch.systems import srtio3_001_painn
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    dev = torch.device("cuda")
+    pk.build_kernels()
+    rigid = srtio3_001_painn(device=dev)
+    relax = srtio3_001_painn(relax=RelaxConfig(), device=dev)
+    spec, d = relax.spec, relax.run.d
+    rng = np.random.default_rng(0)
+    ss = rng.integers(0, spec.n_codes, (N_CHAINS, spec.n_sites))
+    ss = torch.as_tensor(np.where(rng.random(ss.shape) < 0.75, 0, ss), device=dev)
+    pos, alive, types = realize_positions(d, ss), realize_alive(d, ss), realize_type_idx(d, ss)
+    pot = relax.potential
+    topo = pot.edge_topology(pos, alive)
+
+    def force_call():
+        with torch.enable_grad():
+            p = pos.detach().requires_grad_(True)
+            e = pot.energy_with_edges(p, types, alive, edges=pot.edges_of(p, topo))
+            torch.autograd.grad(e.sum(), p)
+
+    edges = pot.edges_of(pos, topo)
+    rbf, envm, nbr, unit, n_pad, rev = prepare_message_geometry(pot.cfg, edges)
+    K, F = pot.params["atom_embed"].shape[0], pot.cfg.feat_dim
+    g = torch.Generator(device=dev).manual_seed(0)
+    feats = [torch.randn((N_CHAINS, K, n_pad, w), generator=g, device=dev)
+             for w in (3 * F, 3 * F, F, 3 * F)]
+    mp = pot.params["message"][1]
+    dw = torch.nn.functional.pad(mp["dist_embed"]["w"], (0, 0, 0, rbf.shape[-1] - pot.cfg.n_rbf))
+    bwd_args = (feats[0], feats[1], rbf, envm, nbr, unit, dw.contiguous(),
+                mp["dist_embed"]["b"].contiguous(), feats[2], feats[3])
+
+    report = {"device": smi, "chains": N_CHAINS}
+    report["rigid"] = _window("rigid", lambda: rigid.run.state_energy_fn(ss))
+    report["force_call"] = _window("force_call", force_call)
+    report["bwd"] = _window("bwd", lambda: pk.painn_message_bwd(*bwd_args, rev=rev))
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
