@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two paths — semigrand MC on the SrTiO3(001) 2x2 slab
+Drives the port's paths — semigrand MC on the SrTiO3(001) 2x2 slab
 scored by the 3-member PaiNN ensemble, 128 chains, on a rigid lattice and
-with every trial state FIRE-relaxed — through their entry points on the
-card, in ten phases, each printing one line or more:
+with every trial state FIRE-relaxed; and on the slab tiled 2x2 (496 slots),
+rigid, by full evaluation through the banded kernels and by the
+delta-energy engine — through their entry points on the card, in fifteen
+phases, each printing one line or more:
 
   1. device     card name, count, and nvidia-smi's name and power limit
-  2. build      compiles the four PaiNN kernels from csrc/ (nvcc -Xptxas -v)
+  2. build      compiles the seven PaiNN kernels from csrc/ (nvcc -Xptxas -v)
   3. kernels    each forward kernel against its plain PyTorch version at the
                 rigid path's shapes, with times and bounds
   4. anchor     pristine potential / surface energy on the card
@@ -22,12 +24,29 @@ card, in ten phases, each printing one line or more:
   9. relaxed    FIRE-relaxed pristine surface energy (the tutorial anchor)
  10. relax-mc   relaxed MC, 128 chains x 1 sweep x 4 steps; launch counts,
                 FIRE iterations, throughput, and a bitwise repeat of the run
+ 11. sc-kernels the banded layer-1, banded general and subset message
+                kernels against their plain versions at the 2x2 supercell's
+                shapes (128 chains; the subset over the hop balls of random
+                per-chain sites, all three layers), with times and bounds;
+                the banded kernels against the unbanded ones on the same
+                geometry in slot order
+ 12. sc-anchor  pristine 2x2 network energy = 4 x the 1x1 cell's; card vs the
+                CPU plain path; banded vs unbanded rigid forward
+ 13. sc-mc      full-evaluation MC at 2x2, 128 chains x 1 sweep x 8 steps;
+                launch counts, throughput, finite energies
+ 14. inc-mc     delta-engine MC at 2x2, 128 chains x 2 sweeps x 8 steps;
+                launch counts, throughput, cached energies vs a fresh full
+                evaluation, a bitwise repeat of the run
+ 15. inc-4x4    the 4x4 supercell (1984 slots), 32 chains x 1 sweep x 8
+                steps: delta-engine steps/s vs full-evaluation evals/s
 
 Then it prints one JSON line {"kernels": [...]} (per kernel: source, the
-TPU kernel it replaces, launches on its path — the rigid run for the
-forward kernels, the relaxed run for the backward, both under
-launches_by_path — max abs error, ms, plain_ms, bound_ms, bound_by,
-library_ms), the nvidia-smi line again, and last the JSON object
+TPU kernel it replaces, launches on its main path — the rigid run for the
+1x1 forward kernels, the relaxed run for the backward, the 2x2 full
+evaluation run for the banded kernels, the delta run for the subset kernel,
+every path's count under launches_by_path — max abs error, ms, plain_ms,
+bound_ms, bound_by, library_ms), the nvidia-smi line again, and last the
+JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises and exits non-zero. Without a CUDA device it exits 1
 and prints no result.
@@ -59,6 +78,31 @@ N_CHAINS, SWEEPS, SWEEP_SIZE = 128, 2, 8
 # of magnitude dearer than a rigid one, so the run is shorter
 RELAX_SWEEPS, RELAX_SWEEP_SIZE = 1, 4
 BWD_CHECK_CHAINS = 32     # the plain backward holds (C, K, E, 3F) tensors
+# supercells: the 2x2 tiling's paths at the flagship's chain count; the 4x4
+# tiling, where every layer's hop ball is a strict subset of the cell, at 32
+SC_SWEEPS, INC_SWEEPS = 1, 2
+SC44_CHAINS = 32
+# the plain banded and subset messages hold (C, K, E, 3F) tensors, 18.7 GB
+# each at 2x2 and 128 chains: they run on chunks of chains (chains are
+# independent); the plain versions of rows 1-3 run whole
+PLAIN_CHUNK = 16
+# kernel launches per full rigid evaluation of 3 layers: the 1x1 trunk and
+# the banded supercell trunk
+RIGID_LAUNCHES = {"painn_message_l1": 1, "painn_message_fused": 2, "painn_update_fused": 3}
+BANDED_LAUNCHES = {"painn_message_l1_banded": 1, "painn_message_fused_banded": 2,
+                   "painn_update_fused": 3}
+
+
+def l1_flops_per_edge(F: int, R: int) -> int:
+    """Layer-1 message per contributing edge and member: the filter (2R
+    mult-adds + bias + envelope on 2F channels), the phi product, the ds sum
+    and three dv mult-adds."""
+    return 2 * F * (2 * R + 2) + 2 * F + F + 6 * F
+
+
+def msg_flops_per_edge(F: int, R: int) -> int:
+    """General message per contributing edge and member (3F channels)."""
+    return 3 * F * (2 * R + 2) + 3 * F + F + 12 * F
 
 
 def _cuda_ms(fn, reps: int, warm: int = 2) -> float:
@@ -73,6 +117,18 @@ def _cuda_ms(fn, reps: int, warm: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _best_of(fn, reps: int = 3) -> float:
+    """Least wall seconds of ``fn(seed)`` over seeds 1..reps, each ending in
+    a synchronize."""
+    dt = float("inf")
+    for rep in range(reps):
+        t0 = time.perf_counter()
+        fn(rep + 1)
+        torch.cuda.synchronize()
+        dt = min(dt, time.perf_counter() - t0)
+    return dt
 
 
 def _nbytes(*tensors) -> int:
@@ -106,21 +162,25 @@ def kernel_cases(sys_, dev):
         return torch.randn((N_CHAINS, K, n_pad, width), generator=gen, device=dev)
 
     up = params["update"][0]
-    E, R, M = rbf.shape[1], cfg.n_rbf, unit.shape[-1]
+    R = cfg.n_rbf
     C = N_CHAINS
+    n_live = int((envm != 0).sum())      # edges that contribute (the rest are masked)
+    # (name, wrapper, TPU kernel, arguments, which arguments carry the chain
+    # axis, operations)
     return [
         ("painn_message_l1", pk.painn_message_l1, "surface_sampling_tpu/ops/pallas_painn.py:162",
          (species, rw["philt"], rbf, envm, nbr, unit, rw["dw2"], rw["db2"]),
-         # filter (2R mult-adds + bias + envelope) per edge per channel,
-         # then phi product, ds sum and three dv mult-adds
-         C * K * E * (2 * F * (2 * R + 2) + 2 * F + F + 6 * F)),
+         (True, False, True, True, True, True, False, False),
+         K * n_live * l1_flops_per_edge(F, R)),
         ("painn_message_fused", pk.painn_message_fused,
          "surface_sampling_tpu/ops/pallas_painn.py:1100",
          (feat(3 * F), feat(3 * F), rbf, envm, nbr, unit, rw["dw"][1], rw["db"][1]),
-         C * K * E * (3 * F * (2 * R + 2) + 3 * F + F + 12 * F)),
+         (True,) * 6 + (False, False),
+         K * n_live * msg_flops_per_edge(F, R)),
         ("painn_update_fused", pk.painn_update_fused, "surface_sampling_tpu/ops/pallas_painn.py:333",
          (feat(F), feat(3 * F), up["u_mat"]["w"], up["v_mat"]["w"], up["s_dense0"]["w"],
           up["s_dense0"]["b"], up["s_dense1"]["w"], up["s_dense1"]["b"], alive_f),
+         (True, True) + (False,) * 6 + (True,),
          # 6 + 2 + 3 F x F mat-vecs per row, plus ~30 F elementwise
          C * K * n_pad * (2 * 11 * F * F + 30 * F)),
     ]
@@ -340,13 +400,8 @@ def relaxed_phases(dev) -> dict:
     pot.energy_with_edges, pot.energy = force_fn, fresh_fn
     core_energy.fire_relax = fire
 
-    dt = float("inf")
     n_mc = RELAX_SWEEPS * RELAX_SWEEP_SIZE
-    for rep in range(3):
-        t0 = time.perf_counter()
-        crun(states, temps, seed=rep + 1)
-        torch.cuda.synchronize()
-        dt = min(dt, time.perf_counter() - t0)
+    dt = _best_of(lambda seed: crun(states, temps, seed=seed))
     print(f"[relax-mc] chains={N_CHAINS} sweeps={RELAX_SWEEPS}x{RELAX_SWEEP_SIZE} "
           f"evals/s={N_CHAINS * n_mc / dt:.2f} step_ms={1e3 * dt / n_mc:.3f} "
           f"fire_iters_mean={float(iters.mean()):.3f} fire_iters_max={int(iters.max())} "
@@ -357,19 +412,383 @@ def relaxed_phases(dev) -> dict:
     return launches
 
 
+def _chunked(fn, args, per_chain, chunk):
+    """``fn`` over chunks of ``chunk`` chains (axis 0 of the arguments
+    marked in ``per_chain``), outputs concatenated."""
+    C = next(a.shape[0] for a, pc in zip(args, per_chain) if pc)
+    parts = [fn(*(a[c0:c0 + chunk] if pc else a for a, pc in zip(args, per_chain)))
+             for c0 in range(0, C, chunk)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def _measure(name, fn, plain, args, per_chain, flops, chunk=None) -> dict:
+    """The kernel against its plain version on the same inputs (max abs
+    error within KERNEL_RTOL x max|plain|), its time and the plain version's
+    by CUDA events, and its bound. The plain version runs in one call, or
+    on chunks of ``chunk`` chains where its temporaries would not fit."""
+    C = next(a.shape[0] for a, pc in zip(args, per_chain) if pc)
+    chunk = chunk or C
+
+    def run_plain():
+        return _chunked(plain, args, per_chain, chunk)
+
+    got = fn(*args)
+    ref = run_plain()
+    torch.cuda.synchronize()
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    scale = max(float(r.abs().max()) for r in ref)
+    if not err <= KERNEL_RTOL * scale:
+        raise AssertionError(f"{name}: max abs error {err} exceeds "
+                             f"{KERNEL_RTOL} x max|plain| = {KERNEL_RTOL * scale}")
+    del ref
+    ms = _cuda_ms(lambda: fn(*args), reps=10)
+    plain_ms = _cuda_ms(run_plain, reps=1, warm=1)
+    nbytes = _nbytes(*(a for a in args if torch.is_tensor(a)), *got)
+    return {"err": err, "scale": scale, "ms": ms, "plain_ms": plain_ms, "flops": flops,
+            "bytes": nbytes, "plain_chunk_chains": chunk,
+            "bound_ms": 1e3 * max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS)}
+
+
+def _print_measure(tag: str, name: str, m: dict, extra: str = "") -> None:
+    print(f"[{tag}] {name} max_abs_err={m['err']:.3e} max_rel_err={m['err'] / m['scale']:.3e} "
+          f"(tol {KERNEL_RTOL} x max|plain|) ms={m['ms']:.4f} plain_ms={m['plain_ms']:.3f} "
+          f"(chains per plain call {m['plain_chunk_chains']}) bound_ms={m['bound_ms']:.4f} "
+          f"flops={m['flops']:.4e} bytes={m['bytes']:.4e} {extra}library_ms=null (no single "
+          f"PyTorch call computes this fused block)")
+
+
+def _row(name, replaces, m: dict, **extra) -> dict:
+    by_ops = m["flops"] / PEAK_F32_FLOPS > m["bytes"] / PEAK_BYTES_PER_S
+    return {"name": name, "route": "cuda",
+            "source": f"surface_sampling_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+            "launches": None, "max_abs_err": m["err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": "operations" if by_ops else "bytes",
+            "library_ms": None, "plain_chunk_chains": m["plain_chunk_chains"], **extra}
+
+
+def _band_contract(envm, nbr, ws_rows, band, M) -> None:
+    """Every selected edge's neighbour rank lies in its centre's window."""
+    off = torch.remainder(nbr.long() - ws_rows.long().repeat_interleave(M, dim=-1), band.n_pad)
+    bad = int(((envm != 0) & (off >= band.window)).sum())
+    if bad:
+        raise AssertionError(f"{bad} selected edges lie outside their routing window")
+
+
+def sc_kernels_phase(sys_sc, dev) -> list:
+    """11. Rows 6-8 against their plain versions at the 2x2 supercell's
+    shapes: banded static geometry of N_CHAINS seeded occupancies, the real
+    layer weights, seeded random features; the subset kernel over each
+    chain's hop-ball blocks of a random site at every layer. Then rows 6
+    and 7 against rows 1 and 2 on the same geometry in slot order."""
+    from surface_sampling_tpu_torch.core.incremental import build_inc_tables, take_blocks
+    from surface_sampling_tpu_torch.core.state import realize_alive, realize_numbers
+    from surface_sampling_tpu_torch.models.painn import species_rows, with_halo
+    from surface_sampling_tpu_torch.ops import painn_kernels as pk
+    from surface_sampling_tpu_torch.ops.static_edges import (
+        build_static_edge_pack,
+        static_edge_geometry,
+    )
+
+    pot, d, spec = sys_sc.potential, sys_sc.run.d, sys_sc.spec
+    pack = pot.static_edge_pack
+    band = pack.band
+    rng = np.random.default_rng(4)
+    ss = rng.integers(0, spec.n_codes, (N_CHAINS, spec.n_sites))
+    ss = torch.as_tensor(np.where(rng.random(ss.shape) < 0.75, 0, ss), device=dev)
+    alive = realize_alive(d, ss)
+    (rbf, envm, nbr, unit, n_pad), _ = static_edge_geometry(pack, alive)
+    M, n_blocks = unit.shape[-1], n_pad // band.n_blk
+    ws_rows = band.win_start[torch.arange(n_pad, device=dev) // band.n_blk]
+    _band_contract(envm, nbr, ws_rows, band, M)
+    rw, params, cfg = pot.rw, pot.params, pot.cfg
+    K, F, R = params["atom_embed"].shape[0], cfg.feat_dim, cfg.n_rbf
+    species = species_rows(rw, cfg, realize_numbers(d, ss), n_pad)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    phi, vcat = (torch.randn((N_CHAINS, K, n_pad, 3 * F), generator=gen, device=dev)
+                 for _ in range(2))
+    p, ip = band.perm, band.inv_perm
+    phi_ext, vcat_ext = with_halo(phi[:, :, p], band.halo, 2), with_halo(vcat[:, :, p], band.halo, 2)
+    n_live = int((envm != 0).sum())
+    msg_w = (rw["dw"][1], rw["db"][1])
+    l1_args = (with_halo(species[:, p], band.halo, 1), rw["philt"], rbf, envm, nbr, unit,
+               rw["dw2"], rw["db2"], band)
+    l1_pc = (True, False, True, True, True, True, False, False, False)
+    msg_args = (phi_ext, vcat_ext, rbf, envm, nbr, unit, *msg_w, band)
+    msg_pc = (True, True, True, True, True, True, False, False, False)
+    rows, by = [], {}
+    by["l1"] = _measure("painn_message_l1_banded", pk.painn_message_l1_banded,
+                        pk.painn_message_l1_banded_plain, l1_args, l1_pc,
+                        K * n_live * l1_flops_per_edge(F, R), PLAIN_CHUNK)
+    by["msg"] = _measure("painn_message_fused_banded", pk.painn_message_fused_banded,
+                         pk.painn_message_fused_banded_plain, msg_args, msg_pc,
+                         K * n_live * msg_flops_per_edge(F, R), PLAIN_CHUNK)
+
+    tables = build_inc_tables(spec, sys_sc.static_nbr, sys_sc.routing_band, cfg.n_layers)
+    sites = torch.as_tensor(rng.integers(0, spec.n_sites, N_CHAINS), device=dev)
+    layers = []
+    for li, tbl in enumerate(tables.blocks):
+        blocks = torch.as_tensor(tbl, dtype=torch.int64, device=dev)[sites]      # (C, NB)
+
+        def take(x, dim):
+            return take_blocks(x, blocks, dim, n_blocks)
+
+        envm_s = take(envm, 1)
+        sub_args = (phi_ext, vcat_ext, take(rbf, 1), envm_s, take(nbr, 1), take(unit, 2),
+                    rw["dw"][li], rw["db"][li], band.win_start[blocks], band)
+        layers.append(_measure("painn_message_subset", pk.painn_message_subset,
+                               pk.painn_message_subset_plain, sub_args,
+                               (True,) * 6 + (False, False, True, False),
+                               K * int((envm_s != 0).sum()) * msg_flops_per_edge(F, R),
+                               PLAIN_CHUNK))
+    by["subset"] = {k: (max if k in ("err", "scale", "plain_chunk_chains") else np.mean)(
+        [m[k] for m in layers]) for k in layers[0]}
+    replaces = {"l1": "surface_sampling_tpu/ops/pallas_painn.py:240",
+                "msg": "surface_sampling_tpu/ops/pallas_painn.py:802",
+                "subset": "surface_sampling_tpu/ops/pallas_painn.py:838"}
+    names = {"l1": "painn_message_l1_banded", "msg": "painn_message_fused_banded",
+             "subset": "painn_message_subset"}
+    for key in ("l1", "msg", "subset"):
+        m = by[key]
+        extra = {}
+        if key == "subset":
+            extra = {"blocks_per_layer": list(tables.nb),
+                     "ms_by_layer": [x["ms"] for x in layers]}
+        rows.append(_row(names[key], replaces[key], m, **extra))
+        _print_measure("sc-kernel", names[key], m,
+                       f"blocks_per_layer={list(tables.nb)} ms_by_layer="
+                       f"{[round(x['ms'], 4) for x in layers]} (mean per launch) "
+                       if extra else "")
+
+    # banded vs unbanded on the same geometry, slot order
+    pack_u = build_static_edge_pack(spec, sys_sc.static_nbr, cfg, dev)
+    (rbf_u, envm_u, nbr_u, unit_u, _), _ = static_edge_geometry(pack_u, alive)
+    pairs = (
+        ("painn_message_l1_banded vs painn_message_l1",
+         lambda: pk.painn_message_l1_banded(*l1_args),
+         lambda: pk.painn_message_l1(species, rw["philt"], rbf_u, envm_u, nbr_u, unit_u,
+                                     rw["dw2"], rw["db2"])),
+        ("painn_message_fused_banded vs painn_message_fused",
+         lambda: pk.painn_message_fused_banded(*msg_args),
+         lambda: pk.painn_message_fused(phi, vcat, rbf_u, envm_u, nbr_u, unit_u, *msg_w)),
+    )
+    for row, (label, banded, plain_order) in zip(rows, pairs):
+        got_b, got_u = banded(), plain_order()
+        diff = max(float((b[:, :, ip] - u).abs().max()) for b, u in zip(got_b, got_u))
+        ms_u = _cuda_ms(plain_order, reps=10)
+        ms_b = _cuda_ms(banded, reps=10)
+        row["unbanded_ms"], row["max_diff_vs_unbanded"] = ms_u, diff
+        print(f"[sc-banding] {label} on the same 2x2 geometry: banded ms={ms_b:.4f} "
+              f"unbanded ms={ms_u:.4f} max|banded[inv_perm] - unbanded|={diff:.3e}")
+    return rows
+
+
+def sc_anchor_phase(sys_sc, sys_gpu, dev) -> None:
+    """12. The pristine 2x2 network energy is 4 x the 1x1 cell's; the card
+    agrees with the CPU plain path, and the banded with the unbanded rigid
+    forward, on random occupancies."""
+    from surface_sampling_tpu_torch.core.state import (
+        realize_alive,
+        realize_numbers,
+        realize_type_idx,
+    )
+    from surface_sampling_tpu_torch.models.ensemble import ensemble_apply_rigid
+    from surface_sampling_tpu_torch.ops.static_edges import (
+        build_static_edge_pack,
+        static_edge_geometry,
+    )
+    from surface_sampling_tpu_torch.systems import srtio3_001_painn
+
+    def nn_sum(s):
+        d = s.run.d
+        ss = torch.zeros((1, s.spec.n_sites), dtype=torch.int64, device=dev)
+        out = s.potential.rigid_outputs(realize_type_idx(d, ss), realize_alive(d, ss))
+        return float(out["per_atom_energy"].sum())
+
+    e4, e1 = nn_sum(sys_sc), nn_sum(sys_gpu)
+    rel = abs(e4 - 4 * e1) / abs(4 * e1)
+    print(f"[sc-anchor] pristine network energy 2x2 {e4:.6f} vs 4 x 1x1 {4 * e1:.6f} "
+          f"(training units, member mean) rel diff {rel:.3e} (tol 1e-5)")
+    if not rel <= 1e-5:
+        raise AssertionError(f"2x2 network energy is not 4 x the 1x1's: {e4} vs {4 * e1}")
+
+    S = sys_sc.spec.n_sites
+    rng = np.random.default_rng(5)
+    ss = rng.integers(0, sys_sc.spec.n_codes, (3, S))
+    ss = torch.as_tensor(np.concatenate([np.zeros((1, S), np.int64),
+                                         np.where(rng.random(ss.shape) < 0.9, 0, ss)]))
+    e_gpu = sys_sc.run.state_energy_fn(ss.to(dev)).surface_energy.cpu()
+    sys_cpu = srtio3_001_painn(supercell=(2, 2), device="cpu")
+    e_cpu = sys_cpu.run.state_energy_fn(ss).surface_energy
+    diff = float((e_gpu - e_cpu).abs().max())
+
+    # the same occupancies through the rigid forward over banded and
+    # unbanded static edges: member-mean network energies in eV
+    pot, d = sys_sc.potential, sys_sc.run.d
+    alive, numbers = realize_alive(d, ss.to(dev)), realize_numbers(d, ss.to(dev))
+    packs = (pot.static_edge_pack,
+             build_static_edge_pack(sys_sc.spec, sys_sc.static_nbr, pot.cfg, dev))
+    e_b, e_u = (pot.factor * ensemble_apply_rigid(pot.params, pot.rw, pot.cfg, numbers, alive,
+                                                  *static_edge_geometry(pack, alive),
+                                                  pack.band)["energy"].cpu()
+                for pack in packs)
+    diff_u = float((e_b - e_u).abs().max())
+    print(f"[sc-anchor] card {e_gpu.tolist()} cpu {e_cpu.tolist()} max diff {diff:.3e} eV; "
+          f"network energy banded {e_b.tolist()} unbanded {e_u.tolist()} eV, max diff "
+          f"{diff_u:.3e} eV")
+    if not (diff <= 1e-3 and diff_u <= 1e-3):
+        raise AssertionError(f"2x2 energies differ: card vs CPU {diff} eV, "
+                             f"banded vs unbanded {diff_u} eV")
+
+
+def full_mc_phase(tag: str, sys_, sweeps: int, per_eval: dict, n_chains: int = N_CHAINS):
+    """6. / 13. Full-evaluation MC through the entry points, ``n_chains``
+    chains x ``sweeps`` x SWEEP_SIZE steps: launch counts (``per_eval``
+    launches of each named kernel per evaluation, none of any other), finite
+    energies, throughput. Returns the launch counts of the run, its
+    evaluations per second and its final state (seed 0)."""
+    from surface_sampling_tpu_torch.core.engine import EngineConfig, geometric_schedule, make_run_fn
+    from surface_sampling_tpu_torch.ops import painn_kernels as pk
+    from surface_sampling_tpu_torch.parallel.chains import chain_states, make_chain_run
+
+    d, sef = sys_.run.d, sys_.run.state_energy_fn
+    crun = make_chain_run(make_run_fn(d, sef, EngineConfig(sweep_size=SWEEP_SIZE,
+                                                           record_positions=False)))
+    temps = geometric_schedule(1.0, sweeps, 0.99)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pk.reset_launch_counts()
+    states = chain_states(d, n_chains)
+    states = states._replace(energy=sef(states.site_state).surface_energy)
+    out, recs = crun(states, temps, seed=0)
+    torch.cuda.synchronize()
+    launches = pk.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_evals = 1 + sweeps * SWEEP_SIZE
+    want = {name: per_eval.get(name, 0) * n_evals for name in launches}
+    if launches != want:
+        raise AssertionError(f"[{tag}] launch counts {launches}, expected {want}")
+    if not (torch.isfinite(recs.energy).all() and torch.isfinite(out.energy).all()):
+        raise AssertionError(f"[{tag}] non-finite energies in the MC run")
+    n_mc = sweeps * SWEEP_SIZE
+    dt = _best_of(lambda seed: crun(states, temps, seed=seed))
+    print(f"[{tag}] chains={n_chains} sweeps={sweeps}x{SWEEP_SIZE} "
+          f"evals/s={n_chains * n_mc / dt:.1f} step_ms={1e3 * dt / n_mc:.3f} "
+          f"accept={float(recs.accept_rate.mean()):.4f} best={float(recs.energy.min()):.6f} eV "
+          f"peak_mem={peak_gb:.3f} GB launches={json.dumps(launches)}")
+    return launches, n_chains * n_mc / dt, out
+
+
+def _inc_run(sys_, n_chains, sweeps):
+    """The delta engine of a supercell system, a chain run over it, its
+    initial states and schedule."""
+    from surface_sampling_tpu_torch.core.engine import geometric_schedule
+    from surface_sampling_tpu_torch.core.incremental import (
+        make_incremental_painn_from_system,
+        make_incremental_run,
+        make_incremental_semigrand_step,
+    )
+    from surface_sampling_tpu_torch.parallel.chains import incremental_chain_states, make_chain_run
+
+    engine = make_incremental_painn_from_system(sys_)
+    crun = make_chain_run(make_incremental_run(make_incremental_semigrand_step(engine),
+                                               SWEEP_SIZE, engine.n_sites, engine.n_codes))
+    return engine, crun, (lambda: incremental_chain_states(engine, sys_.run.d, n_chains)), \
+        geometric_schedule(1.0, sweeps, 0.99)
+
+
+def inc_mc_phase(sys_sc, dev) -> dict:
+    """14. Delta-engine MC at 2x2; returns the launch counts of the run
+    (initial full evaluation included)."""
+    from surface_sampling_tpu_torch.ops import painn_kernels as pk
+
+    engine, crun, init, temps = _inc_run(sys_sc, N_CHAINS, INC_SWEEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pk.reset_launch_counts()
+    states = init()
+    out_a, rec_a = crun(states, temps, seed=0)
+    torch.cuda.synchronize()
+    launches = pk.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_mc = INC_SWEEPS * SWEEP_SIZE
+    L = len(states.caches.s)
+    # the initial full evaluation is the banded rigid trunk, each step a delta
+    want = {name: BANDED_LAUNCHES.get(name, 0) for name in launches}
+    want["painn_message_subset"] = L * n_mc
+    want["painn_update_fused"] += L * n_mc
+    if launches != want:
+        raise AssertionError(f"delta-engine launch counts {launches}, expected {want}")
+    if not (torch.isfinite(rec_a.energy).all() and torch.isfinite(out_a.energy).all()):
+        raise AssertionError("non-finite energies in the delta-engine run")
+    fresh, _, _ = engine.energy_full(out_a.site_state)
+    drift = float((fresh - out_a.energy).abs().max())
+    out_b, rec_b = crun(states, temps, seed=0)
+    torch.cuda.synchronize()
+    same = (torch.equal(out_a.site_state, out_b.site_state)
+            and torch.equal(out_a.energy, out_b.energy)
+            and torch.equal(rec_a.energy, rec_b.energy)
+            and all(torch.equal(a, b) for a, b in zip(out_a.caches.s + out_a.caches.phi
+                                                       + out_a.caches.vcat,
+                                                       out_b.caches.s + out_b.caches.phi
+                                                       + out_b.caches.vcat))
+            and torch.equal(out_a.caches.e_atom, out_b.caches.e_atom))
+    print(f"[inc-repeat] cached energies vs a fresh energy_full of the final states: max "
+          f"|diff| {drift:.3e} eV (tol 1e-3); same seed twice: bitwise identical site states, "
+          f"energies and caches: {same}")
+    if not drift <= 1e-3:
+        raise AssertionError(f"cached energies drift from full evaluation by {drift} eV")
+    if not same:
+        raise AssertionError("the delta-engine run does not repeat bitwise")
+    dt = _best_of(lambda seed: crun(states, temps, seed=seed))
+    print(f"[inc-mc] chains={N_CHAINS} sweeps={INC_SWEEPS}x{SWEEP_SIZE} "
+          f"steps/s={N_CHAINS * n_mc / dt:.1f} step_ms={1e3 * dt / n_mc:.3f} "
+          f"accept={float(rec_a.accept_rate.mean()):.4f} best={float(rec_a.energy.min()):.6f} eV "
+          f"peak_mem={peak_gb:.3f} GB launches={json.dumps(launches)}")
+    return launches
+
+
+def inc_4x4_phase(dev) -> None:
+    """15. The 4x4 supercell: delta-engine steps/s vs full-evaluation
+    evals/s at SC44_CHAINS chains, 1 sweep x 8 steps each, from the same
+    seed."""
+    from surface_sampling_tpu_torch.systems import srtio3_001_painn
+
+    t0 = time.perf_counter()
+    sys44 = srtio3_001_painn(supercell=(4, 4), device=dev)
+    t_build = time.perf_counter() - t0
+    band = sys44.potential.static_edge_pack.band
+    engine, icrun, init, temps = _inc_run(sys44, SC44_CHAINS, SC_SWEEPS)
+    states = init()
+    out_i, rec_i = icrun(states, temps, seed=0)
+    fresh, _, _ = engine.energy_full(out_i.site_state)
+    drift = float((fresh - out_i.energy).abs().max())
+    dt_inc = _best_of(lambda seed: icrun(states, temps, seed=seed))
+    del states
+    _, full_rate, out_f = full_mc_phase("4x4-mc", sys44, SC_SWEEPS, BANDED_LAUNCHES,
+                                        SC44_CHAINS)
+    inc_rate = SC44_CHAINS * SC_SWEEPS * SWEEP_SIZE / dt_inc
+    same = torch.equal(out_i.site_state, out_f.site_state)
+    print(f"[inc-4x4] slots={sys44.spec.n_slots} sites={sys44.spec.n_sites} W={band.window} "
+          f"halo={band.halo} build_s={t_build:.1f} chains={SC44_CHAINS} "
+          f"sweeps={SC_SWEEPS}x{SWEEP_SIZE} incremental steps/s={inc_rate:.1f} "
+          f"(step_ms={1e3 * dt_inc / (SC_SWEEPS * SWEEP_SIZE):.3f}) full evals/s={full_rate:.1f} "
+          f"speedup={inc_rate / full_rate:.3f} cached vs fresh max |diff| {drift:.3e} eV; "
+          f"same site states as the full run: {same}")
+    if not (drift <= 1e-3 and torch.isfinite(rec_i.energy).all()):
+        raise AssertionError(f"4x4 delta-engine run off: drift {drift} eV")
+    if not same:
+        raise AssertionError("the 4x4 delta-engine and full-evaluation runs of one seed reach "
+                             "different site states")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from surface_sampling_tpu_torch.core.engine import (
-        EngineConfig,
-        geometric_schedule,
-        make_run_fn,
-    )
     from surface_sampling_tpu_torch.ops import painn_kernels as pk
-    from surface_sampling_tpu_torch.parallel.chains import chain_states, make_chain_run
     from surface_sampling_tpu_torch.systems import srtio3_001_painn
 
+    t_start = time.perf_counter()
     # 1. device
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = subprocess.run(
@@ -389,33 +808,10 @@ def main() -> int:
     dev = torch.device("cuda")
     sys_gpu = srtio3_001_painn(device=dev)
     rows = []
-    for kname, fn, replaces, args, flops in kernel_cases(sys_gpu, dev):
-        got = fn(*args)
-        ref = pk.PLAIN[fn](*args)
-        torch.cuda.synchronize()
-        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-        scale = max(float(r.abs().max()) for r in ref)
-        if not err <= KERNEL_RTOL * scale:
-            raise AssertionError(f"{kname}: max abs error {err} exceeds "
-                                 f"{KERNEL_RTOL} x max|plain| = {KERNEL_RTOL * scale}")
-        ms = _cuda_ms(lambda: fn(*args), reps=20)
-        plain_ms = _cuda_ms(lambda: pk.PLAIN[fn](*args), reps=3, warm=1)
-        nbytes = _nbytes(*args, *got)
-        rows.append({
-            "name": kname, "route": "cuda",
-            "source": f"surface_sampling_tpu_torch/csrc/{kname}.cu", "replaces": replaces,
-            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": 1e3 * max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS),
-            "bound_by": "operations" if flops / PEAK_F32_FLOPS > nbytes / PEAK_BYTES_PER_S
-            else "bytes",
-            "library_ms": None,
-        })
-        print(f"[kernel] {kname} max_abs_err={err:.3e} max_rel_err={err / scale:.3e} "
-              f"(tol {KERNEL_RTOL} x max|plain| = {KERNEL_RTOL * scale:.3e}) "
-              f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={rows[-1]['bound_ms']:.4f} "
-              f"flops={flops:.4e} bytes={nbytes:.4e} library_ms=null (no single PyTorch "
-              f"call computes this fused block)")
-    del got, ref
+    for kname, fn, replaces, args, per_chain, flops in kernel_cases(sys_gpu, dev):
+        m = _measure(kname, fn, pk.PLAIN[fn], args, per_chain, flops)
+        rows.append(_row(kname, replaces, m))
+        _print_measure("kernel", kname, m)
 
     # 4. pristine anchor
     run = sys_gpu.run
@@ -439,49 +835,37 @@ def main() -> int:
         raise AssertionError(f"card and CPU energies differ by {diff} eV")
 
     # 6. MC run through the entry points
-    d, sef = run.d, run.state_energy_fn
-    crun = make_chain_run(make_run_fn(d, sef, EngineConfig(sweep_size=SWEEP_SIZE,
-                                                           record_positions=False)))
-    temps = geometric_schedule(1.0, SWEEPS, 0.99)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    pk.reset_launch_counts()
-    states = chain_states(d, N_CHAINS)
-    states = states._replace(energy=sef(states.site_state).surface_energy)
-    out, recs = crun(states, temps, seed=0)
-    torch.cuda.synchronize()
-    launches = pk.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    n_evals = 1 + SWEEPS * SWEEP_SIZE
-    want = {"painn_message_l1": n_evals, "painn_message_fused": 2 * n_evals,
-            "painn_update_fused": 3 * n_evals, "painn_message_bwd": 0,
-            "painn_message_bwd.g_dw": 0}
-    if launches != want:
-        raise AssertionError(f"launch counts {launches}, expected {want}")
-    if not (torch.isfinite(recs.energy).all() and torch.isfinite(out.energy).all()):
-        raise AssertionError("non-finite energies in the MC run")
-    dt = float("inf")
-    for rep in range(3):
-        t0 = time.perf_counter()
-        _, r = crun(states, temps, seed=rep + 1)
-        torch.cuda.synchronize()
-        dt = min(dt, time.perf_counter() - t0)
-    evals_per_s = N_CHAINS * SWEEPS * SWEEP_SIZE / dt
-    print(f"[mc] chains={N_CHAINS} sweeps={SWEEPS}x{SWEEP_SIZE} evals/s={evals_per_s:.1f} "
-          f"step_ms={1e3 * dt / (SWEEPS * SWEEP_SIZE):.3f} "
-          f"accept={float(recs.accept_rate.mean()):.4f} best={float(recs.energy.min()):.6f} eV "
-          f"peak_mem={peak_gb:.3f} GB launches={json.dumps(launches)}")
+    launches, _, _ = full_mc_phase("mc", sys_gpu, SWEEPS, RIGID_LAUNCHES)
 
     bwd_row = backward_phase(dev)
     rows.append(bwd_row)
     forces_phase(sys_gpu, sys_cpu, dev)
     relax_launches = relaxed_phases(dev)
+    del sys_cpu
+    torch.cuda.empty_cache()
 
+    sys_sc = srtio3_001_painn(supercell=(2, 2), device=dev)
+    sc_rows = sc_kernels_phase(sys_sc, dev)
+    rows += sc_rows
+    torch.cuda.empty_cache()
+    sc_anchor_phase(sys_sc, sys_gpu, dev)
+    sc_launches, _, _ = full_mc_phase("sc-mc", sys_sc, SC_SWEEPS, BANDED_LAUNCHES)
+    inc_launches = inc_mc_phase(sys_sc, dev)
+    del sys_sc
+    torch.cuda.empty_cache()
+    inc_4x4_phase(dev)
+
+    main_path = {"painn_message_bwd": "relaxed_mc", "painn_message_l1_banded": "sc_mc",
+                 "painn_message_fused_banded": "sc_mc", "painn_message_subset": "inc_mc"}
     for row in rows:
         by_path = {"rigid_mc": launches[row["name"]],
-                   "relaxed_mc": relax_launches[row["name"]]}
-        row["launches"] = by_path["relaxed_mc" if row is bwd_row else "rigid_mc"]
+                   "relaxed_mc": relax_launches[row["name"]],
+                   "sc_mc": sc_launches[row["name"]], "inc_mc": inc_launches[row["name"]]}
+        row["launches"] = by_path[main_path.get(row["name"], "rigid_mc")]
+        if row["launches"] == 0:
+            raise AssertionError(f"{row['name']} was not launched on its path: {by_path}")
         row["launches_by_path"] = by_path
+    print(f"[time] {time.perf_counter() - t_start:.1f}s for every phase, the build included")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

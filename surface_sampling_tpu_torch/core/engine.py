@@ -50,6 +50,36 @@ def geometric_schedule(start_temp: float, total_sweeps: int, alpha: float = 0.99
     return start_temp * alpha ** np.arange(total_sweeps, dtype=np.float64)
 
 
+def run_sweeps(step_fn: Callable, state, temps, seed: int, sweep_size: int, n_sites: int,
+               n_codes: int, record: Callable):
+    """The sweep loop of a run: ``temps`` (sweeps,) or (C, sweeps); every
+    step draws, per chain, a site, a code and an acceptance uniform from one
+    ``torch.Generator`` on the state's device seeded with ``seed``, and calls
+    ``step_fn(state, temp, site, u_code, u_acc) -> (state, StepInfo)``.
+    After each sweep ``record(state, accept_rate, oob_rate)`` gives that
+    sweep's record, a tuple of (C, ...) tensors. Returns the final state and
+    the records stacked along a sweep axis 1."""
+    dev = state.site_state.device
+    C = state.site_state.shape[0]
+    temps = torch.as_tensor(temps, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    recs = []
+    for t in range(temps.shape[-1]):
+        temp = temps[..., t]
+        n_acc = torch.zeros(C, device=dev)
+        n_oob = torch.zeros(C, device=dev)
+        for _ in range(sweep_size):
+            site = torch.randint(0, n_sites, (C,), generator=gen, device=dev)
+            u_code = torch.randint(0, n_codes - 1, (C,), generator=gen, device=dev)
+            u_acc = torch.rand((C,), generator=gen, device=dev)
+            state, info = step_fn(state, temp, site, u_code, u_acc)
+            n_acc += info.accepted
+            n_oob += info.oob
+        recs.append(record(state, n_acc / sweep_size, n_oob / sweep_size))
+    return state, type(recs[0])(*(torch.stack(f, dim=1) for f in zip(*recs)))
+
+
 def make_run_fn(d, state_energy_fn: Callable, cfg: EngineConfig) -> Callable:
     """Build ``run(state, temps, seed) -> (state, SweepRecord)``.
 
@@ -61,34 +91,20 @@ def make_run_fn(d, state_energy_fn: Callable, cfg: EngineConfig) -> Callable:
     step_fn = make_semigrand_step(d, state_energy_fn)
     n_sites = d.site_coords.shape[0]
 
+    def record(state: MCState, accept_rate, oob_rate) -> SweepRecord:
+        pos = state.relaxed_positions
+        return SweepRecord(
+            site_state=state.site_state,
+            energy=state.energy,
+            accept_rate=accept_rate,
+            n_ads=num_occupied_sites(state.site_state),
+            positions=pos if cfg.record_positions else pos[:, :0],
+            oob_rate=oob_rate,
+        )
+
     def run(state: MCState, temps, seed: int = 0):
-        dev = state.site_state.device
-        C = state.site_state.shape[0]
-        temps = torch.as_tensor(temps, dtype=torch.float32, device=dev)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
-        recs = []
-        for t in range(temps.shape[-1]):
-            temp = temps[..., t]
-            n_acc = torch.zeros(C, device=dev)
-            n_oob = torch.zeros(C, device=dev)
-            for _ in range(cfg.sweep_size):
-                site = torch.randint(0, n_sites, (C,), generator=gen, device=dev)
-                u_code = torch.randint(0, d.n_codes - 1, (C,), generator=gen, device=dev)
-                u_acc = torch.rand((C,), generator=gen, device=dev)
-                state, info = step_fn(state, temp, site, u_code, u_acc)
-                n_acc += info.accepted
-                n_oob += info.oob
-            pos = state.relaxed_positions
-            recs.append(SweepRecord(
-                site_state=state.site_state,
-                energy=state.energy,
-                accept_rate=n_acc / cfg.sweep_size,
-                n_ads=num_occupied_sites(state.site_state),
-                positions=pos if cfg.record_positions else pos[:, :0],
-                oob_rate=n_oob / cfg.sweep_size,
-            ))
-        return state, SweepRecord(*(torch.stack(f, dim=1) for f in zip(*recs)))
+        return run_sweeps(step_fn, state, temps, seed, cfg.sweep_size, n_sites, d.n_codes,
+                          record)
 
     return run
 

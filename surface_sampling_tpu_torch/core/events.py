@@ -34,6 +34,16 @@ def metropolis_accept(u_acc, e_old, e_new, temp):
     return torch.log(u_acc + 1e-38) < logp
 
 
+def propose_change(site_state: torch.Tensor, site: torch.Tensor,
+                   u_code: torch.Tensor) -> torch.Tensor:
+    """Trial occupancy of the Change move: per chain c, site ``site[c]``
+    takes a new code drawn uniformly among the codes other than its current
+    one (``u_code[c]`` uniform on [0, n_codes - 1) skips the current code)."""
+    cur = torch.gather(site_state, 1, site[:, None])[:, 0]
+    end = u_code + (u_code >= cur).to(u_code.dtype)
+    return change_site(site_state, site, end)
+
+
 def make_semigrand_step(d: DeviceSpec, state_energy_fn: Callable) -> Callable:
     """Build ``step(state, temp, site, u_code, u_acc) -> (state, StepInfo)``.
 
@@ -46,9 +56,7 @@ def make_semigrand_step(d: DeviceSpec, state_energy_fn: Callable) -> Callable:
 
     def step(state: MCState, temp, site, u_code, u_acc):
         ss = state.site_state
-        cur = torch.gather(ss, 1, site[:, None])[:, 0]
-        end = u_code + (u_code >= cur).to(u_code.dtype)   # uniform over codes != cur
-        trial_ss = change_site(ss, site, end)
+        trial_ss = propose_change(ss, site, u_code)
         trial = state_energy_fn(trial_ss)
         temp = torch.as_tensor(temp, dtype=state.energy.dtype, device=ss.device)
         accept = metropolis_accept(u_acc, state.energy, trial.surface_energy, temp)

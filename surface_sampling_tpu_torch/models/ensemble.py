@@ -30,14 +30,15 @@ def _stats(out: dict) -> dict:
 
 
 def ensemble_apply_rigid(params: dict, rw: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
-                         alive: torch.Tensor, msg_geom, edges) -> dict:
+                         alive: torch.Tensor, msg_geom, edges, band=None) -> dict:
     """Rigid forward of all members on a (C, N) batch of structures over
-    static edge geometry (``ops.static_edges``).
+    static edge geometry (``ops.static_edges``; ``band`` is its pack's
+    routing band, for a supercell).
 
     Returns ``member_energy`` (C, K), the ensemble ``energy`` and
     ``energy_std`` (C,) over members, and the member-mean
     ``per_atom_energy`` (C, N), in training units."""
-    return _stats(painn_apply_rigid(params, rw, cfg, numbers, alive, msg_geom, edges))
+    return _stats(painn_apply_rigid(params, rw, cfg, numbers, alive, msg_geom, edges, band))
 
 
 def ensemble_apply(params: dict, cfg: PaiNNConfig, numbers: torch.Tensor,

@@ -6,8 +6,9 @@ of ``surface_sampling_tpu/potentials/base.py``, for systems built with a
 static candidate table: the energy of slot-realized geometries (edges
 ranked over the table), forces by autograd, the relaxation hooks that fix
 the edge topology once per relaxation, and, given the spec of a
-code-independent slot geometry, the ``rigid_energy`` hook of rigid MC.
-The per-atom analysis hooks belong to later slices.
+code-independent slot geometry, the ``rigid_energy`` hook of rigid MC
+(over the banded static edges of a supercell when a routing band is
+given). The per-atom analysis hooks belong to later slices.
 """
 
 from __future__ import annotations
@@ -108,7 +109,8 @@ class PaiNNPotential:
     def rigid_outputs(self, type_idx: torch.Tensor, alive: torch.Tensor) -> dict:
         msg_geom, edges = static_edge_geometry(self.static_edge_pack, alive)
         return ensemble_apply_rigid(self.params, self.rw, self.cfg,
-                                    self._numbers(type_idx, alive), alive, msg_geom, edges)
+                                    self._numbers(type_idx, alive), alive, msg_geom, edges,
+                                    self.static_edge_pack.band)
 
     def _rigid_energy(self, type_idx: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
         e = self.rigid_outputs(type_idx, alive)["energy"] * self.factor
@@ -124,6 +126,7 @@ def make_painn_potential(
     static_nbr=None,
     spec=None,
     device: torch.device | None = None,
+    routing_band=None,
 ) -> PaiNNPotential:
     """Wrap a stacked PaiNN ensemble (``models/weights.py``; one member is
     K = 1) as a potential.
@@ -140,6 +143,10 @@ def make_painn_potential(
             code-independent, the potential also carries ``rigid_energy``.
             Relaxing systems pass None.
         device: where the tables live (default: the parameters').
+        routing_band: a host ``ops.banding.RoutingBand`` of the same
+            static table (supercells): ``rigid_energy`` then runs the banded
+            rigid trunk. The general path (``energy``, forces) stays
+            unbanded: the banded backward is not ported.
     """
     if static_nbr is None:
         raise NotImplementedError(
@@ -157,7 +164,7 @@ def make_painn_potential(
         per_type, const_off = None, 0.0
     rw = pack = None
     if spec is not None:
-        pack = build_static_edge_pack(spec, static_nbr, cfg, device)
+        pack = build_static_edge_pack(spec, static_nbr, cfg, device, band=routing_band)
         if pack is None:
             raise NotImplementedError(
                 "code-dependent slot geometry (mixed-offset adsorbate groups) has no "

@@ -1,13 +1,14 @@
 """PaiNN forward, batched over chains and ensemble members: the rigid
-static-edge trunk of the MC path and the general, differentiable trunk of
-forces and relaxation.
+static-edge trunk of the MC path and the general trunk of forces,
+relaxation and the delta engine.
 
 The counterpart of ``surface_sampling_tpu/models/painn.py``: the
 configuration, the radial basis and envelope, the rigid trunk
-(``_painn_features_rigid``), the general trunk (``painn_features`` in the
-JAX package's "pallas" message mode, without the layer-1 species table,
-banding or collected layers) and the readout with the excluded-volume term
-and the overflow override. Parameters are a tree
+(``painn_features_rigid``, banded for supercells, where it can also
+collect every layer's inputs for the delta engine), the general,
+differentiable trunk (``painn_features`` in the JAX package's "pallas"
+message mode, without the layer-1 species table or banding) and the
+readout with the excluded-volume term and the overflow override. Parameters are a tree
 of tensors with a leading member axis K (``models/weights.py``); features
 carry two batch axes, chains C and members K: s is (C, K, n_pad, F) and
 the vector features are kept x-major as vcat (C, K, n_pad, 3F) =
@@ -15,7 +16,9 @@ the vector features are kept x-major as vcat (C, K, n_pad, 3F) =
 
 On the rigid trunk the three blocks of every layer run through
 ``ops/painn_kernels.py``: the layer-1 message from a per-species table,
-the general message for layers 2+, and the update block. The general trunk
+the general message for layers 2+, and the update block. With a routing
+band (supercells, ``ops/banding.py``) the trunk runs in the band's sorted
+row order and the two messages are their banded kernels. The general trunk
 runs the general message at every layer (layer 1 with v = 0, as the JAX
 package does on a differentiated path), whose backward is the message
 backward kernel; its update block is plain PyTorch, as the JAX package
@@ -34,7 +37,9 @@ import torch.nn.functional as tnf
 from surface_sampling_tpu_torch.ops.neighbors import Edges, padded_rows
 from surface_sampling_tpu_torch.ops.painn_kernels import (
     painn_message_fused,
+    painn_message_fused_banded,
     painn_message_l1,
+    painn_message_l1_banded,
     painn_update_fused,
     painn_update_fused_plain,
 )
@@ -76,6 +81,32 @@ def _dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def update_weights(up: dict) -> tuple:
+    """A layer's update weights in the order of ``painn_update_fused``."""
+    return (up["u_mat"]["w"], up["v_mat"]["w"], up["s_dense0"]["w"], up["s_dense0"]["b"],
+            up["s_dense1"]["w"], up["s_dense1"]["b"])
+
+
+def message_weights(mp: dict, cfg: PaiNNConfig, r_pad: int) -> tuple:
+    """A layer's dist_embed weights, the radial axis zero-padded to r_pad."""
+    dw = tnf.pad(mp["dist_embed"]["w"], (0, 0, 0, r_pad - cfg.n_rbf)).contiguous()
+    return dw, mp["dist_embed"]["b"].contiguous()
+
+
+def filter_features(mp: dict, s: torch.Tensor) -> torch.Tensor:
+    """phi = inv_dense1(silu(inv_dense0(s))), the message block's filter
+    side."""
+    return _dense(mp["inv_dense1"], tnf.silu(_dense(mp["inv_dense0"], s)))
+
+
+def with_halo(x: torch.Tensor, halo: int, dim: int) -> torch.Tensor:
+    """A sorted table extended by the band's halo: rows [0, halo) along
+    ``dim`` appended after the last row."""
+    if halo == 0:
+        return x.contiguous()
+    return torch.cat([x, x.narrow(dim, 0, halo)], dim=dim)
+
+
 def rigid_member_weights(params: dict, cfg: PaiNNConfig, l1_types, r_pad: int) -> dict:
     """Weights of the rigid trunk derived once per potential.
 
@@ -90,12 +121,9 @@ def rigid_member_weights(params: dict, cfg: PaiNNConfig, l1_types, r_pad: int) -
     types = torch.as_tensor([min(max(int(z), 0), cfg.max_z - 1) for z in l1_types],
                             device=emb.device)
     mp0 = params["message"][0]
-    s_rows = emb[:, types]                                           # (K, T, F)
-    phi_t = _dense(mp0["inv_dense1"], tnf.silu(_dense(mp0["inv_dense0"], s_rows)))
+    phi_t = filter_features(mp0, emb[:, types])                      # (K, T, 3F)
     philt = tnf.pad(phi_t[..., F:], (0, 0, 0, 1)).contiguous()       # (K, T+1, 2F)
-    dw = [tnf.pad(mp["dist_embed"]["w"], (0, 0, 0, r_pad - cfg.n_rbf)).contiguous()
-          for mp in params["message"]]
-    db = [mp["dist_embed"]["b"].contiguous() for mp in params["message"]]
+    dw, db = zip(*(message_weights(mp, cfg, r_pad) for mp in params["message"]))
     return {
         "philt": philt,
         "dw": dw,
@@ -123,13 +151,21 @@ def species_rows(rw: dict, cfg: PaiNNConfig, numbers: torch.Tensor, n_pad: int) 
                    value=rw["philt"].shape[1] - 1)
 
 
-def _painn_features_rigid(params: dict, rw: dict, cfg: PaiNNConfig,
+def painn_features_rigid(params: dict, rw: dict, cfg: PaiNNConfig,
                           numbers: torch.Tensor, alive: torch.Tensor,
-                          msg_geom) -> torch.Tensor:
+                          msg_geom, band=None, collect_layers: bool = False):
     """Rigid trunk over padded rows; returns s (C, K, N, F).
 
     ``numbers``/``alive`` are (C, N); ``msg_geom`` comes from
-    ``ops.static_edges.static_edge_geometry``."""
+    ``ops.static_edges.static_edge_geometry``. With ``band`` (the pack's
+    ``DeviceBand``) the geometry is in sorted order, every layer runs on
+    sorted rows through the banded message kernels, and s is put back in
+    slot order at the end.
+
+    ``collect_layers`` returns instead ``(s, (s_l, phi_l, vcat_l))``: the
+    final s and the inputs of every message block (L tensors (C, K, n_pad,
+    .) each, layer 1's phi included), all padded and in the band's sorted
+    row order where there is a band: the caches of ``core/incremental.py``."""
     rbf, envm, nbr, unit, n_pad = msg_geom
     C, N = numbers.shape
     K = params["atom_embed"].shape[0]
@@ -140,22 +176,37 @@ def _painn_features_rigid(params: dict, rw: dict, cfg: PaiNNConfig,
     species = species_rows(rw, cfg, numbers, n_pad)
     alive_f = tnf.pad(alive.to(torch.float32), (0, pad_n))           # (C, n_pad)
     s = params["atom_embed"][:, z].transpose(0, 1)                   # (C, K, N, F)
-    s = tnf.pad(s * alive_f[:, None, :N, None], (0, 0, 0, pad_n)).contiguous()
+    s = tnf.pad(s * alive_f[:, None, :N, None], (0, 0, 0, pad_n))
+    if band is not None:
+        species, alive_f, s = species[:, band.perm], alive_f[:, band.perm], s[:, :, band.perm]
+    s = s.contiguous()
     vcat = torch.zeros((C, K, n_pad, 3 * F), dtype=s.dtype, device=s.device)
 
+    layers = ([], [], [])
     for li, (mp, up) in enumerate(zip(params["message"], params["update"])):
-        if li == 0:
+        # layer 1 reads phi from the species table; only the caches need it
+        phi = filter_features(mp, s) if li > 0 or collect_layers else None
+        if collect_layers:
+            for store, x in zip(layers, (s, phi, vcat)):
+                store.append(x)
+        if li == 0 and band is None:
             ds, dv = painn_message_l1(species, rw["philt"], rbf, envm, nbr, unit,
                                       rw["dw2"], rw["db2"])
-        else:
-            phi = _dense(mp["inv_dense1"], tnf.silu(_dense(mp["inv_dense0"], s)))
+        elif li == 0:
+            ds, dv = painn_message_l1_banded(with_halo(species, band.halo, 1), rw["philt"],
+                                             rbf, envm, nbr, unit, rw["dw2"], rw["db2"], band)
+        elif band is None:
             ds, dv = painn_message_fused(phi.contiguous(), vcat, rbf, envm, nbr, unit,
                                          rw["dw"][li], rw["db"][li])
-        s = s + ds
-        vcat = vcat + dv
-        s, vcat = painn_update_fused(
-            s, vcat, up["u_mat"]["w"], up["v_mat"]["w"], up["s_dense0"]["w"],
-            up["s_dense0"]["b"], up["s_dense1"]["w"], up["s_dense1"]["b"], alive_f)
+        else:
+            ds, dv = painn_message_fused_banded(
+                with_halo(phi, band.halo, 2), with_halo(vcat, band.halo, 2),
+                rbf, envm, nbr, unit, rw["dw"][li], rw["db"][li], band)
+        s, vcat = painn_update_fused(s + ds, vcat + dv, *update_weights(up), alive_f)
+    if collect_layers:
+        return s, layers
+    if band is not None:
+        s = s[:, :, band.inv_perm]
     return s[:, :, :N]
 
 
@@ -183,14 +234,6 @@ def prepare_message_geometry(cfg: PaiNNConfig, edges: Edges):
             unit_p.contiguous(), n_pad, edges.rev)
 
 
-def _painn_update(up: dict, s: torch.Tensor, vcat: torch.Tensor,
-                  alive_f: torch.Tensor):
-    """Update block of the differentiated path, plain PyTorch."""
-    return painn_update_fused_plain(
-        s, vcat, up["u_mat"]["w"], up["v_mat"]["w"], up["s_dense0"]["w"],
-        up["s_dense0"]["b"], up["s_dense1"]["w"], up["s_dense1"]["b"], alive_f)
-
-
 def painn_features(params: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
                    alive: torch.Tensor, msg_geom) -> torch.Tensor:
     """General trunk over padded rows, differentiable in the edge
@@ -201,7 +244,6 @@ def painn_features(params: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
     K = params["atom_embed"].shape[0]
     F = cfg.feat_dim
     pad_n = n_pad - N
-    r_pad = rbf.shape[-1]
 
     z = torch.clamp(numbers, 0, cfg.max_z - 1)
     alive_f = tnf.pad(alive.to(torch.float32), (0, pad_n))           # (C, n_pad)
@@ -210,12 +252,27 @@ def painn_features(params: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
     vcat = torch.zeros((C, K, n_pad, 3 * F), dtype=s.dtype, device=s.device)
 
     for mp, up in zip(params["message"], params["update"]):
-        phi = _dense(mp["inv_dense1"], tnf.silu(_dense(mp["inv_dense0"], s)))
-        dw = tnf.pad(mp["dist_embed"]["w"], (0, 0, 0, r_pad - cfg.n_rbf)).contiguous()
-        ds, dv = painn_message_fused(phi.contiguous(), vcat.contiguous(), rbf, envm, nbr,
-                                     unit, dw, mp["dist_embed"]["b"].contiguous(), rev)
-        s, vcat = _painn_update(up, s + ds, vcat + dv, alive_f)
+        dw, db = message_weights(mp, cfg, rbf.shape[-1])
+        ds, dv = painn_message_fused(filter_features(mp, s).contiguous(), vcat.contiguous(),
+                                     rbf, envm, nbr, unit, dw, db, rev)
+        s, vcat = painn_update_fused_plain(s + ds, vcat + dv, *update_weights(up), alive_f)
     return s[:, :, :N]
+
+
+def atom_energies(params: dict, s: torch.Tensor) -> torch.Tensor:
+    """Readout: raw per-atom energies (..., K, n) of features s
+    (..., K, n, F)."""
+    h = tnf.silu(_dense(params["readout"]["dense0"], s))
+    return _dense(params["readout"]["dense1"], h)[..., 0]
+
+
+def excluded_volume(cfg: PaiNNConfig, r: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Per-atom (sigma/d)^power summed over the selected directed edges,
+    (C, n) from r and mask (C, n, M); zero without ``excl_vol``."""
+    if not cfg.excl_vol:
+        return torch.zeros(r.shape[:-1], dtype=r.dtype, device=r.device)
+    r_pow = (cfg.sigma / torch.clamp(r, min=1e-3)) ** cfg.power
+    return torch.where(mask, r_pow, torch.zeros_like(r_pow)).sum(dim=-1)
 
 
 def _readout(params: dict, cfg: PaiNNConfig, s: torch.Tensor, alive: torch.Tensor,
@@ -226,14 +283,10 @@ def _readout(params: dict, cfg: PaiNNConfig, s: torch.Tensor, alive: torch.Tenso
     in place of the sum: a truncated graph makes the network emit
     arbitrary values, and an override (not a penalty) lets the
     Metropolis/OOB machinery reject the state whatever they are."""
-    h = tnf.silu(_dense(params["readout"]["dense0"], s))
-    e_atom = _dense(params["readout"]["dense1"], h)[..., 0]          # (C, K, N)
+    e_atom = atom_energies(params, s)                                # (C, K, N)
     e_atom = torch.where(alive[:, None, :], e_atom, torch.zeros_like(e_atom))
     if cfg.excl_vol:
-        # pairwise (sigma/d)^power over directed selected pairs
-        r_pow = (cfg.sigma / torch.clamp(r, min=1e-3)) ** cfg.power
-        e_excl = torch.where(nbr_mask, r_pow, torch.zeros_like(r_pow)).sum(dim=-1)
-        e_atom = e_atom + e_excl[:, None, :]
+        e_atom = e_atom + excluded_volume(cfg, r, nbr_mask)[:, None, :]
     e_tot = torch.where(overflow[:, None], torch.full_like(e_atom[..., 0], 1e6),
                         e_atom.sum(dim=-1))
     return {"energy": e_tot, "per_atom_energy": e_atom}
@@ -241,11 +294,12 @@ def _readout(params: dict, cfg: PaiNNConfig, s: torch.Tensor, alive: torch.Tenso
 
 def painn_apply_rigid(params: dict, rw: dict, cfg: PaiNNConfig,
                       numbers: torch.Tensor, alive: torch.Tensor,
-                      msg_geom, edges) -> dict:
+                      msg_geom, edges, band=None) -> dict:
     """Full rigid forward of every member (training units): ``energy``
     (C, K) per member and ``per_atom_energy`` (C, K, N). ``edges`` is
-    (r, mask, overflow) from ``ops.static_edges.static_edge_geometry``."""
-    s = _painn_features_rigid(params, rw, cfg, numbers, alive, msg_geom)
+    (r, mask, overflow) from ``ops.static_edges.static_edge_geometry``;
+    ``band`` the pack's ``DeviceBand``, if it has one."""
+    s = painn_features_rigid(params, rw, cfg, numbers, alive, msg_geom, band)
     return _readout(params, cfg, s, alive, *edges)
 
 

@@ -15,6 +15,15 @@ Each block replaces a Pallas TPU kernel of
                          ``_msg_bwd_kernel``); ``painn_message_fused`` is a
                          ``torch.autograd.Function`` whose backward
                          launches it
+    painn_message_l1_banded     the layer-1 message of a supercell, neighbour
+                                rows read through the routing band's window
+                                (replaces ``painn_message_l1_banded``)
+    painn_message_fused_banded  the general message of a supercell, forward
+                                only (replaces ``_message_pallas_banded``)
+    painn_message_subset        the banded general message over selected
+                                blocks of centres, per chain: the delta
+                                engine's hot op (replaces
+                                ``painn_message_subset``)
 
 Every function is batched over chains C and ensemble members K in one
 call: edge geometry is indexed by chain (rbf (C, E, R), envm and nbr
@@ -23,11 +32,17 @@ features by both ((C, K, n_pad, .)). Vector features and the dv outputs
 are x-major rows of width 3F, [x | y | z], the JAX kernels' ``vcat``
 layout (their dv (3, n_pad, F) concatenated along features).
 
+The banded blocks take the tables of a supercell in the routing band's
+sorted order (``ops/banding.py``): features extended by the band's halo
+((C, K, n_pad + halo, .)), neighbour indices as sorted ranks, and the band
+(a ``DeviceBand``) for the window starts and width.
+
 A wrapper takes the plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device; there is no fallback between the two.
-The kernels are built from ``csrc/<name>.cu`` at first use, one ``nvcc``
-per source run in parallel, into ``_build/`` (listed in .gitignore), and
-bound with ctypes through a plain C interface.
+The kernels are built from ``csrc/<name>.cu`` (and the ``csrc/*.cuh``
+headers they share) at first use, one ``nvcc`` per source run in
+parallel, into ``_build/`` (listed in .gitignore), and bound with ctypes
+through a plain C interface.
 """
 
 from __future__ import annotations
@@ -47,7 +62,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("painn_message_l1", "painn_message_fused", "painn_update_fused",
-           "painn_message_bwd")
+           "painn_message_bwd", "painn_message_l1_banded", "painn_message_fused_banded",
+           "painn_message_subset")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -58,6 +74,9 @@ _ARITY = {
     "painn_message_fused": (10, 6),
     "painn_update_fused": (11, 4),
     "painn_message_bwd": (17, 8),
+    "painn_message_l1_banded": (11, 10),
+    "painn_message_fused_banded": (11, 9),
+    "painn_message_subset": (11, 10),
 }
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -74,10 +93,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    """Build output of one source, named by a hash of the source and the
-    flags so that an edited source is never served a stale library."""
+    """Build output of one source, named by a hash of the source, the shared
+    headers and the flags so that an edited source is never served a stale
+    library."""
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (CSRC / f"{name}.cu").read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
@@ -163,22 +184,26 @@ def _check_grid(name: str, C: int, K: int, R: int | None = None) -> None:
 # ----------------------------------------------------------------------
 # Layer-1 message
 # ----------------------------------------------------------------------
-def painn_message_l1_plain(species, philt, rbf, envm, nbr, unit, dw2, db2):
-    """Plain PyTorch version of :func:`painn_message_l1`."""
+def _message_l1_of_species(sp_j, philt, rbf, envm, unit, dw2, db2):
+    """Layer-1 message from each edge's neighbour species sp_j (C, E)."""
     C, E, _ = rbf.shape
     K, _, F2 = philt.shape
     F = F2 // 2
-    n_pad = species.shape[1]
-    M = E // n_pad
+    n_pad, M = unit.shape[2], unit.shape[3]
     w = (torch.matmul(rbf[:, None], dw2) + db2[None, :, None, :]) * envm[:, None, :, None]
-    sp_j = torch.gather(species, 1, nbr.long()).long()              # (C, E)
-    phij = philt[:, sp_j].transpose(0, 1)                           # (C, K, E, 2F)
+    phij = philt[:, sp_j.long()].transpose(0, 1)                    # (C, K, E, 2F)
     inv = phij * w
     c_s = inv[..., :F].reshape(C, K, n_pad, M, F)
     c_u = inv[..., F:].reshape(C, K, n_pad, M, F)
     ds = c_s.sum(dim=3)
     dv = torch.einsum("ckimf,cxim->ckixf", c_u, unit).reshape(C, K, n_pad, 3 * F)
     return ds, dv
+
+
+def painn_message_l1_plain(species, philt, rbf, envm, nbr, unit, dw2, db2):
+    """Plain PyTorch version of :func:`painn_message_l1`."""
+    sp_j = torch.gather(species, 1, nbr.long())                     # (C, E)
+    return _message_l1_of_species(sp_j, philt, rbf, envm, unit, dw2, db2)
 
 
 def painn_message_l1(species, philt, rbf, envm, nbr, unit, dw2, db2):
@@ -233,16 +258,13 @@ painn_message_l1.launches = 0
 # ----------------------------------------------------------------------
 # General message (layers 2+)
 # ----------------------------------------------------------------------
-def painn_message_fused_plain(phi, vcat, rbf, envm, nbr, unit, dw, db):
-    """Plain PyTorch version of :func:`painn_message_fused`."""
-    C, K, n_pad, F3 = phi.shape
+def _message_of_rows(phij, vj, rbf, envm, unit, dw, db):
+    """General message from each edge's neighbour rows phij, vj
+    (C, K, E, 3F)."""
+    C, K, E, F3 = phij.shape
     F = F3 // 3
-    E = rbf.shape[1]
-    M = E // n_pad
+    n_pad, M = unit.shape[2], unit.shape[3]
     w = (torch.matmul(rbf[:, None], dw) + db[None, :, None, :]) * envm[:, None, :, None]
-    idx = nbr.long()[:, None, :, None].expand(C, K, E, F3)
-    phij = torch.gather(phi, 2, idx)                                # (C, K, E, 3F)
-    vj = torch.gather(vcat, 2, idx)
     inv = phij * w
     c_vv = inv[..., :F].reshape(C, K, n_pad, M, F)
     c_s = inv[..., F:2 * F].reshape(C, K, n_pad, M, F)
@@ -254,6 +276,14 @@ def painn_message_fused_plain(phi, vcat, rbf, envm, nbr, unit, dw, db):
         for x in range(3)
     ]
     return ds, torch.cat(dv, dim=-1)
+
+
+def painn_message_fused_plain(phi, vcat, rbf, envm, nbr, unit, dw, db):
+    """Plain PyTorch version of :func:`painn_message_fused`."""
+    C, K, _, F3 = phi.shape
+    idx = nbr.long()[:, None, :, None].expand(C, K, nbr.shape[1], F3)
+    return _message_of_rows(torch.gather(phi, 2, idx), torch.gather(vcat, 2, idx),
+                            rbf, envm, unit, dw, db)
 
 
 def painn_message_fused(phi, vcat, rbf, envm, nbr, unit, dw, db, rev=None):
@@ -441,6 +471,230 @@ painn_message_bwd.dw_launches = 0   # launches that also computed g_dw / g_db
 
 
 # ----------------------------------------------------------------------
+# Banded messages (supercells): rows in the routing band's sorted order
+# ----------------------------------------------------------------------
+def _window_rows(nbr, ws_edge, band):
+    """Row of the halo-extended table holding each edge's neighbour (sorted
+    rank ``nbr``) for window starts ``ws_edge`` (per edge), and whether it
+    lies in the window. Outside the window the TPU kernels' one-hot router
+    matches nothing, so such an edge reads zeros; the band guarantees that
+    no selected edge (envm != 0) is outside, which is asserted here."""
+    off = torch.remainder(nbr.long() - ws_edge, band.n_pad)
+    inwin = off < band.window
+    return torch.where(inwin, ws_edge + off, 0), inwin
+
+
+def _assert_in_window(envm, inwin):
+    if bool(((envm != 0) & ~inwin).any()):
+        raise AssertionError("a selected edge lies outside its routing window: "
+                             "the band does not cover this geometry")
+
+
+def _edge_starts(ws_rows, M):
+    """Window start of every edge from the start of each centre row."""
+    return ws_rows.long().repeat_interleave(M, dim=-1)
+
+
+def _gather_window_rows(table, row, inwin):
+    """(C, K, E, W) neighbour rows of a (C, K, n_ext, W) table, zero
+    outside the window."""
+    C, K, _, W = table.shape
+    idx = row[:, None, :, None].expand(C, K, row.shape[1], W)
+    return torch.gather(table, 2, idx) * inwin[:, None, :, None]
+
+
+def painn_message_l1_banded_plain(species_ext, philt, rbf, envm, nbr, unit, dw2, db2, band):
+    """Plain PyTorch version of :func:`painn_message_l1_banded`."""
+    n_pad, M = unit.shape[2], unit.shape[3]
+    ws_rows = band.win_start[torch.arange(n_pad, device=rbf.device) // band.n_blk]
+    row, inwin = _window_rows(nbr, _edge_starts(ws_rows, M)[None], band)
+    _assert_in_window(envm, inwin)
+    sp_j = torch.where(inwin, torch.gather(species_ext, 1, row), philt.shape[1] - 1)
+    return _message_l1_of_species(sp_j, philt, rbf, envm, unit, dw2, db2)
+
+
+def painn_message_l1_banded(species_ext, philt, rbf, envm, nbr, unit, dw2, db2, band):
+    """Layer-1 PaiNN message of a supercell (:func:`painn_message_l1`'s
+    math) with the neighbour's species read through the routing band's
+    window: for sorted centre i, s = band.win_start[i // band.n_blk] and the
+    neighbour of rank r is row s + ((r - s) mod n_pad) of the extended
+    species table.
+
+    Args:
+        species_ext: (C, n_pad + halo) int32 row of ``philt`` per sorted
+            slot, the halo appended (T = dead/pad).
+        philt, dw2, db2: as in :func:`painn_message_l1`.
+        rbf (C, E, R), envm (C, E), unit (C, 3, n_pad, M): sorted-order
+            geometry; nbr (C, E) int32 sorted ranks.
+        band: the ``ops.banding.DeviceBand`` the tables were built for.
+    Returns:
+        ds (C, K, n_pad, F), dv (C, K, n_pad, 3F), in sorted order.
+    """
+    C, E, R = rbf.shape
+    K, T1, F2 = philt.shape
+    F = F2 // 2
+    n_pad, M = unit.shape[2], unit.shape[3]
+    n_ext = n_pad + band.halo
+    f32, i32 = torch.float32, torch.int32
+    dev = rbf.device
+    _check("painn_message_l1_banded", dev,
+           species_ext=(species_ext, i32, (C, n_ext)), philt=(philt, f32, (K, T1, F2)),
+           rbf=(rbf, f32, (C, n_pad * M, R)), envm=(envm, f32, (C, E)),
+           nbr=(nbr, i32, (C, E)), unit=(unit, f32, (C, 3, n_pad, M)),
+           dw2=(dw2, f32, (K, R, F2)), db2=(db2, f32, (K, F2)),
+           win_start=(band.win_start, i32, (n_pad // band.n_blk,)))
+    if dev.type == "cpu":
+        return painn_message_l1_banded_plain(species_ext, philt, rbf, envm, nbr, unit, dw2,
+                                             db2, band)
+    _check_grid("painn_message_l1_banded", C, K, R)
+    ds = torch.empty((C, K, n_pad, F), dtype=f32, device=dev)
+    dv = torch.empty((C, K, n_pad, 3 * F), dtype=f32, device=dev)
+    _launch("painn_message_l1_banded",
+            (species_ext, philt, rbf, envm, nbr, unit, dw2, db2, band.win_start, ds, dv),
+            (C, K, n_pad, n_ext, M, R, F, T1, band.n_blk, band.window))
+    painn_message_l1_banded.launches += 1
+    return ds, dv
+
+
+painn_message_l1_banded.launches = 0
+
+
+def _forward_only(name, *tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} is forward only: its backward is the banded message backward "
+            "(_message_bwd_pallas_banded, row 9 of the kernel table in PERF.md), "
+            "which is not ported yet")
+
+
+def _banded_message_plain(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, ws_edge, band):
+    row, inwin = _window_rows(nbr, ws_edge, band)
+    _assert_in_window(envm, inwin)
+    return _message_of_rows(_gather_window_rows(phi_ext, row, inwin),
+                            _gather_window_rows(vcat_ext, row, inwin),
+                            rbf, envm, unit, dw, db)
+
+
+def _check_banded(name, phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, ws, ws_shape, band,
+                  n_rows):
+    """Every input of a banded general message over n_rows centre rows on
+    phi_ext's device, of its dtype and shape, and contiguous."""
+    C, K, n_ext, F3 = phi_ext.shape
+    R, M = rbf.shape[2], unit.shape[3]
+    f32, i32 = torch.float32, torch.int32
+    _check(name, phi_ext.device,
+           phi_ext=(phi_ext, f32, (C, K, band.n_pad + band.halo, F3)),
+           vcat_ext=(vcat_ext, f32, (C, K, n_ext, F3)),
+           rbf=(rbf, f32, (C, n_rows * M, R)), envm=(envm, f32, (C, n_rows * M)),
+           nbr=(nbr, i32, (C, n_rows * M)), unit=(unit, f32, (C, 3, n_rows, M)),
+           dw=(dw, f32, (K, R, F3)), db=(db, f32, (K, F3)), ws=(ws, i32, ws_shape))
+
+
+def _launch_banded(name, phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, ws, n_rows, ints):
+    """Allocate the outputs of a banded general message over n_rows centre
+    rows and launch ``name`` (its C entry's int arguments are ``ints``)."""
+    C, K, _, F3 = phi_ext.shape
+    _check_grid(name, C, K, rbf.shape[2])
+    ds = torch.empty((C, K, n_rows, F3 // 3), dtype=torch.float32, device=phi_ext.device)
+    dv = torch.empty((C, K, n_rows, F3), dtype=torch.float32, device=phi_ext.device)
+    _launch(name, (phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, ws, ds, dv), ints)
+    return ds, dv
+
+
+def painn_message_fused_banded_plain(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, band):
+    """Plain PyTorch version of :func:`painn_message_fused_banded`."""
+    n_pad, M = unit.shape[2], unit.shape[3]
+    ws_rows = band.win_start[torch.arange(n_pad, device=rbf.device) // band.n_blk]
+    return _banded_message_plain(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db,
+                                 _edge_starts(ws_rows, M)[None], band)
+
+
+def painn_message_fused_banded(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, band):
+    """General PaiNN message of a supercell (:func:`painn_message_fused`'s
+    math), neighbour rows read through the routing band's window, forward
+    only.
+
+    Args:
+        phi_ext, vcat_ext: (C, K, n_pad + halo, 3F) f32 features in sorted
+            order with the band's halo appended.
+        rbf (C, E, R), envm (C, E), unit (C, 3, n_pad, M): sorted-order
+            geometry; nbr (C, E) int32 sorted ranks.
+        dw, db: (K, R, 3F), (K, 3F) dist_embed weights.
+        band: the ``ops.banding.DeviceBand``.
+    Returns:
+        ds (C, K, n_pad, F), dv (C, K, n_pad, 3F), in sorted order.
+    Raises NotImplementedError on inputs that require grad (the banded
+    backward is not ported).
+    """
+    name = "painn_message_fused_banded"
+    _forward_only(name, phi_ext, vcat_ext, rbf, envm, unit, dw, db)
+    C, K, n_ext, F3 = phi_ext.shape
+    n_pad, M, R = unit.shape[2], unit.shape[3], rbf.shape[2]
+    _check_banded(name, phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, band.win_start,
+                  (n_pad // band.n_blk,), band, n_pad)
+    if phi_ext.device.type == "cpu":
+        return painn_message_fused_banded_plain(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw,
+                                                db, band)
+    out = _launch_banded(name, phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db,
+                         band.win_start, n_pad,
+                         (C, K, n_pad, n_ext, M, R, F3 // 3, band.n_blk, band.window))
+    painn_message_fused_banded.launches += 1
+    return out
+
+
+painn_message_fused_banded.launches = 0
+
+
+def painn_message_subset_plain(phi_ext, vcat_ext, rbf_sel, envm_sel, nbr_sel, unit_sel, dw,
+                               db, ws_sel, band):
+    """Plain PyTorch version of :func:`painn_message_subset`."""
+    M = unit_sel.shape[3]
+    return _banded_message_plain(phi_ext, vcat_ext, rbf_sel, envm_sel, nbr_sel, unit_sel, dw,
+                                 db, _edge_starts(ws_sel, band.n_blk * M), band)
+
+
+def painn_message_subset(phi_ext, vcat_ext, rbf_sel, envm_sel, nbr_sel, unit_sel, dw, db,
+                         ws_sel, band):
+    """The banded general message over NB selected blocks of n_blk sorted
+    centres per chain (a move's hop ball), forward only: the delta
+    engine's hot op.
+
+    Args:
+        phi_ext, vcat_ext: (C, K, n_pad + halo, 3F) full sorted tables with
+            the halo appended.
+        rbf_sel (C, NB*n_blk*M, R), envm_sel and nbr_sel (C, NB*n_blk*M),
+            unit_sel (C, 3, NB*n_blk, M): the selected blocks' geometry,
+            gathered in compact block order (nbr_sel: sorted ranks).
+        dw, db: (K, R, 3F), (K, 3F).
+        ws_sel: (C, NB) int32 window start of each chain's selected block
+            (``band.win_start[blocks]``).
+        band: the ``ops.banding.DeviceBand``.
+    Returns:
+        compact ds (C, K, NB*n_blk, F), dv (C, K, NB*n_blk, 3F).
+    """
+    name = "painn_message_subset"
+    _forward_only(name, phi_ext, vcat_ext, rbf_sel, envm_sel, unit_sel, dw, db)
+    C, K, n_ext, F3 = phi_ext.shape
+    n_rows, M, R = unit_sel.shape[2], unit_sel.shape[3], rbf_sel.shape[2]
+    if n_rows % band.n_blk:
+        raise ValueError(f"{name}: {n_rows} compact rows are not whole blocks of {band.n_blk}")
+    _check_banded(name, phi_ext, vcat_ext, rbf_sel, envm_sel, nbr_sel, unit_sel, dw, db,
+                  ws_sel, (C, n_rows // band.n_blk), band, n_rows)
+    if phi_ext.device.type == "cpu":
+        return painn_message_subset_plain(phi_ext, vcat_ext, rbf_sel, envm_sel, nbr_sel,
+                                          unit_sel, dw, db, ws_sel, band)
+    out = _launch_banded(name, phi_ext, vcat_ext, rbf_sel, envm_sel, nbr_sel, unit_sel, dw,
+                         db, ws_sel, n_rows,
+                         (C, K, n_rows, band.n_pad, n_ext, M, R, F3 // 3, band.n_blk,
+                          band.window))
+    painn_message_subset.launches += 1
+    return out
+
+
+painn_message_subset.launches = 0
+
+
+# ----------------------------------------------------------------------
 # Update block
 # ----------------------------------------------------------------------
 def painn_update_fused_plain(s, vcat, u, v, w0, b0, w1, b1, alive):
@@ -507,12 +761,16 @@ def painn_update_fused(s, vcat, u, v, w0, b0, w1, b1, alive):
 painn_update_fused.launches = 0
 
 
-WRAPPERS = (painn_message_l1, painn_message_fused, painn_update_fused, painn_message_bwd)
+WRAPPERS = (painn_message_l1, painn_message_fused, painn_update_fused, painn_message_bwd,
+            painn_message_l1_banded, painn_message_fused_banded, painn_message_subset)
 PLAIN = {
     painn_message_l1: painn_message_l1_plain,
     painn_message_fused: painn_message_fused_plain,
     painn_update_fused: painn_update_fused_plain,
     painn_message_bwd: painn_message_bwd_plain,
+    painn_message_l1_banded: painn_message_l1_banded_plain,
+    painn_message_fused_banded: painn_message_fused_banded_plain,
+    painn_message_subset: painn_message_subset_plain,
 }
 
 

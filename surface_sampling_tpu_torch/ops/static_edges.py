@@ -17,6 +17,12 @@ candidates' indices are scattered to their ranks, and the f32 payload
 (computed on the host in f64) is gathered by index. The selected edges,
 their order and ``overflow`` are the same; the values differ from the
 TPU payload only by its bf16 split rounding.
+
+With a routing band (supercells, ``ops/banding.py``) the rows are born in
+the band's sorted order and the neighbour column carries sorted ranks, as
+in the JAX package, so the banded kernels take the geometry without a
+per-evaluation permutation; only the excluded-volume edges are returned
+in natural slot order.
 """
 
 from __future__ import annotations
@@ -27,17 +33,21 @@ import numpy as np
 import torch
 
 from surface_sampling_tpu_torch.models.painn import _cosine_envelope, _rbf
+from surface_sampling_tpu_torch.ops.banding import DeviceBand, RoutingBand, stage_band
 from surface_sampling_tpu_torch.ops.neighbors import padded_rows
 
 
 class StaticEdgePack(NamedTuple):
-    """Static edge tables on the device, rows in natural slot order padded
-    to ``n_pad``. Payload columns: [rbf (r_pad) | env | r | unit_x,y,z];
-    candidate column Mc of ``pay`` and ``nbr`` is an all-zero sentinel that
-    unselected output edges read."""
+    """Static edge tables on the device, rows padded to ``n_pad``, in the
+    band's sorted order when ``band`` is set, else in natural slot order.
+    Payload columns: [rbf (r_pad) | env | r | unit_x,y,z]; candidate column
+    Mc of ``pay`` and ``nbr`` is an all-zero sentinel that unselected
+    output edges read."""
 
     pay: torch.Tensor        # (n_pad, Mc + 1, r_pad + 5) f32
-    nbr: torch.Tensor        # (n_pad, Mc + 1) int32 neighbor slot ids
+    nbr: torch.Tensor        # (n_pad, Mc + 1) int32 kernel neighbor index:
+                             # sorted rank (band) or slot id (no band)
+    slot_j: torch.Tensor     # (n_pad, Mc) int64 neighbor slot ids (alive lookup)
     inr: torch.Tensor        # (n_pad, Mc) bool static in-range mask
     row_slot: torch.Tensor   # (n_pad,) int64 slot of each row (pads: N)
     n_pad: int
@@ -45,6 +55,7 @@ class StaticEdgePack(NamedTuple):
     M: int
     r_pad: int
     cutoff: float
+    band: DeviceBand | None = None
 
 
 def code_independent_geometry(spec) -> bool:
@@ -63,13 +74,15 @@ def static_positions(spec) -> np.ndarray:
     return np.concatenate([pristine, ads.reshape(-1, 3)])
 
 
-def build_static_edge_pack(spec, static_nbr, cfg, device) -> StaticEdgePack | None:
+def build_static_edge_pack(spec, static_nbr, cfg, device,
+                           band: RoutingBand | None = None) -> StaticEdgePack | None:
     """Precompute the static edge payload of a rigid PaiNN system on the
     host in f64 and stage it on ``device`` as f32.
 
     Returns None when the geometry is code-dependent (mixed-offset
     adsorbate groups). ``cfg`` is a PaiNNConfig (cutoff, n_rbf,
-    max_neighbors).
+    max_neighbors); ``band`` a host RoutingBand over the same slots, which
+    puts the rows in sorted order and the neighbor ranks in ``nbr``.
     """
     if not code_independent_geometry(spec):
         return None
@@ -83,6 +96,8 @@ def build_static_edge_pack(spec, static_nbr, cfg, device) -> StaticEdgePack | No
     n_rbf = int(cfg.n_rbf)
     r_pad = ((n_rbf + 7) // 8) * 8
     n_pad = padded_rows(N)
+    if band is not None and len(band.perm) != n_pad:
+        raise ValueError(f"the routing band covers {len(band.perm)} rows, the pack {n_pad}")
 
     disp = pos[:, None, :] - (pos[torch.as_tensor(slot_j)] + shift)  # (N, Mc, 3)
     r = torch.sqrt(torch.clamp((disp**2).sum(-1), min=1e-24))
@@ -97,17 +112,25 @@ def build_static_edge_pack(spec, static_nbr, cfg, device) -> StaticEdgePack | No
     pay[:N, :Mc][~inr] = 0.0                                         # never selectable
 
     nbr = np.zeros((n_pad, Mc + 1), np.int32)
-    nbr[:N, :Mc] = slot_j
+    nbr[:N, :Mc] = slot_j if band is None else np.asarray(band.rank)[slot_j]
+    slot_p = np.zeros((n_pad, Mc), np.int64)
+    slot_p[:N] = slot_j
     inr_p = np.zeros((n_pad, Mc), bool)
     inr_p[:N] = inr.numpy()
     row_slot = np.concatenate([np.arange(N), np.full(n_pad - N, N)])
+    if band is not None:                                             # rows born sorted
+        take = np.asarray(band.perm)
+        pay, nbr, slot_p = pay[torch.as_tensor(take, dtype=torch.int64)], nbr[take], slot_p[take]
+        inr_p, row_slot = inr_p[take], row_slot[take]
 
     return StaticEdgePack(
         pay=pay.to(device=device, dtype=torch.float32),
         nbr=torch.as_tensor(nbr, device=device),
+        slot_j=torch.as_tensor(slot_p, device=device),
         inr=torch.as_tensor(inr_p, device=device),
         row_slot=torch.as_tensor(row_slot, dtype=torch.int64, device=device),
         n_pad=n_pad, N=N, M=M, r_pad=r_pad, cutoff=cutoff,
+        band=stage_band(band, device),
     )
 
 
@@ -118,7 +141,8 @@ def static_edge_geometry(pack: StaticEdgePack, alive: torch.Tensor):
         msg_geom = (rbf (C, E, r_pad), envm (C, E), nbr (C, E) int32,
                     unit (C, 3, n_pad, M), n_pad) with E = n_pad * M, the
                     inputs of the message kernels (envm = envelope on
-                    selected edges, 0 elsewhere);
+                    selected edges, 0 elsewhere), rows in the pack's order
+                    (sorted under a band, nbr then holding ranks);
         edges    = (r (C, N, M), mask (C, N, M), overflow (C,)) in natural
                     slot order for the excluded-volume term (r = cutoff on
                     unselected edges).
@@ -129,7 +153,7 @@ def static_edge_geometry(pack: StaticEdgePack, alive: torch.Tensor):
 
     a = torch.nn.functional.pad(alive, (0, 1))                       # column N = pad, dead
     ai = a[:, pack.row_slot]                                         # (C, n_pad)
-    aj = a[:, pack.nbr[:, :Mc]]                                      # (C, n_pad, Mc)
+    aj = a[:, pack.slot_j]                                           # (C, n_pad, Mc)
     mask = pack.inr & ai[..., None] & aj
     rank = torch.cumsum(mask, dim=-1, dtype=torch.int64) - 1         # inclusive
     overflow = (rank[..., -1] + 1 > M).any(dim=-1)                   # (C,)
@@ -153,5 +177,7 @@ def static_edge_geometry(pack: StaticEdgePack, alive: torch.Tensor):
     nbr = pack.nbr[rows, idx].reshape(C, n_pad * M)
 
     msg_geom = (rbf, envm, nbr, unit, n_pad)
+    if pack.band is not None:                                        # back to slot order
+        r_s, flag = r_s[:, pack.band.inv_perm], flag[:, pack.band.inv_perm]
     edges = (r_s[:, :N], flag[:, :N], overflow)
     return msg_geom, edges

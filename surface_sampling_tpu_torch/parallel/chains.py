@@ -16,9 +16,9 @@ import torch
 from surface_sampling_tpu_torch.core.state import DeviceSpec, MCState, initial_state
 
 
-def chain_states(d: DeviceSpec, n_chains: int, site_state=None) -> MCState:
-    """Batch of fresh chain states: all sites empty, or ``site_state`` —
-    one (S,) occupancy broadcast to every chain, or (n_chains, S)."""
+def _chain_site_states(d: DeviceSpec, n_chains: int, site_state=None) -> torch.Tensor:
+    """(n_chains, S) occupancies: all sites empty, or ``site_state`` — one
+    (S,) occupancy broadcast to every chain, or (n_chains, S)."""
     S = d.site_coords.shape[0]
     if site_state is None:
         site_state = torch.zeros((n_chains, S), dtype=torch.int64, device=d.device)
@@ -28,7 +28,20 @@ def chain_states(d: DeviceSpec, n_chains: int, site_state=None) -> MCState:
     if tuple(site_state.shape) != (n_chains, S):
         raise ValueError(f"site_state has shape {tuple(site_state.shape)}, "
                          f"expected ({n_chains}, {S})")
-    return initial_state(d, site_state.clone())
+    return site_state.clone()
+
+
+def chain_states(d: DeviceSpec, n_chains: int, site_state=None) -> MCState:
+    """Batch of fresh chain states: all sites empty, or ``site_state`` —
+    one (S,) occupancy broadcast to every chain, or (n_chains, S)."""
+    return initial_state(d, _chain_site_states(d, n_chains, site_state))
+
+
+def incremental_chain_states(engine, d: DeviceSpec, n_chains: int, site_state=None):
+    """Batch of chain states of a ``core.incremental`` engine (caches and
+    energies from one full evaluation), with the occupancies of
+    :func:`chain_states`."""
+    return engine.init_state(_chain_site_states(d, n_chains, site_state))
 
 
 def make_chain_run(run_fn: Callable, share_temps: bool = True) -> Callable:

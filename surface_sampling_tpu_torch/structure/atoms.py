@@ -1,7 +1,8 @@
 """Minimal periodic structure container (host side, numpy).
 
 The part of ``surface_sampling_tpu/structure/atoms.py`` that building the
-flagship spec uses: construction, layer tagging and the formula.
+flagship spec and its supercells uses: construction, tiling, sorting by
+height, layer tagging and the formula.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from surface_sampling_tpu_torch.constants import formula_from_numbers
+from surface_sampling_tpu_torch.constants import Z_FROM_SYMBOL, formula_from_numbers
 
 
 @dataclass
@@ -33,8 +34,25 @@ class Structure:
         self.positions = np.asarray(self.positions, dtype=np.float64).reshape(-1, 3)
         self.cell = np.asarray(self.cell, dtype=np.float64).reshape(3, 3)
 
+    @classmethod
+    def from_symbols(cls, symbols, positions, cell) -> "Structure":
+        return cls([Z_FROM_SYMBOL[s] for s in symbols], positions, cell)
+
     def __len__(self) -> int:
         return len(self.numbers)
+
+    def repeat(self, reps) -> "Structure":
+        """Tile the structure (nx, ny, nz) times; images are ordered with
+        the x index slowest."""
+        reps = np.asarray(reps, dtype=int)
+        shifts = np.array([[i, j, k] for i in range(reps[0]) for j in range(reps[1])
+                           for k in range(reps[2])], dtype=np.float64)
+        pos = (self.positions[None, :, :] + (shifts @ self.cell)[:, None, :]).reshape(-1, 3)
+        return Structure(np.tile(self.numbers, len(shifts)), pos, self.cell * reps[:, None])
+
+    def sorted_by_z(self) -> "Structure":
+        order = np.argsort(self.positions[:, 2], kind="stable")
+        return Structure(self.numbers[order], self.positions[order], self.cell.copy())
 
     @property
     def formula(self) -> str:

@@ -1,4 +1,5 @@
-"""Prebuilt example systems: the SrTiO3(001) PaiNN-ensemble flagship.
+"""Prebuilt example systems: the SrTiO3(001) PaiNN-ensemble flagship and
+its supercells.
 
 The counterpart of ``srtio3_001_painn`` in
 ``surface_sampling_tpu/systems.py``. The slab geometry, the offset table
@@ -21,10 +22,14 @@ from surface_sampling_tpu_torch.constants import Z_FROM_SYMBOL
 from surface_sampling_tpu_torch.core.energy import RelaxConfig, make_offset_surface_energy
 from surface_sampling_tpu_torch.core.engine import MCMCRun
 from surface_sampling_tpu_torch.core.spec import SurfaceSpec, make_spec
-from surface_sampling_tpu_torch.core.static_neighbors import build_static_neighbor_table
+from surface_sampling_tpu_torch.core.static_neighbors import (
+    StaticNeighborTable,
+    build_static_neighbor_table,
+)
 from surface_sampling_tpu_torch.device import resolve_device
 from surface_sampling_tpu_torch.models.nn_calculator import PaiNNPotential, make_painn_potential
 from surface_sampling_tpu_torch.models.weights import load_painn_ensemble
+from surface_sampling_tpu_torch.ops.banding import RoutingBand, build_routing_band_for_spec
 from surface_sampling_tpu_torch.structure import Structure, find_adsorption_sites
 
 _REFERENCE_PKG = Path(__file__).resolve().parent.parent / "surface_sampling_tpu"
@@ -33,9 +38,16 @@ MODEL_DATA = _REFERENCE_PKG / "models" / "data"
 
 
 class ExampleSystem(NamedTuple):
+    """A system ready to sample: its spec, potential and MC run, the
+    static candidate table the potential ranks edges over, and the host
+    routing band of a rigid supercell (None otherwise), which
+    ``core.incremental.make_incremental_painn_from_system`` needs besides."""
+
     spec: SurfaceSpec
     potential: PaiNNPotential
     run: MCMCRun
+    static_nbr: StaticNeighborTable
+    routing_band: RoutingBand | None = None
 
 
 def srtio3_001_painn(
@@ -58,21 +70,32 @@ def srtio3_001_painn(
     table then allows 0.6 A of relaxation slack and the potential carries
     no rigid hook, as in the JAX package).
 
+    ``supercell=(a, b)`` tiles the slab a x b times laterally and sorts it
+    by z, as the JAX package does; where the cell is large enough for a
+    routing band (2x2 and up: 496 slots and more) the rigid hook runs the
+    banded trunk and the system carries the band for the delta engine
+    (``core/incremental.py``).
+
     Arguments and defaults are those of the JAX package's function.
-    ``supercell`` other than (1, 1) and relax methods other than FIRE are
-    not ported yet and raise. ``pallas_routing`` selects a TPU routing precision and
+    Relaxed supercells and relax methods other than FIRE are not ported
+    yet and raise. ``pallas_routing`` selects a TPU routing precision and
     is ignored: the port computes in float32. ``dtype`` must be None or
     ``torch.float32``. ``device`` defaults to "cuda" and raises without a
     card; pass "cpu" for the plain PyTorch path.
     """
-    if tuple(supercell) != (1, 1):
-        raise NotImplementedError("supercells are not ported yet: pass supercell=(1, 1)")
+    if tuple(supercell) != (1, 1) and relax is not None:
+        raise NotImplementedError(
+            "relaxed supercells wait for the banded message backward "
+            "(_message_bwd_pallas_banded, row 9 of the kernel table in PERF.md), "
+            "which is not ported yet: pass relax=None or supercell=(1, 1)")
     if dtype not in (None, torch.float32):
         raise NotImplementedError("the port computes in float32 only")
     dev = resolve_device(device)
 
     data = np.load(SYSTEMS_DATA / "SrTiO3_001_2x2.npz")
     slab = Structure(data["numbers"], data["positions"], data["cell"])
+    if tuple(supercell) != (1, 1):
+        slab = slab.repeat((supercell[0], supercell[1], 1)).sorted_by_z()
     sites = find_adsorption_sites(
         slab, planar_distance=planar_distance, near_reduce=0.01, no_obtuse_hollow=True
     )["all"]
@@ -95,11 +118,14 @@ def srtio3_001_painn(
     )
     slack = 0.6 if relax is not None else 0.1
     static_nbr = build_static_neighbor_table(spec, cfg.cutoff, relax_slack=slack)
+    # the 1x1 cell is laterally fully connected at this cutoff: no band
+    band = build_routing_band_for_spec(spec, static_nbr) if relax is None else None
     pot = make_painn_potential(
         params, cfg, type_numbers, units="kcal/mol", stoidict=offset_data["stoidict"],
         static_nbr=static_nbr, spec=None if relax is not None else spec, device=dev,
+        routing_band=band,
     )
     se_fn = make_offset_surface_energy(spec, chem_pots, offset_data,
                                        offset_units="atomic", device=dev)
     run = MCMCRun(spec, pot, surface_energy_fn=se_fn, device=dev, relax=relax)
-    return ExampleSystem(spec, pot, run)
+    return ExampleSystem(spec, pot, run, static_nbr, band)

@@ -197,3 +197,97 @@ def test_forces_on_card_match_cpu_without_g_dw(cuda_device):
     (e_gpu, f_gpu), (e_cpu, f_cpu) = out
     assert abs(float(e_gpu[0]) - float(e_cpu[0])) <= 1e-3
     assert float((f_gpu.cpu() - f_cpu).abs().max()) <= 1e-3
+
+
+def _line_band():
+    """A routing band over 42 slots on a 42 A periodic line (candidates:
+    the 12 nearest), n_pad 48 in blocks of 16, with a halo."""
+    import numpy as np
+
+    from surface_sampling_tpu_torch.ops.banding import build_routing_band
+
+    n = 42
+    x = np.arange(n, dtype=np.float64)
+    diff = (x[None, :] - x[:, None] + n / 2) % n - n / 2
+    slot_j = np.argsort(np.abs(diff) + np.eye(n) * 1e9, axis=1)[:, :12].astype(np.int32)
+    band = build_routing_band(np.stack([x, 0 * x, 0 * x], 1), slot_j,
+                              np.ones_like(slot_j, bool), 16, 48)
+    return band, slot_j
+
+
+def _banded_geometry(dev, band, slot_j, centre_slot, M, R, g):
+    """Edge geometry of the centres ``centre_slot`` (C, rows): neighbour
+    ranks among each centre's candidates, a third of the edges masked."""
+    C, rows = centre_slot.shape
+    cand = torch.as_tensor(slot_j, device=dev)[centre_slot.clamp(max=slot_j.shape[0] - 1)]
+    pick = torch.randint(0, cand.shape[-1], (C, rows, M), generator=g, device=dev)
+    rank = torch.as_tensor(band.rank, device=dev).long()
+    nbr = rank[torch.gather(cand.long(), 2, pick)].reshape(C, rows * M).to(torch.int32)
+    envm = torch.rand((C, rows * M), generator=g, device=dev)
+    envm = envm * (torch.rand((C, rows * M), generator=g, device=dev) > 0.33)
+    return (torch.randn((C, rows * M, R), generator=g, device=dev), envm, nbr.contiguous(),
+            torch.randn((C, 3, rows, M), generator=g, device=dev))
+
+
+@pytest.mark.parametrize("R", [8, 24])
+def test_banded_kernels_match_plain(cuda_device, R):
+    """Rows 6-8 (banded layer-1, banded general, subset) against their
+    plain versions on a real band with a halo; the subset over per-chain
+    blocks, one chain repeating a block; each kernel counts one launch."""
+    from surface_sampling_tpu_torch.ops.banding import stage_band
+
+    dev, C, K, F, M, T = cuda_device, 3, 2, 128, 16, 3
+    band, slot_j = _line_band()
+    dband = stage_band(band, dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
+    perm = dband.perm.expand(C, -1)
+    rbf, envm, nbr, unit = _banded_geometry(dev, band, slot_j, perm, M, R, g)
+    n_ext = 48 + band.halo
+    species = torch.randint(0, T + 1, (C, n_ext), generator=g, device=dev, dtype=torch.int32)
+    philt = torch.cat([rn(K, T, 2 * F), torch.zeros((K, 1, 2 * F), device=dev)], 1)
+    phi, vcat = rn(C, K, n_ext, 3 * F), rn(C, K, n_ext, 3 * F)
+    dw, db = rn(K, R, 3 * F), rn(K, 3 * F)
+    cases = [(pk.painn_message_l1_banded,
+              (species, philt, rbf, envm, nbr, unit, rn(K, R, 2 * F), rn(K, 2 * F), dband)),
+             (pk.painn_message_fused_banded, (phi, vcat, rbf, envm, nbr, unit, dw, db, dband))]
+    blocks = torch.tensor([[2, 0], [1, 1], [0, 2]], device=dev)
+    rows = (blocks[..., None] * 16 + torch.arange(16, device=dev)).reshape(C, -1)
+    geom = _banded_geometry(dev, band, slot_j, dband.perm[rows], M, R, g)
+    cases.append((pk.painn_message_subset,
+                  (phi, vcat, *geom, dw, db, dband.win_start[blocks], dband)))
+    for fn, args in cases:
+        before = fn.launches
+        got = fn(*args)
+        assert fn.launches == before + 1
+        _assert_close(got, pk.PLAIN[fn](*args))
+
+
+def test_incremental_run_repeats_bitwise(cuda_device):
+    """A short delta-engine run on the 2x2 supercell through the subset
+    kernel: the same seed twice gives bitwise identical states and caches,
+    and the cached energies equal a fresh full evaluation to 1e-3 eV."""
+    from surface_sampling_tpu_torch.core.incremental import (
+        make_incremental_painn_from_system,
+        make_incremental_run,
+        make_incremental_semigrand_step,
+    )
+    from surface_sampling_tpu_torch.parallel.chains import incremental_chain_states
+    from surface_sampling_tpu_torch.systems import srtio3_001_painn
+
+    sys_ = srtio3_001_painn(supercell=(2, 2), device=cuda_device)
+    eng = make_incremental_painn_from_system(sys_)
+    run = make_incremental_run(make_incremental_semigrand_step(eng), 4, eng.n_sites, eng.n_codes)
+    states = incremental_chain_states(eng, sys_.run.d, 4)
+    before = pk.painn_message_subset.launches
+    a, rec_a = run(states, [1.0, 0.9], seed=3)
+    b, rec_b = run(states, [1.0, 0.9], seed=3)
+    torch.cuda.synchronize()
+    assert pk.painn_message_subset.launches == before + 2 * 2 * 4 * 3
+    assert torch.equal(a.site_state, b.site_state) and torch.equal(a.energy, b.energy)
+    assert torch.equal(rec_a.energy, rec_b.energy)
+    for x, y in zip(a.caches.s + a.caches.phi + a.caches.vcat, b.caches.s + b.caches.phi
+                    + b.caches.vcat):
+        assert torch.equal(x, y)
+    fresh, _, _ = eng.energy_full(a.site_state)
+    assert float((fresh - a.energy).abs().max()) <= 1e-3

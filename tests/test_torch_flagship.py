@@ -206,7 +206,8 @@ def test_short_run_energies_reevaluate_in_jax(tsys, jeval):
     np.testing.assert_array_equal(out.site_state.numpy(), recs.site_state[:, -1].numpy())
 
 
-@pytest.mark.parametrize("kwargs", [{"relax": RelaxConfig(method="lbfgs")}, {"supercell": (2, 2)},
+@pytest.mark.parametrize("kwargs", [{"relax": RelaxConfig(method="lbfgs")},
+                                    {"supercell": (2, 2), "relax": RelaxConfig()},
                                     {"dtype": torch.float64}])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError):

@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port, on one NVIDIA GPU.
 
-Traces three windows with ``torch.profiler`` at the flagship's shapes
+Traces windows with ``torch.profiler`` at the flagship's shapes
 (SrTiO3(001) 2x2, 3-member PaiNN ensemble, 128 chains, seeded random
-occupancies with 75% of the sites empty):
+occupancies with 75% of the sites empty) and on its supercells:
 
   rigid        one rigid-lattice state evaluation (the MC step's energy)
   force_call   one force call of the relaxed path: energy and forces on a
                fixed edge topology, as every FIRE iteration makes it
   bwd          one launch of the message backward kernel
+  sc           one full evaluation of the slab tiled 2x2 (496 slots,
+               banded kernels), 128 chains
+  inc          one delta-engine MC step at 2x2 (128 chains) and at 4x4
+               (1984 slots, 32 chains): inc_2x2, inc_4x4
 
 For each window it prints the wall time (host clock around work that ends
 in a synchronize), the summed device time of every kernel, the device busy
@@ -34,6 +38,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 N_CHAINS = 128
+SC44_CHAINS = 32
 
 
 def _window(name: str, fn, top: int = 12) -> dict:
@@ -70,6 +75,10 @@ def main() -> int:
         print("port_profile: no CUDA device is available", file=sys.stderr)
         return 1
     from surface_sampling_tpu_torch.core.energy import RelaxConfig
+    from surface_sampling_tpu_torch.core.incremental import (
+        make_incremental_painn_from_system,
+        make_incremental_semigrand_step,
+    )
     from surface_sampling_tpu_torch.core.state import (
         realize_alive,
         realize_positions,
@@ -116,6 +125,27 @@ def main() -> int:
     report["rigid"] = _window("rigid", lambda: rigid.run.state_energy_fn(ss))
     report["force_call"] = _window("force_call", force_call)
     report["bwd"] = _window("bwd", lambda: pk.painn_message_bwd(*bwd_args, rev=rev))
+    del relax, rigid, feats, bwd_args, edges, topo
+    torch.cuda.empty_cache()
+
+    for cell, chains in (((2, 2), N_CHAINS), ((4, 4), SC44_CHAINS)):
+        sc = srtio3_001_painn(supercell=cell, device=dev)
+        spec, d = sc.spec, sc.run.d
+        ss = rng.integers(0, spec.n_codes, (chains, spec.n_sites))
+        ss = torch.as_tensor(np.where(rng.random(ss.shape) < 0.75, 0, ss), device=dev)
+        if cell == (2, 2):
+            report["sc"] = _window("sc", lambda: sc.run.state_energy_fn(ss))
+        engine = make_incremental_painn_from_system(sc)
+        step = make_incremental_semigrand_step(engine)
+        state = engine.init_state(ss)
+        draws = (torch.as_tensor(rng.integers(0, spec.n_sites, chains), device=dev),
+                 torch.as_tensor(rng.integers(0, spec.n_codes - 1, chains), device=dev),
+                 torch.as_tensor(rng.random(chains), dtype=torch.float32, device=dev))
+        name = f"inc_{cell[0]}x{cell[1]}"
+        report[name] = _window(name, lambda: step(state, 1.0, *draws))
+        report[name]["chains"] = chains
+        del sc, engine, state
+        torch.cuda.empty_cache()
     print(json.dumps(report))
     return 0
 
