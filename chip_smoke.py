@@ -3,13 +3,15 @@
 
 Drives the port's paths — semigrand MC on the SrTiO3(001) 2x2 slab
 scored by the 3-member PaiNN ensemble, 128 chains, on a rigid lattice and
-with every trial state FIRE-relaxed; and on the slab tiled 2x2 (496 slots),
+with every trial state FIRE-relaxed; on the slab tiled 2x2 (496 slots),
 rigid, by full evaluation through the banded kernels and by the
-delta-energy engine — through their entry points on the card, in fifteen
+delta-energy engine; and on the slab tiled 3x3 (1116 slots), relaxed through
+the banded message and its backward, and by the warm-started ball-local
+relaxation engine — through their entry points on the card, in nineteen
 phases, each printing one line or more:
 
   1. device     card name, count, and nvidia-smi's name and power limit
-  2. build      compiles the seven PaiNN kernels from csrc/ (nvcc -Xptxas -v)
+  2. build      compiles the eight PaiNN kernels from csrc/ (nvcc -Xptxas -v)
   3. kernels    each forward kernel against its plain PyTorch version at the
                 rigid path's shapes, with times and bounds
   4. anchor     pristine potential / surface energy on the card
@@ -39,12 +41,29 @@ phases, each printing one line or more:
                 evaluation, a bitwise repeat of the run
  15. inc-4x4    the 4x4 supercell (1984 slots), 32 chains x 1 sweep x 8
                 steps: delta-engine steps/s vs full-evaluation evals/s
+ 16. bwd-banded the banded message backward against its plain version at
+                the relaxed 3x3 supercell's geometry (16 chains, g_dw / g_db
+                requested, the plain version on chunks of chains), its time
+                and bound; against the unbanded backward on the same geometry
+                in slot order
+ 17. sc-relax   the relaxed 3x3 cell: card vs the CPU plain path (one member:
+                energies, forces and a short relaxation), banded vs unbanded
+                forces, the FIRE-relaxed pristine surface energy
+ 18. sc-relax-mc relaxed MC at 3x3, 16 chains x 1 sweep x 4 steps; launch
+                counts (the banded kernels only), FIRE iterations,
+                throughput, a bitwise repeat
+ 19. local-relax warm-started ball-local relaxation MC at 1x1 (128 chains)
+                and 3x3 (16 chains) beside the full relaxed path from the
+                same start states: moves/s vs evals/s, FIRE iterations,
+                outside-ball slots unchanged, carried energies vs a fresh
+                evaluation, a bitwise repeat
 
 Then it prints one JSON line {"kernels": [...]} (per kernel: source, the
 TPU kernel it replaces, launches on its main path — the rigid run for the
 1x1 forward kernels, the relaxed run for the backward, the 2x2 full
 evaluation run for the banded kernels, the delta run for the subset kernel,
-every path's count under launches_by_path — max abs error, ms, plain_ms,
+the relaxed 3x3 run for the banded backward, every path's count under
+launches_by_path — max abs error, ms, plain_ms,
 bound_ms, bound_by, library_ms), the nvidia-smi line again, and last the
 JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -56,6 +75,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -86,6 +106,20 @@ SC44_CHAINS = 32
 # each at 2x2 and 128 chains: they run on chunks of chains (chains are
 # independent); the plain versions of rows 1-3 run whole
 PLAIN_CHUNK = 16
+# the relaxed 3x3 supercell (1116 slots; its relax table bands from 3x3 up)
+# at the chain count of the JAX package's relaxed-supercell bench; the plain
+# banded backward holds ~10 (C, K, E, 3F) tensors, 3.3 GB per chain
+SC_RELAX_CHAINS = 16
+PLAIN_BWD_CHUNK = 4
+# FIRE steps of the 3x3 card-vs-CPU relaxation (the CPU plain path takes
+# seconds per force call at this size); relaxed results are held to the
+# tolerances the JAX package holds its own two topology modes to (FIRE
+# amplifies summation-order noise; a 3x3 cell scores ~2.6e3 eV, whose f32
+# spacing is 2.4e-4 eV)
+SC_RELAX_CPU_STEPS = 3
+RELAXED_E_TOL, RELAXED_POS_TOL = 5e-3, 1e-3
+# steps of the local-relax runs and of the full relaxed runs beside them
+LOCAL_SWEEP_SIZE = 4
 # kernel launches per full rigid evaluation of 3 layers: the 1x1 trunk and
 # the banded supercell trunk
 RIGID_LAUNCHES = {"painn_message_l1": 1, "painn_message_fused": 2, "painn_update_fused": 3}
@@ -312,32 +346,13 @@ def forces_phase(sys_gpu, sys_cpu, dev) -> None:
         raise AssertionError(f"card and CPU forces differ: dE {de} eV, dF {df} eV/A")
 
 
-def relaxed_phases(dev) -> dict:
-    """9. The FIRE-relaxed pristine anchor; 10. relaxed MC with launch
-    counts and a bitwise repeat. Returns the launch counts of the run."""
+@contextlib.contextmanager
+def counting(pot):
+    """Count the force calls (``energy_with_edges``) and fresh-edge energies
+    (``energy``) made through ``pot`` and record every FIRE relaxation's
+    per-chain iteration counts, while the block runs."""
     from surface_sampling_tpu_torch.core import energy as core_energy
-    from surface_sampling_tpu_torch.core.energy import RelaxConfig
-    from surface_sampling_tpu_torch.core.engine import (
-        EngineConfig,
-        geometric_schedule,
-        make_run_fn,
-    )
-    from surface_sampling_tpu_torch.core.state import realize_positions
-    from surface_sampling_tpu_torch.ops import painn_kernels as pk
-    from surface_sampling_tpu_torch.parallel.chains import chain_states, make_chain_run
-    from surface_sampling_tpu_torch.systems import srtio3_001_painn
 
-    sys_relax = srtio3_001_painn(relax=RelaxConfig(), device=dev)
-    run, pot = sys_relax.run, sys_relax.potential
-    S = sys_relax.spec.n_sites
-    out = run.state_energy_fn(torch.zeros((1, S), dtype=torch.int64, device=dev))
-    se = float(out.surface_energy[0])
-    print(f"[relaxed] pristine FIRE-relaxed potential {float(out.potential_energy[0]):.6f} eV "
-          f"surface {se:.6f} eV (tutorial 12.471 +- 0.02)")
-    if not (abs(se - 12.471) < 0.02 and not bool(out.oob[0])):
-        raise AssertionError(f"relaxed anchor off: {se} eV")
-
-    # count force calls, fresh-edge energies and FIRE iterations of the run
     calls = {"force": 0, "fresh": 0}
     n_steps = []
     force_fn, fresh_fn, fire = pot.energy_with_edges, pot.energy, core_energy.fire_relax
@@ -357,33 +372,64 @@ def relaxed_phases(dev) -> dict:
 
     pot.energy_with_edges, pot.energy = counted_force, counted_fresh
     core_energy.fire_relax = recorded_fire
+    try:
+        yield calls, n_steps
+    finally:
+        pot.energy_with_edges, pot.energy = force_fn, fresh_fn
+        core_energy.fire_relax = fire
+
+
+def relaxed_anchor_phase(sys_relax, dev) -> None:
+    """9. The FIRE-relaxed pristine anchor."""
+    run = sys_relax.run
+    out = run.state_energy_fn(torch.zeros((1, run.spec.n_sites), dtype=torch.int64, device=dev))
+    se = float(out.surface_energy[0])
+    print(f"[relaxed] pristine FIRE-relaxed potential {float(out.potential_energy[0]):.6f} eV "
+          f"surface {se:.6f} eV (tutorial 12.471 +- 0.02)")
+    if not (abs(se - 12.471) < 0.02 and not bool(out.oob[0])):
+        raise AssertionError(f"relaxed anchor off: {se} eV")
+
+
+def _expect_relaxed(launches, calls, fwd: str, bwd: str) -> None:
+    """Per force call every layer launches the forward ``fwd`` and the
+    backward ``bwd`` once (three layers), per fresh-edge energy the forward;
+    no other kernel, and never the g_dw part."""
+    want = {name: 0 for name in launches}
+    want[fwd] = 3 * (calls["force"] + calls["fresh"])
+    want[bwd] = 3 * calls["force"]
+    if launches != want or calls["force"] == 0:
+        raise AssertionError(f"relaxed launch counts {launches} for {calls}, expected {want}")
+
+
+def relaxed_mc_phase(tag: str, sys_relax, n_chains: int, fwd: str, bwd: str) -> dict:
+    """10. / 18. Relaxed MC through the entry points, ``n_chains`` chains x
+    RELAX_SWEEPS x RELAX_SWEEP_SIZE steps from pristine chains: launch
+    counts (``fwd`` / ``bwd``: the message kernels of its force calls),
+    FIRE iterations, finite energies, a bitwise repeat, throughput. Returns
+    the launch counts of the run."""
+    from surface_sampling_tpu_torch.core.engine import EngineConfig, geometric_schedule, make_run_fn
+    from surface_sampling_tpu_torch.core.state import realize_positions
+    from surface_sampling_tpu_torch.ops import painn_kernels as pk
+    from surface_sampling_tpu_torch.parallel.chains import make_chain_run, relaxed_chain_states
+
+    run, pot = sys_relax.run, sys_relax.potential
     crun = make_chain_run(make_run_fn(run.d, run.state_energy_fn,
                                       EngineConfig(sweep_size=RELAX_SWEEP_SIZE)))
     temps = geometric_schedule(1.0, RELAX_SWEEPS, 0.99)
-    states = chain_states(run.d, N_CHAINS)
-    first = run.state_energy_fn(states.site_state)
-    states = states._replace(energy=first.surface_energy, relaxed_positions=first.positions)
+    states = relaxed_chain_states(run.d, run.state_energy_fn, n_chains)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     pk.reset_launch_counts()
-    calls.update(force=0, fresh=0)
-    n_steps.clear()
-    res_a = crun(states, temps, seed=0)
-    torch.cuda.synchronize()
-    launches = pk.launch_counts()
-    run_calls = dict(calls)
+    with counting(pot) as (calls, n_steps):
+        out_a, rec_a = crun(states, temps, seed=0)
+        torch.cuda.synchronize()
+        launches = pk.launch_counts()
+        run_calls = dict(calls)
+        iters = torch.stack(n_steps).float()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want_fused = 3 * (run_calls["force"] + run_calls["fresh"])
-    if not (launches["painn_message_fused"] == want_fused
-            and launches["painn_message_bwd"] == 3 * run_calls["force"]
-            and launches["painn_message_bwd.g_dw"] == 0
-            and launches["painn_message_l1"] == 0 and launches["painn_update_fused"] == 0
-            and run_calls["force"] > 0):
-        raise AssertionError(f"relaxed launch counts {launches} for {run_calls}")
-    iters = torch.stack(n_steps).float()
-    (out_a, rec_a) = res_a
+    _expect_relaxed(launches, run_calls, fwd, bwd)
     if not (torch.isfinite(rec_a.energy).all() and torch.isfinite(out_a.energy).all()):
-        raise AssertionError("non-finite energies in the relaxed MC run")
+        raise AssertionError(f"[{tag}] non-finite energies in the relaxed MC run")
     out_b, rec_b = crun(states, temps, seed=0)
     torch.cuda.synchronize()
     same = (torch.equal(out_a.site_state, out_b.site_state)
@@ -393,17 +439,15 @@ def relaxed_phases(dev) -> dict:
             and torch.equal(rec_a.positions, rec_b.positions))
     ideal = realize_positions(run.d, out_a.site_state)
     moved = float((out_a.relaxed_positions - ideal).abs().max())
-    print(f"[relax-repeat] same seed twice: bitwise identical site states, energies and "
+    print(f"[{tag}-repeat] same seed twice: bitwise identical site states, energies and "
           f"relaxed positions: {same} (max relaxed displacement {moved:.4f} A)")
     if not same:
-        raise AssertionError("the relaxed MC run does not repeat bitwise")
-    pot.energy_with_edges, pot.energy = force_fn, fresh_fn
-    core_energy.fire_relax = fire
-
+        raise AssertionError(f"[{tag}] the relaxed MC run does not repeat bitwise")
     n_mc = RELAX_SWEEPS * RELAX_SWEEP_SIZE
     dt = _best_of(lambda seed: crun(states, temps, seed=seed))
-    print(f"[relax-mc] chains={N_CHAINS} sweeps={RELAX_SWEEPS}x{RELAX_SWEEP_SIZE} "
-          f"evals/s={N_CHAINS * n_mc / dt:.2f} step_ms={1e3 * dt / n_mc:.3f} "
+    print(f"[{tag}] slots={sys_relax.spec.n_slots} chains={n_chains} "
+          f"sweeps={RELAX_SWEEPS}x{RELAX_SWEEP_SIZE} "
+          f"evals/s={n_chains * n_mc / dt:.2f} step_ms={1e3 * dt / n_mc:.3f} "
           f"fire_iters_mean={float(iters.mean()):.3f} fire_iters_max={int(iters.max())} "
           f"force_calls={run_calls['force']} fresh_energies={run_calls['fresh']} "
           f"accept={float(rec_a.accept_rate.mean()):.4f} "
@@ -781,10 +825,288 @@ def inc_4x4_phase(dev) -> None:
                              "different site states")
 
 
+def _fold_halo(g_ext, band, dim):
+    """Cotangents of a sorted, halo-extended table folded onto its n_pad
+    rows (the backward of ``with_halo``), put back in slot order."""
+    g = g_ext.narrow(dim, 0, band.n_pad).clone()
+    g.narrow(dim, 0, band.halo).add_(g_ext.narrow(dim, band.n_pad, band.halo))
+    return g.index_select(dim, band.inv_perm)
+
+
+def bwd_banded_phase(sys33, dev) -> dict:
+    """16. Row 9, the banded message backward, against its plain version
+    at the relaxed 3x3 supercell's geometry (SC_RELAX_CHAINS seeded
+    occupancies, topology at the ideal geometry, positions displaced
+    0.05 A; layer-2 weights; seeded features and cotangents), g_dw
+    requested, the plain version on chunks of chains; then against row 4
+    on the same geometry in slot order (un-permuted, halo folded)."""
+    from surface_sampling_tpu_torch.models.painn import prepare_message_geometry, with_halo
+    from surface_sampling_tpu_torch.ops import painn_kernels as pk
+
+    pot, C = sys33.potential, SC_RELAX_CHAINS
+    band, cfg, params = pot.band, pot.cfg, pot.params
+    edges = relax_edges(sys33, C, seed=6)
+    geom_b = prepare_message_geometry(cfg, edges, band)
+    geom_u = prepare_message_geometry(cfg, edges)
+    rbf, envm, nbr, unit, n_pad, rev = geom_b
+    K, F = params["atom_embed"].shape[0], cfg.feat_dim
+    mp = params["message"][1]
+    dw = torch.nn.functional.pad(mp["dist_embed"]["w"],
+                                 (0, 0, 0, rbf.shape[-1] - cfg.n_rbf)).contiguous()
+    db = mp["dist_embed"]["b"].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    phi, vcat, gdv = (torch.randn((C, K, n_pad, 3 * F), generator=gen, device=dev)
+                      for _ in range(3))
+    gds = torch.randn((C, K, n_pad, F), generator=gen, device=dev)
+    p = band.perm
+    args = (with_halo(phi[:, :, p], band.halo, 2), with_halo(vcat[:, :, p], band.halo, 2),
+            rbf, envm, nbr, unit, dw, db, gds[:, :, p].contiguous(), gdv[:, :, p].contiguous())
+    got = pk.painn_message_bwd_banded(*args, band, rev=rev, want_dw=True)
+
+    def plain_chunked(want_dw):
+        parts, dws = [], []
+        for c0 in range(0, C, PLAIN_BWD_CHUNK):
+            ch = [a[c0:c0 + PLAIN_BWD_CHUNK] if i not in (6, 7) else a
+                  for i, a in enumerate(args)]
+            out = pk.painn_message_bwd_banded_plain(*ch, band, want_dw=want_dw)
+            parts.append(out[:5])
+            dws.append(out[5:])
+        per_chain = [torch.cat(x) for x in zip(*parts)]
+        return per_chain + ([sum(x) for x in zip(*dws)] if want_dw else [None, None])
+
+    ref = plain_chunked(True)
+    torch.cuda.synchronize()
+    names = ("g_phi_ext", "g_vcat_ext", "g_rbf", "g_envm", "g_unit", "g_dw", "g_db")
+    errs = {}
+    for n, g, r in zip(names, got, ref):
+        err, scale = float((g - r).abs().max()), float(r.abs().max())
+        errs[n] = err
+        if not err <= KERNEL_RTOL * scale:
+            raise AssertionError(f"painn_message_bwd_banded {n}: max abs error {err} exceeds "
+                                 f"{KERNEL_RTOL} x max|plain| = {KERNEL_RTOL * scale}")
+    again = pk.painn_message_bwd_banded(*args, band, rev=rev, want_dw=True)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("painn_message_bwd_banded: two launches on the same inputs differ")
+    del ref, again
+    ms = _cuda_ms(lambda: pk.painn_message_bwd_banded(*args, band, rev=rev), reps=10)
+    ms_dw = _cuda_ms(lambda: pk.painn_message_bwd_banded(*args, band, rev=rev, want_dw=True),
+                     reps=3)
+    plain_ms = _cuda_ms(lambda: plain_chunked(False), reps=1, warm=1)
+
+    # row 4 on the same geometry in slot order
+    rbf_u, envm_u, nbr_u, unit_u, _, rev_u = geom_u
+    args_u = (phi, vcat, rbf_u, envm_u, nbr_u, unit_u, dw, db, gds, gdv)
+    got_u = pk.painn_message_bwd(*args_u, rev=rev_u)
+    got_b = pk.painn_message_bwd_banded(*args, band, rev=rev)
+    M = unit.shape[-1]
+    ip = band.inv_perm
+
+    def edge_slot_order(x):
+        return x.reshape(C, n_pad, M, -1)[:, ip].reshape(x.shape)
+
+    # g_envm on selected edges only: an unselected edge (envm = 0, which
+    # carries its mask, so no position sees this cotangent) reads zeros
+    # outside its window in the banded layout and the slot-0 sentinel in
+    # slot order
+    sel = envm_u != 0
+    as_slots = (_fold_halo(got_b[0], band, 2), _fold_halo(got_b[1], band, 2),
+                edge_slot_order(got_b[2]), edge_slot_order(got_b[3]) * sel,
+                got_b[4][:, :, ip])
+    row4 = (*got_u[:3], got_u[3] * sel, got_u[4])
+    diffs = {n: float((b - u).abs().max()) / max(float(u.abs().max()), 1e-30)
+             for n, b, u in zip(names, as_slots, row4)}
+    ms_u = _cuda_ms(lambda: pk.painn_message_bwd(*args_u, rev=rev_u), reps=10)
+    ms_b = _cuda_ms(lambda: pk.painn_message_bwd_banded(*args, band, rev=rev), reps=10)
+    if not all(d <= KERNEL_RTOL for d in diffs.values()):
+        raise AssertionError(f"row 9 and row 4 differ on the same geometry: {diffs}")
+
+    n_live = int((envm != 0).sum())
+    R = cfg.n_rbf
+    flops = K * n_live * (12 * F * R + 49 * F)
+    nbytes = _nbytes(*args, band.win_start, rev, *got[:5])
+    bound_ms = 1e3 * max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS)
+    by_ops = flops / PEAK_F32_FLOPS > nbytes / PEAK_BYTES_PER_S
+    print(f"[bwd-banded] painn_message_bwd_banded errors {json.dumps(errs)} (tol {KERNEL_RTOL} x "
+          f"max|plain| each, C={C}, g_dw requested, plain on chunks of {PLAIN_BWD_CHUNK}) "
+          f"bitwise repeat ok; ms={ms:.4f} ms_with_g_dw={ms_dw:.4f} plain_ms={plain_ms:.3f} "
+          f"bound_ms={bound_ms:.4f} ({'operations' if by_ops else 'bytes'}) live_edges={n_live} "
+          f"flops={flops:.4e} bytes={nbytes:.4e} n_ext={n_pad + band.halo} library_ms=null "
+          f"(no single PyTorch call computes this fused backward)")
+    print(f"[bwd-banding] row 9 vs row 4 on the same 3x3 geometry: banded ms={ms_b:.4f} "
+          f"unbanded ms={ms_u:.4f}; max|row 9 (un-permuted, halo folded) - row 4| / max|row 4| "
+          f"{json.dumps(diffs)}")
+    return {"name": "painn_message_bwd_banded", "route": "cuda",
+            "source": "surface_sampling_tpu_torch/csrc/painn_message_bwd_banded.cu",
+            "replaces": "surface_sampling_tpu/ops/pallas_painn.py:966",
+            "launches": None, "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "operations" if by_ops else "bytes",
+            "library_ms": None, "ms_chains": C, "plain_chunk_chains": PLAIN_BWD_CHUNK,
+            "ms_with_g_dw": ms_dw, "unbanded_ms": ms_u, "max_rel_diff_vs_unbanded": diffs}
+
+
+def _sc_states(spec, n, seed, empty=0.95):
+    """Seeded sparse occupancies of a supercell, the first pristine."""
+    rng = np.random.default_rng(seed)
+    ss = rng.integers(0, spec.n_codes, (n, spec.n_sites))
+    ss = np.where(rng.random(ss.shape) < empty, 0, ss)
+    ss[0] = 0
+    return torch.as_tensor(ss)
+
+
+def sc_relax_phase(sys33, dev) -> None:
+    """17. The relaxed 3x3 supercell: card vs the CPU plain path (one
+    member: energies and forces of seeded sparse states, and the pristine
+    cell relaxed for SC_RELAX_CPU_STEPS FIRE steps), banded vs unbanded
+    forces on the card (three members), and the pristine cell's surface
+    energy after the full 20-step relaxation on the card."""
+    import dataclasses
+
+    from surface_sampling_tpu_torch.core.energy import RelaxConfig
+    from surface_sampling_tpu_torch.core.state import (
+        realize_alive,
+        realize_positions,
+        realize_type_idx,
+    )
+    from surface_sampling_tpu_torch.models.nn_calculator import make_painn_potential
+    from surface_sampling_tpu_torch.systems import SYSTEMS_DATA, srtio3_001_painn
+
+    def forces(sys_, ss):
+        d = sys_.run.d
+        ss = ss.to(d.device)
+        e, f = sys_.potential.energy_and_forces(realize_positions(d, ss),
+                                                realize_type_idx(d, ss), realize_alive(d, ss))
+        return e.cpu(), f.cpu()
+
+    short = RelaxConfig(steps=SC_RELAX_CPU_STEPS)
+    pair = [srtio3_001_painn(supercell=(3, 3), relax=short, n_models=1, device=dv)
+            for dv in (dev, "cpu")]
+    ss = _sc_states(sys33.spec, 2, seed=7)
+    (eg, fg), (ec, fc) = (forces(s, ss) for s in pair)
+    de, df = float((eg - ec).abs().max()), float((fg - fc).abs().max())
+    zero = torch.zeros((1, sys33.spec.n_sites), dtype=torch.int64)
+    rg, rc = (s.run.state_energy_fn(zero.to(s.run.d.device)) for s in pair)
+    dr = abs(float(rg.surface_energy[0]) - float(rc.surface_energy[0]))
+    dp = float((rg.positions.cpu() - rc.positions).abs().max())
+    print(f"[sc-relax] one member, card vs CPU: E {eg.tolist()} vs {ec.tolist()} eV |dE|={de:.3e} "
+          f"eV max|dF|={df:.3e} eV/A (max|F| {float(fg.abs().max()):.4f}); pristine relaxed "
+          f"{SC_RELAX_CPU_STEPS} FIRE steps: card {float(rg.surface_energy[0]):.6f} cpu "
+          f"{float(rc.surface_energy[0]):.6f} eV |d|={dr:.3e} eV (tol {RELAXED_E_TOL}) max "
+          f"|d position|={dp:.3e} A (tol {RELAXED_POS_TOL})")
+    if not (de <= 1e-3 and df <= 1e-3 and dr <= RELAXED_E_TOL and dp <= RELAXED_POS_TOL):
+        raise AssertionError(f"3x3 card vs CPU: dE {de} eV, dF {df} eV/A, relaxed {dr} eV, "
+                             f"positions {dp} A")
+    del pair
+
+    pot = sys33.potential
+    offsets = json.loads((SYSTEMS_DATA / "srtio3_offset_data.json").read_text())
+    unbanded = make_painn_potential(pot.params, pot.cfg, pot.znums.tolist(), units="kcal/mol",
+                                    stoidict=offsets["stoidict"], static_nbr=sys33.static_nbr,
+                                    device=dev)
+    ss = _sc_states(sys33.spec, 4, seed=8).to(dev)
+    d = sys33.run.d
+    inputs = (realize_positions(d, ss), realize_type_idx(d, ss), realize_alive(d, ss))
+    (eb, fb), (eu, fu) = (p.energy_and_forces(*inputs) for p in (pot, unbanded))
+    dbe, dbf = float((eb - eu).abs().max()), float((fb - fu).abs().max())
+    out = sys33.run.state_energy_fn(zero.to(dev))
+    se = float(out.surface_energy[0])
+    print(f"[sc-relax] three members on the card, banded vs unbanded: |dE|={dbe:.3e} eV "
+          f"max|dF|={dbf:.3e} eV/A; pristine 3x3 FIRE-relaxed "
+          f"({dataclasses.asdict(sys33.run.relax)}) surface energy {se:.6f} eV (the nff constant offset enters once per cell, "
+          f"so this is not 9 x the 1x1's)")
+    if not (dbe <= 1e-3 and dbf <= 1e-3 and np.isfinite(se) and not bool(out.oob[0])):
+        raise AssertionError(f"3x3 banded vs unbanded: dE {dbe} eV, dF {dbf} eV/A; "
+                             f"relaxed pristine {se} eV")
+
+
+def local_relax_phase(tag: str, sys_relax, n_chains: int, dev) -> dict:
+    """19. Warm-started ball-local relaxation MC (one-hop balls), n_chains x
+    1 sweep x LOCAL_SWEEP_SIZE steps from FIRE-relaxed pristine chains:
+    moves/s beside the full relaxed path's evals/s from the same start
+    states and seed, mean FIRE iterations of each, slots outside the ball
+    unchanged by an evaluation, carried energies vs a fresh evaluation of
+    the carried geometry, a bitwise repeat. Returns the launch counts of
+    the local run."""
+    from surface_sampling_tpu_torch.core.engine import EngineConfig, make_run_fn
+    from surface_sampling_tpu_torch.core.local_relax import (
+        build_ball_masks,
+        make_local_relax_eval,
+        make_local_relax_run,
+        make_local_relax_semigrand_step,
+    )
+    from surface_sampling_tpu_torch.core.state import (
+        change_site,
+        element_counts,
+        realize_alive,
+        realize_type_idx,
+    )
+    from surface_sampling_tpu_torch.ops import painn_kernels as pk
+    from surface_sampling_tpu_torch.parallel.chains import relaxed_chain_states
+
+    run, pot, spec, d = sys_relax.run, sys_relax.potential, sys_relax.spec, sys_relax.run.d
+    balls = build_ball_masks(spec, sys_relax.static_nbr, hops=1)
+    evaluate = make_local_relax_eval(d, pot, run.surface_energy_fn, run.relax, balls)
+    step = make_local_relax_semigrand_step(evaluate)
+    lrun = make_local_relax_run(step, LOCAL_SWEEP_SIZE, spec.n_sites, spec.n_codes)
+    frun = make_run_fn(d, run.state_energy_fn, EngineConfig(sweep_size=LOCAL_SWEEP_SIZE))
+    temps = np.array([1.0])
+    states = relaxed_chain_states(d, run.state_energy_fn, n_chains)
+
+    # one evaluation: nothing outside the moved site's ball moves
+    rng = np.random.default_rng(9)
+    site = torch.as_tensor(rng.integers(0, spec.n_sites, n_chains), device=dev)
+    trial = change_site(states.site_state, site, torch.ones_like(site))
+    e = evaluate(trial, states.relaxed_positions, torch.stack([site, site], 1))
+    outside = ~torch.as_tensor(balls, device=dev)[site]
+    kept = torch.equal(e.positions[outside], states.relaxed_positions[outside])
+    if not kept:
+        raise AssertionError(f"[{tag}] slots outside the ball moved")
+
+    torch.cuda.synchronize()
+    pk.reset_launch_counts()
+    with counting(pot) as (calls, n_steps):
+        out_a, rec_a = lrun(states, temps, seed=0)
+        torch.cuda.synchronize()
+        launches = pk.launch_counts()
+        local_calls = dict(calls)
+        iters_local = torch.stack(n_steps).float()
+    with counting(pot) as (calls, n_steps):
+        frun(states, temps, seed=0)
+        iters_full = torch.stack(n_steps).float()
+    ss = out_a.site_state
+    e_fresh = pot.energy(out_a.relaxed_positions, realize_type_idx(d, ss), realize_alive(d, ss))
+    se_fresh = run.surface_energy_fn(e_fresh, element_counts(d, ss))
+    drift = float((se_fresh - out_a.energy).abs().max())
+    t0 = time.perf_counter()
+    out_b, rec_b = lrun(states, temps, seed=0)
+    torch.cuda.synchronize()
+    dt_local = time.perf_counter() - t0
+    same = (torch.equal(out_a.site_state, out_b.site_state)
+            and torch.equal(out_a.energy, out_b.energy)
+            and torch.equal(out_a.relaxed_positions, out_b.relaxed_positions))
+    t0 = time.perf_counter()
+    frun(states, temps, seed=0)
+    torch.cuda.synchronize()
+    dt_full = time.perf_counter() - t0
+    n_mc = LOCAL_SWEEP_SIZE
+    print(f"[{tag}] slots={spec.n_slots} chains={n_chains} steps={n_mc} one-hop ball slots mean "
+          f"{float(balls.sum(1).mean()):.1f} of {spec.n_slots}: local moves/s="
+          f"{n_chains * n_mc / dt_local:.2f} (step_ms={1e3 * dt_local / n_mc:.3f}, fire_iters_mean="
+          f"{float(iters_local.mean()):.3f}, force_calls={local_calls['force']}) vs full relaxed "
+          f"evals/s={n_chains * n_mc / dt_full:.2f} (step_ms={1e3 * dt_full / n_mc:.3f}, "
+          f"fire_iters_mean={float(iters_full.mean()):.3f}) speedup={dt_full / dt_local:.3f}; "
+          f"outside-ball slots unchanged: {kept}; carried vs fresh max |diff| {drift:.3e} eV "
+          f"(tol 1e-3); bitwise repeat: {same}; accept={float(rec_a.accept_rate.mean()):.4f} "
+          f"launches={json.dumps(launches)}")
+    if not (drift <= 1e-3 and same and torch.isfinite(rec_a.energy).all()):
+        raise AssertionError(f"[{tag}] local relax: drift {drift} eV, repeat {same}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    from surface_sampling_tpu_torch.core.energy import RelaxConfig
     from surface_sampling_tpu_torch.ops import painn_kernels as pk
     from surface_sampling_tpu_torch.systems import srtio3_001_painn
 
@@ -840,7 +1162,10 @@ def main() -> int:
     bwd_row = backward_phase(dev)
     rows.append(bwd_row)
     forces_phase(sys_gpu, sys_cpu, dev)
-    relax_launches = relaxed_phases(dev)
+    sys_relax = srtio3_001_painn(relax=RelaxConfig(), device=dev)
+    relaxed_anchor_phase(sys_relax, dev)
+    relax_launches = relaxed_mc_phase("relax-mc", sys_relax, N_CHAINS, "painn_message_fused",
+                                      "painn_message_bwd")
     del sys_cpu
     torch.cuda.empty_cache()
 
@@ -854,13 +1179,28 @@ def main() -> int:
     del sys_sc
     torch.cuda.empty_cache()
     inc_4x4_phase(dev)
+    torch.cuda.empty_cache()
+
+    sys33 = srtio3_001_painn(supercell=(3, 3), relax=RelaxConfig(), device=dev)
+    rows.append(bwd_banded_phase(sys33, dev))
+    torch.cuda.empty_cache()
+    sc_relax_phase(sys33, dev)
+    sc_relax_launches = relaxed_mc_phase("sc-relax-mc", sys33, SC_RELAX_CHAINS,
+                                         "painn_message_fused_banded", "painn_message_bwd_banded")
+    local_launches = {"local_relax_1x1": local_relax_phase("local-relax-1x1", sys_relax,
+                                                           N_CHAINS, dev),
+                      "local_relax_3x3": local_relax_phase("local-relax-3x3", sys33,
+                                                           SC_RELAX_CHAINS, dev)}
 
     main_path = {"painn_message_bwd": "relaxed_mc", "painn_message_l1_banded": "sc_mc",
-                 "painn_message_fused_banded": "sc_mc", "painn_message_subset": "inc_mc"}
+                 "painn_message_fused_banded": "sc_mc", "painn_message_subset": "inc_mc",
+                 "painn_message_bwd_banded": "sc_relax_mc"}
     for row in rows:
         by_path = {"rigid_mc": launches[row["name"]],
                    "relaxed_mc": relax_launches[row["name"]],
-                   "sc_mc": sc_launches[row["name"]], "inc_mc": inc_launches[row["name"]]}
+                   "sc_mc": sc_launches[row["name"]], "inc_mc": inc_launches[row["name"]],
+                   "sc_relax_mc": sc_relax_launches[row["name"]],
+                   **{k: v[row["name"]] for k, v in local_launches.items()}}
         row["launches"] = by_path[main_path.get(row["name"], "rigid_mc")]
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on its path: {by_path}")

@@ -104,6 +104,50 @@ class StateEnergy(NamedTuple):
     oob: torch.Tensor               # (C,) bool
 
 
+def relax_settings(relax: RelaxConfig, potential) -> tuple[FireConfig, bool]:
+    """The FIRE configuration of a ``RelaxConfig`` and whether each
+    relaxation fixes its edge topology (``refresh_edges="once"`` with a
+    potential carrying the topology hooks). Raises on what is not ported."""
+    if relax.method != "fire":
+        raise NotImplementedError(f"relax method {relax.method!r} is not ported: only 'fire'")
+    if relax.refresh_edges not in ("once", "every_step"):
+        raise ValueError(f"refresh_edges must be 'once' or 'every_step', "
+                         f"got {relax.refresh_edges!r}")
+    fire_cfg = FireConfig(steps=relax.steps, fmax=relax.fmax, max_step=relax.max_step)
+    return fire_cfg, relax.refresh_edges == "once" and hasattr(potential, "edge_topology")
+
+
+def relax_and_score(potential, fire_cfg: FireConfig, fixed_topo: bool, pos0, free, type_idx,
+                    alive, bound):
+    """FIRE-relax every chain from ``pos0`` with the atoms under ``free``
+    (C, N) moving, and score the result: ``(positions, e_pot, oob)``.
+
+    With ``fixed_topo`` the edge topology is selected at ``pos0`` and each
+    force call recomputes only the geometry; the potential energy is then a
+    fresh-edge ``potential.energy`` at the relaxed positions, checked
+    against the bound (C,) again, so relaxed and unrelaxed states are
+    scored by one evaluator. Otherwise it is the relaxation's own final
+    energy. Out-of-bounds potential energies are clamped to the bound."""
+
+    def e_of(p):
+        return potential.energy(p, type_idx, alive)
+
+    if fixed_topo:
+        topo = potential.edge_topology(pos0, alive)
+
+        def relax_e_of(p):
+            return potential.energy_with_edges(p, type_idx, alive,
+                                               edges=potential.edges_of(p, topo))
+    else:
+        relax_e_of = e_of
+    res = fire_relax(relax_e_of, pos0, free, fire_cfg)
+    if not fixed_topo:
+        return res.positions, res.energy, res.oob
+    e_pot = e_of(res.positions)
+    oob = res.oob | (e_pot.abs() > bound) | torch.isnan(e_pot)
+    return res.positions, torch.where(oob, bound, e_pot), oob
+
+
 def make_state_energy_fn(
     d: DeviceSpec,
     potential,
@@ -118,16 +162,8 @@ def make_state_energy_fn(
     Without ``relax`` the state is scored at its ideal slot geometry,
     through ``potential.rigid_energy(type_idx, alive)`` where the
     potential has it, else ``potential.energy``. With ``relax`` every
-    chain's trial state is FIRE-relaxed (frozen bulk and dead slots held),
-    and:
-
-    - refresh_edges="once" with a potential carrying the topology hooks
-      (``edge_topology``, ``edges_of``, ``energy_with_edges``): the topology
-      is selected at the start geometry, each force call recomputes the
-      geometry under it, and the acceptance energy is ``potential.energy``
-      on fresh edges at the relaxed positions, checked against the bound
-      again, so relaxed and unrelaxed states are scored by one evaluator;
-    - otherwise the relaxation's own final energy.
+    chain's trial state is FIRE-relaxed (frozen bulk and dead slots held)
+    and scored by :func:`relax_and_score`.
 
     A NaN or an energy beyond ``energy_threshold(N)`` is out of bounds:
     both the potential and the surface energy are clamped to the bound, so
@@ -136,17 +172,8 @@ def make_state_energy_fn(
     if symmetric is not None or relax_potential is not None:
         raise NotImplementedError("symmetric slabs and a separate relax_potential "
                                   "are not ported yet")
-    fire_cfg = None
-    fixed_topo = False
     if relax is not None:
-        if relax.method != "fire":
-            raise NotImplementedError(f"relax method {relax.method!r} is not ported: "
-                                      "only 'fire'")
-        if relax.refresh_edges not in ("once", "every_step"):
-            raise ValueError(f"refresh_edges must be 'once' or 'every_step', "
-                             f"got {relax.refresh_edges!r}")
-        fire_cfg = FireConfig(steps=relax.steps, fmax=relax.fmax, max_step=relax.max_step)
-        fixed_topo = relax.refresh_edges == "once" and hasattr(potential, "edge_topology")
+        fire_cfg, fixed_topo = relax_settings(relax, potential)
     rigid = getattr(potential, "rigid_energy", None) if relax is None else None
 
     def state_energy(site_state: torch.Tensor) -> StateEnergy:
@@ -157,32 +184,16 @@ def make_state_energy_fn(
         e_bound = energy_threshold(pos0.shape[1])
         bound = torch.full((pos0.shape[0],), e_bound, dtype=pos0.dtype, device=pos0.device)
 
-        def e_of(p):
-            return potential.energy(p, type_idx, alive)
-
-        if fire_cfg is None:
-            e_pot = rigid(type_idx, alive) if rigid is not None else e_of(pos0)
+        if relax is None:
+            e_pot = rigid(type_idx, alive) if rigid is not None else potential.energy(
+                pos0, type_idx, alive)
             oob = (e_pot.abs() > e_bound) | torch.isnan(e_pot)
             e_pot = torch.where(oob, bound, e_pot)
             pos = pos0
         else:
-            free = realize_free_mask(d, site_state)
-            if fixed_topo:
-                topo = potential.edge_topology(pos0, alive)
-
-                def relax_e_of(p):
-                    return potential.energy_with_edges(
-                        p, type_idx, alive, edges=potential.edges_of(p, topo))
-            else:
-                relax_e_of = e_of
-            res = fire_relax(relax_e_of, pos0, free, fire_cfg)
-            pos, oob = res.positions, res.oob
-            if fixed_topo:
-                e_pot = e_of(pos)
-                oob = oob | (e_pot.abs() > e_bound) | torch.isnan(e_pot)
-                e_pot = torch.where(oob, bound, e_pot)
-            else:
-                e_pot = res.energy
+            pos, e_pot, oob = relax_and_score(potential, fire_cfg, fixed_topo, pos0,
+                                              realize_free_mask(d, site_state), type_idx,
+                                              alive, bound)
         se = torch.where(oob, bound, surface_energy_fn(e_pot, counts))
         return StateEnergy(surface_energy=se, potential_energy=e_pot, positions=pos, oob=oob)
 

@@ -80,6 +80,25 @@ def run_sweeps(step_fn: Callable, state, temps, seed: int, sweep_size: int, n_si
     return state, type(recs[0])(*(torch.stack(f, dim=1) for f in zip(*recs)))
 
 
+def make_sweep_record(record_positions: bool = True) -> Callable:
+    """``record(state, accept_rate, oob_rate) -> SweepRecord`` of an
+    ``MCState`` run (the relaxed positions left out, as an empty axis,
+    unless ``record_positions``)."""
+
+    def record(state: MCState, accept_rate, oob_rate) -> SweepRecord:
+        pos = state.relaxed_positions
+        return SweepRecord(
+            site_state=state.site_state,
+            energy=state.energy,
+            accept_rate=accept_rate,
+            n_ads=num_occupied_sites(state.site_state),
+            positions=pos if record_positions else pos[:, :0],
+            oob_rate=oob_rate,
+        )
+
+    return record
+
+
 def make_run_fn(d, state_energy_fn: Callable, cfg: EngineConfig) -> Callable:
     """Build ``run(state, temps, seed) -> (state, SweepRecord)``.
 
@@ -90,17 +109,7 @@ def make_run_fn(d, state_energy_fn: Callable, cfg: EngineConfig) -> Callable:
     """
     step_fn = make_semigrand_step(d, state_energy_fn)
     n_sites = d.site_coords.shape[0]
-
-    def record(state: MCState, accept_rate, oob_rate) -> SweepRecord:
-        pos = state.relaxed_positions
-        return SweepRecord(
-            site_state=state.site_state,
-            energy=state.energy,
-            accept_rate=accept_rate,
-            n_ads=num_occupied_sites(state.site_state),
-            positions=pos if cfg.record_positions else pos[:, :0],
-            oob_rate=oob_rate,
-        )
+    record = make_sweep_record(cfg.record_positions)
 
     def run(state: MCState, temps, seed: int = 0):
         return run_sweeps(step_fn, state, temps, seed, cfg.sweep_size, n_sites, d.n_codes,

@@ -316,10 +316,10 @@ def make_incremental_painn(
 def make_incremental_painn_from_system(system) -> IncEngine:
     """The delta engine of a ``systems.py`` ExampleSystem that carries a
     routing band (``srtio3_001_painn(supercell=...)`` on a rigid lattice)."""
-    if system.routing_band is None:
-        raise ValueError("the system carries no routing band: incremental evaluation needs a "
-                         "rigid banded PaiNN system (e.g. systems.srtio3_001_painn("
-                         "supercell=(2, 2)))")
+    if system.routing_band is None or system.run.relax is not None:
+        raise ValueError("the system carries no routing band or relaxes: incremental "
+                         "evaluation needs a rigid banded PaiNN system (e.g. "
+                         "systems.srtio3_001_painn(supercell=(2, 2)))")
     return make_incremental_painn(system.spec, system.run.d, system.potential, system.static_nbr,
                                   system.routing_band, system.run.surface_energy_fn)
 

@@ -39,15 +39,9 @@
 
 #include <cuda_runtime.h>
 
-namespace banded {
+#include "painn_band.cuh"
 
-// Row of the halo-extended table holding neighbour rank r for a centre
-// whose window starts at s, or -1 outside [s, s + W) mod n_pad.
-__device__ __forceinline__ int window_row(int r, int s, int n_pad, int W) {
-  int off = r - s;
-  if (off < 0) off += n_pad;
-  return off < W ? s + off : -1;
-}
+namespace banded {
 
 // Centre row i of n_rows reads its window start from
 // ws[c * ws_stride + i / n_blk]: ws_stride = 0 shares one table of starts

@@ -1,6 +1,7 @@
 // Banded general PaiNN message (layers 2+ of the supercell rigid trunk,
 // every layer of the delta engine's full evaluation), batched over chains
-// C and ensemble members K, forward only.
+// C and ensemble members K. Its backward, for the forces of a relaxed
+// supercell, is painn_message_bwd_banded.cu.
 //
 // Replaces: surface_sampling_tpu/ops/pallas_painn.py,
 // painn_message_fused_banded -> _message_pallas_banded (kernel

@@ -29,6 +29,8 @@
 
 #include <cuda_runtime.h>
 
+#include "painn_band.cuh"
+
 namespace {
 
 template <int R>
@@ -54,9 +56,8 @@ __global__ void message_l1_banded_kernel(
   for (int t = f; t < M * R; t += blockDim.x) s_rbf[t] = rbf[e0 * R + t];
   for (int t = f; t < M; t += blockDim.x) {
     s_env[t] = envm[e0 + t];
-    int off = nbr[e0 + t] - s;
-    if (off < 0) off += n_pad;
-    s_sp[t] = off < W ? species[size_t(c) * n_ext + s + off] : T1 - 1;
+    const int row = banded::window_row(nbr[e0 + t], s, n_pad, W);
+    s_sp[t] = row >= 0 ? species[size_t(c) * n_ext + row] : T1 - 1;
     for (int x = 0; x < 3; ++x)
       s_unit[x * M + t] = unit[((size_t(c) * 3 + x) * n_pad + i) * M + t];
   }

@@ -42,12 +42,14 @@ def ensemble_apply_rigid(params: dict, rw: dict, cfg: PaiNNConfig, numbers: torc
 
 
 def ensemble_apply(params: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
-                   alive: torch.Tensor, edges: Edges, msg_geom=None) -> dict:
+                   alive: torch.Tensor, edges: Edges, msg_geom=None, band=None) -> dict:
     """General forward of all members on a (C, N) batch of structures,
     differentiable in the positions ``edges`` were built from
-    (``ops.neighbors``). The padded message geometry is member-invariant:
-    it is built once (or passed as ``msg_geom``) and shared by the K
-    members. Returns the same fields as :func:`ensemble_apply_rigid`."""
+    (``ops.neighbors``; for a supercell with its routing ``band``, a
+    ``DeviceBand``, which runs the banded trunk). The padded message
+    geometry is member-invariant: it is built once (or passed as
+    ``msg_geom``) and shared by the K members. Returns the same fields as
+    :func:`ensemble_apply_rigid`."""
     if msg_geom is None:
-        msg_geom = prepare_message_geometry(cfg, edges)
-    return _stats(painn_apply(params, cfg, numbers, alive, msg_geom, edges))
+        msg_geom = prepare_message_geometry(cfg, edges, band)
+    return _stats(painn_apply(params, cfg, numbers, alive, msg_geom, edges, band))

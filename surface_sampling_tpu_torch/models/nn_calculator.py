@@ -8,7 +8,9 @@ ranked over the table), forces by autograd, the relaxation hooks that fix
 the edge topology once per relaxation, and, given the spec of a
 code-independent slot geometry, the ``rigid_energy`` hook of rigid MC
 (over the banded static edges of a supercell when a routing band is
-given). The per-atom analysis hooks belong to later slices.
+given). With a routing band the general path (energy, forces, relaxation)
+runs the banded trunk too, as in the JAX package. The per-atom analysis
+hooks belong to later slices.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from surface_sampling_tpu_torch.constants import HARTREE_TO_EV, KCAL_MOL_TO_EV, SYMBOL_FROM_Z
 from surface_sampling_tpu_torch.models.ensemble import ensemble_apply, ensemble_apply_rigid
 from surface_sampling_tpu_torch.models.painn import PaiNNConfig, rigid_member_weights
+from surface_sampling_tpu_torch.ops.banding import stage_band
 from surface_sampling_tpu_torch.ops.neighbors import (
     Edges,
     EdgeTopology,
@@ -40,18 +43,21 @@ class PaiNNPotential:
     ``energy(positions, type_idx, alive)`` is the member-mean network
     energy times the units factor, plus the nff composition offset, (C,)
     in eV. ``rigid_energy(type_idx, alive)`` exists only for a potential
-    built with the spec of a code-independent slot geometry."""
+    built with the spec of a code-independent slot geometry. ``band`` is
+    the staged routing band (``ops.banding.DeviceBand``) of a supercell, or
+    None."""
 
     name = "painn"
 
     def __init__(self, params, cfg, znums, factor, table, per_type, const_off,
-                 rw=None, pack=None):
+                 rw=None, pack=None, band=None):
         self.params, self.cfg = params, cfg
         self.cutoff = cfg.cutoff
         self.znums, self.factor = znums, factor
         self.per_type, self.const_off = per_type, const_off
-        self.edge_fn = make_table_edge_fn(table)
-        self._topo_fn, self._geom_fn = make_table_topology_fns(table)
+        self.band = band
+        self.edge_fn = make_table_edge_fn(table, band)
+        self._topo_fn, self._geom_fn = make_table_topology_fns(table, band)
         if pack is not None:
             self.rw, self.static_edge_pack = rw, pack
             self.rigid_energy = self._rigid_energy
@@ -74,7 +80,7 @@ class PaiNNPotential:
         if edges is None:
             edges = self.edge_fn(positions, alive)
         return ensemble_apply(self.params, self.cfg, self._numbers(type_idx, alive), alive,
-                              edges)
+                              edges, band=self.band)
 
     def energy(self, positions, type_idx, alive, shifts=None, edges: Edges | None = None):
         """(C,) potential energies in eV of positions (C, N, 3)."""
@@ -145,8 +151,10 @@ def make_painn_potential(
         device: where the tables live (default: the parameters').
         routing_band: a host ``ops.banding.RoutingBand`` of the same
             static table (supercells): ``rigid_energy`` then runs the banded
-            rigid trunk. The general path (``energy``, forces) stays
-            unbanded: the banded backward is not ported.
+            rigid trunk, and the general path (``energy``,
+            ``energy_with_edges``, ``energy_and_forces``) the banded general
+            trunk, whose backward is the banded message backward; the
+            relaxation hooks carry its reverse table.
     """
     if static_nbr is None:
         raise NotImplementedError(
@@ -174,4 +182,4 @@ def make_painn_potential(
         l1_types = tuple(sorted({int(z) for z in type_numbers}))
         rw = rigid_member_weights(params, cfg, l1_types, pack.r_pad)
     return PaiNNPotential(params, cfg, znums, UNIT_FACTORS[units], table, per_type,
-                          const_off, rw=rw, pack=pack)
+                          const_off, rw=rw, pack=pack, band=stage_band(routing_band, device))

@@ -7,8 +7,8 @@ configuration, the radial basis and envelope, the rigid trunk
 (``painn_features_rigid``, banded for supercells, where it can also
 collect every layer's inputs for the delta engine), the general,
 differentiable trunk (``painn_features`` in the JAX package's "pallas"
-message mode, without the layer-1 species table or banding) and the
-readout with the excluded-volume term and the overflow override. Parameters are a tree
+message mode, without the layer-1 species table; banded for supercells) and
+the readout with the excluded-volume term and the overflow override. Parameters are a tree
 of tensors with a leading member axis K (``models/weights.py``); features
 carry two batch axes, chains C and members K: s is (C, K, n_pad, F) and
 the vector features are kept x-major as vcat (C, K, n_pad, 3F) =
@@ -21,9 +21,9 @@ band (supercells, ``ops/banding.py``) the trunk runs in the band's sorted
 row order and the two messages are their banded kernels. The general trunk
 runs the general message at every layer (layer 1 with v = 0, as the JAX
 package does on a differentiated path), whose backward is the message
-backward kernel; its update block is plain PyTorch, as the JAX package
-leaves it to XLA there. Between the blocks only the per-atom dense layers
-run here, as batched matrix products.
+backward kernel (the banded one under a band); its update block is plain
+PyTorch, as the JAX package leaves it to XLA there. Between the blocks only
+the per-atom dense layers run here, as batched matrix products.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as tnf
 
 from surface_sampling_tpu_torch.ops.neighbors import Edges, padded_rows
+from surface_sampling_tpu_torch.ops.banding import DeviceBand
 from surface_sampling_tpu_torch.ops.painn_kernels import (
     painn_message_fused,
     painn_message_fused_banded,
@@ -210,14 +211,19 @@ def painn_features_rigid(params: dict, rw: dict, cfg: PaiNNConfig,
     return s[:, :, :N]
 
 
-def prepare_message_geometry(cfg: PaiNNConfig, edges: Edges):
+def prepare_message_geometry(cfg: PaiNNConfig, edges: Edges, band: DeviceBand | None = None):
     """Pad and flatten edge geometry for the message kernels, once per
     structure batch (it is layer- and member-invariant). Differentiable in
     ``edges.disp`` and ``edges.r``.
 
     Returns ``(rbf (C, E, r_pad), envm (C, E), nbr (C, E) int32,
-    unit (C, 3, n_pad, M), n_pad, rev (C, n_pad, D) int32)`` with
-    E = n_pad * M and envm = envelope * edge mask."""
+    unit (C, 3, n_pad, M), n_pad, rev)`` with E = n_pad * M and
+    envm = envelope * edge mask. Without ``band``: slot order, nbr the
+    neighbour's slot, rev the (C, n_pad, D) reverse table. With the routing
+    ``band`` of a supercell (the JAX package's ``prepare_fused_geometry``
+    with a band): rows in the band's sorted order (``band.perm``), nbr the
+    neighbour's sorted rank, rev the banded reverse table keyed by extended
+    row that the edges carry (``edges.rev_band``)."""
     disp, d, nbr_j, nbr_mask = edges[:4]
     C, N, M = d.shape
     n_pad = padded_rows(N)
@@ -226,19 +232,40 @@ def prepare_message_geometry(cfg: PaiNNConfig, edges: Edges):
     unit = disp / torch.clamp(d, min=1e-8)[..., None]                # (C, N, M, 3)
     rbf = _rbf(d, cfg.n_rbf, cfg.cutoff)                             # (C, N, M, R)
     envm = _cosine_envelope(d, cfg.cutoff) * nbr_mask.to(d.dtype)
-    rbf_p = tnf.pad(rbf, (0, r_pad - cfg.n_rbf, 0, 0, 0, pad_n)).reshape(C, n_pad * M, r_pad)
-    envm_p = tnf.pad(envm, (0, 0, 0, pad_n)).reshape(C, n_pad * M)
-    nbr_p = tnf.pad(nbr_j, (0, 0, 0, pad_n)).reshape(C, n_pad * M).to(torch.int32)
-    unit_p = tnf.pad(unit, (0, 0, 0, 0, 0, pad_n)).permute(0, 3, 1, 2)
-    return (rbf_p.contiguous(), envm_p.contiguous(), nbr_p.contiguous(),
-            unit_p.contiguous(), n_pad, edges.rev)
+    rbf_p = tnf.pad(rbf, (0, r_pad - cfg.n_rbf, 0, 0, 0, pad_n))
+    envm_p = tnf.pad(envm, (0, 0, 0, pad_n))
+    nbr_p = tnf.pad(nbr_j, (0, 0, 0, pad_n))
+    unit_p = tnf.pad(unit, (0, 0, 0, 0, 0, pad_n))
+    rev = edges.rev
+    if band is not None:
+        if band.n_pad != n_pad:
+            raise ValueError(f"the band covers {band.n_pad} padded slots, the edges {n_pad}")
+        if edges.rev_band is None:
+            raise ValueError("banded message geometry needs edges built with the band "
+                             "(their banded reverse table)")
+        p = band.perm
+        rbf_p, envm_p, unit_p = rbf_p[:, p], envm_p[:, p], unit_p[:, p]
+        nbr_p = band.rank[nbr_p[:, p]]
+        rev = edges.rev_band
+    return (rbf_p.reshape(C, n_pad * M, r_pad).contiguous(),
+            envm_p.reshape(C, n_pad * M).contiguous(),
+            nbr_p.reshape(C, n_pad * M).to(torch.int32).contiguous(),
+            unit_p.permute(0, 3, 1, 2).contiguous(), n_pad, rev)
 
 
 def painn_features(params: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
-                   alive: torch.Tensor, msg_geom) -> torch.Tensor:
+                   alive: torch.Tensor, msg_geom, band: DeviceBand | None = None) -> torch.Tensor:
     """General trunk over padded rows, differentiable in the edge
     geometry; returns s (C, K, N, F). ``msg_geom`` comes from
-    :func:`prepare_message_geometry`."""
+    :func:`prepare_message_geometry` (with the same ``band``).
+
+    With the routing ``band`` of a supercell every layer runs on the
+    band's sorted rows: the message is the banded kernel over the tables
+    extended by the halo (whose cotangents fold back through the
+    concatenation's own backward), and the update and dense layers act row
+    by row, so the trunk permutes s once on the way in and once on the way
+    out instead of phi, vcat, ds and dv at every layer as the JAX package
+    does (the same function)."""
     rbf, envm, nbr, unit, n_pad, rev = msg_geom
     C, N = numbers.shape
     K = params["atom_embed"].shape[0]
@@ -249,13 +276,25 @@ def painn_features(params: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
     alive_f = tnf.pad(alive.to(torch.float32), (0, pad_n))           # (C, n_pad)
     s = params["atom_embed"][:, z].transpose(0, 1)                   # (C, K, N, F)
     s = tnf.pad(s * alive_f[:, None, :N, None], (0, 0, 0, pad_n))
+    if band is not None:
+        if band.n_pad != n_pad:
+            raise ValueError(f"the band covers {band.n_pad} padded slots, the geometry {n_pad}")
+        s, alive_f = s[:, :, band.perm], alive_f[:, band.perm]
     vcat = torch.zeros((C, K, n_pad, 3 * F), dtype=s.dtype, device=s.device)
 
     for mp, up in zip(params["message"], params["update"]):
         dw, db = message_weights(mp, cfg, rbf.shape[-1])
-        ds, dv = painn_message_fused(filter_features(mp, s).contiguous(), vcat.contiguous(),
-                                     rbf, envm, nbr, unit, dw, db, rev)
+        phi = filter_features(mp, s)
+        if band is None:
+            ds, dv = painn_message_fused(phi.contiguous(), vcat.contiguous(), rbf, envm, nbr,
+                                         unit, dw, db, rev)
+        else:
+            ds, dv = painn_message_fused_banded(with_halo(phi, band.halo, 2),
+                                                with_halo(vcat, band.halo, 2), rbf, envm, nbr,
+                                                unit, dw, db, band, rev)
         s, vcat = painn_update_fused_plain(s + ds, vcat + dv, *update_weights(up), alive_f)
+    if band is not None:
+        s = s[:, :, band.inv_perm]
     return s[:, :, :N]
 
 
@@ -304,9 +343,11 @@ def painn_apply_rigid(params: dict, rw: dict, cfg: PaiNNConfig,
 
 
 def painn_apply(params: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
-                alive: torch.Tensor, msg_geom, edges: Edges) -> dict:
+                alive: torch.Tensor, msg_geom, edges: Edges,
+                band: DeviceBand | None = None) -> dict:
     """Full general forward of every member, differentiable in the
     positions the edges were built from: ``energy`` (C, K) and
-    ``per_atom_energy`` (C, K, N) in training units."""
-    s = painn_features(params, cfg, numbers, alive, msg_geom)
+    ``per_atom_energy`` (C, K, N) in training units; banded under ``band``
+    (``msg_geom`` then built with it)."""
+    s = painn_features(params, cfg, numbers, alive, msg_geom, band)
     return _readout(params, cfg, s, alive, edges.r, edges.mask, edges.overflow)

@@ -10,7 +10,9 @@ ranks (wrapping at the end, which a halo copy of the first rows makes
 contiguous). On the TPU the window shrinks the one-hot routing products
 from n_pad to W columns; the port's kernels load rows by index, so there
 the band is a layout that the supercell path keeps for parity, not a
-saving (``csrc/painn_message_banded.cuh``).
+saving (``csrc/painn_message_banded.cuh``). The band's device-side
+addressing (``window_rows``) and the reverse table of the banded message
+backward (``banded_reverse_table``) live here too.
 """
 
 from __future__ import annotations
@@ -196,3 +198,37 @@ def stage_band(band: RoutingBand | None, device) -> DeviceBand | None:
         win_start=torch.as_tensor(np.asarray(band.win_start, np.int32), device=device),
         window=int(band.window), halo=int(band.halo), n_blk=int(band.n_blk),
     )
+
+
+def window_rows(nbr: torch.Tensor, ws_edge: torch.Tensor, band: DeviceBand):
+    """Row of the halo-extended table holding each edge's neighbour (sorted
+    rank ``nbr``) for window starts ``ws_edge`` (per edge), and whether it
+    lies in the window: row s + ((r - s) mod n_pad) for window start s and
+    rank r. Outside the window the TPU kernels' one-hot router matches
+    nothing, so such an edge reads zeros (row 0 is returned for it)."""
+    off = torch.remainder(nbr.long() - ws_edge, band.n_pad)
+    inwin = off < band.window
+    return torch.where(inwin, ws_edge + off, 0), inwin
+
+
+def edge_window_starts(band: DeviceBand, M: int) -> torch.Tensor:
+    """(n_pad * M,) window start of every edge of the full sorted cell."""
+    rows = torch.arange(band.n_pad, device=band.win_start.device) // band.n_blk
+    return band.win_start[rows].long().repeat_interleave(M)
+
+
+def banded_reverse_table(nbr: torch.Tensor, mask: torch.Tensor, band: DeviceBand,
+                         depth: int) -> torch.Tensor:
+    """Reverse table of the banded message backward, (C, n_pad + halo, D)
+    int32 keyed by extended row: row x lists, ascending, the sorted-layout
+    edge ids e = i*M + m whose neighbour (sorted rank ``nbr`` (C, E)) is
+    read from row x of the halo-extended table, selected edges (``mask``)
+    only, then -1. A sorted slot is read as row r or, from a window that
+    wraps, as row r + n_pad; both rows lie in one slot's incoming edges, so
+    the slot's bound on incoming selected edges (``depth``,
+    ``CandidateTable.max_in_degree``) bounds every row."""
+    from surface_sampling_tpu_torch.ops.neighbors import reverse_table
+
+    C, E = nbr.shape
+    row, inwin = window_rows(nbr, edge_window_starts(band, E // band.n_pad)[None], band)
+    return reverse_table(row, mask & inwin, band.n_pad + band.halo, depth)

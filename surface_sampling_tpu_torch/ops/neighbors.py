@@ -18,7 +18,9 @@ reverse-neighbor table (the incoming edges of each slot, in a fixed
 order), so that the backward of the neighbor gather, here and in the
 message kernel, is a gather with a fixed summation order instead of a
 scatter with float atomics: relaxed positions enter the MC state, and
-runs must repeat bitwise on the card.
+runs must repeat bitwise on the card. Given a supercell's routing band, the
+topology also carries the banded message backward's reverse table
+(``ops.banding.banded_reverse_table``), built once per topology.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from surface_sampling_tpu_torch.ops.banding import DeviceBand, banded_reverse_table
 
 # Row padding of the (n_pad, M) edge layout, shared with
 # ``ops/static_edges.py``: the JAX package pads slots to its message
@@ -116,6 +120,7 @@ class EdgeTopology(NamedTuple):
     mask: torch.Tensor       # (C, N, M) bool
     overflow: torch.Tensor   # (C,) bool
     rev: torch.Tensor        # (C, n_pad, D) int32, see reverse_table
+    rev_band: torch.Tensor | None = None   # (C, n_pad + halo, D), banded_reverse_table
 
 
 class Edges(NamedTuple):
@@ -127,6 +132,7 @@ class Edges(NamedTuple):
     mask: torch.Tensor       # (C, N, M) bool
     overflow: torch.Tensor   # (C,) bool
     rev: torch.Tensor        # (C, n_pad, D) int32, see reverse_table
+    rev_band: torch.Tensor | None = None   # (C, n_pad + halo, D), banded_reverse_table
 
 
 def stage_candidate_table(static_nbr, cutoff: float, max_neighbors: int,
@@ -201,11 +207,15 @@ def reverse_table(nbr: torch.Tensor, mask: torch.Tensor, n_pad: int,
     return torch.where(ok, got, -1).to(torch.int32).contiguous()
 
 
-def select_edge_topology(positions, alive, table: CandidateTable) -> EdgeTopology:
+def select_edge_topology(positions, alive, table: CandidateTable,
+                         band: DeviceBand | None = None) -> EdgeTopology:
     """Rank-select the candidate pairs once, keeping per-edge image shifts,
     so geometry can be recomputed at displaced positions with the topology
     fixed (the reference's refresh-per-relaxation neighbor semantics).
-    ``positions`` (C, N, 3), ``alive`` (C, N) bool."""
+    ``positions`` (C, N, 3), ``alive`` (C, N) bool. With the routing
+    ``band`` of a supercell (built from the same candidate table) the
+    topology also carries the banded message backward's reverse table, in
+    the band's sorted edge layout."""
     with torch.no_grad():
         _, _, mask = _candidate_geometry(positions.detach(), alive, table)
         idx, overflow = _rank_select(mask, table.max_neighbors)
@@ -216,10 +226,16 @@ def select_edge_topology(positions, alive, table: CandidateTable) -> EdgeTopolog
         C, N, M = nbr_j.shape
         n_pad = padded_rows(N)
         pad = (0, 0, 0, n_pad - N)
-        rev = reverse_table(torch.nn.functional.pad(nbr_j, pad).reshape(C, -1),
-                            torch.nn.functional.pad(sel, pad).reshape(C, -1),
-                            n_pad, table.max_in_degree)
-    return EdgeTopology(nbr_j, shift, sel, overflow, rev)
+        nbr_p = torch.nn.functional.pad(nbr_j, pad)
+        sel_p = torch.nn.functional.pad(sel, pad)
+        rev = reverse_table(nbr_p.reshape(C, -1), sel_p.reshape(C, -1), n_pad,
+                            table.max_in_degree)
+        rev_band = None
+        if band is not None:
+            rev_band = banded_reverse_table(band.rank[nbr_p[:, band.perm]].reshape(C, -1),
+                                            sel_p[:, band.perm].reshape(C, -1), band,
+                                            table.max_in_degree)
+    return EdgeTopology(nbr_j, shift, sel, overflow, rev, rev_band)
 
 
 class _GatherRows(torch.autograd.Function):
@@ -253,31 +269,33 @@ def edges_from_topology(positions, topology: EdgeTopology, cutoff: float) -> Edg
     from :func:`select_edge_topology`, differentiable in ``positions``.
     Edges that drift past the cutoff stay in the list with their true
     distance: every radial envelope vanishes there."""
-    nbr_j, shift, mask, overflow, rev = topology
+    nbr_j, shift, mask, overflow, rev, rev_band = topology
     disp = positions[:, :, None, :] - (_GatherRows.apply(positions, nbr_j, rev) + shift)
     r = torch.sqrt(torch.clamp((disp * disp).sum(-1), min=1e-12))
     r = torch.where(mask, r, torch.full_like(r, cutoff))
     disp = torch.where(mask[..., None], disp, torch.zeros_like(disp))
-    return Edges(disp, r, nbr_j, mask, overflow, rev)
+    return Edges(disp, r, nbr_j, mask, overflow, rev, rev_band)
 
 
-def neighbor_list_from_table(positions, alive, table: CandidateTable) -> Edges:
+def neighbor_list_from_table(positions, alive, table: CandidateTable,
+                             band: DeviceBand | None = None) -> Edges:
     """Padded neighbor list from a static candidate table: in-range alive
     candidates in table order, the first M kept. Equal, value for value,
     to the JAX function, whose payload compaction copies the candidate
     disp and r that :func:`edges_from_topology` recomputes here with the
     same arithmetic."""
-    return edges_from_topology(positions, select_edge_topology(positions, alive, table),
+    return edges_from_topology(positions, select_edge_topology(positions, alive, table, band),
                                table.cutoff)
 
 
-def make_table_topology_fns(table: CandidateTable):
+def make_table_topology_fns(table: CandidateTable, band: DeviceBand | None = None):
     """(topo_fn, geom_fn): ``topo_fn(positions, alive)`` selects the fixed
-    topology once; ``geom_fn(positions, topology)`` rebuilds the edges per
-    force call (the relax loop's refresh_edges="once" mode)."""
+    topology once (with the banded reverse table under ``band``);
+    ``geom_fn(positions, topology)`` rebuilds the edges per force call (the
+    relax loop's refresh_edges="once" mode)."""
 
     def topo_fn(positions, alive):
-        return select_edge_topology(positions, alive, table)
+        return select_edge_topology(positions, alive, table, band)
 
     def geom_fn(positions, topology):
         return edges_from_topology(positions, topology, table.cutoff)
@@ -285,10 +303,11 @@ def make_table_topology_fns(table: CandidateTable):
     return topo_fn, geom_fn
 
 
-def make_table_edge_fn(table: CandidateTable):
-    """Close :func:`neighbor_list_from_table` over a staged table."""
+def make_table_edge_fn(table: CandidateTable, band: DeviceBand | None = None):
+    """Close :func:`neighbor_list_from_table` over a staged table (and a
+    routing band)."""
 
     def edge_fn(positions, alive):
-        return neighbor_list_from_table(positions, alive, table)
+        return neighbor_list_from_table(positions, alive, table, band)
 
     return edge_fn

@@ -18,11 +18,16 @@ Each block replaces a Pallas TPU kernel of
     painn_message_l1_banded     the layer-1 message of a supercell, neighbour
                                 rows read through the routing band's window
                                 (replaces ``painn_message_l1_banded``)
-    painn_message_fused_banded  the general message of a supercell, forward
-                                only (replaces ``_message_pallas_banded``)
+    painn_message_fused_banded  the general message of a supercell
+                                (replaces ``_message_pallas_banded``), a
+                                ``torch.autograd.Function`` whose backward
+                                launches
+    painn_message_bwd_banded    its backward, for forces and relaxation of
+                                supercells (replaces
+                                ``_message_bwd_pallas_banded``)
     painn_message_subset        the banded general message over selected
                                 blocks of centres, per chain: the delta
-                                engine's hot op (replaces
+                                engine's hot op, forward only (replaces
                                 ``painn_message_subset``)
 
 Every function is batched over chains C and ensemble members K in one
@@ -56,6 +61,11 @@ from pathlib import Path
 import torch
 import torch.nn.functional as tnf
 
+from surface_sampling_tpu_torch.ops.banding import (
+    banded_reverse_table,
+    edge_window_starts,
+    window_rows,
+)
 from surface_sampling_tpu_torch.ops.neighbors import reverse_table
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -63,7 +73,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("painn_message_l1", "painn_message_fused", "painn_update_fused",
            "painn_message_bwd", "painn_message_l1_banded", "painn_message_fused_banded",
-           "painn_message_subset")
+           "painn_message_subset", "painn_message_bwd_banded")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -77,6 +87,7 @@ _ARITY = {
     "painn_message_l1_banded": (11, 10),
     "painn_message_fused_banded": (11, 9),
     "painn_message_subset": (11, 10),
+    "painn_message_bwd_banded": (18, 11),
 }
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -364,22 +375,26 @@ painn_message_fused.launches = 0
 # ----------------------------------------------------------------------
 # Backward of the general message
 # ----------------------------------------------------------------------
-def painn_message_bwd_plain(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
-                            want_dw=True):
-    """Plain PyTorch version of :func:`painn_message_bwd`: the same
-    cotangents from explicit (C, K, E, 3F) per-edge tensors, with the
-    neighbor cotangents scattered by ``scatter_add_`` (it needs no reverse
-    table)."""
-    C, K, n_pad, F3 = phi.shape
+def _message_bwd_of_rows(phi, vcat, row, inwin, rbf, envm, unit, dw, db, gds, gdv, want_dw):
+    """Cotangents of the general message from explicit (C, K, E, 3F)
+    per-edge tensors: edge e reads its neighbour from ``row[e]`` of the
+    (C, K, n_tab, 3F) tables and its centre's cotangents from row e // M
+    of gds / gdv. ``inwin`` (C, E) bool, or None: an edge outside its
+    routing window reads zeros and scatters nothing. The neighbour
+    cotangents are scattered by ``scatter_add_`` (no reverse table)."""
+    C, K, _, F3 = phi.shape
     F = F3 // 3
     E = rbf.shape[1]
-    M = E // n_pad
+    n_pad, M = unit.shape[2], unit.shape[3]
     wpre = torch.matmul(rbf[:, None], dw) + db[None, :, None, :]     # (C, K, E, 3F)
     env = envm[:, None, :, None]
     w = wpre * env
-    idx = nbr.long()[:, None, :, None].expand(C, K, E, F3)
+    idx = row[:, None, :, None].expand(C, K, E, F3)
     phij = torch.gather(phi, 2, idx)
-    vj = torch.gather(vcat, 2, idx).reshape(C, K, E, 3, F)
+    vj = torch.gather(vcat, 2, idx)
+    if inwin is not None:
+        phij, vj = phij * inwin[:, None, :, None], vj * inwin[:, None, :, None]
+    vj = vj.reshape(C, K, E, 3, F)
     gdv_e = gdv.repeat_interleave(M, dim=2).reshape(C, K, E, 3, F)  # center row per edge
     gds_e = gds.repeat_interleave(M, dim=2)
     u = unit.reshape(C, 3, E).transpose(1, 2)[:, None, :, :, None]   # (C, 1, E, 3, 1)
@@ -388,9 +403,12 @@ def painn_message_bwd_plain(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
     gwe = g_w * env
     c_u = phij[..., 2 * F:] * w[..., 2 * F:]
     c_vv = phij[..., :F] * w[..., :F]
-    g_phi = torch.zeros_like(phi).scatter_add_(2, idx, g_inv * w)
-    g_vcat = torch.zeros_like(vcat).scatter_add_(
-        2, idx, (gdv_e * c_vv[..., None, :]).reshape(C, K, E, F3))
+    to_phi = g_inv * w
+    to_vcat = (gdv_e * c_vv[..., None, :]).reshape(C, K, E, F3)
+    if inwin is not None:
+        to_phi = to_phi * inwin[:, None, :, None]
+    g_phi = torch.zeros_like(phi).scatter_add_(2, idx, to_phi)
+    g_vcat = torch.zeros_like(vcat).scatter_add_(2, idx, to_vcat)
     g_rbf = torch.matmul(gwe, dw.transpose(1, 2)).sum(1)             # (C, E, R)
     g_envm = (g_w * wpre).sum(dim=(1, 3))
     g_unit = (gdv_e * c_u[..., None, :]).sum(dim=(1, 4))             # (C, E, 3)
@@ -399,6 +417,48 @@ def painn_message_bwd_plain(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
         return g_phi, g_vcat, g_rbf, g_envm, g_unit, None, None
     g_dw = torch.einsum("cer,ckef->krf", rbf, gwe)
     return g_phi, g_vcat, g_rbf, g_envm, g_unit, g_dw, gwe.sum(dim=(0, 2))
+
+
+def painn_message_bwd_plain(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
+                            want_dw=True):
+    """Plain PyTorch version of :func:`painn_message_bwd`: the same
+    cotangents from explicit (C, K, E, 3F) per-edge tensors, with the
+    neighbor cotangents scattered by ``scatter_add_`` (it needs no reverse
+    table)."""
+    return _message_bwd_of_rows(phi, vcat, nbr.long(), None, rbf, envm, unit, dw, db, gds,
+                                gdv, want_dw)
+
+
+def _check_bwd_kernel(name, C, K, R, F):
+    _check_grid(name, C, K, R)
+    if R > 24:
+        raise ValueError(f"{name}: the radial width must be 8, 16 or 24, got {R} "
+                         "(R + 4 per-edge sums share one warp's 32 lanes)")
+    if F > 128:
+        raise ValueError(f"{name}: F={F} exceeds the kernel's 128 "
+                         "(one thread per channel, at most 128 threads a block)")
+
+
+def _launch_bwd(name, fn, ins, rev, ints, want_dw):
+    """Allocate the cotangents of a message backward (g_phi / g_vcat shaped
+    as the tables ins[0] / ins[1]), launch ``name`` on ``ins`` and the
+    reverse table, and sum the g_dw / g_db partials of its blocks in one
+    fixed order. ``fn`` is the wrapper whose launches are counted."""
+    phi, vcat, rbf, envm, _, unit = ins[:6]
+    C, K, _, F3 = phi.shape
+    R = rbf.shape[2]
+    n_pad = unit.shape[2]
+    g = (torch.empty_like(phi), torch.empty_like(vcat), torch.empty_like(rbf),
+         torch.empty_like(envm), torch.empty_like(unit))
+    part = (torch.empty((C * n_pad, K, R + 1, F3), dtype=torch.float32, device=phi.device)
+            if want_dw else None)
+    _launch(name, (*ins, rev, *g, part), ints)
+    fn.launches += 1
+    if not want_dw:
+        return (*g, None, None)
+    fn.dw_launches += 1
+    gdw = part.sum(dim=0)                       # per-block partials, one fixed order
+    return (*g, gdw[:, :R].contiguous(), gdw[:, R].contiguous())
 
 
 def painn_message_bwd(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
@@ -436,34 +496,14 @@ def painn_message_bwd(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
     if dev.type == "cpu":
         return painn_message_bwd_plain(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
                                        want_dw=want_dw)
-    _check_grid("painn_message_bwd", C, K, R)
-    if R > 24:
-        raise ValueError(f"painn_message_bwd: the radial width must be 8, 16 or 24, got {R} "
-                         "(R + 4 per-edge sums share one warp's 32 lanes)")
-    if F > 128:
-        raise ValueError(f"painn_message_bwd: F={F} exceeds the kernel's 128 "
-                         "(one thread per channel, at most 128 threads a block)")
+    _check_bwd_kernel("painn_message_bwd", C, K, R, F)
     if rev is None:
         rev = reverse_table(nbr, envm != 0, n_pad)
     D = rev.shape[-1]
     _check("painn_message_bwd", dev, rev=(rev, i32, (C, n_pad, D)))
-    g_phi = torch.empty_like(phi)
-    g_vcat = torch.empty_like(vcat)
-    g_rbf = torch.empty_like(rbf)
-    g_envm = torch.empty_like(envm)
-    g_unit = torch.empty_like(unit)
-    part = (torch.empty((C * n_pad, K, R + 1, F3), dtype=f32, device=dev)
-            if want_dw else None)
-    _launch("painn_message_bwd",
-            (phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv, rev,
-             g_phi, g_vcat, g_rbf, g_envm, g_unit, part),
-            (C, K, n_pad, M, R, F, D, int(want_dw)))
-    painn_message_bwd.launches += 1
-    if not want_dw:
-        return g_phi, g_vcat, g_rbf, g_envm, g_unit, None, None
-    painn_message_bwd.dw_launches += 1
-    gdw = part.sum(dim=0)                       # per-block partials, one fixed order
-    return g_phi, g_vcat, g_rbf, g_envm, g_unit, gdw[:, :R].contiguous(), gdw[:, R].contiguous()
+    return _launch_bwd("painn_message_bwd", painn_message_bwd,
+                       (phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv),
+                       rev, (C, K, n_pad, M, R, F, D, int(want_dw)), want_dw)
 
 
 painn_message_bwd.launches = 0
@@ -473,18 +513,9 @@ painn_message_bwd.dw_launches = 0   # launches that also computed g_dw / g_db
 # ----------------------------------------------------------------------
 # Banded messages (supercells): rows in the routing band's sorted order
 # ----------------------------------------------------------------------
-def _window_rows(nbr, ws_edge, band):
-    """Row of the halo-extended table holding each edge's neighbour (sorted
-    rank ``nbr``) for window starts ``ws_edge`` (per edge), and whether it
-    lies in the window. Outside the window the TPU kernels' one-hot router
-    matches nothing, so such an edge reads zeros; the band guarantees that
-    no selected edge (envm != 0) is outside, which is asserted here."""
-    off = torch.remainder(nbr.long() - ws_edge, band.n_pad)
-    inwin = off < band.window
-    return torch.where(inwin, ws_edge + off, 0), inwin
-
-
 def _assert_in_window(envm, inwin):
+    """The band guarantees that no selected edge (envm != 0) lies outside
+    its window (``ops.banding.window_rows``); the plain versions check it."""
     if bool(((envm != 0) & ~inwin).any()):
         raise AssertionError("a selected edge lies outside its routing window: "
                              "the band does not cover this geometry")
@@ -505,9 +536,7 @@ def _gather_window_rows(table, row, inwin):
 
 def painn_message_l1_banded_plain(species_ext, philt, rbf, envm, nbr, unit, dw2, db2, band):
     """Plain PyTorch version of :func:`painn_message_l1_banded`."""
-    n_pad, M = unit.shape[2], unit.shape[3]
-    ws_rows = band.win_start[torch.arange(n_pad, device=rbf.device) // band.n_blk]
-    row, inwin = _window_rows(nbr, _edge_starts(ws_rows, M)[None], band)
+    row, inwin = window_rows(nbr, edge_window_starts(band, unit.shape[3])[None], band)
     _assert_in_window(envm, inwin)
     sp_j = torch.where(inwin, torch.gather(species_ext, 1, row), philt.shape[1] - 1)
     return _message_l1_of_species(sp_j, philt, rbf, envm, unit, dw2, db2)
@@ -559,16 +588,8 @@ def painn_message_l1_banded(species_ext, philt, rbf, envm, nbr, unit, dw2, db2, 
 painn_message_l1_banded.launches = 0
 
 
-def _forward_only(name, *tensors):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} is forward only: its backward is the banded message backward "
-            "(_message_bwd_pallas_banded, row 9 of the kernel table in PERF.md), "
-            "which is not ported yet")
-
-
 def _banded_message_plain(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, ws_edge, band):
-    row, inwin = _window_rows(nbr, ws_edge, band)
+    row, inwin = window_rows(nbr, ws_edge, band)
     _assert_in_window(envm, inwin)
     return _message_of_rows(_gather_window_rows(phi_ext, row, inwin),
                             _gather_window_rows(vcat_ext, row, inwin),
@@ -603,16 +624,15 @@ def _launch_banded(name, phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, ws, n_
 
 def painn_message_fused_banded_plain(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, band):
     """Plain PyTorch version of :func:`painn_message_fused_banded`."""
-    n_pad, M = unit.shape[2], unit.shape[3]
-    ws_rows = band.win_start[torch.arange(n_pad, device=rbf.device) // band.n_blk]
     return _banded_message_plain(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db,
-                                 _edge_starts(ws_rows, M)[None], band)
+                                 edge_window_starts(band, unit.shape[3])[None], band)
 
 
-def painn_message_fused_banded(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, band):
+def painn_message_fused_banded(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, band,
+                               rev=None):
     """General PaiNN message of a supercell (:func:`painn_message_fused`'s
-    math), neighbour rows read through the routing band's window, forward
-    only.
+    math), neighbour rows read through the routing band's window,
+    differentiable in every float input.
 
     Args:
         phi_ext, vcat_ext: (C, K, n_pad + halo, 3F) f32 features in sorted
@@ -621,13 +641,24 @@ def painn_message_fused_banded(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, 
             geometry; nbr (C, E) int32 sorted ranks.
         dw, db: (K, R, 3F), (K, 3F) dist_embed weights.
         band: the ``ops.banding.DeviceBand``.
+        rev: optional (C, n_pad + halo, D) int32 reverse table of the edges
+            keyed by extended row (``ops.banding.banded_reverse_table``)
+            for the backward; built from ``nbr`` and ``envm != 0`` when a
+            backward needs it and it is not given.
     Returns:
         ds (C, K, n_pad, F), dv (C, K, n_pad, 3F), in sorted order.
-    Raises NotImplementedError on inputs that require grad (the banded
-    backward is not ported).
+
+    The backward launches :func:`painn_message_bwd_banded` (the plain
+    version on the CPU); the cotangents of the halo rows are returned as
+    rows of their own, and fold back onto their slots through the
+    concatenation that built the halo. Once-differentiable, like
+    :func:`painn_message_fused`.
     """
+    return _MessageFusedBanded.apply(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, band, rev)
+
+
+def _message_fused_banded_forward(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, band):
     name = "painn_message_fused_banded"
-    _forward_only(name, phi_ext, vcat_ext, rbf, envm, unit, dw, db)
     C, K, n_ext, F3 = phi_ext.shape
     n_pad, M, R = unit.shape[2], unit.shape[3], rbf.shape[2]
     _check_banded(name, phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, band.win_start,
@@ -642,7 +673,84 @@ def painn_message_fused_banded(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, 
     return out
 
 
+class _MessageFusedBanded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, band, rev):
+        ctx.save_for_backward(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db)
+        ctx.band, ctx.rev = band, rev
+        return _message_fused_banded_forward(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db,
+                                             band)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gds, gdv):
+        need = ctx.needs_input_grad
+        g = painn_message_bwd_banded(*ctx.saved_tensors, gds.contiguous(), gdv.contiguous(),
+                                     ctx.band, rev=ctx.rev, want_dw=need[6] or need[7])
+        g_phi, g_vcat, g_rbf, g_envm, g_unit, g_dw, g_db = (
+            x if n else None for x, n in zip(g, (*need[:4], need[5], need[6], need[7])))
+        return g_phi, g_vcat, g_rbf, g_envm, None, g_unit, g_dw, g_db, None, None
+
+
 painn_message_fused_banded.launches = 0
+
+
+def painn_message_bwd_banded_plain(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, gds, gdv,
+                                   band, want_dw=True):
+    """Plain PyTorch version of :func:`painn_message_bwd_banded`."""
+    row, inwin = window_rows(nbr, edge_window_starts(band, unit.shape[3])[None], band)
+    _assert_in_window(envm, inwin)
+    return _message_bwd_of_rows(phi_ext, vcat_ext, row, inwin, rbf, envm, unit, dw, db, gds,
+                                gdv, want_dw)
+
+
+def painn_message_bwd_banded(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, gds, gdv, band,
+                             rev=None, want_dw=False):
+    """Cotangents of every float input of :func:`painn_message_fused_banded`
+    (:func:`painn_message_bwd`'s math with the neighbour rows read through
+    the routing band's window), batched over chains and members.
+
+    Args:
+        phi_ext .. db, band: the forward's inputs (sorted order, tables
+            extended by the halo).
+        gds: (C, K, n_pad, F), gdv: (C, K, n_pad, 3F) x-major, cotangents of
+            ds and dv (sorted order).
+        rev: (C, n_pad + halo, D) int32 reverse table keyed by extended
+            row (``ops.banding.banded_reverse_table``). Edges left out must
+            have envm == 0. None builds it from ``nbr`` and ``envm != 0``.
+        want_dw: also return g_dw (K, R, 3F) and g_db (K, 3F).
+    Returns:
+        (g_phi_ext, g_vcat_ext) (C, K, n_pad + halo, 3F): each extended
+        row's own cotangent (a halo row and its slot are summed by the
+        caller's fold); g_rbf (C, E, R), g_envm (C, E), g_unit
+        (C, 3, n_pad, M) summed over the members; g_dw, g_db.
+    """
+    name = "painn_message_bwd_banded"
+    C, K, n_ext, F3 = phi_ext.shape
+    F = F3 // 3
+    n_pad, M, R = unit.shape[2], unit.shape[3], rbf.shape[2]
+    f32, i32 = torch.float32, torch.int32
+    dev = phi_ext.device
+    _check_banded(name, phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, band.win_start,
+                  (n_pad // band.n_blk,), band, n_pad)
+    _check(name, dev, gds=(gds, f32, (C, K, n_pad, F)), gdv=(gdv, f32, (C, K, n_pad, F3)))
+    if dev.type == "cpu":
+        return painn_message_bwd_banded_plain(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db,
+                                              gds, gdv, band, want_dw=want_dw)
+    _check_bwd_kernel(name, C, K, R, F)
+    if rev is None:
+        rev = banded_reverse_table(nbr, envm != 0, band, None)
+    D = rev.shape[-1]
+    _check(name, dev, rev=(rev, i32, (C, n_ext, D)))
+    return _launch_bwd(name, painn_message_bwd_banded,
+                       (phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, gds, gdv,
+                        band.win_start),
+                       rev, (C, K, n_pad, n_ext, M, R, F, D, band.n_blk, band.window,
+                             int(want_dw)), want_dw)
+
+
+painn_message_bwd_banded.launches = 0
+painn_message_bwd_banded.dw_launches = 0   # launches that also computed g_dw / g_db
 
 
 def painn_message_subset_plain(phi_ext, vcat_ext, rbf_sel, envm_sel, nbr_sel, unit_sel, dw,
@@ -656,8 +764,9 @@ def painn_message_subset_plain(phi_ext, vcat_ext, rbf_sel, envm_sel, nbr_sel, un
 def painn_message_subset(phi_ext, vcat_ext, rbf_sel, envm_sel, nbr_sel, unit_sel, dw, db,
                          ws_sel, band):
     """The banded general message over NB selected blocks of n_blk sorted
-    centres per chain (a move's hop ball), forward only: the delta
-    engine's hot op.
+    centres per chain (a move's hop ball): the delta engine's hot op. It
+    is forward only, as the TPU kernel is (it has no VJP): inputs that
+    require grad raise.
 
     Args:
         phi_ext, vcat_ext: (C, K, n_pad + halo, 3F) full sorted tables with
@@ -673,7 +782,10 @@ def painn_message_subset(phi_ext, vcat_ext, rbf_sel, envm_sel, nbr_sel, unit_sel
         compact ds (C, K, NB*n_blk, F), dv (C, K, NB*n_blk, 3F).
     """
     name = "painn_message_subset"
-    _forward_only(name, phi_ext, vcat_ext, rbf_sel, envm_sel, unit_sel, dw, db)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (phi_ext, vcat_ext, rbf_sel, envm_sel, unit_sel, dw, db)):
+        raise NotImplementedError(f"{name} is forward only: the delta engine's subset message "
+                                  "has no backward, in the JAX package either")
     C, K, n_ext, F3 = phi_ext.shape
     n_rows, M, R = unit_sel.shape[2], unit_sel.shape[3], rbf_sel.shape[2]
     if n_rows % band.n_blk:
@@ -762,7 +874,8 @@ painn_update_fused.launches = 0
 
 
 WRAPPERS = (painn_message_l1, painn_message_fused, painn_update_fused, painn_message_bwd,
-            painn_message_l1_banded, painn_message_fused_banded, painn_message_subset)
+            painn_message_l1_banded, painn_message_fused_banded, painn_message_subset,
+            painn_message_bwd_banded)
 PLAIN = {
     painn_message_l1: painn_message_l1_plain,
     painn_message_fused: painn_message_fused_plain,
@@ -771,16 +884,18 @@ PLAIN = {
     painn_message_l1_banded: painn_message_l1_banded_plain,
     painn_message_fused_banded: painn_message_fused_banded_plain,
     painn_message_subset: painn_message_subset_plain,
+    painn_message_bwd_banded: painn_message_bwd_banded_plain,
 }
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
-    painn_message_bwd.dw_launches = 0
+    painn_message_bwd.dw_launches = painn_message_bwd_banded.dw_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
     counts = {fn.__name__: fn.launches for fn in WRAPPERS}
     counts["painn_message_bwd.g_dw"] = painn_message_bwd.dw_launches
+    counts["painn_message_bwd_banded.g_dw"] = painn_message_bwd_banded.dw_launches
     return counts

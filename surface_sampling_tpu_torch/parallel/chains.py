@@ -44,6 +44,17 @@ def incremental_chain_states(engine, d: DeviceSpec, n_chains: int, site_state=No
     return engine.init_state(_chain_site_states(d, n_chains, site_state))
 
 
+def relaxed_chain_states(d: DeviceSpec, state_energy_fn, n_chains: int,
+                         site_state=None) -> MCState:
+    """Batch of chain states for a warm-started engine
+    (``core/local_relax.py``): the occupancies of :func:`chain_states`, each
+    with the energy and the relaxed positions of one full relaxed
+    evaluation (``state_energy_fn`` of a relaxing ``MCMCRun``)."""
+    states = chain_states(d, n_chains, site_state)
+    first = state_energy_fn(states.site_state)
+    return states._replace(energy=first.surface_energy, relaxed_positions=first.positions)
+
+
 def make_chain_run(run_fn: Callable, share_temps: bool = True) -> Callable:
     """Run ``run_fn`` over a batch of chains. With ``share_temps`` every
     chain follows one schedule, ``temps`` (sweeps,); otherwise ``temps``

@@ -40,8 +40,9 @@ MODEL_DATA = _REFERENCE_PKG / "models" / "data"
 class ExampleSystem(NamedTuple):
     """A system ready to sample: its spec, potential and MC run, the
     static candidate table the potential ranks edges over, and the host
-    routing band of a rigid supercell (None otherwise), which
-    ``core.incremental.make_incremental_painn_from_system`` needs besides."""
+    routing band of a supercell (None where the cell has none), which
+    ``core.incremental.make_incremental_painn_from_system`` needs besides
+    for a rigid one."""
 
     spec: SurfaceSpec
     potential: PaiNNPotential
@@ -71,23 +72,22 @@ def srtio3_001_painn(
     no rigid hook, as in the JAX package).
 
     ``supercell=(a, b)`` tiles the slab a x b times laterally and sorts it
-    by z, as the JAX package does; where the cell is large enough for a
-    routing band (2x2 and up: 496 slots and more) the rigid hook runs the
-    banded trunk and the system carries the band for the delta engine
-    (``core/incremental.py``).
+    by z, as the JAX package does, and builds a routing band over the
+    static table where its windows are narrow enough. Rigid, that is from
+    2x2 up (496 slots and more): the rigid hook runs the banded trunk and
+    the system carries the band for the delta engine
+    (``core/incremental.py``). Relaxed, the wider relax table gives a band
+    from 3x3 up (1116 slots): energies and forces run the banded general
+    trunk and its backward; the relaxed 2x2 cell has none and runs
+    unbanded, by the JAX package's own rule.
 
-    Arguments and defaults are those of the JAX package's function.
-    Relaxed supercells and relax methods other than FIRE are not ported
-    yet and raise. ``pallas_routing`` selects a TPU routing precision and
-    is ignored: the port computes in float32. ``dtype`` must be None or
+    Arguments and defaults are those of the JAX package's function. Relax
+    methods other than FIRE are not ported yet and raise. ``pallas_routing``
+    selects a TPU routing precision and is ignored: the port computes in
+    float32. ``dtype`` must be None or
     ``torch.float32``. ``device`` defaults to "cuda" and raises without a
     card; pass "cpu" for the plain PyTorch path.
     """
-    if tuple(supercell) != (1, 1) and relax is not None:
-        raise NotImplementedError(
-            "relaxed supercells wait for the banded message backward "
-            "(_message_bwd_pallas_banded, row 9 of the kernel table in PERF.md), "
-            "which is not ported yet: pass relax=None or supercell=(1, 1)")
     if dtype not in (None, torch.float32):
         raise NotImplementedError("the port computes in float32 only")
     dev = resolve_device(device)
@@ -118,8 +118,9 @@ def srtio3_001_painn(
     )
     slack = 0.6 if relax is not None else 0.1
     static_nbr = build_static_neighbor_table(spec, cfg.cutoff, relax_slack=slack)
-    # the 1x1 cell is laterally fully connected at this cutoff: no band
-    band = build_routing_band_for_spec(spec, static_nbr) if relax is None else None
+    # the 1x1 cell is laterally fully connected at this cutoff (no band); so
+    # is the relaxed 2x2 at the relax table's slack
+    band = build_routing_band_for_spec(spec, static_nbr)
     pot = make_painn_potential(
         params, cfg, type_numbers, units="kcal/mol", stoidict=offset_data["stoidict"],
         static_nbr=static_nbr, spec=None if relax is not None else spec, device=dev,

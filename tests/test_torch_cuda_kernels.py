@@ -263,6 +263,45 @@ def test_banded_kernels_match_plain(cuda_device, R):
         _assert_close(got, pk.PLAIN[fn](*args))
 
 
+@pytest.mark.parametrize("R", [8, 24])
+def test_banded_backward_kernel_matches_plain(cuda_device, R):
+    """Row 9 (the banded message backward) against its plain version on a
+    band of 8-blocks with a halo whose windows wrap, all seven cotangents
+    (g_dw / g_db requested), with the reverse table keyed by extended row;
+    one launch counted, and a second launch repeats the first bitwise."""
+    import numpy as np
+
+    from surface_sampling_tpu_torch.ops.banding import (
+        banded_reverse_table,
+        build_routing_band,
+        stage_band,
+    )
+
+    dev, C, K, F, M = cuda_device, 3, 2, 128, 16
+    n = 42
+    x = np.arange(n, dtype=np.float64)
+    diff = (x[None, :] - x[:, None] + n / 2) % n - n / 2
+    slot_j = np.argsort(np.abs(diff) + np.eye(n) * 1e9, axis=1)[:, :12].astype(np.int32)
+    band = build_routing_band(np.stack([x, 0 * x, 0 * x], 1), slot_j,
+                              np.ones_like(slot_j, bool), 8, 48)
+    dband = stage_band(band, dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
+    rbf, envm, nbr, unit = _banded_geometry(dev, band, slot_j, dband.perm.expand(C, -1), M, R, g)
+    n_ext = 48 + band.halo
+    args = (rn(C, K, n_ext, 3 * F), rn(C, K, n_ext, 3 * F), rbf, envm, nbr, unit,
+            rn(K, R, 3 * F), rn(K, 3 * F), rn(C, K, 48, F), rn(C, K, 48, 3 * F))
+    rev = banded_reverse_table(nbr, envm != 0, dband, None)
+    fn = pk.painn_message_bwd_banded
+    before = fn.launches, fn.dw_launches
+    got = fn(*args, dband, rev=rev, want_dw=True)
+    assert (fn.launches, fn.dw_launches) == (before[0] + 1, before[1] + 1)
+    _assert_close(got, pk.painn_message_bwd_banded_plain(*args, dband))
+    again = fn(*args, dband, rev=None, want_dw=True)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
 def test_incremental_run_repeats_bitwise(cuda_device):
     """A short delta-engine run on the 2x2 supercell through the subset
     kernel: the same seed twice gives bitwise identical states and caches,

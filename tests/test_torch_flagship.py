@@ -207,7 +207,7 @@ def test_short_run_energies_reevaluate_in_jax(tsys, jeval):
 
 
 @pytest.mark.parametrize("kwargs", [{"relax": RelaxConfig(method="lbfgs")},
-                                    {"supercell": (2, 2), "relax": RelaxConfig()},
+                                    {"supercell": (2, 2), "relax": RelaxConfig(method="lbfgs")},
                                     {"dtype": torch.float64}])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError):

@@ -311,17 +311,51 @@ def test_supercell_nn_energy_is_extensive(tsys):
 
 
 def test_relaxed_supercell_raises():
-    """(i) Relaxed supercells wait for the banded backward (row 9)."""
-    with pytest.raises(NotImplementedError, match="row 9"):
-        srtio3_001_painn(supercell=(2, 2), relax=RelaxConfig(), device="cpu")
+    """(i) Relaxed supercells build: the 2x2 relax table (slack 0.6) is too
+    wide for a band, by the JAX package's own rule, so its forces run the
+    unbanded rows 2 and 4 and the delta engine, which needs a rigid banded
+    system, raises for it; the 3x3 relax table bands, with the window and
+    halo the JAX package's builders give it (656 and 648, n_pad 1120)."""
+    from surface_sampling_tpu_torch.core.incremental import make_incremental_painn_from_system
+
+    sys22 = srtio3_001_painn(supercell=(2, 2), relax=RelaxConfig(), n_models=1, device="cpu")
+    assert sys22.routing_band is None and sys22.potential.band is None
+    assert not hasattr(sys22.potential, "rigid_energy")
+    with pytest.raises(ValueError, match="rigid banded"):
+        make_incremental_painn_from_system(sys22)
+    sys33 = srtio3_001_painn(supercell=(3, 3), relax=RelaxConfig(), n_models=1, device="cpu")
+    band = sys33.potential.band
+    assert (band.n_pad, band.window, band.halo, band.n_blk) == (1120, 656, 648, 8)
+    assert sys33.routing_band is not None
 
 
-def test_banded_messages_are_forward_only(toy_band):
+def test_banded_messages_are_forward_only(toy_band, monkeypatch):
+    """Row 7's backward is the banded message backward (row 9,
+    painn_message_bwd_banded, asked for g_dw only when the weights need a
+    gradient) and is once-differentiable: grad of grad raises. Row 8, the
+    delta engine's subset message, stays forward only, as in the JAX
+    package."""
     band, _ = toy_band
     dband = stage_band(band, "cpu")
-    phi = torch.zeros((1, 1, 48 + band.halo, 3 * F), requires_grad=True)
-    geom = (torch.zeros((1, 48 * M, R)), torch.zeros((1, 48 * M)),
-            torch.zeros((1, 48 * M), dtype=torch.int32), torch.zeros((1, 3, 48, M)))
-    with pytest.raises(NotImplementedError, match="row 9"):
-        pk.painn_message_fused_banded(phi, phi.detach(), *geom, torch.zeros((1, R, 3 * F)),
-                                      torch.zeros((1, 3 * F)), dband)
+    calls = []
+    bwd = pk.painn_message_bwd_banded
+
+    def recorded(*args, **kwargs):
+        calls.append(kwargs["want_dw"])
+        return bwd(*args, **kwargs)
+
+    monkeypatch.setattr(pk, "painn_message_bwd_banded", recorded)
+    rng = np.random.default_rng(3)
+    phi = torch.as_tensor(rng.normal(size=(1, 1, 48 + band.halo, 3 * F)).astype(np.float32))
+    phi.requires_grad_(True)
+    geom = (torch.ones((1, 48 * M, R)), torch.ones((1, 48 * M)),
+            torch.as_tensor(np.asarray(band.win_start)[np.arange(48 * M) // (M * band.n_blk)],
+                            dtype=torch.int32)[None], torch.ones((1, 3, 48, M)))
+    w = (torch.ones((1, R, 3 * F)), torch.ones((1, 3 * F)))
+    ds, dv = pk.painn_message_fused_banded(phi, phi.detach(), *geom, *w, dband)
+    (g,) = torch.autograd.grad(ds.sum() + dv.sum(), phi, create_graph=True)
+    assert calls == [False] and g.shape == phi.shape and bool(g.abs().sum() > 0)
+    with pytest.raises(RuntimeError):
+        torch.autograd.grad(g.sum(), phi)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        pk.painn_message_subset(phi, phi.detach(), *geom, *w, dband.win_start[None, :6], dband)

@@ -13,6 +13,11 @@ occupancies with 75% of the sites empty) and on its supercells:
                banded kernels), 128 chains
   inc          one delta-engine MC step at 2x2 (128 chains) and at 4x4
                (1984 slots, 32 chains): inc_2x2, inc_4x4
+  force_call_3x3  one force call of the relaxed 3x3 supercell (1116 slots,
+               16 chains): the banded general message and its backward
+  local_relax  one warm-started ball-local relaxation MC step (one-hop
+               balls) from FIRE-relaxed pristine chains: local_relax_1x1
+               (128 chains), local_relax_3x3 (16 chains)
 
 For each window it prints the wall time (host clock around work that ends
 in a synchronize), the summed device time of every kernel, the device busy
@@ -39,6 +44,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 N_CHAINS = 128
 SC44_CHAINS = 32
+SC33_CHAINS = 16
 
 
 def _window(name: str, fn, top: int = 12) -> dict:
@@ -68,6 +74,41 @@ def _window(name: str, fn, top: int = 12) -> dict:
     for k, (t, n) in rows[:top]:
         print(f"    {t:9.3f} ms  {n:5d}x  {k[:110]}")
     return out
+
+
+def force_call(pot, pos, types, alive):
+    """One force call of a relaxation: energy and forces on the edge
+    topology selected at ``pos``."""
+    topo = pot.edge_topology(pos, alive)
+
+    def call():
+        with torch.enable_grad():
+            p = pos.detach().requires_grad_(True)
+            e = pot.energy_with_edges(p, types, alive, edges=pot.edges_of(p, topo))
+            torch.autograd.grad(e.sum(), p)
+
+    return call
+
+
+def local_relax_step(sys_relax, chains, rng):
+    """One local-relax MC step (one-hop balls) of ``chains`` FIRE-relaxed
+    pristine chains with seeded draws."""
+    from surface_sampling_tpu_torch.core.local_relax import (
+        build_ball_masks,
+        make_local_relax_eval,
+        make_local_relax_semigrand_step,
+    )
+    from surface_sampling_tpu_torch.parallel.chains import relaxed_chain_states
+
+    run, spec, dev = sys_relax.run, sys_relax.spec, sys_relax.run.d.device
+    balls = build_ball_masks(spec, sys_relax.static_nbr, hops=1)
+    step = make_local_relax_semigrand_step(make_local_relax_eval(
+        run.d, sys_relax.potential, run.surface_energy_fn, run.relax, balls))
+    state = relaxed_chain_states(run.d, run.state_energy_fn, chains)
+    draws = (torch.as_tensor(rng.integers(0, spec.n_sites, chains), device=dev),
+             torch.as_tensor(rng.integers(0, spec.n_codes - 1, chains), device=dev),
+             torch.as_tensor(rng.random(chains), dtype=torch.float32, device=dev))
+    return lambda: step(state, 1.0, *draws)
 
 
 def main() -> int:
@@ -102,15 +143,7 @@ def main() -> int:
     ss = torch.as_tensor(np.where(rng.random(ss.shape) < 0.75, 0, ss), device=dev)
     pos, alive, types = realize_positions(d, ss), realize_alive(d, ss), realize_type_idx(d, ss)
     pot = relax.potential
-    topo = pot.edge_topology(pos, alive)
-
-    def force_call():
-        with torch.enable_grad():
-            p = pos.detach().requires_grad_(True)
-            e = pot.energy_with_edges(p, types, alive, edges=pot.edges_of(p, topo))
-            torch.autograd.grad(e.sum(), p)
-
-    edges = pot.edges_of(pos, topo)
+    edges = pot.edges_of(pos, pot.edge_topology(pos, alive))
     rbf, envm, nbr, unit, n_pad, rev = prepare_message_geometry(pot.cfg, edges)
     K, F = pot.params["atom_embed"].shape[0], pot.cfg.feat_dim
     g = torch.Generator(device=dev).manual_seed(0)
@@ -123,9 +156,22 @@ def main() -> int:
 
     report = {"device": smi, "chains": N_CHAINS}
     report["rigid"] = _window("rigid", lambda: rigid.run.state_energy_fn(ss))
-    report["force_call"] = _window("force_call", force_call)
+    report["force_call"] = _window("force_call", force_call(pot, pos, types, alive))
     report["bwd"] = _window("bwd", lambda: pk.painn_message_bwd(*bwd_args, rev=rev))
-    del relax, rigid, feats, bwd_args, edges, topo
+    report["local_relax_1x1"] = _window("local_relax_1x1", local_relax_step(relax, N_CHAINS, rng))
+    del relax, rigid, feats, bwd_args, edges
+    torch.cuda.empty_cache()
+
+    sc33 = srtio3_001_painn(supercell=(3, 3), relax=RelaxConfig(), device=dev)
+    spec, d = sc33.spec, sc33.run.d
+    ss = rng.integers(0, spec.n_codes, (SC33_CHAINS, spec.n_sites))
+    ss = torch.as_tensor(np.where(rng.random(ss.shape) < 0.75, 0, ss), device=dev)
+    report["force_call_3x3"] = _window("force_call_3x3", force_call(
+        sc33.potential, realize_positions(d, ss), realize_type_idx(d, ss), realize_alive(d, ss)))
+    report["force_call_3x3"]["chains"] = SC33_CHAINS
+    report["local_relax_3x3"] = _window("local_relax_3x3", local_relax_step(sc33, SC33_CHAINS, rng))
+    report["local_relax_3x3"]["chains"] = SC33_CHAINS
+    del sc33
     torch.cuda.empty_cache()
 
     for cell, chains in (((2, 2), N_CHAINS), ((4, 4), SC44_CHAINS)):
