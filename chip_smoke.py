@@ -5,10 +5,13 @@ Drives the port's paths — semigrand MC on the SrTiO3(001) 2x2 slab
 scored by the 3-member PaiNN ensemble, 128 chains, on a rigid lattice and
 with every trial state FIRE-relaxed; on the slab tiled 2x2 (496 slots),
 rigid, by full evaluation through the banded kernels and by the
-delta-energy engine; and on the slab tiled 3x3 (1116 slots), relaxed through
+delta-energy engine; on the slab tiled 3x3 (1116 slots), relaxed through
 the banded message and its backward, and by the warm-started ball-local
-relaxation engine — through their entry points on the card, in nineteen
-phases, each printing one line or more:
+relaxation engine; and semigrand MC on the LaMnO3(001) 2x2x3 slab scored by
+CHGNet (A: rigid, 64 chains; B: FIRE-relaxed, 8 chains, 10 steps; C: the
+slab tiled 3x3, 2484 slots, rigid and banded, 8 chains) — through their
+entry points on the card, in twenty-five phases, each printing one line or
+more:
 
   1. device     card name, count, and nvidia-smi's name and power limit
   2. build      compiles the eight PaiNN kernels from csrc/ (nvcc -Xptxas -v)
@@ -57,12 +60,27 @@ phases, each printing one line or more:
                 same start states: moves/s vs evals/s, FIRE iterations,
                 outside-ball slots unchanged, carried energies vs a fresh
                 evaluation, a bitwise repeat
+ 20. chgnet-kernel the three CHGNet atom-conv kernels against their plain
+                versions at this slice's shapes (row 10 at path A's, row 11
+                at path C's, row 12 at path B's, with and without the weight
+                cotangents, a bitwise repeat), with times and bounds
+ 21. chgnet-anchor the golden cases of tests/data/chgnet_golden.json at the
+                JAX test's tolerances; the pristine system card vs CPU
+ 22. chgnet-mc  path A, 64 chains x 2 sweeps x 8 steps: launch counts (row
+                10 four per evaluation), throughput, finite energies
+ 23. chgnet-forces card vs CPU energy and forces at the entry inputs
+ 24. chgnet-relax-mc path B, 8 chains x 1 sweep x 4 steps of 10 FIRE
+                iterations: launch counts of rows 10 and 12, FIRE iterations,
+                throughput, a bitwise repeat; one relaxed state card vs CPU
+ 25. chgnet-3x3 path C, 8 chains x 1 sweep x 8 steps: the band, launch
+                counts (row 11 only), throughput; banded vs unbanded energies
 
 Then it prints one JSON line {"kernels": [...]} (per kernel: source, the
 TPU kernel it replaces, launches on its main path — the rigid run for the
 1x1 forward kernels, the relaxed run for the backward, the 2x2 full
 evaluation run for the banded kernels, the delta run for the subset kernel,
-the relaxed 3x3 run for the banded backward, every path's count under
+the relaxed 3x3 run for the banded backward, paths A, B and C for the CHGNet
+rows 10, 12 and 11, every path's count under
 launches_by_path — max abs error, ms, plain_ms,
 bound_ms, bound_by, library_ms), the nvidia-smi line again, and last the
 JSON object
@@ -120,6 +138,15 @@ SC_RELAX_CPU_STEPS = 3
 RELAXED_E_TOL, RELAXED_POS_TOL = 5e-3, 1e-3
 # steps of the local-relax runs and of the full relaxed runs beside them
 LOCAL_SWEEP_SIZE = 4
+# CHGNet on LaMnO3(001): path A, rigid 1x1 (276 slots), at the chain count
+# of the JAX package's chgnet bench row; path B, FIRE-relaxed 1x1 with the
+# example configuration's 10 steps and 8 chains; path C, the rigid 3x3
+# supercell (2484 slots, banded) at the JAX package's chgnet_3x3super count.
+# The plain conv holds (C, E, 2F) tensors, 0.9 GB per 64 chains at 1x1 and
+# per 8 chains at 3x3: it runs on chunks of chains.
+CHG_CHAINS, CHG_RELAX_CHAINS, CHG_3X3_CHAINS = 64, 8, 8
+CHG_RELAX_STEPS = 10
+CHG_PLAIN_CHUNK, CHG_PLAIN_CHUNK_3X3 = 16, 4
 # kernel launches per full rigid evaluation of 3 layers: the 1x1 trunk and
 # the banded supercell trunk
 RIGID_LAUNCHES = {"painn_message_l1": 1, "painn_message_fused": 2, "painn_update_fused": 3}
@@ -137,6 +164,23 @@ def l1_flops_per_edge(F: int, R: int) -> int:
 def msg_flops_per_edge(F: int, R: int) -> int:
     """General message per contributing edge and member (3F channels)."""
     return 3 * F * (2 * R + 2) + 3 * F + F + 12 * F
+
+
+def reset_launch_counts() -> None:
+    """Zero the launch counters of every kernel of the port."""
+    from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
+    from surface_sampling_tpu_torch.ops import painn_kernels as pk
+
+    pk.reset_launch_counts()
+    ck.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    """The launch counters of every kernel of the port."""
+    from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
+    from surface_sampling_tpu_torch.ops import painn_kernels as pk
+
+    return {**pk.launch_counts(), **ck.launch_counts()}
 
 
 def _cuda_ms(fn, reps: int, warm: int = 2) -> float:
@@ -220,21 +264,27 @@ def kernel_cases(sys_, dev):
     ]
 
 
+def _states(spec, n_chains: int, rng, device):
+    """Seeded random occupancies with 75% of the sites empty."""
+    ss = rng.integers(0, spec.n_codes, (n_chains, spec.n_sites))
+    return torch.as_tensor(np.where(rng.random(ss.shape) < 0.75, 0, ss), device=device)
+
+
 def relax_edges(sys_relax, n_chains: int, seed: int):
     """Edges of the relaxed path: the topology selected at the ideal
     geometry of seeded random occupancies, the geometry recomputed at
-    positions displaced as a relaxation moves them (0.05 A)."""
+    positions displaced as a relaxation moves them (0.05 A). Returns the
+    edges and the occupancies."""
     from surface_sampling_tpu_torch.core.state import realize_alive, realize_positions
 
     d, spec, pot = sys_relax.run.d, sys_relax.spec, sys_relax.potential
     rng = np.random.default_rng(seed)
-    ss = rng.integers(0, spec.n_codes, (n_chains, spec.n_sites))
-    ss = torch.as_tensor(np.where(rng.random(ss.shape) < 0.75, 0, ss), device=d.device)
+    ss = _states(spec, n_chains, rng, d.device)
     pos, alive = realize_positions(d, ss), realize_alive(d, ss)
     topo = pot.edge_topology(pos, alive)
     noise = torch.as_tensor(rng.normal(0, 0.05, tuple(pos.shape)), dtype=pos.dtype,
                             device=d.device)
-    return pot.edges_of(pos + noise, topo)
+    return pot.edges_of(pos + noise, topo), ss
 
 
 def bwd_case(sys_relax, n_chains: int, seed: int):
@@ -244,7 +294,7 @@ def bwd_case(sys_relax, n_chains: int, seed: int):
 
     pot = sys_relax.potential
     cfg, params = pot.cfg, pot.params
-    edges = relax_edges(sys_relax, n_chains, seed)
+    edges, _ = relax_edges(sys_relax, n_chains, seed)
     rbf, envm, nbr, unit, n_pad, rev = prepare_message_geometry(cfg, edges)
     K, F = params["atom_embed"].shape[0], cfg.feat_dim
     mp = params["message"][1]
@@ -321,8 +371,8 @@ def backward_phase(dev) -> dict:
     return row
 
 
-def forces_phase(sys_gpu, sys_cpu, dev) -> None:
-    """8. energy_and_forces at the compile entry point's inputs (one
+def forces_phase(sys_gpu, sys_cpu, dev, tag: str = "forces") -> None:
+    """8. / 23. energy_and_forces at the compile entry point's inputs (one
     adsorbate, code 1 on site 0): card vs the CPU plain path."""
     from surface_sampling_tpu_torch.core.state import (
         realize_alive,
@@ -340,7 +390,7 @@ def forces_phase(sys_gpu, sys_cpu, dev) -> None:
         out.append((e.cpu(), f.cpu()))
     (eg, fg), (ec, fc) = out
     de, df = float((eg - ec).abs().max()), float((fg - fc).abs().max())
-    print(f"[forces] card E={float(eg[0]):.6f} eV cpu E={float(ec[0]):.6f} eV |dE|={de:.3e} eV "
+    print(f"[{tag}] card E={float(eg[0]):.6f} eV cpu E={float(ec[0]):.6f} eV |dE|={de:.3e} eV "
           f"max|F|={float(fg.abs().max()):.4f} eV/A max|dF|={df:.3e} eV/A")
     if not (de <= 1e-3 and df <= 1e-3):
         raise AssertionError(f"card and CPU forces differ: dE {de} eV, dF {df} eV/A")
@@ -390,13 +440,18 @@ def relaxed_anchor_phase(sys_relax, dev) -> None:
         raise AssertionError(f"relaxed anchor off: {se} eV")
 
 
-def _expect_relaxed(launches, calls, fwd: str, bwd: str) -> None:
+def _n_layers(pot) -> int:
+    """Message-passing layers of a potential's model (PaiNN or CHGNet)."""
+    return getattr(pot.cfg, "n_layers", None) or pot.cfg.n_conv
+
+
+def _expect_relaxed(launches, calls, fwd: str, bwd: str, layers: int) -> None:
     """Per force call every layer launches the forward ``fwd`` and the
-    backward ``bwd`` once (three layers), per fresh-edge energy the forward;
-    no other kernel, and never the g_dw part."""
+    backward ``bwd`` once, per fresh-edge energy the forward; no other
+    kernel, and never the weight-gradient part."""
     want = {name: 0 for name in launches}
-    want[fwd] = 3 * (calls["force"] + calls["fresh"])
-    want[bwd] = 3 * calls["force"]
+    want[fwd] = layers * (calls["force"] + calls["fresh"])
+    want[bwd] = layers * calls["force"]
     if launches != want or calls["force"] == 0:
         raise AssertionError(f"relaxed launch counts {launches} for {calls}, expected {want}")
 
@@ -409,7 +464,6 @@ def relaxed_mc_phase(tag: str, sys_relax, n_chains: int, fwd: str, bwd: str) -> 
     the launch counts of the run."""
     from surface_sampling_tpu_torch.core.engine import EngineConfig, geometric_schedule, make_run_fn
     from surface_sampling_tpu_torch.core.state import realize_positions
-    from surface_sampling_tpu_torch.ops import painn_kernels as pk
     from surface_sampling_tpu_torch.parallel.chains import make_chain_run, relaxed_chain_states
 
     run, pot = sys_relax.run, sys_relax.potential
@@ -419,15 +473,15 @@ def relaxed_mc_phase(tag: str, sys_relax, n_chains: int, fwd: str, bwd: str) -> 
     states = relaxed_chain_states(run.d, run.state_energy_fn, n_chains)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pk.reset_launch_counts()
+    reset_launch_counts()
     with counting(pot) as (calls, n_steps):
         out_a, rec_a = crun(states, temps, seed=0)
         torch.cuda.synchronize()
-        launches = pk.launch_counts()
+        launches = launch_counts()
         run_calls = dict(calls)
         iters = torch.stack(n_steps).float()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    _expect_relaxed(launches, run_calls, fwd, bwd)
+    _expect_relaxed(launches, run_calls, fwd, bwd, _n_layers(pot))
     if not (torch.isfinite(rec_a.energy).all() and torch.isfinite(out_a.energy).all()):
         raise AssertionError(f"[{tag}] non-finite energies in the relaxed MC run")
     out_b, rec_b = crun(states, temps, seed=0)
@@ -465,11 +519,13 @@ def _chunked(fn, args, per_chain, chunk):
     return tuple(torch.cat(p) for p in zip(*parts))
 
 
-def _measure(name, fn, plain, args, per_chain, flops, chunk=None) -> dict:
+def _measure(name, fn, plain, args, per_chain, flops, chunk=None, nbytes=None) -> dict:
     """The kernel against its plain version on the same inputs (max abs
     error within KERNEL_RTOL x max|plain|), its time and the plain version's
     by CUDA events, and its bound. The plain version runs in one call, or
-    on chunks of ``chunk`` chains where its temporaries would not fit."""
+    on chunks of ``chunk`` chains where its temporaries would not fit.
+    ``nbytes`` is the bytes the function must move; None counts every
+    tensor argument and output whole."""
     C = next(a.shape[0] for a, pc in zip(args, per_chain) if pc)
     chunk = chunk or C
 
@@ -487,7 +543,8 @@ def _measure(name, fn, plain, args, per_chain, flops, chunk=None) -> dict:
     del ref
     ms = _cuda_ms(lambda: fn(*args), reps=10)
     plain_ms = _cuda_ms(run_plain, reps=1, warm=1)
-    nbytes = _nbytes(*(a for a in args if torch.is_tensor(a)), *got)
+    if nbytes is None:
+        nbytes = _nbytes(*(a for a in args if torch.is_tensor(a)), *got)
     return {"err": err, "scale": scale, "ms": ms, "plain_ms": plain_ms, "flops": flops,
             "bytes": nbytes, "plain_chunk_chains": chunk,
             "bound_ms": 1e3 * max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS)}
@@ -691,7 +748,6 @@ def full_mc_phase(tag: str, sys_, sweeps: int, per_eval: dict, n_chains: int = N
     energies, throughput. Returns the launch counts of the run, its
     evaluations per second and its final state (seed 0)."""
     from surface_sampling_tpu_torch.core.engine import EngineConfig, geometric_schedule, make_run_fn
-    from surface_sampling_tpu_torch.ops import painn_kernels as pk
     from surface_sampling_tpu_torch.parallel.chains import chain_states, make_chain_run
 
     d, sef = sys_.run.d, sys_.run.state_energy_fn
@@ -700,12 +756,12 @@ def full_mc_phase(tag: str, sys_, sweeps: int, per_eval: dict, n_chains: int = N
     temps = geometric_schedule(1.0, sweeps, 0.99)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pk.reset_launch_counts()
+    reset_launch_counts()
     states = chain_states(d, n_chains)
     states = states._replace(energy=sef(states.site_state).surface_energy)
     out, recs = crun(states, temps, seed=0)
     torch.cuda.synchronize()
-    launches = pk.launch_counts()
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_evals = 1 + sweeps * SWEEP_SIZE
     want = {name: per_eval.get(name, 0) * n_evals for name in launches}
@@ -743,16 +799,15 @@ def _inc_run(sys_, n_chains, sweeps):
 def inc_mc_phase(sys_sc, dev) -> dict:
     """14. Delta-engine MC at 2x2; returns the launch counts of the run
     (initial full evaluation included)."""
-    from surface_sampling_tpu_torch.ops import painn_kernels as pk
 
     engine, crun, init, temps = _inc_run(sys_sc, N_CHAINS, INC_SWEEPS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pk.reset_launch_counts()
+    reset_launch_counts()
     states = init()
     out_a, rec_a = crun(states, temps, seed=0)
     torch.cuda.synchronize()
-    launches = pk.launch_counts()
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_mc = INC_SWEEPS * SWEEP_SIZE
     L = len(states.caches.s)
@@ -845,7 +900,7 @@ def bwd_banded_phase(sys33, dev) -> dict:
 
     pot, C = sys33.potential, SC_RELAX_CHAINS
     band, cfg, params = pot.band, pot.cfg, pot.params
-    edges = relax_edges(sys33, C, seed=6)
+    edges, _ = relax_edges(sys33, C, seed=6)
     geom_b = prepare_message_geometry(cfg, edges, band)
     geom_u = prepare_message_geometry(cfg, edges)
     rbf, envm, nbr, unit, n_pad, rev = geom_b
@@ -1039,7 +1094,6 @@ def local_relax_phase(tag: str, sys_relax, n_chains: int, dev) -> dict:
         realize_alive,
         realize_type_idx,
     )
-    from surface_sampling_tpu_torch.ops import painn_kernels as pk
     from surface_sampling_tpu_torch.parallel.chains import relaxed_chain_states
 
     run, pot, spec, d = sys_relax.run, sys_relax.potential, sys_relax.spec, sys_relax.run.d
@@ -1062,11 +1116,11 @@ def local_relax_phase(tag: str, sys_relax, n_chains: int, dev) -> dict:
         raise AssertionError(f"[{tag}] slots outside the ball moved")
 
     torch.cuda.synchronize()
-    pk.reset_launch_counts()
+    reset_launch_counts()
     with counting(pot) as (calls, n_steps):
         out_a, rec_a = lrun(states, temps, seed=0)
         torch.cuda.synchronize()
-        launches = pk.launch_counts()
+        launches = launch_counts()
         local_calls = dict(calls)
         iters_local = torch.stack(n_steps).float()
     with counting(pot) as (calls, n_steps):
@@ -1102,13 +1156,307 @@ def local_relax_phase(tag: str, sys_relax, n_chains: int, dev) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# CHGNet on LaMnO3(001): paths A (rigid 1x1), B (relaxed 1x1), C (rigid 3x3)
+# ----------------------------------------------------------------------
+def conv_flops_per_edge(F: int) -> int:
+    """Row 10 per edge: be @ w2 (F x 2F) and h0 @ [wc1 | wg1] (2 x F x F)
+    multiply-adds, ~30 F of activations, LayerNorms and gates."""
+    return 8 * F * F + 30 * F
+
+
+def conv_bwd_flops_per_edge(F: int, weights: bool) -> int:
+    """Row 12 per edge: the forward recomputed, dh @ [wc1 | wg1]^T and
+    dpre @ w2^T, ~60 F elementwise; the weight pass adds be^T dpre and
+    h0^T dh."""
+    return conv_flops_per_edge(F) + 8 * F * F + 60 * F + (8 * F * F if weights else 0)
+
+
+def conv_bytes(args, n_live: int, *rest) -> int:
+    """Bytes rows 10-12 must move: be and bw of the live edges only (a
+    masked edge's are never needed), maskf and nbr of every edge, and the
+    per-row tensors, the weights and ``rest`` (cotangents, tables, outputs)
+    whole."""
+    ai2, aj2, be, bw, maskf, nbr, *weights = args
+    return (_nbytes(ai2, aj2, maskf, nbr, *weights, *rest)
+            + n_live * (be.shape[-1] + bw.shape[-1]) * be.element_size())
+
+
+def chgnet_conv_case(sys_, n_chains: int, seed: int, relaxed: bool = False):
+    """Inputs of the atom conv at a path's shapes: the edges of seeded
+    occupancies (75% of the sites empty; on the relaxed path the topology
+    at the ideal geometry and positions displaced 0.05 A), the real layer-1
+    pre-activations and weights, in the band's sorted order where the
+    system has a band. Returns the conv's arguments, the edges' reverse
+    table and the number of live edges."""
+    from surface_sampling_tpu_torch.core.state import (
+        realize_alive,
+        realize_positions,
+        realize_type_idx,
+    )
+    from surface_sampling_tpu_torch.models.chgnet import (
+        atom_graph_edges,
+        atom_preactivations,
+        conv_weights,
+        initial_atoms,
+    )
+    from surface_sampling_tpu_torch.models.painn import with_halo
+
+    pot, d = sys_.potential, sys_.run.d
+    if relaxed:
+        edges, ss = relax_edges(sys_, n_chains, seed)
+    else:
+        ss = _states(sys_.spec, n_chains, np.random.default_rng(seed), d.device)
+        edges = pot.edge_fn(realize_positions(d, ss), realize_alive(d, ss))
+    alive = realize_alive(d, ss)
+    numbers = pot.znums[realize_type_idx(d, ss)] * alive
+    be, bw, maskf, nbr, n_pad = atom_graph_edges(pot.params, pot.cfg, edges, pot.band)
+    atom = torch.nn.functional.pad(initial_atoms(pot.params, pot.cfg, numbers, alive),
+                                   (0, 0, 0, n_pad - numbers.shape[1]))
+    gmlp = pot.params["atom_convs"][0]["gmlp"]
+    ai2, aj2 = atom_preactivations(gmlp, atom, pot.cfg.atom_fea_dim)
+    if pot.band is not None:
+        ai2, aj2 = ai2[:, pot.band.perm], with_halo(aj2[:, pot.band.perm], pot.band.halo, 1)
+    args = (ai2.contiguous(), aj2.contiguous(), be, bw, maskf, nbr,
+            *conv_weights(gmlp, pot.cfg.atom_fea_dim))
+    return args, edges.rev, int((maskf != 0).sum())
+
+
+def chgnet_bwd_measure(args, rev, gagg, n_live: int) -> dict:
+    """Row 12 against its plain version (autograd of the plain conv) with
+    and without the weight cotangents, the plain version on chunks of
+    CHG_PLAIN_CHUNK chains (its weight cotangents summed over the chunks);
+    a bitwise repeat; times and bounds."""
+    from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
+
+    def plain_chunked(want_w):
+        parts, wsum = [], None
+        C = args[0].shape[0]
+        for c0 in range(0, C, CHG_PLAIN_CHUNK):
+            ch = [a[c0:c0 + CHG_PLAIN_CHUNK] if i < 6 else a for i, a in enumerate(args)]
+            out = ck.chgnet_conv_bwd_plain(*ch, gagg[c0:c0 + CHG_PLAIN_CHUNK],
+                                           want_weights=want_w)
+            parts.append(out[:4])
+            if want_w:
+                wsum = out[4:] if wsum is None else [a + b for a, b in zip(wsum, out[4:])]
+        return [torch.cat(x) for x in zip(*parts)] + list(wsum or [None] * 7)
+
+    errs = {}
+    for want_w in (True, False):
+        got = ck.chgnet_conv_bwd(*args, gagg, rev=rev, want_weights=want_w)
+        ref = plain_chunked(want_w)
+        torch.cuda.synchronize()
+        for n, g, r in zip(ck.GRAD_NAMES, got, ref):
+            if r is None:
+                if g is not None:
+                    raise AssertionError(f"chgnet_conv_bwd {n}: returned without being asked")
+                continue
+            err, scale = float((g - r).abs().max()), float(r.abs().max())
+            errs[f"{n}{'' if want_w else ' (no weights)'}"] = err
+            if not err <= KERNEL_RTOL * scale:
+                raise AssertionError(f"chgnet_conv_bwd {n}: max abs error {err} exceeds "
+                                     f"{KERNEL_RTOL} x max|plain| = {KERNEL_RTOL * scale}")
+        again = ck.chgnet_conv_bwd(*args, gagg, rev=rev, want_weights=want_w)
+        if not all(a is None or torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("chgnet_conv_bwd: two launches on the same inputs differ")
+        del got, ref, again
+    ms = _cuda_ms(lambda: ck.chgnet_conv_bwd(*args, gagg, rev=rev), reps=10)
+    ms_w = _cuda_ms(lambda: ck.chgnet_conv_bwd(*args, gagg, rev=rev, want_weights=True), reps=3)
+    plain_ms = _cuda_ms(lambda: plain_chunked(False), reps=1, warm=1)
+    F = args[0].shape[-1] // 2
+    flops = n_live * conv_bwd_flops_per_edge(F, False)
+    # g_ai2, g_aj2 and the dense g_be, g_bw have the shapes of ai2 .. bw
+    nbytes = conv_bytes(args, n_live, gagg, rev, *args[:4])
+    return {"err": max(errs.values()), "errs": errs, "ms": ms, "ms_with_weights": ms_w,
+            "plain_ms": plain_ms, "flops": flops, "bytes": nbytes,
+            "plain_chunk_chains": CHG_PLAIN_CHUNK,
+            "bound_ms": 1e3 * max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS)}
+
+
+def chgnet_kernels_phase(sys_a, sys_b, sys_c) -> list:
+    """20. Rows 10, 11 and 12 at this slice's shapes against their plain
+    versions: row 10 at path A's (1x1, CHG_CHAINS chains), row 11 at path
+    C's (3x3 banded, CHG_3X3_CHAINS chains), row 12 at path B's (the relax
+    table's displaced geometry, CHG_RELAX_CHAINS chains, seeded random
+    cotangents) with and without the weight cotangents."""
+    from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
+
+    rows = []
+    args, _, n_live = chgnet_conv_case(sys_a, CHG_CHAINS, seed=10)
+    F = args[0].shape[-1] // 2
+    per_chain = (True,) * 6 + (False,) * 7
+    agg_bytes = _nbytes(args[0]) // 2       # agg (C, n_pad, F): half of ai2
+    m = _measure("chgnet_conv", lambda *a: (ck.chgnet_conv(*a),),
+                 lambda *a: (ck.chgnet_conv_plain(*a),), args, per_chain,
+                 n_live * conv_flops_per_edge(F), CHG_PLAIN_CHUNK,
+                 conv_bytes(args, n_live) + agg_bytes)
+    _print_measure("chgnet-kernel", "chgnet_conv", m, f"live_edges={n_live} ")
+    rows.append(_row("chgnet_conv", "surface_sampling_tpu/ops/pallas_chgnet.py:104", m,
+                     ms_chains=CHG_CHAINS))
+    del args
+    band = sys_c.potential.band
+    args, _, n_live = chgnet_conv_case(sys_c, CHG_3X3_CHAINS, seed=11)
+    m = _measure("chgnet_conv_banded", lambda *a: (ck.chgnet_conv_banded(*a, band),),
+                 lambda *a: (ck.chgnet_conv_banded_plain(*a, band),), args, per_chain,
+                 n_live * conv_flops_per_edge(F), CHG_PLAIN_CHUNK_3X3,
+                 conv_bytes(args, n_live, band.win_start) + _nbytes(args[0]) // 2)
+    _print_measure("chgnet-kernel", "chgnet_conv_banded", m,
+                   f"live_edges={n_live} n_pad={band.n_pad} W={band.window} halo={band.halo} ")
+    rows.append(_row("chgnet_conv_banded", "surface_sampling_tpu/ops/pallas_chgnet.py:184", m,
+                     ms_chains=CHG_3X3_CHAINS))
+    del args
+    torch.cuda.empty_cache()
+    args, rev, n_live = chgnet_conv_case(sys_b, CHG_RELAX_CHAINS, seed=12, relaxed=True)
+    gen = torch.Generator(device=args[0].device).manual_seed(12)
+    gagg = torch.randn(args[0].shape[:2] + (F,), generator=gen, device=args[0].device)
+    m = chgnet_bwd_measure(args, rev, gagg, n_live)
+    print(f"[chgnet-kernel] chgnet_conv_bwd errors {json.dumps(m['errs'])} (tol {KERNEL_RTOL} x "
+          f"max|plain| each, C={CHG_RELAX_CHAINS}) bitwise repeat ok; ms={m['ms']:.4f} "
+          f"ms_with_weights={m['ms_with_weights']:.4f} plain_ms={m['plain_ms']:.3f} "
+          f"bound_ms={m['bound_ms']:.4f} live_edges={n_live} flops={m['flops']:.4e} "
+          f"bytes={m['bytes']:.4e} library_ms=null (no single PyTorch call computes this "
+          f"fused backward)")
+    rows.append(_row("chgnet_conv_bwd", "surface_sampling_tpu/ops/pallas_chgnet.py:327", m,
+                     ms_chains=CHG_RELAX_CHAINS, ms_with_weights=m["ms_with_weights"],
+                     max_abs_err_by_output=m["errs"]))
+    return rows
+
+
+def _slab_potential(dev):
+    """CHGNet on the bare LaMnO3 slab (no sites) over its static table with
+    0.5 A of slack: the goldens' geometry, rattled."""
+    from surface_sampling_tpu_torch.core.spec import make_spec
+    from surface_sampling_tpu_torch.core.static_neighbors import build_static_neighbor_table
+    from surface_sampling_tpu_torch.models.nn_calculator import make_chgnet_potential
+    from surface_sampling_tpu_torch.models.weights import from_jax_params, load_chgnet_npz
+    from surface_sampling_tpu_torch.structure import Structure
+    from surface_sampling_tpu_torch.systems import MODEL_DATA, SYSTEMS_DATA
+
+    data = np.load(SYSTEMS_DATA / "LaMnO3_001_2x2x3.npz")
+    tree, cfg = load_chgnet_npz(MODEL_DATA / "lamno3_chgnet.npz")
+    types = [57, 25, 8]
+    spec = make_spec(Structure(data["numbers"], data["positions"], data["cell"]),
+                     np.zeros((0, 3)), [], potential_numbers=types, cutoff=cfg.atom_graph_cutoff)
+    table = build_static_neighbor_table(spec, cfg.atom_graph_cutoff, relax_slack=0.5)
+    pot = make_chgnet_potential(from_jax_params(tree, dev), cfg, types, static_nbr=table,
+                                device=dev)
+    return pot, data, torch.as_tensor(spec.type_of_z[data["numbers"]], device=dev)[None]
+
+
+def chgnet_anchor_phase(sys_a, dev) -> None:
+    """21. The golden cases of tests/data/chgnet_golden.json on the card at
+    the JAX test's tolerances; the pristine 2x2x3 system's potential and
+    surface energy, card vs the CPU plain path."""
+    from pathlib import Path
+
+    from surface_sampling_tpu_torch.systems import lamno3_001_chgnet
+
+    golden = json.loads((Path(__file__).resolve().parent / "tests" / "data" /
+                         "chgnet_golden.json").read_text())
+    pot, data, types = _slab_potential(dev)
+    alive = torch.ones_like(types, dtype=torch.bool)
+    rng = np.random.default_rng(12345)
+    worst = {}
+    for case in golden["cases"]:
+        p = data["positions"] + case["perturbation_scale"] * rng.standard_normal(
+            data["positions"].shape)
+        out = {k: v[0].cpu().numpy() for k, v in pot.outputs(
+            torch.as_tensor(p, dtype=torch.float32, device=dev)[None], types, alive).items()}
+        mn = data["numbers"] == 25
+        checks = {
+            "energy": (abs(float(out["energy"]) - case["energy"]), 2e-3),
+            "energy_per_atom": (abs(float(out["energy_per_atom"]) - case["energy_per_atom"]),
+                                5e-5),
+            "per_atom_energy_first8": (float(np.abs(out["per_atom_energy"][:8]
+                                                    - case["per_atom_energy_first8"]).max()),
+                                       1e-3),
+            "magmom_first8": (float(np.abs(out["magmom"][:8] - case["magmom_first8"]).max()),
+                              1e-3),
+            "magmom_mn_mean": (abs(float(out["magmom"][mn].mean()) - case["magmom_mn_mean"]),
+                               1e-3),
+            "embedding_norm_rel": (abs(float(np.linalg.norm(out["embedding"]))
+                                       / case["embedding_norm"] - 1.0), 1e-4),
+        }
+        for k, (err, tol) in checks.items():
+            worst[k] = max(worst.get(k, 0.0), err)
+            if not err <= tol:
+                raise AssertionError(f"golden case {case['perturbation_scale']}: {k} off by "
+                                     f"{err} (tol {tol})")
+    print(f"[chgnet-anchor] {len(golden['cases'])} golden cases within the JAX test's "
+          f"tolerances on the card, worst deviations {json.dumps(worst)}")
+    zero = torch.zeros((1, sys_a.spec.n_sites), dtype=torch.int64)
+    e_gpu = sys_a.run.state_energy_fn(zero.to(dev))
+    e_cpu = lamno3_001_chgnet(device="cpu").run.state_energy_fn(zero)
+    pe, se = float(e_gpu.potential_energy[0]), float(e_gpu.surface_energy[0])
+    dpe = abs(pe - float(e_cpu.potential_energy[0]))
+    dse = abs(se - float(e_cpu.surface_energy[0]))
+    print(f"[chgnet-anchor] pristine potential {pe:.6f} eV surface {se:.6f} eV (golden "
+          f"{golden['cases'][0]['energy']:.6f}); card vs CPU |dE| {dpe:.3e} |dSE| {dse:.3e} eV")
+    if not (abs(pe - golden["cases"][0]["energy"]) <= 1e-3 and dpe <= 1e-3 and dse <= 1e-3):
+        raise AssertionError(f"CHGNet pristine anchor off: {pe} eV / {se} eV")
+
+
+def chgnet_relax_phase(sys_b, dev) -> dict:
+    """24. Path B: relaxed MC (relaxed_mc_phase), then one state (an O on
+    site 0) FIRE-relaxed on the card and on the CPU plain path: relaxed
+    energies within RELAXED_E_TOL."""
+    from surface_sampling_tpu_torch.systems import lamno3_001_chgnet
+
+    launches = relaxed_mc_phase("chgnet-relax-mc", sys_b, CHG_RELAX_CHAINS, "chgnet_conv",
+                                "chgnet_conv_bwd")
+    ss = torch.zeros((1, sys_b.spec.n_sites), dtype=torch.int64)
+    ss[0, 0] = 1
+    gpu = sys_b.run.state_energy_fn(ss.to(dev))
+    cpu = lamno3_001_chgnet(relax=sys_b.run.relax, device="cpu").run.state_energy_fn(ss)
+    de = abs(float(gpu.surface_energy[0]) - float(cpu.surface_energy[0]))
+    dp = float((gpu.positions.cpu() - cpu.positions).abs().max())
+    print(f"[chgnet-relax-mc] one O on site 0, {sys_b.run.relax.steps} FIRE steps: card "
+          f"{float(gpu.surface_energy[0]):.6f} cpu {float(cpu.surface_energy[0]):.6f} eV "
+          f"|d|={de:.3e} eV (tol {RELAXED_E_TOL}) max|d position|={dp:.3e} A")
+    if not de <= RELAXED_E_TOL:
+        raise AssertionError(f"CHGNet relaxed energy card vs CPU differs by {de} eV")
+    return launches
+
+
+def chgnet_3x3_phase(sys_c, dev) -> dict:
+    """25. Path C: the rigid 3x3 supercell's band, full-evaluation MC through
+    row 11 only (full_mc_phase), and banded vs unbanded energies of seeded
+    states on the same geometry (the unbanded potential runs row 10)."""
+    from surface_sampling_tpu_torch.core.state import (
+        realize_alive,
+        realize_positions,
+        realize_type_idx,
+    )
+    from surface_sampling_tpu_torch.models.nn_calculator import make_chgnet_potential
+
+    pot, band = sys_c.potential, sys_c.potential.band
+    if band is None:
+        raise AssertionError("the rigid 3x3 LaMnO3 cell has no routing band")
+    launches, _, _ = full_mc_phase("chgnet-3x3-mc", sys_c, SC_SWEEPS, {"chgnet_conv_banded": 4},
+                                   n_chains=CHG_3X3_CHAINS)
+    unbanded = make_chgnet_potential(pot.params, pot.cfg, pot.znums.tolist(),
+                                     static_nbr=sys_c.static_nbr, device=dev)
+    d = sys_c.run.d
+    ss = _sc_states(sys_c.spec, 4, seed=13, empty=0.9).to(dev)
+    inputs = (realize_positions(d, ss), realize_type_idx(d, ss), realize_alive(d, ss))
+    e_b, e_u = pot.energy(*inputs), unbanded.energy(*inputs)
+    diff = float((e_b - e_u).abs().max())
+    print(f"[chgnet-3x3] slots={sys_c.spec.n_slots} n_pad={band.n_pad} W={band.window} "
+          f"halo={band.halo} n_blk={band.n_blk}; banded {e_b.tolist()} unbanded {e_u.tolist()} "
+          f"eV, max diff {diff:.3e} eV (tol 1e-3)")
+    if not diff <= 1e-3:
+        raise AssertionError(f"3x3 banded and unbanded CHGNet energies differ by {diff} eV")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from surface_sampling_tpu_torch.core.energy import RelaxConfig
     from surface_sampling_tpu_torch.ops import painn_kernels as pk
-    from surface_sampling_tpu_torch.systems import srtio3_001_painn
+    from surface_sampling_tpu_torch.ops.cuda_build import build_kernels
+    from surface_sampling_tpu_torch.systems import lamno3_001_chgnet, srtio3_001_painn
 
     t_start = time.perf_counter()
     # 1. device
@@ -1121,7 +1469,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    logs = pk.build_kernels()
+    logs = build_kernels()
     ptxas = {k: " | ".join(ln.strip() for ln in v.splitlines()
                            if "registers" in ln or "spill" in ln) for k, v in logs.items()}
     print(f"[build] {time.perf_counter() - t0:.1f}s {json.dumps(ptxas)}")
@@ -1192,15 +1540,40 @@ def main() -> int:
                       "local_relax_3x3": local_relax_phase("local-relax-3x3", sys33,
                                                            SC_RELAX_CHAINS, dev)}
 
+    del sys33, sys_relax, sys_gpu
+    torch.cuda.empty_cache()
+
+    # CHGNet on LaMnO3(001): paths A (rigid 1x1), B (relaxed 1x1), C (rigid 3x3)
+    t0 = time.perf_counter()
+    sys_a = lamno3_001_chgnet(device=dev)
+    sys_b = lamno3_001_chgnet(relax=RelaxConfig(steps=CHG_RELAX_STEPS), device=dev)
+    sys_c = lamno3_001_chgnet(supercell=(3, 3), device=dev)
+    print(f"[chgnet-build] 1x1 slots={sys_a.spec.n_slots} 3x3 slots={sys_c.spec.n_slots} "
+          f"host build of the three systems {time.perf_counter() - t0:.1f}s")
+    rows += chgnet_kernels_phase(sys_a, sys_b, sys_c)
+    torch.cuda.empty_cache()
+    chgnet_anchor_phase(sys_a, dev)
+    chg_launches, _, _ = full_mc_phase("chgnet-mc", sys_a, SWEEPS, {"chgnet_conv": 4},
+                                       n_chains=CHG_CHAINS)
+    torch.cuda.empty_cache()
+    forces_phase(sys_a, lamno3_001_chgnet(device="cpu"), dev, tag="chgnet-forces")
+    chg_relax_launches = chgnet_relax_phase(sys_b, dev)
+    torch.cuda.empty_cache()
+    chg_3x3_launches = chgnet_3x3_phase(sys_c, dev)
+
     main_path = {"painn_message_bwd": "relaxed_mc", "painn_message_l1_banded": "sc_mc",
                  "painn_message_fused_banded": "sc_mc", "painn_message_subset": "inc_mc",
-                 "painn_message_bwd_banded": "sc_relax_mc"}
+                 "painn_message_bwd_banded": "sc_relax_mc", "chgnet_conv": "chgnet_mc",
+                 "chgnet_conv_banded": "chgnet_3x3_mc", "chgnet_conv_bwd": "chgnet_relax_mc"}
     for row in rows:
         by_path = {"rigid_mc": launches[row["name"]],
                    "relaxed_mc": relax_launches[row["name"]],
                    "sc_mc": sc_launches[row["name"]], "inc_mc": inc_launches[row["name"]],
                    "sc_relax_mc": sc_relax_launches[row["name"]],
-                   **{k: v[row["name"]] for k, v in local_launches.items()}}
+                   **{k: v[row["name"]] for k, v in local_launches.items()},
+                   "chgnet_mc": chg_launches[row["name"]],
+                   "chgnet_relax_mc": chg_relax_launches[row["name"]],
+                   "chgnet_3x3_mc": chg_3x3_launches[row["name"]]}
         row["launches"] = by_path[main_path.get(row["name"], "rigid_mc")]
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on its path: {by_path}")

@@ -2,8 +2,9 @@
 chains.
 
 The counterpart of ``surface_sampling_tpu/core/energy.py``: a
-surface-energy model maps (potential energy, per-element counts) to the
-acceptance energy, and ``make_state_energy_fn`` assembles the evaluation
+surface-energy model (chemical potentials alone, or with bulk-reference
+offsets) maps (potential energy, per-element counts) to the acceptance
+energy, and ``make_state_energy_fn`` assembles the evaluation
 every MC step runs: realize the occupancy, relax it (FIRE) or take the
 rigid slot geometry, score it, clamp out-of-bounds energies.
 """
@@ -33,6 +34,24 @@ from surface_sampling_tpu_torch.device import resolve_device
 def identity_surface_energy(e_pot, counts):
     """Surface energy == potential energy."""
     return e_pot
+
+
+def make_chem_pot_surface_energy(spec: SurfaceSpec, chem_pots: dict[str, float],
+                                 device: torch.device | str = "cuda") -> Callable:
+    """Plain semigrand surface energy E_pot - sum_e mu_e * n_e over the
+    elements named in ``chem_pots`` (no bulk-reference offsets). Returns
+    ``fn(e_pot (C,), counts (C, E)) -> (C,)``."""
+    coeff = np.zeros(len(spec.element_zs))
+    for sym, mu in chem_pots.items():
+        idx = np.where(spec.element_zs == Z_FROM_SYMBOL[sym])[0]
+        if len(idx):
+            coeff[int(idx[0])] = mu
+    coeff_t = torch.as_tensor(coeff, dtype=torch.float32, device=resolve_device(device))
+
+    def surface_energy(e_pot, counts):
+        return e_pot - counts @ coeff_t
+
+    return surface_energy
 
 
 def make_offset_surface_energy(

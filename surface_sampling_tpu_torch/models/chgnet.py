@@ -1,0 +1,289 @@
+"""CHGNet forward, batched over chains: the second model family of the
+port.
+
+The counterpart of ``surface_sampling_tpu/models/chgnet.py`` (a
+reconstruction of the published CHGNet v0.3.0 architecture: atom graph
+with radial-Bessel bond bases under a polynomial cutoff, bond graph of the
+bonds under 3 A with Fourier angle bases, interleaved gated-MLP atom, bond
+and angle convolutions with LayerNorm, a magmom head and an averaged
+readout MLP plus a per-element composition model). Parameters are the JAX
+package's tree of tensors, one model with no member axis
+(``models/weights.load_chgnet_npz``); every function carries a leading
+chain axis C.
+
+The atom trunk runs the JAX package's fused formulation ("pallas" conv
+mode): per-atom pre-activations ai2 / aj2 of the centre and neighbour
+thirds of each atom conv's first layer, and the fused per-edge op
+``ops.chgnet_kernels.chgnet_conv`` (its CUDA kernel on the card, its plain
+version on the CPU), whose backward is a kernel too. With a routing band
+(rigid supercells) the conv runs in the band's sorted row order through
+``chgnet_conv_banded``. The bond graph, the bond and angle convolutions
+and the readout are plain PyTorch, as the JAX package leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as tnf
+from torch.profiler import record_function
+
+from surface_sampling_tpu_torch.models.painn import with_halo
+from surface_sampling_tpu_torch.ops.banding import DeviceBand
+from surface_sampling_tpu_torch.ops.chgnet_kernels import (
+    chgnet_conv,
+    chgnet_conv_banded,
+    layer_norm,
+)
+from surface_sampling_tpu_torch.ops.neighbors import Edges, padded_rows
+
+
+@dataclass(frozen=True)
+class CHGNetConfig:
+    """The JAX package's configuration without its ``conv_mode`` and
+    ``pallas_routing``, which select TPU execution paths and routing
+    precision: the port has one path and computes in float32."""
+
+    atom_fea_dim: int = 64
+    bond_fea_dim: int = 64
+    angle_fea_dim: int = 64
+    num_radial: int = 31
+    num_angular: int = 31        # 2*order + 1
+    n_conv: int = 4
+    atom_graph_cutoff: float = 6.0
+    bond_graph_cutoff: float = 3.0
+    cutoff_coeff: int = 8        # polynomial envelope exponent p
+    max_z: int = 94
+    max_neighbors: int = 96      # atom-graph padding
+    max_bond_neighbors: int = 12  # bond-graph padding
+    mlp_hidden_dims: tuple = (64, 64, 64)
+    is_intensive: bool = True
+
+
+# ----------------------------------------------------------------------
+# bases
+# ----------------------------------------------------------------------
+def polynomial_envelope(r: torch.Tensor, cutoff: float, p: int) -> torch.Tensor:
+    """Smooth cutoff: 1 - (p+1)(p+2)/2 x^p + p(p+2) x^(p+1) - p(p+1)/2 x^(p+2)."""
+    x = torch.clamp(r / cutoff, 0.0, 1.0)
+    return (1.0 - 0.5 * (p + 1) * (p + 2) * x ** p + p * (p + 2) * x ** (p + 1)
+            - 0.5 * p * (p + 1) * x ** (p + 2))
+
+
+def radial_bessel(r: torch.Tensor, frequencies: torch.Tensor, cutoff: float,
+                  p: int) -> torch.Tensor:
+    """sqrt(2/rc) sin(f_n r / rc) / r under the polynomial envelope."""
+    rs = torch.clamp(r, min=1e-8)[..., None]
+    basis = math.sqrt(2.0 / cutoff) * torch.sin(frequencies * rs / cutoff) / rs
+    return basis * polynomial_envelope(r, cutoff, p)[..., None]
+
+
+def fourier_angles(theta: torch.Tensor, frequencies: torch.Tensor) -> torch.Tensor:
+    """[1/sqrt(2), sin(n t), cos(n t)] / sqrt(pi)."""
+    t = theta[..., None] * frequencies
+    const = torch.full(theta.shape + (1,), 1.0 / math.sqrt(2.0), dtype=theta.dtype,
+                       device=theta.device)
+    return torch.cat([const, torch.sin(t), torch.cos(t)], dim=-1) / math.sqrt(math.pi)
+
+
+# ----------------------------------------------------------------------
+# layers
+# ----------------------------------------------------------------------
+def _linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"]
+    return y + p["b"] if "b" in p else y
+
+
+def _ln_params(p: dict) -> torch.Tensor:
+    """(2, F) gain and bias rows of a LayerNorm."""
+    return torch.stack([p["g"], p["b"]])
+
+
+def _apply_gated(p: dict, pre_core: torch.Tensor, pre_gate: torch.Tensor,
+                 single: bool = False) -> torch.Tensor:
+    """The JAX package's gated MLP silu(LN(core(x))) * sigmoid(LN(gate(x)))
+    from the pre-activations of its first linear layers (``core0(x)``,
+    ``gate0(x)``); ``single`` is the one-layer form of the angle updates."""
+    if single:
+        core, gate = pre_core, pre_gate
+    else:
+        core = _linear(p["core1"], tnf.silu(pre_core))
+        gate = _linear(p["gate1"], tnf.silu(pre_gate))
+    return (tnf.silu(layer_norm(_ln_params(p["ln_core"]), core))
+            * torch.sigmoid(layer_norm(_ln_params(p["ln_gate"]), gate)))
+
+
+def conv_weights(gmlp: dict, F: int) -> tuple:
+    """An atom conv's weights in the order of ``chgnet_conv``: w2 (F, 2F)
+    the bond third of both branches' first layers, the live second-layer
+    halves wc1 / wg1 (F, F), their biases, and the two LayerNorms."""
+    w2 = torch.cat([gmlp["core0"]["w"][2 * F:], gmlp["gate0"]["w"][2 * F:]], dim=1)
+    return (w2.contiguous(), gmlp["core1"]["w"].contiguous(), gmlp["gate1"]["w"].contiguous(),
+            gmlp["core1"]["b"].contiguous(), gmlp["gate1"]["b"].contiguous(),
+            _ln_params(gmlp["ln_core"]), _ln_params(gmlp["ln_gate"]))
+
+
+def atom_preactivations(gmlp: dict, atom: torch.Tensor, F: int):
+    """Per-atom pre-activations (..., 2F) of the [a_i | a_j | bond] concat's
+    centre rows (with both branches' first-layer biases) and neighbour
+    rows, [core | gate] each."""
+    w0c, w0g = gmlp["core0"]["w"], gmlp["gate0"]["w"]
+    ai2 = torch.cat([atom @ w0c[:F] + gmlp["core0"]["b"], atom @ w0g[:F] + gmlp["gate0"]["b"]],
+                    dim=-1)
+    aj2 = torch.cat([atom @ w0c[F:2 * F], atom @ w0g[F:2 * F]], dim=-1)
+    return ai2, aj2
+
+
+def _bond_angle_preactivations(bc: dict, al: dict, atom, bond_feat, angle_feat, F: int):
+    """First-layer pre-activations of the bond conv's and the angle
+    update's four branches over the [a_c | b_m | b_k | angle] concat of
+    every bond pair (C, N, Mb, Mb, 4F), computed as the sum of each third's
+    own product so that the (C, N, Mb, Mb, 4F) concat never exists."""
+    w = torch.cat([bc["gmlp"]["core0"]["w"], bc["gmlp"]["gate0"]["w"],
+                   al["core0"]["w"], al["gate0"]["w"]], dim=1)         # (4F, 4F)
+    b = torch.cat([bc["gmlp"]["core0"]["b"], bc["gmlp"]["gate0"]["b"],
+                   al["core0"]["b"], al["gate0"]["b"]])
+    pre = (angle_feat @ w[3 * F:]
+           + (bond_feat @ w[F:2 * F])[:, :, :, None, :]
+           + (bond_feat @ w[2 * F:3 * F])[:, :, None, :, :]
+           + (atom @ w[:F] + b)[:, :, None, None, :])
+    return pre.split(F, dim=-1)
+
+
+# ----------------------------------------------------------------------
+# forward
+# ----------------------------------------------------------------------
+def bond_graph(cfg: CHGNetConfig, disp, r, mask):
+    """The bond-graph subset: each centre's ``max_bond_neighbors`` nearest
+    selected edges under ``bond_graph_cutoff``, as ``lax.top_k`` of -r picks
+    them in the JAX package (ties to the lower edge index, which the stable
+    sort keeps). Returns (r_b, disp_b, mask_b) (C, N, Mb[, 3])."""
+    in_bg = mask & (r < cfg.bond_graph_cutoff)
+    key = torch.where(in_bg, r, torch.full_like(r, math.inf))
+    mb = min(cfg.max_bond_neighbors, r.shape[-1])
+    bsel = torch.sort(key.detach(), dim=-1, stable=True).indices[..., :mb]
+    r_b = torch.gather(r, 2, bsel)
+    disp_b = torch.gather(disp, 2, bsel[..., None].expand(*bsel.shape, 3))
+    return r_b, disp_b, torch.gather(in_bg, 2, bsel)
+
+
+def atom_graph_edges(params: dict, cfg: CHGNetConfig, edges: Edges,
+                     band: DeviceBand | None = None):
+    """The fused conv's layer-invariant edge tensors: be, bw (C, E, F), the
+    bond embeddings and bond weights of the atom graph's radial bases,
+    maskf (C, E) and nbr (C, E) int32, over n_pad padded centre rows
+    (E = n_pad * M), in the band's sorted order with neighbour ranks under
+    ``band``. Returns (be, bw, maskf, nbr, n_pad)."""
+    r, nbr_j, nbr_mask = edges[1], edges[2], edges[3]
+    C, N, M = r.shape
+    F = cfg.atom_fea_dim
+    rbf = radial_bessel(r, params["rbf_freq_ag"], cfg.atom_graph_cutoff, cfg.cutoff_coeff)
+    n_pad = band.n_pad if band is not None else padded_rows(N)
+    pad = (0, 0, 0, 0, 0, n_pad - N)
+    be = tnf.pad(rbf @ params["bond_embedding"]["w"], pad)
+    bw = tnf.pad(rbf @ params["bond_weights_ag"]["w"], pad)
+    maskf = tnf.pad(nbr_mask.to(r.dtype), pad[2:])
+    nbr = tnf.pad(nbr_j, pad[2:])
+    if band is not None:
+        p = band.perm
+        be, bw, maskf, nbr = be[:, p], bw[:, p], maskf[:, p], band.rank[nbr[:, p]]
+    return (be.reshape(C, n_pad * M, F).contiguous(), bw.reshape(C, n_pad * M, F).contiguous(),
+            maskf.reshape(C, n_pad * M).contiguous(),
+            nbr.reshape(C, n_pad * M).to(torch.int32).contiguous(), n_pad)
+
+
+def initial_atoms(params: dict, cfg: CHGNetConfig, numbers: torch.Tensor,
+                  alive: torch.Tensor) -> torch.Tensor:
+    """(C, N, F) atom features before the first conv: the embedding of
+    each atomic number, zero on dead slots."""
+    z_idx = torch.clamp(numbers - 1, 0, cfg.max_z - 1)
+    return params["atom_embedding"][z_idx] * alive[..., None].to(params["atom_embedding"].dtype)
+
+
+def chgnet_apply(params: dict, cfg: CHGNetConfig, numbers: torch.Tensor, alive: torch.Tensor,
+                 edges: Edges, band: DeviceBand | None = None) -> dict:
+    """Forward pass over a (C, N) batch, differentiable in the positions
+    the edges were built from (unbanded). Returns ``per_atom_energy`` (C, N),
+    ``energy`` (C,) (1e6 where a chain's neighbour graph overflowed),
+    ``energy_per_atom``, ``magmom`` (C, N) and ``embedding`` (C, N, F), as
+    the JAX function does for one structure.
+
+    ``band`` (a staged ``ops.banding.DeviceBand`` built over the same
+    padded slots) runs every atom conv in the band's sorted order through
+    the banded conv, which is forward only: the rigid MC path of
+    supercells.
+
+    The stages are marked for ``torch.profiler`` (``chgnet.bases``,
+    ``chgnet.atom_conv``, ``chgnet.bond_angle``, ``chgnet.readout``), so
+    that a trace splits the forward between them."""
+    F = cfg.atom_fea_dim
+    disp, r, _, nbr_mask, overflow = edges[:5]
+    C, N, M = r.shape
+
+    with record_function("chgnet.bases"):
+        be, bw, maskf, nbr, n_pad = atom_graph_edges(params, cfg, edges, band)
+        # bond graph and the angles between bond pairs at each centre
+        r_b, disp_b, mask_b = bond_graph(cfg, disp, r, nbr_mask)
+        rbf_bg = radial_bessel(r_b, params["rbf_freq_bg"], cfg.bond_graph_cutoff,
+                               cfg.cutoff_coeff)
+        bond_w_bg = rbf_bg @ params["bond_weights_bg"]["w"]           # (C, N, Mb, F)
+        bond_feat = rbf_bg @ params["bond_embedding"]["w"]
+        unit_b = disp_b / torch.clamp(r_b, min=1e-8)[..., None]
+        cos_t = torch.clamp(torch.einsum("cnmx,cnkx->cnmk", unit_b, unit_b), -1 + 1e-6,
+                            1 - 1e-6)
+        angle_feat = fourier_angles(torch.arccos(cos_t), params["angle_freq"]) \
+            @ params["angle_embedding"]["w"]                           # (C, N, Mb, Mb, F)
+        eye = torch.eye(mask_b.shape[-1], dtype=torch.bool, device=mask_b.device)
+        pair_mask = (mask_b[..., :, None] & mask_b[..., None, :] & ~eye)[..., None].to(r.dtype)
+        atom = initial_atoms(params, cfg, numbers, alive)
+    pad_n = n_pad - N
+
+    n_layers = cfg.n_conv
+    for layer in range(n_layers):
+        with record_function("chgnet.atom_conv"):
+            ac = params["atom_convs"][layer]
+            ai2, aj2 = (tnf.pad(x, (0, 0, 0, pad_n))
+                        for x in atom_preactivations(ac["gmlp"], atom, F))
+            weights = conv_weights(ac["gmlp"], F)
+            if band is None:
+                agg = chgnet_conv(ai2.contiguous(), aj2.contiguous(), be, bw, maskf, nbr,
+                                  *weights, edges.rev)
+            else:
+                agg = chgnet_conv_banded(ai2[:, band.perm].contiguous(),
+                                         with_halo(aj2[:, band.perm], band.halo, 1), be, bw,
+                                         maskf, nbr, *weights, band)[:, band.inv_perm]
+            atom = atom + agg[:, :N] @ ac["out"]["w"]
+            atom = torch.where(alive[..., None], atom, torch.zeros_like(atom))
+
+        if layer < n_layers - 1 and params["bond_convs"]:
+            with record_function("chgnet.bond_angle"):
+                bc, al = params["bond_convs"][layer], params["angle_layers"][layer]
+                bcore, bgate, acore, agate = _bond_angle_preactivations(
+                    bc, al, atom, bond_feat, angle_feat, F)
+                bmsg = _apply_gated(bc["gmlp"], bcore, bgate) * bond_w_bg[:, :, None] * pair_mask
+                bond_feat = bond_feat + bmsg.sum(dim=3) @ bc["out"]["w"]
+                angle_feat = angle_feat + _apply_gated(al, acore, agate, single=True) * pair_mask
+
+    with record_function("chgnet.readout"):
+        site_val = _linear(params["site_wise"], atom)[..., 0]        # magmom head
+        h = layer_norm(_ln_params(params["readout_norm"]), atom)
+        for lin in params["mlp"][:-1]:
+            h = tnf.silu(_linear(lin, h))
+        e_atom_nn = _linear(params["mlp"][-1], h)[..., 0]
+        alive_e = alive.to(r.dtype)
+        z_idx = torch.clamp(numbers - 1, 0, cfg.max_z - 1)
+        e_atom = (e_atom_nn + params["composition"][z_idx]) * alive_e
+        n_alive = torch.clamp(alive_e.sum(dim=1), min=1.0)
+        # a truncated neighbour graph makes the network emit arbitrary
+        # values: override (not penalise) so that the MC machinery rejects
+        # the state
+        total = torch.where(overflow, torch.full_like(n_alive, 1e6), e_atom.sum(dim=1))
+    return {
+        "per_atom_energy": e_atom,
+        "energy": total,
+        "energy_per_atom": total / n_alive,
+        "magmom": torch.where(alive, site_val, torch.zeros_like(site_val)),
+        "embedding": atom,
+    }

@@ -1,16 +1,19 @@
-"""Adapter: a PaiNN ensemble -> potential energies and forces in eV.
+"""Adapters: a PaiNN ensemble or a CHGNet model -> potential energies and
+forces in eV.
 
-The counterpart of ``make_painn_potential`` in
-``surface_sampling_tpu/models/nn_calculator.py`` and of the force methods
-of ``surface_sampling_tpu/potentials/base.py``, for systems built with a
-static candidate table: the energy of slot-realized geometries (edges
-ranked over the table), forces by autograd, the relaxation hooks that fix
-the edge topology once per relaxation, and, given the spec of a
-code-independent slot geometry, the ``rigid_energy`` hook of rigid MC
-(over the banded static edges of a supercell when a routing band is
-given). With a routing band the general path (energy, forces, relaxation)
-runs the banded trunk too, as in the JAX package. The per-atom analysis
-hooks belong to later slices.
+The counterparts of ``make_painn_potential`` and ``make_chgnet_potential``
+in ``surface_sampling_tpu/models/nn_calculator.py`` and of the force
+methods of ``surface_sampling_tpu/potentials/base.py``, for systems built
+with a static candidate table: the energy of slot-realized geometries
+(edges ranked over the table), forces by autograd, and the relaxation
+hooks that fix the edge topology once per relaxation. A PaiNN potential
+given the spec of a code-independent slot geometry also carries the
+``rigid_energy`` hook of rigid MC (over the banded static edges of a
+supercell when a routing band is given), and with a routing band its
+general path (energy, forces, relaxation) runs the banded trunk too, as in
+the JAX package. A CHGNet potential scores every state through its general
+path (its adsorbate groups make the slot geometry code-dependent), banded
+for rigid supercells. The per-atom analysis hooks belong to later slices.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from surface_sampling_tpu_torch.constants import HARTREE_TO_EV, KCAL_MOL_TO_EV, SYMBOL_FROM_Z
+from surface_sampling_tpu_torch.models.chgnet import CHGNetConfig, chgnet_apply
 from surface_sampling_tpu_torch.models.ensemble import ensemble_apply, ensemble_apply_rigid
 from surface_sampling_tpu_torch.models.painn import PaiNNConfig, rigid_member_weights
 from surface_sampling_tpu_torch.ops.banding import stage_band
@@ -37,7 +41,35 @@ from surface_sampling_tpu_torch.ops.static_edges import (
 UNIT_FACTORS = {"kcal/mol": KCAL_MOL_TO_EV, "eV": 1.0, "ev": 1.0}
 
 
-class PaiNNPotential:
+class TablePotential:
+    """Energies of (C, N) batches of slot-realized structures whose edges
+    are ranked over a static candidate table (``energy`` is the
+    subclass's): forces by one backward pass, and the relaxation hooks
+    that fix the edge topology once per relaxation."""
+
+    def energy_and_forces(self, positions, type_idx, alive, shifts=None):
+        """(C,) energies and (C, N, 3) forces -dE/dx, zero on dead slots,
+        from one backward pass of the chain-summed energy (chains are
+        independent, so each chain's gradient is its own)."""
+        with torch.enable_grad():
+            pos = positions.detach().requires_grad_(True)
+            e = self.energy(pos, type_idx, alive)
+            (g,) = torch.autograd.grad(e.sum(), pos)
+        return e.detach(), -torch.where(alive[..., None], g, torch.zeros_like(g))
+
+    def forces(self, positions, type_idx, alive, shifts=None):
+        return self.energy_and_forces(positions, type_idx, alive)[1]
+
+    def edge_topology(self, positions, alive) -> EdgeTopology:
+        """Select the edge topology once at the start of a relaxation."""
+        return self._topo_fn(positions, alive)
+
+    def edges_of(self, positions, topology: EdgeTopology) -> Edges:
+        """Edge geometry at ``positions`` under a fixed topology."""
+        return self._geom_fn(positions, topology)
+
+
+class PaiNNPotential(TablePotential):
     """PaiNN ensemble energy of (C, N) batches of slot-realized structures.
 
     ``energy(positions, type_idx, alive)`` is the member-mean network
@@ -88,28 +120,6 @@ class PaiNNPotential:
         return e + self.comp_offset(type_idx, alive)
 
     energy_with_edges = energy
-
-    def energy_and_forces(self, positions, type_idx, alive, shifts=None):
-        """(C,) energies and (C, N, 3) forces -dE/dx, zero on dead slots,
-        from one backward pass of the chain-summed energy (chains are
-        independent, so each chain's gradient is its own)."""
-        with torch.enable_grad():
-            pos = positions.detach().requires_grad_(True)
-            e = self.energy(pos, type_idx, alive)
-            (g,) = torch.autograd.grad(e.sum(), pos)
-        return e.detach(), -torch.where(alive[..., None], g, torch.zeros_like(g))
-
-    def forces(self, positions, type_idx, alive, shifts=None):
-        return self.energy_and_forces(positions, type_idx, alive)[1]
-
-    # -- relaxation hooks ------------------------------------------------
-    def edge_topology(self, positions, alive) -> EdgeTopology:
-        """Select the edge topology once at the start of a relaxation."""
-        return self._topo_fn(positions, alive)
-
-    def edges_of(self, positions, topology: EdgeTopology) -> Edges:
-        """Edge geometry at ``positions`` under a fixed topology."""
-        return self._geom_fn(positions, topology)
 
     # -- rigid lattice ---------------------------------------------------
     def rigid_outputs(self, type_idx: torch.Tensor, alive: torch.Tensor) -> dict:
@@ -183,3 +193,71 @@ def make_painn_potential(
         rw = rigid_member_weights(params, cfg, l1_types, pack.r_pad)
     return PaiNNPotential(params, cfg, znums, UNIT_FACTORS[units], table, per_type,
                           const_off, rw=rw, pack=pack, band=stage_band(routing_band, device))
+
+
+class CHGNetPotential(TablePotential):
+    """CHGNet energy of (C, N) batches of slot-realized structures:
+    ``energy(positions, type_idx, alive)`` (C,) in eV. ``band`` is the
+    staged routing band of a rigid supercell (``ops.banding.DeviceBand``),
+    whose banded conv is forward only, or None."""
+
+    name = "chgnet"
+
+    def __init__(self, params, cfg: CHGNetConfig, znums, factor, table, band=None):
+        self.params, self.cfg = params, cfg
+        self.cutoff = cfg.atom_graph_cutoff
+        self.znums, self.factor, self.band = znums, factor, band
+        self.edge_fn = make_table_edge_fn(table)
+        self._topo_fn, self._geom_fn = make_table_topology_fns(table)
+
+    def outputs(self, positions, type_idx, alive, shifts=None, edges: Edges | None = None):
+        """Model outputs (``models.chgnet.chgnet_apply``). ``shifts`` is
+        accepted for the JAX signature and unused: the candidate table holds
+        the image shifts."""
+        if edges is None:
+            edges = self.edge_fn(positions, alive)
+        numbers = self.znums[type_idx] * alive.to(torch.int64)
+        return chgnet_apply(self.params, self.cfg, numbers, alive, edges, band=self.band)
+
+    def energy(self, positions, type_idx, alive, shifts=None, edges: Edges | None = None):
+        """(C,) potential energies in eV of positions (C, N, 3)."""
+        return self.outputs(positions, type_idx, alive, edges=edges)["energy"] * self.factor
+
+    energy_with_edges = energy
+
+    def per_atom(self, positions, type_idx, alive, shifts=None):
+        """(C, N) per-atom energies in eV."""
+        return self.outputs(positions, type_idx, alive)["per_atom_energy"] * self.factor
+
+
+def make_chgnet_potential(
+    params: dict,
+    cfg: CHGNetConfig,
+    type_numbers,
+    units: str = "eV",
+    static_nbr=None,
+    routing_band=None,
+    device: torch.device | None = None,
+) -> CHGNetPotential:
+    """Wrap a CHGNet model (``models/weights.py``: a tree of tensors, no
+    member axis) as a potential.
+
+    Args:
+        params: parameter tree of tensors.
+        type_numbers: atomic number per potential type index.
+        units: units of the checkpoint's energies (CHGNet predicts eV).
+        static_nbr: the spec's ``StaticNeighborTable``; positions passed in
+            must be slot-realized geometries of that spec.
+        routing_band: a host ``ops.banding.RoutingBand`` of the same static
+            table (rigid supercells): every atom conv then runs banded, and
+            the potential is forward only (forces raise).
+        device: where the tables live (default: the parameters').
+    """
+    if static_nbr is None:
+        raise NotImplementedError(
+            "only the static-candidate-table edge path is ported: pass static_nbr")
+    device = device if device is not None else params["atom_embedding"].device
+    table = stage_candidate_table(static_nbr, cfg.atom_graph_cutoff, cfg.max_neighbors, device)
+    znums = torch.as_tensor(np.asarray(type_numbers), dtype=torch.int64, device=device)
+    return CHGNetPotential(params, cfg, znums, UNIT_FACTORS[units], table,
+                           band=stage_band(routing_band, device))

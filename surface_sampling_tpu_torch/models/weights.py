@@ -1,5 +1,6 @@
-"""PaiNN weights: the npz checkpoints and the JAX package's parameter tree
-as trees of torch tensors with a leading ensemble-member axis.
+"""Model weights: the npz checkpoints and the JAX package's parameter trees
+as trees of torch tensors (PaiNN ensembles with a leading member axis, the
+CHGNet model without one).
 
 A checkpoint npz holds flat keys
 ``message.{l}.{dist_embed,inv_dense0,inv_dense1}.{w,b}``,
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from surface_sampling_tpu_torch.models.chgnet import CHGNetConfig
 from surface_sampling_tpu_torch.models.painn import PaiNNConfig
 
 
@@ -77,8 +79,35 @@ def load_painn_ensemble(paths, device) -> tuple[dict, PaiNNConfig]:
     return from_jax_params(stacked, device), cfgs[0]
 
 
+def load_chgnet_npz(path) -> tuple[dict, CHGNetConfig]:
+    """A CHGNet checkpoint (the JAX package's ``convert_chgnet`` output:
+    the same flat keys and ``__cfg__<field>`` scheme) as a tree of numpy
+    arrays plus its configuration. Conversions that stored a neighbour
+    padding below 96 (too small for oxides at 6 A) get 96, as the JAX
+    package's loader does; stored TPU execution choices are dropped."""
+    with np.load(path) as d:
+        flat = {k: d[k] for k in d.files if not k.startswith("__cfg__")}
+        cfg_kw = {k[len("__cfg__"):]: d[k].item() if d[k].ndim == 0 else tuple(d[k])
+                  for k in d.files if k.startswith("__cfg__")}
+    for int_key in ("atom_fea_dim", "bond_fea_dim", "angle_fea_dim", "num_radial",
+                    "num_angular", "n_conv", "cutoff_coeff", "max_z",
+                    "max_neighbors", "max_bond_neighbors"):
+        if int_key in cfg_kw:
+            cfg_kw[int_key] = int(cfg_kw[int_key])
+    if "is_intensive" in cfg_kw:
+        cfg_kw["is_intensive"] = bool(cfg_kw["is_intensive"])
+    if "mlp_hidden_dims" in cfg_kw:
+        cfg_kw["mlp_hidden_dims"] = tuple(int(x) for x in np.atleast_1d(cfg_kw["mlp_hidden_dims"]))
+    if cfg_kw.get("max_neighbors", 96) < 96:
+        cfg_kw["max_neighbors"] = 96
+    for tpu_key in ("conv_mode", "pallas_routing"):   # TPU execution choices
+        cfg_kw.pop(tpu_key, None)
+    return _unflatten(flat), CHGNetConfig(**cfg_kw)
+
+
 def from_jax_params(tree, device) -> dict:
-    """The JAX package's stacked ensemble parameter tree (leaves converted
-    to numpy arrays, leading member axis) as f32 tensors on ``device``."""
+    """A JAX parameter tree (leaves converted to numpy arrays: a stacked
+    PaiNN ensemble with its leading member axis, or one CHGNet model) as f32
+    tensors on ``device``."""
     return _tree_map(
         lambda x: torch.as_tensor(np.array(x, np.float32), device=device), tree)

@@ -211,6 +211,15 @@ def window_rows(nbr: torch.Tensor, ws_edge: torch.Tensor, band: DeviceBand):
     return torch.where(inwin, ws_edge + off, 0), inwin
 
 
+def assert_in_window(selected: torch.Tensor, inwin: torch.Tensor) -> None:
+    """The band guarantees that no selected edge lies outside its window
+    (:func:`window_rows`); the plain versions of the banded kernels check
+    it."""
+    if bool((selected & ~inwin).any()):
+        raise AssertionError("a selected edge lies outside its routing window: "
+                             "the band does not cover this geometry")
+
+
 def edge_window_starts(band: DeviceBand, M: int) -> torch.Tensor:
     """(n_pad * M,) window start of every edge of the full sorted cell."""
     rows = torch.arange(band.n_pad, device=band.win_start.device) // band.n_blk

@@ -45,144 +45,24 @@ sorted order (``ops/banding.py``): features extended by the band's halo
 A wrapper takes the plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device; there is no fallback between the two.
 The kernels are built from ``csrc/<name>.cu`` (and the ``csrc/*.cuh``
-headers they share) at first use, one ``nvcc`` per source run in
-parallel, into ``_build/`` (listed in .gitignore), and bound with ctypes
-through a plain C interface.
+headers they share) at first use and bound with ctypes through a plain C
+interface (``ops/cuda_build.py``).
 """
 
 from __future__ import annotations
-
-import ctypes
-import hashlib
-import os
-import subprocess
-from pathlib import Path
 
 import torch
 import torch.nn.functional as tnf
 
 from surface_sampling_tpu_torch.ops.banding import (
+    assert_in_window,
     banded_reverse_table,
     edge_window_starts,
     window_rows,
 )
+from surface_sampling_tpu_torch.ops.cuda_build import check_inputs as _check
+from surface_sampling_tpu_torch.ops.cuda_build import launch as _launch
 from surface_sampling_tpu_torch.ops.neighbors import reverse_table
-
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
-KERNELS = ("painn_message_l1", "painn_message_fused", "painn_update_fused",
-           "painn_message_bwd", "painn_message_l1_banded", "painn_message_fused_banded",
-           "painn_message_subset", "painn_message_bwd_banded")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-# pointer arguments, int arguments of each C entry point (then the stream)
-_ARITY = {
-    "painn_message_l1": (10, 7),
-    "painn_message_fused": (10, 6),
-    "painn_update_fused": (11, 4),
-    "painn_message_bwd": (17, 8),
-    "painn_message_l1_banded": (11, 10),
-    "painn_message_fused_banded": (11, 9),
-    "painn_message_subset": (11, 10),
-    "painn_message_bwd_banded": (18, 11),
-}
-_LIBS: dict[str, ctypes.CDLL] = {}
-
-
-# ----------------------------------------------------------------------
-# Build and load
-# ----------------------------------------------------------------------
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("the CUDA toolkit (nvcc) was not found; set CUDA_HOME")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def _lib_path(name: str) -> Path:
-    """Build output of one source, named by a hash of the source, the shared
-    headers and the flags so that an edited source is never served a stale
-    library."""
-    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    tag = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
-
-
-def build_kernels(names=KERNELS) -> dict[str, str]:
-    """Compile the named kernels that are not built yet, one ``nvcc`` per
-    source, all started together. Returns each one's compiler output (the
-    ``-Xptxas -v`` register and shared-memory report; "" if it was already
-    built). Raises if any build fails."""
-    BUILD_DIR.mkdir(exist_ok=True)
-    logs: dict[str, str] = {}
-    running = {}
-    for name in names:
-        out = _lib_path(name)
-        if out.exists():
-            logs[name] = ""
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT, text=True), tmp, out)
-    failed = []
-    for name, (proc, tmp, out) in running.items():
-        log, _ = proc.communicate()
-        logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name} (exit {proc.returncode}):\n{log}")
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    return logs
-
-
-def _lib(name: str) -> ctypes.CDLL:
-    if name not in _LIBS:
-        path = _lib_path(name)
-        if not path.exists():
-            build_kernels((name,))
-        lib = ctypes.CDLL(str(path))
-        n_ptr, n_int = _ARITY[name]
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return _LIBS[name]
-
-
-def _launch(name: str, tensors, ints) -> None:
-    """Call a kernel's C entry point on PyTorch's current stream and raise
-    on the cudaGetLastError() it returns (a refused launch never runs, and
-    a later synchronize would not report it)."""
-    dev = tensors[0].device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = getattr(_lib(name), name)(*[0 if t is None else t.data_ptr() for t in tensors],
-                                        *[int(i) for i in ints], stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-
-
-def _check(name: str, dev: torch.device, **tensors) -> None:
-    """Every input on ``dev``, of its dtype and shape, and contiguous.
-    Each value is (tensor, dtype, shape)."""
-    for arg, (t, dtype, shape) in tensors.items():
-        if t.device != dev:
-            raise ValueError(f"{name}: {arg} is on {t.device}, expected {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, expected {dtype}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
 
 
 def _check_grid(name: str, C: int, K: int, R: int | None = None) -> None:
@@ -513,14 +393,6 @@ painn_message_bwd.dw_launches = 0   # launches that also computed g_dw / g_db
 # ----------------------------------------------------------------------
 # Banded messages (supercells): rows in the routing band's sorted order
 # ----------------------------------------------------------------------
-def _assert_in_window(envm, inwin):
-    """The band guarantees that no selected edge (envm != 0) lies outside
-    its window (``ops.banding.window_rows``); the plain versions check it."""
-    if bool(((envm != 0) & ~inwin).any()):
-        raise AssertionError("a selected edge lies outside its routing window: "
-                             "the band does not cover this geometry")
-
-
 def _edge_starts(ws_rows, M):
     """Window start of every edge from the start of each centre row."""
     return ws_rows.long().repeat_interleave(M, dim=-1)
@@ -537,7 +409,7 @@ def _gather_window_rows(table, row, inwin):
 def painn_message_l1_banded_plain(species_ext, philt, rbf, envm, nbr, unit, dw2, db2, band):
     """Plain PyTorch version of :func:`painn_message_l1_banded`."""
     row, inwin = window_rows(nbr, edge_window_starts(band, unit.shape[3])[None], band)
-    _assert_in_window(envm, inwin)
+    assert_in_window(envm != 0, inwin)
     sp_j = torch.where(inwin, torch.gather(species_ext, 1, row), philt.shape[1] - 1)
     return _message_l1_of_species(sp_j, philt, rbf, envm, unit, dw2, db2)
 
@@ -590,7 +462,7 @@ painn_message_l1_banded.launches = 0
 
 def _banded_message_plain(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, ws_edge, band):
     row, inwin = window_rows(nbr, ws_edge, band)
-    _assert_in_window(envm, inwin)
+    assert_in_window(envm != 0, inwin)
     return _message_of_rows(_gather_window_rows(phi_ext, row, inwin),
                             _gather_window_rows(vcat_ext, row, inwin),
                             rbf, envm, unit, dw, db)
@@ -699,7 +571,7 @@ def painn_message_bwd_banded_plain(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, 
                                    band, want_dw=True):
     """Plain PyTorch version of :func:`painn_message_bwd_banded`."""
     row, inwin = window_rows(nbr, edge_window_starts(band, unit.shape[3])[None], band)
-    _assert_in_window(envm, inwin)
+    assert_in_window(envm != 0, inwin)
     return _message_bwd_of_rows(phi_ext, vcat_ext, row, inwin, rbf, envm, unit, dw, db, gds,
                                 gdv, want_dw)
 

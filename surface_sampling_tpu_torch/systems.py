@@ -1,9 +1,9 @@
 """Prebuilt example systems: the SrTiO3(001) PaiNN-ensemble flagship and
-its supercells.
+its supercells, and the LaMnO3(001) CHGNet system.
 
-The counterpart of ``srtio3_001_painn`` in
-``surface_sampling_tpu/systems.py``. The slab geometry, the offset table
-and the PaiNN weights are the JAX package's data files, read by path from
+The counterparts of ``srtio3_001_painn`` and ``lamno3_001_chgnet`` in
+``surface_sampling_tpu/systems.py``. The slab geometries, the offset table
+and the model weights are the JAX package's data files, read by path from
 the repository checkout (data, not modules: nothing of the JAX package is
 imported).
 """
@@ -19,7 +19,11 @@ import numpy as np
 import torch
 
 from surface_sampling_tpu_torch.constants import Z_FROM_SYMBOL
-from surface_sampling_tpu_torch.core.energy import RelaxConfig, make_offset_surface_energy
+from surface_sampling_tpu_torch.core.energy import (
+    RelaxConfig,
+    make_chem_pot_surface_energy,
+    make_offset_surface_energy,
+)
 from surface_sampling_tpu_torch.core.engine import MCMCRun
 from surface_sampling_tpu_torch.core.spec import SurfaceSpec, make_spec
 from surface_sampling_tpu_torch.core.static_neighbors import (
@@ -27,8 +31,16 @@ from surface_sampling_tpu_torch.core.static_neighbors import (
     build_static_neighbor_table,
 )
 from surface_sampling_tpu_torch.device import resolve_device
-from surface_sampling_tpu_torch.models.nn_calculator import PaiNNPotential, make_painn_potential
-from surface_sampling_tpu_torch.models.weights import load_painn_ensemble
+from surface_sampling_tpu_torch.models.nn_calculator import (
+    TablePotential,
+    make_chgnet_potential,
+    make_painn_potential,
+)
+from surface_sampling_tpu_torch.models.weights import (
+    from_jax_params,
+    load_chgnet_npz,
+    load_painn_ensemble,
+)
 from surface_sampling_tpu_torch.ops.banding import RoutingBand, build_routing_band_for_spec
 from surface_sampling_tpu_torch.structure import Structure, find_adsorption_sites
 
@@ -42,10 +54,10 @@ class ExampleSystem(NamedTuple):
     static candidate table the potential ranks edges over, and the host
     routing band of a supercell (None where the cell has none), which
     ``core.incremental.make_incremental_painn_from_system`` needs besides
-    for a rigid one."""
+    for a rigid PaiNN one."""
 
     spec: SurfaceSpec
-    potential: PaiNNPotential
+    potential: TablePotential
     run: MCMCRun
     static_nbr: StaticNeighborTable
     routing_band: RoutingBand | None = None
@@ -128,5 +140,72 @@ def srtio3_001_painn(
     )
     se_fn = make_offset_surface_energy(spec, chem_pots, offset_data,
                                        offset_units="atomic", device=dev)
+    run = MCMCRun(spec, pot, surface_energy_fn=se_fn, device=dev, relax=relax)
+    return ExampleSystem(spec, pot, run, static_nbr, band)
+
+
+def lamno3_001_chgnet(
+    planar_distance: float = 1.6,
+    surface_depth: int = 1,
+    adsorbates: tuple[str, ...] = ("O", "HO", "H2O"),
+    chem_pots: dict | None = None,
+    relax: RelaxConfig | None = None,
+    max_neighbors: int = 96,
+    supercell: tuple[int, int] = (1, 1),
+    pallas_routing: str | None = None,
+    dtype=None,
+    device: str | torch.device = "cuda",
+) -> ExampleSystem:
+    """LaMnO3(001) 2x2x3 slab with the reference's fine-tuned CHGNet: O, OH
+    and H2O adsorption on the MnO2 termination, scored by the plain
+    chemical-potential surface energy (default O -5 eV, H -3 eV), on a
+    rigid lattice, or with every trial state FIRE-relaxed when ``relax`` is
+    given (the static candidate table then allows 0.6 A of relaxation
+    slack). The rigid OH and H2O groups make the slot geometry depend on
+    the occupancy, so every state is scored through ``potential.energy``
+    with edges ranked over the table, as in the JAX package.
+
+    ``supercell=(a, b)`` tiles the slab a x b times laterally and sorts it
+    by z, as the JAX package does. A rigid supercell whose windows are
+    narrow enough (3x3 and up) gets a routing band, and every atom conv
+    then runs banded; relaxed runs never band (the banded conv is forward
+    only), by the JAX package's own rule.
+
+    Arguments and defaults are those of the JAX package's function.
+    ``pallas_routing`` selects a TPU routing precision and is ignored: the
+    port computes in float32. ``dtype`` must be None or ``torch.float32``.
+    ``device`` defaults to "cuda" and raises without a card; pass "cpu" for
+    the plain PyTorch path.
+    """
+    if dtype not in (None, torch.float32):
+        raise NotImplementedError("the port computes in float32 only")
+    dev = resolve_device(device)
+
+    data = np.load(SYSTEMS_DATA / "LaMnO3_001_2x2x3.npz")
+    slab = Structure(data["numbers"], data["positions"], data["cell"])
+    if tuple(supercell) != (1, 1):
+        slab = slab.repeat((supercell[0], supercell[1], 1)).sorted_by_z()
+    sites = find_adsorption_sites(
+        slab, planar_distance=planar_distance, near_reduce=0.01, no_obtuse_hollow=True
+    )["all"]
+    tree, cfg = load_chgnet_npz(MODEL_DATA / "lamno3_chgnet.npz")
+    cfg = dataclasses.replace(cfg, max_neighbors=max_neighbors)
+
+    type_numbers = [Z_FROM_SYMBOL[s] for s in ("La", "Mn", "O", "H")]
+    spec = make_spec(
+        slab,
+        sites,
+        list(adsorbates),
+        potential_numbers=type_numbers,
+        cutoff=cfg.atom_graph_cutoff,
+        surface_depth=surface_depth,
+        surface_name="LaMnO3_001",
+    )
+    static_nbr = build_static_neighbor_table(
+        spec, cfg.atom_graph_cutoff, relax_slack=0.6 if relax is not None else 0.1)
+    band = build_routing_band_for_spec(spec, static_nbr) if relax is None else None
+    pot = make_chgnet_potential(from_jax_params(tree, dev), cfg, type_numbers, units="eV",
+                                static_nbr=static_nbr, routing_band=band, device=dev)
+    se_fn = make_chem_pot_surface_energy(spec, chem_pots or {"O": -5.0, "H": -3.0}, device=dev)
     run = MCMCRun(spec, pot, surface_energy_fn=se_fn, device=dev, relax=relax)
     return ExampleSystem(spec, pot, run, static_nbr, band)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from surface_sampling_tpu_torch.ops import painn_kernels as pk
+from surface_sampling_tpu_torch.ops.neighbors import reverse_table
 
 pytestmark = pytest.mark.cuda
 RTOL = 1e-4
@@ -330,3 +331,145 @@ def test_incremental_run_repeats_bitwise(cuda_device):
         assert torch.equal(x, y)
     fresh, _, _ = eng.energy_full(a.site_state)
     assert float((fresh - a.energy).abs().max()) <= 1e-3
+
+
+# ----------------------------------------------------------------------
+# CHGNet atom conv (rows 10-12)
+# ----------------------------------------------------------------------
+def _conv_inputs(dev, C=3, n_pad=36, M=40, seed=7, dead_rows=5):
+    """CHGNet conv inputs at the kernels' width F = 64: M = 40 leaves a
+    partial tile, a third of the edges are masked and the last
+    ``dead_rows`` centres have none (whole tiles skipped); masked edges
+    point at row 0, as unselected edges do."""
+    from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
+
+    F = ck.KERNEL_F
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    E = n_pad * M
+    maskf = (torch.rand((C, n_pad, M), generator=g, device=dev) > 0.3).float()
+    maskf[:, n_pad - dead_rows:] = 0.0
+    nbr = torch.randint(0, n_pad - dead_rows, (C, n_pad, M), generator=g, device=dev)
+    nbr = torch.where(maskf > 0, nbr, 0).to(torch.int32).reshape(C, E).contiguous()
+    lnc = torch.stack([1.0 + rn(F, scale=0.1), rn(F, scale=0.1)])
+    lng = torch.stack([1.0 + rn(F, scale=0.1), rn(F, scale=0.1)])
+    return (rn(C, n_pad, 2 * F), rn(C, n_pad, 2 * F), rn(C, E, F), rn(C, E, F),
+            maskf.reshape(C, E).contiguous(), nbr, rn(F, 2 * F, scale=0.125),
+            rn(F, F, scale=0.125), rn(F, F, scale=0.125), rn(F, scale=0.1), rn(F, scale=0.1),
+            lnc, lng), rn
+
+
+def test_chgnet_conv_kernel_matches_plain(cuda_device):
+    from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
+
+    args, _ = _conv_inputs(cuda_device)
+    before = ck.chgnet_conv.launches
+    got = ck.chgnet_conv(*args)
+    assert ck.chgnet_conv.launches == before + 1
+    _assert_close([got], [ck.chgnet_conv_plain(*args)])
+    assert torch.equal(got, ck.chgnet_conv(*args))
+
+
+def test_chgnet_conv_banded_kernel_matches_plain(cuda_device):
+    """Row 11 on a synthetic band (every block's neighbours in a 16-wide
+    window of n_pad 32, an 8-row halo) against its plain version and, on
+    the same edges, against row 10."""
+    from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
+    from surface_sampling_tpu_torch.ops.banding import DeviceBand
+
+    n_pad, n_blk, window, halo, M, C = 32, 8, 16, 8, 40, 2
+    args, _ = _conv_inputs(cuda_device, C=C, n_pad=n_pad, M=M, dead_rows=0)
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    ws = torch.tensor([0, 8, 16, 24], dtype=torch.int32, device=cuda_device)
+    blk = ws.long().repeat_interleave(n_blk * M)
+    off = torch.randint(0, window, (C, n_pad * M), generator=g, device=cuda_device)
+    nbr = ((blk + off) % n_pad).to(torch.int32).contiguous()
+    args = list(args)
+    args[5] = nbr
+    ident = torch.arange(n_pad, device=cuda_device)
+    band = DeviceBand(perm=ident, inv_perm=ident, rank=ident, win_start=ws, window=window,
+                      halo=halo, n_blk=n_blk)
+    ext = list(args)
+    ext[1] = torch.cat([args[1], args[1][:, :halo]], dim=1).contiguous()
+    before = ck.chgnet_conv_banded.launches
+    got = ck.chgnet_conv_banded(*ext, band)
+    assert ck.chgnet_conv_banded.launches == before + 1
+    _assert_close([got], [ck.chgnet_conv_banded_plain(*ext, band)])
+    _assert_close([got], [ck.chgnet_conv(*args)])
+
+
+@pytest.mark.parametrize("want_weights", [True, False])
+def test_chgnet_conv_bwd_kernel_matches_plain(cuda_device, want_weights):
+    """All eleven cotangents (or the four input ones) against the plain
+    version, with masked edges, dead centres and a partial tile; a second
+    launch repeats the first bitwise (no float atomics)."""
+    from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
+
+    args, rn = _conv_inputs(cuda_device, seed=9)
+    gagg = rn(*args[0].shape[:2], ck.KERNEL_F)
+    rev = reverse_table(args[5], args[4] != 0, args[0].shape[1])
+    before = ck.chgnet_conv_bwd.launches, ck.chgnet_conv_bwd.weight_launches
+    got = ck.chgnet_conv_bwd(*args, gagg, rev=rev, want_weights=want_weights)
+    assert (ck.chgnet_conv_bwd.launches, ck.chgnet_conv_bwd.weight_launches) == (
+        before[0] + 1, before[1] + int(want_weights))
+    ref = ck.chgnet_conv_bwd_plain(*args, gagg, want_weights=want_weights)
+    n = 11 if want_weights else 4
+    assert all(x is None for x in got[n:])
+    _assert_close(got[:n], ref[:n])
+    again = ck.chgnet_conv_bwd(*args, gagg, rev=rev, want_weights=want_weights)
+    for a, b in zip(got[:n], again[:n]):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="reverse table"):
+        ck.chgnet_conv_bwd(*args, gagg)
+
+
+def test_chgnet_conv_bwd_reverse_table_may_list_masked_edges(cuda_device):
+    """A reverse table that also lists masked edges, among them the edges
+    of the dead centres' all-masked tiles, gives the same g_aj2: the kernel
+    writes dpre = 0 for every masked edge, also where the device memory it
+    reuses held NaN."""
+    from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
+
+    args, rn = _conv_inputs(cuda_device, seed=13)
+    C, n_pad, F2 = args[0].shape
+    gagg = rn(C, n_pad, ck.KERNEL_F)
+    rev_all = reverse_table(args[5], torch.ones_like(args[4], dtype=torch.bool), n_pad)
+    assert int((rev_all >= 0).sum()) > int((args[4] != 0).sum())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    poison = torch.full((16 << 20,), float("nan"), device=cuda_device)
+    del poison   # the caching allocator carves the kernel's dpre from this block
+    got = ck.chgnet_conv_bwd(*args, gagg, rev=rev_all)
+    ref = ck.chgnet_conv_bwd_plain(*args, gagg, want_weights=False)
+    _assert_close(got[:4], ref[:4])
+
+
+def test_lamno3_energy_and_forces_on_card_match_cpu(cuda_device):
+    """lamno3_001_chgnet through rows 10 and 12: the pristine anchor and a
+    state with one OH, energies and forces card vs CPU within 1e-3 eV and
+    1e-3 eV/A, four forward and four backward launches per force call."""
+    from surface_sampling_tpu_torch.core import state as st
+    from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
+    from surface_sampling_tpu_torch.systems import lamno3_001_chgnet
+
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        sys_ = lamno3_001_chgnet(device=dev)
+        d = sys_.run.d
+        ss = torch.zeros((2, sys_.spec.n_sites), dtype=torch.int64, device=dev)
+        ss[1, 3] = 2
+        ck.reset_launch_counts()
+        out.append(sys_.potential.energy_and_forces(
+            st.realize_positions(d, ss), st.realize_type_idx(d, ss), st.realize_alive(d, ss)))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            counts = ck.launch_counts()
+            assert counts["chgnet_conv"] == 4 and counts["chgnet_conv_bwd"] == 4
+            assert counts["chgnet_conv_bwd.weights"] == 0
+    (e_gpu, f_gpu), (e_cpu, f_cpu) = out
+    assert abs(float(e_gpu[0]) + 405.206) < 1e-3
+    assert float((e_gpu.cpu() - e_cpu).abs().max()) <= 1e-3
+    assert float((f_gpu.cpu() - f_cpu).abs().max()) <= 1e-3

@@ -54,11 +54,13 @@ def test_no_import_of_the_jax_package_or_jax():
 
 def test_entry_point_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
     from surface_sampling_tpu_torch.device import resolve_device
-    from surface_sampling_tpu_torch.systems import srtio3_001_painn
+    from surface_sampling_tpu_torch.systems import lamno3_001_chgnet, srtio3_001_painn
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         srtio3_001_painn()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lamno3_001_chgnet()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")

@@ -18,12 +18,20 @@ occupancies with 75% of the sites empty) and on its supercells:
   local_relax  one warm-started ball-local relaxation MC step (one-hop
                balls) from FIRE-relaxed pristine chains: local_relax_1x1
                (128 chains), local_relax_3x3 (16 chains)
+  chgnet_rigid one rigid-lattice state evaluation of the LaMnO3(001) CHGNet
+               system (276 slots, 64 chains): edges ranked over the static
+               table, the atom convs (row 10) and the plain bond/angle branch
+  chgnet_force_call  one force call of its relaxed path (8 chains): rows 10
+               and 12, and autograd through the rest
 
 For each window it prints the wall time (host clock around work that ends
 in a synchronize), the summed device time of every kernel, the device busy
 share (kernel time over wall time; the port runs on one stream, so kernels
-do not overlap) and the kernels by device time; the last line of its output
-is all of it as one JSON object. Each window runs twice untraced first.
+do not overlap) and the kernels by device time; for the CHGNet windows also
+the span on the device timeline of each of the forward's stages (the
+``chgnet.*`` ranges that ``models.chgnet.chgnet_apply`` marks, summed over
+their calls). The last line of its output is all
+of it as one JSON object. Each window runs twice untraced first.
 
 Run from the repository root:  python3 tools/port_profile.py
 """
@@ -45,6 +53,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 N_CHAINS = 128
 SC44_CHAINS = 32
 SC33_CHAINS = 16
+CHG_CHAINS, CHG_RELAX_CHAINS = 64, 8    # chip_smoke.py's paths A and B
 
 
 def _window(name: str, fn, top: int = 12) -> dict:
@@ -56,12 +65,16 @@ def _window(name: str, fn, top: int = 12) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = {}
+    kernels, stages = {}, {}
     for evt in prof.key_averages():
         t_us = getattr(evt, "self_device_time_total", None)
         if t_us is None:
             t_us = getattr(evt, "self_cuda_time_total", 0)
-        if t_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+        if evt.key.startswith("chgnet."):
+            # a marked range: its device time is its span on the device
+            # timeline (gaps between its kernels included), not a kernel
+            stages[evt.key] = t_us / 1e3
+        elif t_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             kernels[evt.key] = (kernels.get(evt.key, (0.0, 0))[0] + t_us / 1e3,
                                 kernels.get(evt.key, (0.0, 0))[1] + evt.count)
     device_ms = sum(t for t, _ in kernels.values())
@@ -73,6 +86,9 @@ def _window(name: str, fn, top: int = 12) -> dict:
           f"busy share {out['busy_share']:.3f}, {len(rows)} distinct kernels")
     for k, (t, n) in rows[:top]:
         print(f"    {t:9.3f} ms  {n:5d}x  {k[:110]}")
+    if stages:
+        out["forward_stage_spans_ms"] = stages
+        print(f"    forward stages, span on the device timeline (ms): {json.dumps(stages)}")
     return out
 
 
@@ -127,14 +143,15 @@ def main() -> int:
     )
     from surface_sampling_tpu_torch.models.painn import prepare_message_geometry
     from surface_sampling_tpu_torch.ops import painn_kernels as pk
-    from surface_sampling_tpu_torch.systems import srtio3_001_painn
+    from surface_sampling_tpu_torch.ops.cuda_build import build_kernels
+    from surface_sampling_tpu_torch.systems import lamno3_001_chgnet, srtio3_001_painn
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
     dev = torch.device("cuda")
-    pk.build_kernels()
+    build_kernels()
     rigid = srtio3_001_painn(device=dev)
     relax = srtio3_001_painn(relax=RelaxConfig(), device=dev)
     spec, d = relax.spec, relax.run.d
@@ -191,6 +208,23 @@ def main() -> int:
         report[name] = _window(name, lambda: step(state, 1.0, *draws))
         report[name]["chains"] = chains
         del sc, engine, state
+        torch.cuda.empty_cache()
+
+    for relax, chains in ((None, CHG_CHAINS), (RelaxConfig(steps=10), CHG_RELAX_CHAINS)):
+        chg = lamno3_001_chgnet(relax=relax, device=dev)
+        spec, d = chg.spec, chg.run.d
+        ss = rng.integers(0, spec.n_codes, (chains, spec.n_sites))
+        ss = torch.as_tensor(np.where(rng.random(ss.shape) < 0.75, 0, ss), device=dev)
+        if relax is None:
+            name = "chgnet_rigid"
+            report[name] = _window(name, lambda: chg.run.state_energy_fn(ss))
+        else:
+            name = "chgnet_force_call"
+            report[name] = _window(name, force_call(
+                chg.potential, realize_positions(d, ss), realize_type_idx(d, ss),
+                realize_alive(d, ss)))
+        report[name]["chains"] = chains
+        del chg
         torch.cuda.empty_cache()
     print(json.dumps(report))
     return 0
