@@ -9,12 +9,14 @@ delta-energy engine; on the slab tiled 3x3 (1116 slots), relaxed through
 the banded message and its backward, and by the warm-started ball-local
 relaxation engine; and semigrand MC on the LaMnO3(001) 2x2x3 slab scored by
 CHGNet (A: rigid, 64 chains; B: FIRE-relaxed, 8 chains, 10 steps; C: the
-slab tiled 3x3, 2484 slots, rigid and banded, 8 chains) — through their
-entry points on the card, in twenty-five phases, each printing one line or
-more:
+slab tiled 3x3, 2484 slots, rigid and banded, 8 chains); and the EAM
+systems, Cu(100) 2x2x2 semigrand and Au(110) 2x2 canonical, through the
+fused EAM kernel (row 13), the exact, Chebyshev and rigid paths and the
+canonical engine — through their entry points on the card, in thirty-one
+phases, each printing one line or more:
 
   1. device     card name, count, and nvidia-smi's name and power limit
-  2. build      compiles the eight PaiNN kernels from csrc/ (nvcc -Xptxas -v)
+  2. build      compiles every kernel from csrc/ (nvcc -Xptxas -v, in parallel)
   3. kernels    each forward kernel against its plain PyTorch version at the
                 rigid path's shapes, with times and bounds
   4. anchor     pristine potential / surface energy on the card
@@ -74,14 +76,30 @@ more:
                 throughput, a bitwise repeat; one relaxed state card vs CPU
  25. chgnet-3x3 path C, 8 chains x 1 sweep x 8 steps: the band, launch
                 counts (row 11 only), throughput; banded vs unbanded energies
+ 26. eam-build  the Cu(100) and Au(110) systems: exact, cheb, rigid and
+                kernel potentials (the kernel's static tables at 0.05 A slack)
+ 27. eam-kernel row 13 against its plain version at Cu (16,384 chains, the
+                shape of cu-mc, the row's numbers; and 8,192) and Au (1,024),
+                rho and ep each within 1e-4 x max|plain|, a bitwise repeat,
+                kernel vs cheb energies; times and bounds
+ 28. eam-anchor the Cu pristine pin and the Au(110) ground state -79.0349 eV
+                by every path; card vs the CPU plain path
+ 29. cu-mc      semigrand Cu through the kernel potential, 16,384 chains x 8 x
+                32 steps (row 13 once per evaluation), beside make_eam_rigid
+ 30. au-canonical au110_eam()'s canonical run at 1,024 chains (exact splines)
+                and through the kernel potential: n_ads 6, ground state,
+                bitwise repeat, row 13 once per state evaluation
+ 31. cu-relax-mc relaxed Cu (cheb, autograd forces) at 1,024 chains x 4
+                steps: bitwise repeat, card vs CPU, the kernel refusing to
+                relax
 
 Then it prints one JSON line {"kernels": [...]} (per kernel: source, the
 TPU kernel it replaces, launches on its main path — the rigid run for the
 1x1 forward kernels, the relaxed run for the backward, the 2x2 full
 evaluation run for the banded kernels, the delta run for the subset kernel,
 the relaxed 3x3 run for the banded backward, paths A, B and C for the CHGNet
-rows 10, 12 and 11, every path's count under
-launches_by_path — max abs error, ms, plain_ms,
+rows 10, 12 and 11, the Cu semigrand run for row 13, every path's count
+under launches_by_path — max abs error, ms, plain_ms,
 bound_ms, bound_by, library_ms), the nvidia-smi line again, and last the
 JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -169,18 +187,21 @@ def msg_flops_per_edge(F: int, R: int) -> int:
 def reset_launch_counts() -> None:
     """Zero the launch counters of every kernel of the port."""
     from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
+    from surface_sampling_tpu_torch.ops import eam_kernels as ek
     from surface_sampling_tpu_torch.ops import painn_kernels as pk
 
     pk.reset_launch_counts()
     ck.reset_launch_counts()
+    ek.reset_launch_counts()
 
 
 def launch_counts() -> dict:
     """The launch counters of every kernel of the port."""
     from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
+    from surface_sampling_tpu_torch.ops import eam_kernels as ek
     from surface_sampling_tpu_torch.ops import painn_kernels as pk
 
-    return {**pk.launch_counts(), **ck.launch_counts()}
+    return {**pk.launch_counts(), **ck.launch_counts(), **ek.launch_counts()}
 
 
 def _cuda_ms(fn, reps: int, warm: int = 2) -> float:
@@ -207,6 +228,13 @@ def _best_of(fn, reps: int = 3) -> float:
         torch.cuda.synchronize()
         dt = min(dt, time.perf_counter() - t0)
     return dt
+
+
+def _gen(seed: int) -> torch.Generator:
+    """A fresh generator on the card for one run's draws."""
+    from surface_sampling_tpu_torch.core.engine import make_generator
+
+    return make_generator(seed, "cuda")
 
 
 def _nbytes(*tensors) -> int:
@@ -475,7 +503,7 @@ def relaxed_mc_phase(tag: str, sys_relax, n_chains: int, fwd: str, bwd: str) -> 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     with counting(pot) as (calls, n_steps):
-        out_a, rec_a = crun(states, temps, seed=0)
+        out_a, rec_a = crun(states, temps, _gen(0))
         torch.cuda.synchronize()
         launches = launch_counts()
         run_calls = dict(calls)
@@ -484,7 +512,7 @@ def relaxed_mc_phase(tag: str, sys_relax, n_chains: int, fwd: str, bwd: str) -> 
     _expect_relaxed(launches, run_calls, fwd, bwd, _n_layers(pot))
     if not (torch.isfinite(rec_a.energy).all() and torch.isfinite(out_a.energy).all()):
         raise AssertionError(f"[{tag}] non-finite energies in the relaxed MC run")
-    out_b, rec_b = crun(states, temps, seed=0)
+    out_b, rec_b = crun(states, temps, _gen(0))
     torch.cuda.synchronize()
     same = (torch.equal(out_a.site_state, out_b.site_state)
             and torch.equal(out_a.energy, out_b.energy)
@@ -498,7 +526,7 @@ def relaxed_mc_phase(tag: str, sys_relax, n_chains: int, fwd: str, bwd: str) -> 
     if not same:
         raise AssertionError(f"[{tag}] the relaxed MC run does not repeat bitwise")
     n_mc = RELAX_SWEEPS * RELAX_SWEEP_SIZE
-    dt = _best_of(lambda seed: crun(states, temps, seed=seed))
+    dt = _best_of(lambda seed: crun(states, temps, _gen(seed)))
     print(f"[{tag}] slots={sys_relax.spec.n_slots} chains={n_chains} "
           f"sweeps={RELAX_SWEEPS}x{RELAX_SWEEP_SIZE} "
           f"evals/s={n_chains * n_mc / dt:.2f} step_ms={1e3 * dt / n_mc:.3f} "
@@ -741,17 +769,19 @@ def sc_anchor_phase(sys_sc, sys_gpu, dev) -> None:
                              f"banded vs unbanded {diff_u} eV")
 
 
-def full_mc_phase(tag: str, sys_, sweeps: int, per_eval: dict, n_chains: int = N_CHAINS):
+def full_mc_phase(tag: str, sys_, sweeps: int, per_eval: dict, n_chains: int = N_CHAINS,
+                  sweep_size: int = SWEEP_SIZE):
     """6. / 13. Full-evaluation MC through the entry points, ``n_chains``
-    chains x ``sweeps`` x SWEEP_SIZE steps: launch counts (``per_eval``
+    chains x ``sweeps`` x ``sweep_size`` steps: launch counts (``per_eval``
     launches of each named kernel per evaluation, none of any other), finite
-    energies, throughput. Returns the launch counts of the run, its
-    evaluations per second and its final state (seed 0)."""
+    energies, throughput (best of 3 runs after the counted one). Returns the
+    launch counts of the run, its evaluations per second and its final state
+    (seed 0)."""
     from surface_sampling_tpu_torch.core.engine import EngineConfig, geometric_schedule, make_run_fn
     from surface_sampling_tpu_torch.parallel.chains import chain_states, make_chain_run
 
     d, sef = sys_.run.d, sys_.run.state_energy_fn
-    crun = make_chain_run(make_run_fn(d, sef, EngineConfig(sweep_size=SWEEP_SIZE,
+    crun = make_chain_run(make_run_fn(d, sef, EngineConfig(sweep_size=sweep_size,
                                                            record_positions=False)))
     temps = geometric_schedule(1.0, sweeps, 0.99)
     torch.cuda.synchronize()
@@ -759,19 +789,19 @@ def full_mc_phase(tag: str, sys_, sweeps: int, per_eval: dict, n_chains: int = N
     reset_launch_counts()
     states = chain_states(d, n_chains)
     states = states._replace(energy=sef(states.site_state).surface_energy)
-    out, recs = crun(states, temps, seed=0)
+    out, recs = crun(states, temps, _gen(0))
     torch.cuda.synchronize()
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    n_evals = 1 + sweeps * SWEEP_SIZE
+    n_evals = 1 + sweeps * sweep_size
     want = {name: per_eval.get(name, 0) * n_evals for name in launches}
     if launches != want:
         raise AssertionError(f"[{tag}] launch counts {launches}, expected {want}")
     if not (torch.isfinite(recs.energy).all() and torch.isfinite(out.energy).all()):
         raise AssertionError(f"[{tag}] non-finite energies in the MC run")
-    n_mc = sweeps * SWEEP_SIZE
-    dt = _best_of(lambda seed: crun(states, temps, seed=seed))
-    print(f"[{tag}] chains={n_chains} sweeps={sweeps}x{SWEEP_SIZE} "
+    n_mc = sweeps * sweep_size
+    dt = _best_of(lambda seed: crun(states, temps, _gen(seed)))
+    print(f"[{tag}] chains={n_chains} sweeps={sweeps}x{sweep_size} "
           f"evals/s={n_chains * n_mc / dt:.1f} step_ms={1e3 * dt / n_mc:.3f} "
           f"accept={float(recs.accept_rate.mean()):.4f} best={float(recs.energy.min()):.6f} eV "
           f"peak_mem={peak_gb:.3f} GB launches={json.dumps(launches)}")
@@ -805,7 +835,7 @@ def inc_mc_phase(sys_sc, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     states = init()
-    out_a, rec_a = crun(states, temps, seed=0)
+    out_a, rec_a = crun(states, temps, _gen(0))
     torch.cuda.synchronize()
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -821,7 +851,7 @@ def inc_mc_phase(sys_sc, dev) -> dict:
         raise AssertionError("non-finite energies in the delta-engine run")
     fresh, _, _ = engine.energy_full(out_a.site_state)
     drift = float((fresh - out_a.energy).abs().max())
-    out_b, rec_b = crun(states, temps, seed=0)
+    out_b, rec_b = crun(states, temps, _gen(0))
     torch.cuda.synchronize()
     same = (torch.equal(out_a.site_state, out_b.site_state)
             and torch.equal(out_a.energy, out_b.energy)
@@ -838,7 +868,7 @@ def inc_mc_phase(sys_sc, dev) -> dict:
         raise AssertionError(f"cached energies drift from full evaluation by {drift} eV")
     if not same:
         raise AssertionError("the delta-engine run does not repeat bitwise")
-    dt = _best_of(lambda seed: crun(states, temps, seed=seed))
+    dt = _best_of(lambda seed: crun(states, temps, _gen(seed)))
     print(f"[inc-mc] chains={N_CHAINS} sweeps={INC_SWEEPS}x{SWEEP_SIZE} "
           f"steps/s={N_CHAINS * n_mc / dt:.1f} step_ms={1e3 * dt / n_mc:.3f} "
           f"accept={float(rec_a.accept_rate.mean()):.4f} best={float(rec_a.energy.min()):.6f} eV "
@@ -858,10 +888,10 @@ def inc_4x4_phase(dev) -> None:
     band = sys44.potential.static_edge_pack.band
     engine, icrun, init, temps = _inc_run(sys44, SC44_CHAINS, SC_SWEEPS)
     states = init()
-    out_i, rec_i = icrun(states, temps, seed=0)
+    out_i, rec_i = icrun(states, temps, _gen(0))
     fresh, _, _ = engine.energy_full(out_i.site_state)
     drift = float((fresh - out_i.energy).abs().max())
-    dt_inc = _best_of(lambda seed: icrun(states, temps, seed=seed))
+    dt_inc = _best_of(lambda seed: icrun(states, temps, _gen(seed)))
     del states
     _, full_rate, out_f = full_mc_phase("4x4-mc", sys44, SC_SWEEPS, BANDED_LAUNCHES,
                                         SC44_CHAINS)
@@ -1118,27 +1148,27 @@ def local_relax_phase(tag: str, sys_relax, n_chains: int, dev) -> dict:
     torch.cuda.synchronize()
     reset_launch_counts()
     with counting(pot) as (calls, n_steps):
-        out_a, rec_a = lrun(states, temps, seed=0)
+        out_a, rec_a = lrun(states, temps, _gen(0))
         torch.cuda.synchronize()
         launches = launch_counts()
         local_calls = dict(calls)
         iters_local = torch.stack(n_steps).float()
     with counting(pot) as (calls, n_steps):
-        frun(states, temps, seed=0)
+        frun(states, temps, _gen(0))
         iters_full = torch.stack(n_steps).float()
     ss = out_a.site_state
     e_fresh = pot.energy(out_a.relaxed_positions, realize_type_idx(d, ss), realize_alive(d, ss))
     se_fresh = run.surface_energy_fn(e_fresh, element_counts(d, ss))
     drift = float((se_fresh - out_a.energy).abs().max())
     t0 = time.perf_counter()
-    out_b, rec_b = lrun(states, temps, seed=0)
+    out_b, rec_b = lrun(states, temps, _gen(0))
     torch.cuda.synchronize()
     dt_local = time.perf_counter() - t0
     same = (torch.equal(out_a.site_state, out_b.site_state)
             and torch.equal(out_a.energy, out_b.energy)
             and torch.equal(out_a.relaxed_positions, out_b.relaxed_positions))
     t0 = time.perf_counter()
-    frun(states, temps, seed=0)
+    frun(states, temps, _gen(0))
     torch.cuda.synchronize()
     dt_full = time.perf_counter() - t0
     n_mc = LOCAL_SWEEP_SIZE
@@ -1449,6 +1479,354 @@ def chgnet_3x3_phase(sys_c, dev) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# EAM: Cu(100) 2x2x2 semigrand and Au(110) 2x2 canonical (row 13)
+# ----------------------------------------------------------------------
+# chain counts of the JAX package's own benchmark scripts: tools/bench_all.py's
+# bench_cu100_pallas (8,192) and bench_au110_canonical (1,024); bench.py's
+# fallback bench_cu_rigid and the README quick start (16,384 chains, 8 x 32
+# steps)
+EAM_CU_CHAINS, EAM_AU_CHAINS = 8192, 1024
+CU_MC_CHAINS, CU_MC_SWEEPS, CU_MC_SWEEP_SIZE = 16384, 8, 32
+AU_CANONICAL_CHAINS, CU_RELAX_CHAINS, CU_RELAX_CPU_CHAINS = 1024, 1024, 16
+# f32 operations of one live pair in row 13: r (6 for the displacement, 5
+# for |d|^2, max, sqrt, the cutoff test), u (clip 2, subtract, divide),
+# 2u, two 24-step Clenshaw recurrences (3 each a step), their two final
+# steps (3 each), the wall (7), and the two accumulations (2 + 3)
+EAM_FLOPS_PER_PAIR = 14 + 4 + 1 + 2 * 24 * 3 + 2 * 3 + 7 + 5
+PRISTINE_CU100_E = -24.058476294465656   # tests/test_regression_eam.py (x64, exact splines)
+AU_REFERENCE_MIN = -79.03490823689619    # tests/test_regression_eam.py (LAMMPS reference)
+# the Chebyshev fit sits 1.94e-4 eV from the exact pristine Cu energy (in the
+# JAX package too): the cheb and kernel paths meet the pin within the JAX
+# package's own fast-path bound (tests/test_fast_eam.py)
+CHEB_PIN_TOL = 5e-4
+
+
+def _eam_states(n_sites: int, n_chains: int, seed: int, device, p_occ: float = 0.15):
+    """Seeded occupancies, each site filled with probability ``p_occ``: at
+    Cu(100) ~3.6 adsorbates a chain on 24 sites 1.3-1.8 A apart, so most
+    chains are physical and some hold overlapping pairs (the wall's regime)."""
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor((rng.random((n_chains, n_sites)) < p_occ).astype(np.int64),
+                           device=device)
+
+
+def eam_live_pairs(positions, alive_f, pairs, cutoff: float) -> int:
+    """Pairs row 13 evaluates: valid, both ends alive, r < cutoff."""
+    pj = positions[:, pairs.slot_j]
+    r = ((positions[:, :, None, :] - (pj + pairs.shift)) ** 2).sum(-1).clamp(min=1e-12).sqrt()
+    alive = alive_f > 0.5
+    live = pairs.valid & alive[:, :, None] & alive[:, pairs.slot_j] & (r < cutoff)
+    return int(live.sum())
+
+
+def eam_kernel_case(tag: str, spec, kernel_pot, cheb_pot, d, n_chains: int, seed: int) -> dict:
+    """Row 13 against its plain version on seeded occupancies at a path's
+    shapes: rho and ep each within KERNEL_RTOL x max|plain|, a bitwise
+    repeat, the kernel potential's energies against the cheb path's within
+    1e-3 eV where |E| < 999 eV (tests/test_pallas_eam.py's rule); times and
+    the bound (live pairs x EAM_FLOPS_PER_PAIR, or the bytes: positions,
+    alive, the table and the coefficients read once, rho and ep written
+    once)."""
+    from surface_sampling_tpu_torch.core.state import (
+        realize_alive,
+        realize_positions,
+        realize_type_idx,
+    )
+    from surface_sampling_tpu_torch.ops import eam_kernels as ek
+
+    pairs, cheb = kernel_pot.pairs, kernel_pot.cheb
+    ss = _eam_states(spec.n_sites, n_chains, seed, d.device)
+    pos = realize_positions(d, ss).contiguous()
+    ti, alive = realize_type_idx(d, ss), realize_alive(d, ss)
+    alive_f = alive.float()
+    got = ek.eam_rho_ep(pos, alive_f, pairs, cheb)
+    ref = ek.eam_rho_ep_plain(pos, alive_f, pairs, cheb)
+    again = ek.eam_rho_ep(pos, alive_f, pairs, cheb)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, r in zip(("rho", "ep"), got, ref):
+        err, scale = float((g - r).abs().max()), float(r.abs().max())
+        errs[name] = err
+        if not err <= KERNEL_RTOL * scale:
+            raise AssertionError(f"[{tag}] eam_rho_ep {name}: max abs error {err} exceeds "
+                                 f"{KERNEL_RTOL} x max|plain| = {KERNEL_RTOL * scale}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"[{tag}] eam_rho_ep does not repeat bitwise")
+    e_k = kernel_pot.energy(pos, ti, alive)
+    e_c = cheb_pot.energy(pos, ti, alive)
+    phys = e_c.abs() < 999.0
+    de = float((e_k - e_c).abs()[phys].max())
+    if not (int(phys.sum()) > 0 and de <= 1e-3):
+        raise AssertionError(f"[{tag}] kernel vs cheb energies differ by {de} eV")
+    n_live = eam_live_pairs(pos, alive_f, pairs, cheb.rng.cutoff)
+    nbytes = _nbytes(pos, alive_f, pairs.kernel_j, pairs.shift, cheb.operand, *got)
+    m = _measure("eam_rho_ep", lambda *a: ek.eam_rho_ep(*a, pairs, cheb),
+                 lambda *a: ek.eam_rho_ep_plain(*a, pairs, cheb), (pos, alive_f), (True, True),
+                 n_live * EAM_FLOPS_PER_PAIR, nbytes=nbytes)
+    N, M = pairs.slot_j.shape
+    _print_measure(tag, "eam_rho_ep", m,
+                   f"C={n_chains} N={N} M={M} live_pairs={n_live} ({n_live / n_chains:.1f} a "
+                   f"chain) errors rho {errs['rho']:.3e} ep {errs['ep']:.3e} bitwise repeat ok; "
+                   f"kernel vs cheb energies max|d| {de:.3e} eV over {int(phys.sum())} physical "
+                   f"states (tol 1e-3); ")
+    return {**m, "errs": errs, "live_pairs": n_live, "chains": n_chains, "N": N, "M": M}
+
+
+def eam_systems(dev) -> dict:
+    """The EAM systems and potentials of these phases on ``dev``: Cu(100)
+    exact, cheb, rigid and kernel; Au(110) exact, rigid, kernel and cheb
+    (the kernel's static tables at 0.05 A of slack)."""
+    from surface_sampling_tpu_torch.core.engine import MCMCRun
+    from surface_sampling_tpu_torch.core.static_neighbors import build_static_neighbor_table
+    from surface_sampling_tpu_torch.ops.eam_kernels import make_eam_kernel_potential
+    from surface_sampling_tpu_torch.potentials.eam import (
+        builtin_eam,
+        make_eam_rigid,
+        make_eam_static,
+    )
+    from surface_sampling_tpu_torch.systems import ExampleSystem, au110_eam, cu100_eam
+
+    cu_t, au_t = builtin_eam("Cu_u3"), builtin_eam("Au_u3")
+    cu_fast = cu100_eam(fast=True, device=dev)
+    spec = cu_fast.spec
+    cu_kernel_pot = make_eam_kernel_potential(cu_t, cu_fast.static_nbr, device=dev)
+    cu_rigid_pot = make_eam_rigid(cu_t, spec, device=dev)
+    au_exact = au110_eam(device=dev)
+    au_nbr = build_static_neighbor_table(au_exact.spec, au_t.cutoff, relax_slack=0.05)
+    au_kernel_pot = make_eam_kernel_potential(au_t, au_nbr, device=dev)
+
+    def system(spec_, pot, nbr=None):
+        return ExampleSystem(spec_, pot, MCMCRun(spec_, pot, device=dev), nbr)
+
+    return {
+        "cu_exact": cu100_eam(device=dev), "cu_cheb": cu_fast,
+        "cu_rigid": system(spec, cu_rigid_pot),
+        "cu_kernel": system(spec, cu_kernel_pot, cu_fast.static_nbr),
+        "au_exact": au_exact, "au_rigid": au110_eam(fast=True, device=dev),
+        "au_kernel": system(au_exact.spec, au_kernel_pot, au_nbr),
+        "au_cheb": system(au_exact.spec, make_eam_static(au_t, au_nbr, mode="cheb", device=dev),
+                          au_nbr),
+    }
+
+
+def eam_kernel_phase(eam: dict) -> dict:
+    """27. Row 13 at Cu(100) with CU_MC_CHAINS chains, the shape of its
+    main path `[cu-mc]` (the row's numbers), with EAM_CU_CHAINS
+    (bench_cu100_pallas's shape) and at Au(110) with EAM_AU_CHAINS."""
+    def case(system: str, n_chains: int, seed: int) -> dict:
+        kern = eam[f"{system}_kernel"]
+        return eam_kernel_case("eam-kernel", kern.spec, kern.potential,
+                               eam[f"{system}_cheb"].potential, kern.run.d, n_chains, seed)
+
+    keep = ("ms", "plain_ms", "bound_ms", "live_pairs", "chains", "errs")
+    cu = case("cu", CU_MC_CHAINS, 32)
+    cu_8k = case("cu", EAM_CU_CHAINS, 30)
+    au = case("au", EAM_AU_CHAINS, 31)
+    return _row("eam_rho_ep", "surface_sampling_tpu/ops/pallas_eam.py:51", cu,
+                ms_chains=CU_MC_CHAINS, live_pairs=cu["live_pairs"],
+                max_abs_err_by_output=cu["errs"],
+                cu_8192={k: cu_8k[k] for k in keep}, au={k: au[k] for k in keep})
+
+
+def _au_states():
+    import itertools
+
+    ss = np.zeros((28, 8), np.int64)
+    for row, combo in enumerate(itertools.combinations(range(8), 6)):
+        ss[row, list(combo)] = 1
+    return torch.as_tensor(ss)
+
+
+def eam_anchor_phase(eam: dict, dev) -> None:
+    """28. The Cu(100) pristine pin by the exact, rigid, cheb and
+    kernel paths; the Au(110) ground state over the 28 six-adsorbate states
+    by the exact, rigid and kernel paths; each card value against the CPU
+    plain path's within 1e-4 eV."""
+    cpu = eam_systems("cpu")
+    zero = torch.zeros((1, eam["cu_cheb"].spec.n_sites), dtype=torch.int64)
+    au_ss = _au_states()
+    checks = []
+    for name, tol, pick in (("cu_exact", 1e-4, None), ("cu_rigid", 1e-4, None),
+                            ("cu_cheb", CHEB_PIN_TOL, None), ("cu_kernel", CHEB_PIN_TOL, None),
+                            ("au_exact", 1e-4, "min"), ("au_rigid", 1e-4, "min"),
+                            ("au_kernel", 5e-3, "min")):
+        ss = zero if pick is None else au_ss
+        want = PRISTINE_CU100_E if pick is None else AU_REFERENCE_MIN
+        e_gpu = float(eam[name].run.state_energy_fn(ss.to(dev)).surface_energy.min())
+        e_cpu = float(cpu[name].run.state_energy_fn(ss).surface_energy.min())
+        checks.append(f"{name} {e_gpu:.6f} (|d ref| {abs(e_gpu - want):.2e}, tol {tol}; "
+                      f"card-cpu {abs(e_gpu - e_cpu):.1e})")
+        if not (abs(e_gpu - want) <= tol and abs(e_gpu - e_cpu) <= 1e-4):
+            raise AssertionError(f"[eam-anchor] {name}: card {e_gpu} eV, cpu {e_cpu} eV, "
+                                 f"reference {want} eV (tol {tol})")
+    e_k = float(eam["cu_kernel"].run.state_energy_fn(zero.to(dev)).surface_energy[0])
+    e_c = float(eam["cu_cheb"].run.state_energy_fn(zero.to(dev)).surface_energy[0])
+    print(f"[eam-anchor] Cu(100) pristine pin {PRISTINE_CU100_E:.6f} eV, Au(110) ground state "
+          f"{AU_REFERENCE_MIN:.6f} eV: " + "; ".join(checks)
+          + f"; Cu kernel vs cheb {abs(e_k - e_c):.1e} eV")
+    if not abs(e_k - e_c) <= 1e-4:
+        raise AssertionError(f"[eam-anchor] Cu pristine kernel {e_k} vs cheb {e_c}")
+
+
+def au_canonical_phase(eam: dict) -> dict:
+    """30. ``au110_eam()``'s canonical run (exact splines) and the
+    same through the kernel potential: AU_CANONICAL_CHAINS chains, the
+    regression test's configuration; n_ads 6 in every record, the best
+    energy within 5e-3 eV of the ground state, a bitwise repeat; the
+    kernel run launches row 13 once per state evaluation. Returns the
+    kernel run's launch counts."""
+    from surface_sampling_tpu_torch.core.engine import EngineConfig, geometric_schedule
+
+    cfg = EngineConfig(sweep_size=8, canonical=True, num_ads_atoms=6)
+    temps = geometric_schedule(1.0, 20, 0.8)
+    n_steps = 20 * cfg.sweep_size
+    out = {}
+    for name in ("au_exact", "au_kernel"):
+        run = eam[name].run
+        sef = run.state_energy_fn
+        calls = [0]
+
+        def counted(ss, sef=sef):
+            calls[0] += 1
+            return sef(ss)
+
+        run.state_energy_fn = counted
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, rec = run.run(0, temps, cfg=cfg, n_chains=AU_CANONICAL_CHAINS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = launch_counts()
+        run.state_energy_fn = sef
+        state2, rec2 = run.run(0, temps, cfg=cfg, n_chains=AU_CANONICAL_CHAINS)
+        same = all(torch.equal(getattr(rec, f), getattr(rec2, f)) for f in rec._fields) \
+            and torch.equal(state.site_state, state2.site_state)
+        best = float(rec.energy.min())
+        want = {k: 0 for k in launches}
+        if name == "au_kernel":
+            want["eam_rho_ep"] = calls[0]
+        n_prep = calls[0] - 2 - n_steps
+        print(f"[au-canonical] {name} chains={AU_CANONICAL_CHAINS} sweeps=20x8 prep steps "
+              f"{n_prep} n_ads={sorted(set(rec.n_ads.flatten().tolist()))} best={best:.6f} eV "
+              f"(|d| {abs(best - AU_REFERENCE_MIN):.2e}, tol 5e-3) accept="
+              f"{float(rec.accept_rate.mean()):.4f} bitwise repeat {same}; "
+              f"{AU_CANONICAL_CHAINS * (n_steps + n_prep) / dt:.1f} evals/s (one run, the "
+              f"prefill included, {dt:.3f} s) launches={json.dumps(launches)}")
+        if not ((rec.n_ads == 6).all() and abs(best - AU_REFERENCE_MIN) <= 5e-3 and same
+                and launches == want and n_prep >= 0):
+            raise AssertionError(f"[au-canonical] {name} failed: best {best}, repeat {same}, "
+                                 f"launches {launches} vs {want}")
+        out[name] = launches
+    return out["au_kernel"]
+
+
+def cu_relax_mc_phase(dev) -> dict:
+    """31. ``cu100_eam(fast=True, relax=RelaxConfig())`` at
+    CU_RELAX_CHAINS chains x 1 x 4 steps (forces by autograd through the
+    cheb path; row 13 never launches): a bitwise repeat, the final states of
+    CU_RELAX_CPU_CHAINS chains FIRE-relaxed on the card and on the CPU plain
+    path (RELAXED_E_TOL / RELAXED_POS_TOL), and the kernel potential
+    refusing to relax. Returns the run's launch counts."""
+    from surface_sampling_tpu_torch.core import energy as core_energy
+    from surface_sampling_tpu_torch.core.energy import RelaxConfig
+    from surface_sampling_tpu_torch.core.engine import (
+        EngineConfig,
+        MCMCRun,
+        geometric_schedule,
+        make_run_fn,
+    )
+    from surface_sampling_tpu_torch.ops.eam_kernels import make_eam_kernel_potential
+    from surface_sampling_tpu_torch.parallel.chains import chain_states
+    from surface_sampling_tpu_torch.potentials.eam import builtin_eam
+    from surface_sampling_tpu_torch.systems import cu100_eam
+
+    sys_ = cu100_eam(fast=True, relax=RelaxConfig(), device=dev)
+    run = sys_.run
+    crun = make_run_fn(run.d, run.state_energy_fn, EngineConfig(sweep_size=4))
+    temps = geometric_schedule(1.0, 1, 0.99)
+    states = chain_states(run.d, CU_RELAX_CHAINS)
+    first = run.state_energy_fn(states.site_state)
+    states = states._replace(energy=first.surface_energy, relaxed_positions=first.positions)
+    iters, fire = [], core_energy.fire_relax
+
+    def recorded(*a, **k):
+        res = fire(*a, **k)
+        iters.append(res.n_steps)
+        return res
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    core_energy.fire_relax = recorded
+    try:
+        t0 = time.perf_counter()
+        out_a, rec_a = crun(states, temps, _gen(0))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        core_energy.fire_relax = fire
+    launches = launch_counts()
+    out_b, rec_b = crun(states, temps, _gen(0))
+    same = all(torch.equal(a, b) for a, b in zip(out_a, out_b)) and \
+        torch.equal(rec_a.positions, rec_b.positions)
+    ss = out_a.site_state[:CU_RELAX_CPU_CHAINS]
+    gpu = run.state_energy_fn(ss)
+    cpu = cu100_eam(fast=True, relax=RelaxConfig(), device="cpu").run.state_energy_fn(ss.cpu())
+    de = float((gpu.surface_energy.cpu() - cpu.surface_energy).abs().max())
+    dp = float((gpu.positions.cpu() - cpu.positions).abs().max())
+    moved = float((out_a.relaxed_positions - states.relaxed_positions).abs().max())
+    kernel = MCMCRun(sys_.spec, make_eam_kernel_potential(builtin_eam("Cu_u3"), sys_.static_nbr,
+                                                          device=dev),
+                     device=dev, relax=RelaxConfig())
+    try:
+        kernel.state_energy_fn(ss)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    it = torch.stack(iters).float()
+    print(f"[cu-relax-mc] chains={CU_RELAX_CHAINS} sweeps=1x4 "
+          f"evals/s={CU_RELAX_CHAINS * 4 / dt:.1f} step_ms={1e3 * dt / 4:.3f} (one run) "
+          f"fire_iters_mean={float(it.mean()):.3f} max={int(it.max())} "
+          f"accept={float(rec_a.accept_rate.mean()):.4f} best={float(rec_a.energy.min()):.6f} eV "
+          f"bitwise repeat {same}; {CU_RELAX_CPU_CHAINS} final states card vs cpu |dE| {de:.3e} "
+          f"eV (tol {RELAXED_E_TOL}) |dx| {dp:.3e} A (tol {RELAXED_POS_TOL}); max relaxed "
+          f"displacement {moved:.4f} A; kernel potential refuses to relax: {refused}; "
+          f"launches={json.dumps(launches)}")
+    if not (same and de <= RELAXED_E_TOL and dp <= RELAXED_POS_TOL and refused
+            and not any(launches.values()) and torch.isfinite(rec_a.energy).all()):
+        raise AssertionError("[cu-relax-mc] failed")
+    return launches
+
+
+def eam_phases(dev) -> tuple[list, dict]:
+    """Every EAM phase; returns row 13 and the launch counts of its paths."""
+    t0 = time.perf_counter()
+    eam = eam_systems(dev)
+    cu, au = eam["cu_kernel"], eam["au_kernel"]
+    print(f"[eam-build] Cu(100) slots={cu.spec.n_slots} sites={cu.spec.n_sites} "
+          f"M={cu.static_nbr.slot_j.shape[1]}; Au(110) slots={au.spec.n_slots} sites="
+          f"{au.spec.n_sites} M={au.static_nbr.slot_j.shape[1]}; host build "
+          f"{time.perf_counter() - t0:.1f}s")
+    row = eam_kernel_phase(eam)
+    torch.cuda.empty_cache()
+    eam_anchor_phase(eam, dev)
+    paths = {}
+    paths["cu_mc"], rate, _ = full_mc_phase("cu-mc", eam["cu_kernel"], CU_MC_SWEEPS,
+                                            {"eam_rho_ep": 1}, n_chains=CU_MC_CHAINS,
+                                            sweep_size=CU_MC_SWEEP_SIZE)
+    paths["cu_rigid_mc"], rate_rigid, _ = full_mc_phase(
+        "cu-mc-rigid", eam["cu_rigid"], CU_MC_SWEEPS, {}, n_chains=CU_MC_CHAINS,
+        sweep_size=CU_MC_SWEEP_SIZE)
+    print(f"[cu-mc] kernel potential {rate:.1f} evals/s beside make_eam_rigid (bench.py's "
+          f"fallback path) {rate_rigid:.1f} evals/s at {CU_MC_CHAINS} chains")
+    torch.cuda.empty_cache()
+    paths["au_canonical"] = au_canonical_phase(eam)
+    torch.cuda.empty_cache()
+    paths["cu_relax_mc"] = cu_relax_mc_phase(dev)
+    return [row], paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1560,11 +1938,18 @@ def main() -> int:
     chg_relax_launches = chgnet_relax_phase(sys_b, dev)
     torch.cuda.empty_cache()
     chg_3x3_launches = chgnet_3x3_phase(sys_c, dev)
+    del sys_a, sys_b, sys_c
+    torch.cuda.empty_cache()
+
+    # EAM: Cu(100) semigrand and Au(110) canonical, row 13
+    eam_rows, eam_paths = eam_phases(dev)
+    rows += eam_rows
 
     main_path = {"painn_message_bwd": "relaxed_mc", "painn_message_l1_banded": "sc_mc",
                  "painn_message_fused_banded": "sc_mc", "painn_message_subset": "inc_mc",
                  "painn_message_bwd_banded": "sc_relax_mc", "chgnet_conv": "chgnet_mc",
-                 "chgnet_conv_banded": "chgnet_3x3_mc", "chgnet_conv_bwd": "chgnet_relax_mc"}
+                 "chgnet_conv_banded": "chgnet_3x3_mc", "chgnet_conv_bwd": "chgnet_relax_mc",
+                 "eam_rho_ep": "cu_mc"}
     for row in rows:
         by_path = {"rigid_mc": launches[row["name"]],
                    "relaxed_mc": relax_launches[row["name"]],
@@ -1573,7 +1958,8 @@ def main() -> int:
                    **{k: v[row["name"]] for k, v in local_launches.items()},
                    "chgnet_mc": chg_launches[row["name"]],
                    "chgnet_relax_mc": chg_relax_launches[row["name"]],
-                   "chgnet_3x3_mc": chg_3x3_launches[row["name"]]}
+                   "chgnet_3x3_mc": chg_3x3_launches[row["name"]],
+                   **{k: v[row["name"]] for k, v in eam_paths.items()}}
         row["launches"] = by_path[main_path.get(row["name"], "rigid_mc")]
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on its path: {by_path}")

@@ -1,7 +1,7 @@
 """Periodic-table data and unit conversions used by the port.
 
 A copy of the parts of ``surface_sampling_tpu/constants.py`` that the
-rigid PaiNN MC path needs; the port imports nothing of the JAX package.
+ported paths need; the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -31,6 +31,10 @@ SYMBOL_FROM_Z: dict[int, str] = dict(enumerate(CHEMICAL_SYMBOLS))
 # Unit conversions (CODATA 2018)
 HARTREE_TO_EV = 27.211386245988
 KCAL_MOL_TO_EV = 0.04336414
+
+# LAMMPS "metal" units Coulomb constant e^2/(4 pi eps0) in eV*Angstrom, as
+# used by pair_style eam's funcfl z2r conversion (27.2 * 0.529).
+EAM_QQR2E = 27.2 * 0.529
 
 
 def parse_formula(formula: str) -> dict[str, int]:

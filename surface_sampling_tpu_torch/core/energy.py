@@ -137,7 +137,7 @@ def relax_settings(relax: RelaxConfig, potential) -> tuple[FireConfig, bool]:
 
 
 def relax_and_score(potential, fire_cfg: FireConfig, fixed_topo: bool, pos0, free, type_idx,
-                    alive, bound):
+                    alive, bound, shifts=None):
     """FIRE-relax every chain from ``pos0`` with the atoms under ``free``
     (C, N) moving, and score the result: ``(positions, e_pot, oob)``.
 
@@ -149,7 +149,7 @@ def relax_and_score(potential, fire_cfg: FireConfig, fixed_topo: bool, pos0, fre
     energy. Out-of-bounds potential energies are clamped to the bound."""
 
     def e_of(p):
-        return potential.energy(p, type_idx, alive)
+        return potential.energy(p, type_idx, alive, shifts)
 
     if fixed_topo:
         topo = potential.edge_topology(pos0, alive)
@@ -180,7 +180,8 @@ def make_state_energy_fn(
 
     Without ``relax`` the state is scored at its ideal slot geometry,
     through ``potential.rigid_energy(type_idx, alive)`` where the
-    potential has it, else ``potential.energy``. With ``relax`` every
+    potential has it, else ``potential.energy(positions, type_idx, alive,
+    d.shifts)``. With ``relax`` every
     chain's trial state is FIRE-relaxed (frozen bulk and dead slots held)
     and scored by :func:`relax_and_score`.
 
@@ -205,14 +206,14 @@ def make_state_energy_fn(
 
         if relax is None:
             e_pot = rigid(type_idx, alive) if rigid is not None else potential.energy(
-                pos0, type_idx, alive)
+                pos0, type_idx, alive, d.shifts)
             oob = (e_pot.abs() > e_bound) | torch.isnan(e_pot)
             e_pot = torch.where(oob, bound, e_pot)
             pos = pos0
         else:
             pos, e_pot, oob = relax_and_score(potential, fire_cfg, fixed_topo, pos0,
                                               realize_free_mask(d, site_state), type_idx,
-                                              alive, bound)
+                                              alive, bound, d.shifts)
         se = torch.where(oob, bound, surface_energy_fn(e_pot, counts))
         return StateEnergy(surface_energy=se, potential_energy=e_pot, positions=pos, oob=oob)
 

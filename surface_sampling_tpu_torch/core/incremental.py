@@ -354,10 +354,9 @@ def make_incremental_semigrand_step(engine: IncEngine, criterion: str = "metropo
 
 
 def make_incremental_canonical_step(engine: IncEngine) -> Callable:
-    """Not ported: the incremental canonical step waits with the canonical
-    step of ``core/events.py``."""
-    raise NotImplementedError("the incremental canonical step waits with the canonical step, "
-                              "which is not ported yet")
+    """Not ported yet: the two-site delta exists (``delta`` takes (C, 2)
+    sites), the step around it does not."""
+    raise NotImplementedError("the incremental canonical step is not ported yet")
 
 
 class IncSweepRecord(NamedTuple):
@@ -372,16 +371,17 @@ class IncSweepRecord(NamedTuple):
 
 def make_incremental_run(step_fn: Callable, sweep_size: int, n_sites: int,
                          n_codes: int) -> Callable:
-    """``run(state, temps, seed) -> (state, IncSweepRecord)`` over
+    """``run(state, temps, generator) -> (state, IncSweepRecord)`` over
     incremental steps, with the draws of ``core.engine.make_run_fn`` (the
-    same seed gives the same sites, codes and uniforms)."""
+    same generator state gives the same sites, codes and uniforms; the
+    generator is continued in place)."""
 
     def record(state: IncState, accept_rate, oob_rate) -> IncSweepRecord:
         return IncSweepRecord(energy=state.energy, accept_rate=accept_rate,
                               n_ads=num_occupied_sites(state.site_state),
                               site_state=state.site_state, oob_rate=oob_rate)
 
-    def run(state: IncState, temps, seed: int = 0):
-        return run_sweeps(step_fn, state, temps, seed, sweep_size, n_sites, n_codes, record)
+    def run(state: IncState, temps, generator: torch.Generator):
+        return run_sweeps(step_fn, state, temps, generator, sweep_size, n_sites, n_codes, record)
 
     return run

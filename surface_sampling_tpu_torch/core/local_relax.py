@@ -20,8 +20,9 @@ With a ball that covers every free slot, a move from a lattice-positioned
 chain runs the FIRE trajectory of the full relaxed path.
 
 Only the Metropolis criterion and the semigrand step are ported: the
-canonical step and the distance criteria wait with those of
-``core/events.py``, and L-BFGS with ``core/relax.py``'s.
+canonical step (the ball-local evaluation of an exchange) is not yet, the
+distance criteria wait with those of ``core/events.py``, and L-BFGS with
+``core/relax.py``'s.
 """
 
 from __future__ import annotations
@@ -116,7 +117,7 @@ def make_local_relax_eval(
         free = realize_free_mask(d, trial_ss) & ball
         bound = torch.full((C,), energy_threshold(N), dtype=lat.dtype, device=lat.device)
         pos, e_pot, oob = relax_and_score(potential, fire_cfg, fixed_topo, pos0, free, type_idx,
-                                          alive, bound)
+                                          alive, bound, d.shifts)
         se = torch.where(oob, bound, sfn(e_pot, counts))
         return StateEnergy(surface_energy=se, potential_energy=e_pot, positions=pos, oob=oob)
 
@@ -151,21 +152,20 @@ def make_local_relax_semigrand_step(evaluate: Callable, criterion: str = "metrop
 
 
 def make_local_relax_canonical_step(evaluate: Callable, criterion: str = "metropolis") -> Callable:
-    """Not ported: the canonical step waits with that of
-    ``core/events.py``."""
-    raise NotImplementedError("the local-relax canonical step waits with the canonical step, "
-                              "which is not ported yet")
+    """Not ported yet: the ball-local evaluation of a two-site exchange."""
+    raise NotImplementedError("the local-relax canonical step is not ported yet")
 
 
 def make_local_relax_run(step_fn: Callable, sweep_size: int, n_sites: int,
                          n_codes: int) -> Callable:
-    """``run(state, temps, seed) -> (state, SweepRecord)`` over local-relax
-    steps, with the draws and the record of ``core.engine.make_run_fn`` (the
-    same seed gives the same sites, codes and uniforms; the relaxed
-    positions, which are this engine's state, are recorded)."""
+    """``run(state, temps, generator) -> (state, SweepRecord)`` over
+    local-relax steps, with the draws and the record of
+    ``core.engine.make_run_fn`` (the same generator state gives the same
+    sites, codes and uniforms; the relaxed positions, which are this
+    engine's state, are recorded)."""
     record = make_sweep_record()
 
-    def run(state: MCState, temps, seed: int = 0):
-        return run_sweeps(step_fn, state, temps, seed, sweep_size, n_sites, n_codes, record)
+    def run(state: MCState, temps, generator: torch.Generator):
+        return run_sweeps(step_fn, state, temps, generator, sweep_size, n_sites, n_codes, record)
 
     return run

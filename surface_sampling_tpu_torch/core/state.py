@@ -44,6 +44,7 @@ class DeviceSpec(NamedTuple):
     code_natoms: torch.Tensor          # (K+1,) int64
     z_to_element: torch.Tensor         # (Zmax+2,) int64
     type_of_z: torch.Tensor            # (Zmax+2,) int64
+    shifts: torch.Tensor               # (Kimg, 3) f32 periodic image shifts
     n_elements: int
     n_codes: int
     device: torch.device
@@ -66,6 +67,7 @@ def device_spec(spec: SurfaceSpec, device: torch.device) -> DeviceSpec:
         code_natoms=i64(spec.code_natoms),
         z_to_element=i64(spec.z_to_element),
         type_of_z=i64(spec.type_of_z),
+        shifts=f32(spec.shifts),
         n_elements=len(spec.element_zs),
         n_codes=spec.n_codes,
         device=device,
@@ -120,6 +122,24 @@ def change_site(site_state: torch.Tensor, site_idx: torch.Tensor,
     out = site_state.clone()
     out.scatter_(1, site_idx[:, None], new_code[:, None].to(out.dtype))
     return out
+
+
+def exchange_sites(site_state: torch.Tensor, site1: torch.Tensor,
+                   site2: torch.Tensor) -> torch.Tensor:
+    """Copy of ``site_state`` with the codes of sites ``site1[c]`` and
+    ``site2[c]`` of chain c swapped (the canonical move)."""
+    c1 = torch.gather(site_state, 1, site1[:, None])
+    c2 = torch.gather(site_state, 1, site2[:, None])
+    out = site_state.clone()
+    out.scatter_(1, site1[:, None], c2)
+    out.scatter_(1, site2[:, None], c1)
+    return out
+
+
+def num_adsorbate_atoms(d: DeviceSpec, site_state: torch.Tensor) -> torch.Tensor:
+    """(C,) adsorbed atoms per chain (atoms, not sites, so that groups
+    count by their size)."""
+    return d.code_natoms[site_state].sum(dim=1)
 
 
 def num_occupied_sites(site_state: torch.Tensor) -> torch.Tensor:

@@ -39,6 +39,7 @@ ARITY = {
     "chgnet_conv": (14, 5),
     "chgnet_conv_banded": (15, 8),
     "chgnet_conv_bwd": (24, 8),
+    "eam_rho_ep": (7, 4),
 }
 KERNELS = tuple(ARITY)
 _LIBS: dict[str, ctypes.CDLL] = {}

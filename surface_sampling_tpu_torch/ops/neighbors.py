@@ -4,7 +4,8 @@ chains).
 
 The counterpart of ``surface_sampling_tpu/ops/neighbors.py``:
 ``pair_shifts`` and ``pair_shifts_for`` run once, when a system is built;
-``neighbor_list_from_table``, ``select_edge_topology`` and
+``image_distances`` and ``image_pair_mask`` are the dense all-image pair
+geometry of the exact classical potentials; ``neighbor_list_from_table``, ``select_edge_topology`` and
 ``edges_from_topology`` build the edges of displaced geometries, the path
 that forces and relaxation take.
 
@@ -96,6 +97,33 @@ def pair_shifts_for(
     heights = np.array([np.linalg.norm(cell[i]) for i in range(3)])
     span = frac.max(axis=0) - frac.min(axis=0) + span_pad / np.maximum(heights, 1e-9)
     return pair_shifts(cell, cutoff, frac_span=span, pbc=pbc)
+
+
+# ----------------------------------------------------------------------
+# Dense image pairs (device, batched over chains)
+# ----------------------------------------------------------------------
+def image_distances(positions: torch.Tensor, shifts: torch.Tensor, eps: float = 1e-12):
+    """Distances r[c, k, i, j] = |pos_i - (pos_j + shift_k)| of chain c with
+    a safe sqrt, for positions (C, N, 3) and shifts (K, 3).
+
+    Returns (r (C, K, N, N), disp (C, K, N, N, 3)). The self pair of the
+    zero shift (k = 0 diagonal) is NOT masked here; see
+    :func:`image_pair_mask`.
+    """
+    disp = positions[:, None, :, None, :] - (positions[:, None, None, :, :]
+                                             + shifts[None, :, None, None, :])
+    d2 = (disp * disp).sum(dim=-1)
+    return torch.sqrt(torch.clamp(d2, min=eps)), disp
+
+
+def image_pair_mask(alive: torch.Tensor, r: torch.Tensor, cutoff: float) -> torch.Tensor:
+    """(C, K, N, N) mask of interacting image pairs: both alive (alive
+    (C, N)), within cutoff, and not the self pair of the zero shift."""
+    _, k, n, _ = r.shape
+    self_pair = torch.zeros((k, n, n), dtype=torch.bool, device=r.device)
+    self_pair[0] = torch.eye(n, dtype=torch.bool, device=r.device)
+    both = alive[:, None, :, None] & alive[:, None, None, :]
+    return both & ~self_pair & (r < cutoff)
 
 
 # ----------------------------------------------------------------------

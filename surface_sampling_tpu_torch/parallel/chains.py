@@ -60,7 +60,7 @@ def make_chain_run(run_fn: Callable, share_temps: bool = True) -> Callable:
     chain follows one schedule, ``temps`` (sweeps,); otherwise ``temps``
     has a leading chain axis, (C, sweeps) — the basis of tempering."""
 
-    def crun(states: MCState, temps, seed: int = 0):
+    def crun(states: MCState, temps, generator: torch.Generator):
         temps = torch.as_tensor(temps)
         want = 1 if share_temps else 2
         if temps.ndim != want:
@@ -68,6 +68,6 @@ def make_chain_run(run_fn: Callable, share_temps: bool = True) -> Callable:
                              f"share_temps={share_temps}, got shape {tuple(temps.shape)}")
         if not share_temps and temps.shape[0] != states.site_state.shape[0]:
             raise ValueError("per-chain temps need one row per chain")
-        return run_fn(states, temps, seed)
+        return run_fn(states, temps, generator)
 
     return crun

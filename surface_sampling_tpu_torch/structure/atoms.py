@@ -1,8 +1,8 @@
 """Minimal periodic structure container (host side, numpy).
 
 The part of ``surface_sampling_tpu/structure/atoms.py`` that building the
-flagship spec and its supercells uses: construction, tiling, sorting by
-height, layer tagging and the formula.
+ported systems uses: construction, tiling, sorting by height, centring in
+vacuum, layer tagging and the formula.
 """
 
 from __future__ import annotations
@@ -53,6 +53,16 @@ class Structure:
     def sorted_by_z(self) -> "Structure":
         order = np.argsort(self.positions[:, 2], kind="stable")
         return Structure(self.numbers[order], self.positions[order], self.cell.copy())
+
+    def center_z(self, vacuum: float) -> "Structure":
+        """Centre the slab along z with ``vacuum`` Angstrom of padding on
+        each side: the c axis becomes (0, 0, height + 2 vacuum)."""
+        z = self.positions[:, 2]
+        cell = self.cell.copy()
+        cell[2] = np.array([0.0, 0.0, z.max() - z.min() + 2.0 * vacuum])
+        pos = self.positions.copy()
+        pos[:, 2] += vacuum - z.min()
+        return Structure(self.numbers.copy(), pos, cell)
 
     @property
     def formula(self) -> str:

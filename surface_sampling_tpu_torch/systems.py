@@ -1,11 +1,12 @@
 """Prebuilt example systems: the SrTiO3(001) PaiNN-ensemble flagship and
-its supercells, and the LaMnO3(001) CHGNet system.
+its supercells, the LaMnO3(001) CHGNet system, and the EAM systems Cu(100)
+(semigrand) and Au(110) (canonical).
 
-The counterparts of ``srtio3_001_painn`` and ``lamno3_001_chgnet`` in
-``surface_sampling_tpu/systems.py``. The slab geometries, the offset table
-and the model weights are the JAX package's data files, read by path from
-the repository checkout (data, not modules: nothing of the JAX package is
-imported).
+The counterparts of ``srtio3_001_painn``, ``lamno3_001_chgnet``,
+``cu100_eam`` and ``au110_eam`` in ``surface_sampling_tpu/systems.py``. The
+slab geometries, the offset table, the model weights and the EAM tables are
+the JAX package's data files, read by path from the repository checkout
+(data, not modules: nothing of the JAX package is imported).
 """
 
 from __future__ import annotations
@@ -42,7 +43,14 @@ from surface_sampling_tpu_torch.models.weights import (
     load_painn_ensemble,
 )
 from surface_sampling_tpu_torch.ops.banding import RoutingBand, build_routing_band_for_spec
-from surface_sampling_tpu_torch.structure import Structure, find_adsorption_sites
+from surface_sampling_tpu_torch.potentials.base import Potential
+from surface_sampling_tpu_torch.potentials.eam import (
+    builtin_eam,
+    make_eam,
+    make_eam_rigid,
+    make_eam_static,
+)
+from surface_sampling_tpu_torch.structure import Structure, fcc100, find_adsorption_sites
 
 _REFERENCE_PKG = Path(__file__).resolve().parent.parent / "surface_sampling_tpu"
 SYSTEMS_DATA = _REFERENCE_PKG / "systems_data"
@@ -51,15 +59,16 @@ MODEL_DATA = _REFERENCE_PKG / "models" / "data"
 
 class ExampleSystem(NamedTuple):
     """A system ready to sample: its spec, potential and MC run, the
-    static candidate table the potential ranks edges over, and the host
-    routing band of a supercell (None where the cell has none), which
+    static candidate table the potential works over (None for the EAM
+    potentials that need none), and the host routing band of a supercell
+    (None where the cell has none), which
     ``core.incremental.make_incremental_painn_from_system`` needs besides
     for a rigid PaiNN one."""
 
     spec: SurfaceSpec
-    potential: TablePotential
+    potential: TablePotential | Potential
     run: MCMCRun
-    static_nbr: StaticNeighborTable
+    static_nbr: StaticNeighborTable | None = None
     routing_band: RoutingBand | None = None
 
 
@@ -209,3 +218,76 @@ def lamno3_001_chgnet(
     se_fn = make_chem_pot_surface_energy(spec, chem_pots or {"O": -5.0, "H": -3.0}, device=dev)
     run = MCMCRun(spec, pot, surface_energy_fn=se_fn, device=dev, relax=relax)
     return ExampleSystem(spec, pot, run, static_nbr, band)
+
+
+def cu100_eam(
+    size=(2, 2, 2),
+    a: float = 3.6147,
+    vacuum: float = 15.0,
+    planar_distance: float = 1.5,
+    relax: RelaxConfig | None = None,
+    fast: bool = False,
+    dtype=None,
+    device: str | torch.device = "cuda",
+) -> ExampleSystem:
+    """Cu(100) slab with EAM (Foiles u3) and Cu adsorption: the toy system
+    of the reference's example notebook and Cu regression test (a = 3.6147,
+    2x2x2 slab, planar_distance 1.5), semigrand.
+
+    ``fast=False`` scores states with the exact splines over every image
+    pair (``make_eam``); ``fast=True`` with the Chebyshev path over a static
+    candidate table (``make_eam_static(mode="cheb")``; 0.05 A of slack, 0.6
+    when relaxing). The fused kernel is the separate energy-only
+    ``ops.eam_kernels.make_eam_kernel_potential``, as in the JAX package.
+
+    Arguments and defaults are those of the JAX package's function.
+    ``dtype`` must be None or ``torch.float32``. ``device`` defaults to
+    "cuda" and raises without a card; pass "cpu" for the plain path.
+    """
+    if dtype not in (None, torch.float32):
+        raise NotImplementedError("the port computes in float32 only")
+    dev = resolve_device(device)
+    slab = fcc100("Cu", size=size, a=a, vacuum=vacuum)
+    sites = find_adsorption_sites(
+        slab, planar_distance=planar_distance, near_reduce=0.01, no_obtuse_hollow=True
+    )["all"]
+    tables = builtin_eam("Cu_u3")
+    spec = make_spec(slab, sites, ["Cu"], potential_numbers=tables.numbers,
+                     cutoff=tables.cutoff, surface_name="Cu_100")
+    nbr = None
+    if fast:
+        slack = 0.6 if relax is not None else 0.05
+        nbr = build_static_neighbor_table(spec, tables.cutoff, relax_slack=slack)
+        pot = make_eam_static(tables, nbr, mode="cheb", device=dev)
+    else:
+        pot = make_eam(tables, device=dev)
+    return ExampleSystem(spec, pot, MCMCRun(spec, pot, device=dev, relax=relax), nbr)
+
+
+def au110_eam(relax: RelaxConfig | None = None, fast: bool = False, dtype=None,
+              device: str | torch.device = "cuda") -> ExampleSystem:
+    """Au(110) 2x2 canonical test system with the reference's exact
+    geometry (16-atom slab, 8 pre-identified sites; its canonical anchor
+    puts 6 Au atoms on them, ground state -79.0349 eV).
+
+    ``fast=True`` (rigid runs only): the exact-spline EAM collapses to
+    precomputed quadratic forms (``make_eam_rigid``), two small products
+    per evaluation; otherwise (and whenever ``relax`` is given) the exact
+    splines over every image pair (``make_eam``).
+
+    ``dtype`` must be None or ``torch.float32``. ``device`` defaults to
+    "cuda" and raises without a card; pass "cpu" for the plain path.
+    """
+    if dtype not in (None, torch.float32):
+        raise NotImplementedError("the port computes in float32 only")
+    dev = resolve_device(device)
+    data = np.load(SYSTEMS_DATA / "Au_110_2x2.npz")
+    slab = Structure(data["numbers"], data["slab_positions"], data["cell"])
+    tables = builtin_eam("Au_u3")
+    spec = make_spec(slab, data["ads_coords"], ["Au"], potential_numbers=tables.numbers,
+                     cutoff=tables.cutoff, surface_name="Au_110")
+    if fast and relax is None:
+        pot = make_eam_rigid(tables, spec, device=dev)
+    else:
+        pot = make_eam(tables, device=dev)
+    return ExampleSystem(spec, pot, MCMCRun(spec, pot, device=dev, relax=relax))

@@ -307,6 +307,7 @@ def test_incremental_run_repeats_bitwise(cuda_device):
     """A short delta-engine run on the 2x2 supercell through the subset
     kernel: the same seed twice gives bitwise identical states and caches,
     and the cached energies equal a fresh full evaluation to 1e-3 eV."""
+    from surface_sampling_tpu_torch.core.engine import make_generator
     from surface_sampling_tpu_torch.core.incremental import (
         make_incremental_painn_from_system,
         make_incremental_run,
@@ -320,8 +321,8 @@ def test_incremental_run_repeats_bitwise(cuda_device):
     run = make_incremental_run(make_incremental_semigrand_step(eng), 4, eng.n_sites, eng.n_codes)
     states = incremental_chain_states(eng, sys_.run.d, 4)
     before = pk.painn_message_subset.launches
-    a, rec_a = run(states, [1.0, 0.9], seed=3)
-    b, rec_b = run(states, [1.0, 0.9], seed=3)
+    a, rec_a = run(states, [1.0, 0.9], make_generator(3, cuda_device))
+    b, rec_b = run(states, [1.0, 0.9], make_generator(3, cuda_device))
     torch.cuda.synchronize()
     assert pk.painn_message_subset.launches == before + 2 * 2 * 4 * 3
     assert torch.equal(a.site_state, b.site_state) and torch.equal(a.energy, b.energy)
@@ -473,3 +474,89 @@ def test_lamno3_energy_and_forces_on_card_match_cpu(cuda_device):
     assert abs(float(e_gpu[0]) + 405.206) < 1e-3
     assert float((e_gpu.cpu() - e_cpu).abs().max()) <= 1e-3
     assert float((f_gpu.cpu() - f_cpu).abs().max()) <= 1e-3
+
+
+# ----------------------------------------------------------------------
+# EAM pair pass (row 13) and the canonical engine
+# ----------------------------------------------------------------------
+def _eam_case(dev, system: str, n_chains: int, seed: int):
+    """The kernel potential of Cu(100) or Au(110) on ``dev`` and the slot
+    geometry of seeded occupancies (a site filled with probability 0.3:
+    physical states and some overlapping pairs)."""
+    import numpy as np
+
+    from surface_sampling_tpu_torch.core import state as st
+    from surface_sampling_tpu_torch.core.static_neighbors import build_static_neighbor_table
+    from surface_sampling_tpu_torch.ops.eam_kernels import make_eam_kernel_potential
+    from surface_sampling_tpu_torch.potentials.eam import builtin_eam
+    from surface_sampling_tpu_torch.systems import au110_eam, cu100_eam
+
+    sys_ = cu100_eam(device=dev) if system == "cu" else au110_eam(device=dev)
+    tables = builtin_eam("Cu_u3" if system == "cu" else "Au_u3")
+    nbr = build_static_neighbor_table(sys_.spec, tables.cutoff, relax_slack=0.05)
+    pot = make_eam_kernel_potential(tables, nbr, device=dev)
+    rng = np.random.default_rng(seed)
+    ss = torch.as_tensor((rng.random((n_chains, sys_.spec.n_sites)) < 0.3).astype(np.int64),
+                         device=dev)
+    d = sys_.run.d
+    return pot, st.realize_positions(d, ss), st.realize_type_idx(d, ss), st.realize_alive(d, ss)
+
+
+@pytest.mark.parametrize("system,n_chains", [("cu", 37), ("au", 70)])
+def test_eam_kernel_matches_plain(cuda_device, system, n_chains):
+    """Row 13 against its plain version (chain counts that are not a
+    multiple of the kernel's 16-chain block), one launch a call, bitwise
+    on repeat."""
+    from surface_sampling_tpu_torch.ops import eam_kernels as ek
+
+    pot, pos, _, alive = _eam_case(cuda_device, system, n_chains, seed=n_chains)
+    args = (pos.contiguous(), alive.float(), pot.pairs, pot.cheb)
+    before = ek.eam_rho_ep.launches
+    got = ek.eam_rho_ep(*args)
+    assert ek.eam_rho_ep.launches == before + 1
+    _assert_close(got, ek.eam_rho_ep_plain(*args))
+    for a, b in zip(got, ek.eam_rho_ep(*args)):
+        assert torch.equal(a, b)
+
+
+def test_eam_kernel_potential_on_card_matches_cpu(cuda_device):
+    """The kernel potential's energies on the card against the CPU plain
+    path within 1e-3 eV where |E| < 999 eV (tests/test_pallas_eam.py's rule
+    for the kernel against the cheb path: the card's Clenshaw contracts to
+    FMAs), and its refusal of gradients on the card."""
+    pot_g, pos_g, ti_g, al_g = _eam_case(cuda_device, "cu", 64, seed=5)
+    pot_c, pos_c, ti_c, al_c = _eam_case(torch.device("cpu"), "cu", 64, seed=5)
+    e_g, e_c = pot_g.energy(pos_g, ti_g, al_g).cpu(), pot_c.energy(pos_c, ti_c, al_c)
+    phys = e_c.abs() < 999.0
+    assert int(phys.sum()) > 0
+    assert float((e_g - e_c).abs()[phys].max()) <= 1e-3
+    with pytest.raises(NotImplementedError, match="energy only"):
+        pot_g.energy(pos_g.requires_grad_(True), ti_g, al_g)
+
+
+def test_canonical_run_repeats_and_continues_bitwise_on_card(cuda_device):
+    """au110_eam's canonical run on the card: the same seed twice gives the
+    same records, and a run cut into two chunks that pass one generator
+    along equals one run."""
+    from surface_sampling_tpu_torch.core.engine import (
+        EngineConfig,
+        geometric_schedule,
+        make_generator,
+        make_run_fn,
+    )
+    from surface_sampling_tpu_torch.systems import au110_eam
+
+    sys_ = au110_eam(fast=True, device=cuda_device)
+    cfg = EngineConfig(sweep_size=8, canonical=True, num_ads_atoms=6)
+    temps = geometric_schedule(1.0, 6, 0.8)
+    a, rec_a = sys_.run.run(0, temps, cfg=cfg, n_chains=64)
+    b, rec_b = sys_.run.run(0, temps, cfg=cfg, n_chains=64)
+    assert torch.equal(rec_a.energy, rec_b.energy) and torch.equal(a.site_state, b.site_state)
+    assert bool((rec_a.n_ads == 6).all())
+    run = make_run_fn(sys_.run.d, sys_.run.state_energy_fn, cfg)
+    whole, rec = run(a, temps, make_generator(3, cuda_device))
+    gen = make_generator(3, cuda_device)
+    half, rec_1 = run(a, temps[:2], gen)
+    end, rec_2 = run(half, temps[2:], gen)
+    assert torch.equal(rec.site_state, torch.cat([rec_1.site_state, rec_2.site_state], dim=1))
+    assert torch.equal(whole.energy, end.energy)

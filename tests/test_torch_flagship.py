@@ -21,7 +21,12 @@ from surface_sampling_tpu.core.events import make_semigrand_step as j_make_step
 from surface_sampling_tpu.ops.static_edges import static_edge_geometry as j_edge_geometry
 from surface_sampling_tpu_torch.core import state as tstate
 from surface_sampling_tpu_torch.core.energy import RelaxConfig
-from surface_sampling_tpu_torch.core.engine import EngineConfig, geometric_schedule, make_run_fn
+from surface_sampling_tpu_torch.core.engine import (
+    EngineConfig,
+    geometric_schedule,
+    make_generator,
+    make_run_fn,
+)
 from surface_sampling_tpu_torch.core.events import make_semigrand_step
 from surface_sampling_tpu_torch.core.static_neighbors import build_static_neighbor_table
 from surface_sampling_tpu_torch.ops.static_edges import static_edge_geometry
@@ -197,7 +202,7 @@ def test_short_run_energies_reevaluate_in_jax(tsys, jeval):
     crun = make_chain_run(make_run_fn(d, sef, EngineConfig(sweep_size=4)))
     states = chain_states(d, 4)
     states = states._replace(energy=sef(states.site_state).surface_energy)
-    out, recs = crun(states, geometric_schedule(3.0, 2, 0.99), seed=0)
+    out, recs = crun(states, geometric_schedule(3.0, 2, 0.99), make_generator(0, "cpu"))
     assert recs.energy.shape == (4, 2) and recs.positions.shape == (4, 2, 124, 3)
     assert torch.isfinite(recs.energy).all()
     flat = recs.site_state.reshape(-1, tsys.spec.n_sites).numpy()
@@ -223,7 +228,7 @@ def test_per_chain_temperatures(tsys):
     states = chain_states(d, 2)
     states = states._replace(energy=sef(states.site_state).surface_energy)
     temps = np.array([[1e-6], [50.0]])
-    _, recs = make_chain_run(run_fn, share_temps=False)(states, temps, seed=1)
+    _, recs = make_chain_run(run_fn, share_temps=False)(states, temps, make_generator(1, "cpu"))
     assert float(recs.accept_rate[0, 0]) == 0.0 and float(recs.accept_rate[1, 0]) > 0.0
     with pytest.raises(ValueError):
-        make_chain_run(run_fn)(states, temps)
+        make_chain_run(run_fn)(states, temps, make_generator(1, "cpu"))

@@ -76,3 +76,35 @@ def test_chip_smoke_fails_without_a_card():
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _eam_entry_points():
+    from surface_sampling_tpu_torch.core.static_neighbors import build_static_neighbor_table
+    from surface_sampling_tpu_torch.ops.eam_kernels import make_eam_kernel_potential
+    from surface_sampling_tpu_torch.potentials import eam
+    from surface_sampling_tpu_torch.systems import au110_eam, cu100_eam
+
+    spec = cu100_eam(device="cpu").spec
+    tables = eam.builtin_eam("Cu_u3")
+    nbr = build_static_neighbor_table(spec, tables.cutoff, relax_slack=0.05)
+    return {
+        "cu100_eam": lambda: cu100_eam(),
+        "cu100_eam_fast": lambda: cu100_eam(fast=True),
+        "au110_eam": lambda: au110_eam(),
+        "make_eam": lambda: eam.make_eam(tables),
+        "make_eam_static": lambda: eam.make_eam_static(tables, nbr, mode="cheb"),
+        "make_eam_rigid": lambda: eam.make_eam_rigid(tables, spec),
+        "make_eam_kernel_potential": lambda: make_eam_kernel_potential(tables, nbr),
+    }
+
+
+@pytest.mark.parametrize("name", ["cu100_eam", "cu100_eam_fast", "au110_eam", "make_eam",
+                                  "make_eam_static", "make_eam_rigid",
+                                  "make_eam_kernel_potential"])
+def test_eam_entry_points_default_to_cuda(monkeypatch, name):
+    """The EAM systems, potentials and the kernel potential default to the
+    card and raise without one."""
+    build = _eam_entry_points()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build()

@@ -32,7 +32,7 @@ from surface_sampling_tpu.models.train import init_ensemble
 from surface_sampling_tpu.ops.banding import build_routing_band_for_spec as j_build_band
 from surface_sampling_tpu.structure import Structure as JStructure
 from surface_sampling_tpu_torch.core.energy import make_state_energy_fn
-from surface_sampling_tpu_torch.core.engine import EngineConfig, make_run_fn
+from surface_sampling_tpu_torch.core.engine import EngineConfig, make_generator, make_run_fn
 from surface_sampling_tpu_torch.core.incremental import (
     make_incremental_canonical_step,
     make_incremental_painn,
@@ -195,11 +195,12 @@ def test_incremental_run_equals_full_run(ttoy):
     full_run = make_run_fn(d, sef, EngineConfig(sweep_size=sweep, record_positions=False))
     states = chain_states(d, n_chains)
     states = states._replace(energy=sef(states.site_state).surface_energy)
-    f_out, f_rec = full_run(states, temps, seed=4)
+    f_out, f_rec = full_run(states, temps, make_generator(4, "cpu"))
 
     inc_run = make_incremental_run(make_incremental_semigrand_step(eng), sweep, spec.n_sites,
                                    spec.n_codes)
-    i_out, i_rec = inc_run(incremental_chain_states(eng, d, n_chains), temps, seed=4)
+    i_out, i_rec = inc_run(incremental_chain_states(eng, d, n_chains), temps,
+                           make_generator(4, "cpu"))
     np.testing.assert_array_equal(i_rec.site_state.numpy(), f_rec.site_state.numpy())
     np.testing.assert_array_equal(i_rec.accept_rate.numpy(), f_rec.accept_rate.numpy())
     np.testing.assert_allclose(i_rec.energy.numpy(), f_rec.energy.numpy(), **E_TOL)

@@ -34,7 +34,7 @@ from surface_sampling_tpu.core.static_neighbors import (
 )
 from surface_sampling_tpu_torch.core import state as tstate
 from surface_sampling_tpu_torch.core.energy import RelaxConfig
-from surface_sampling_tpu_torch.core.engine import SweepRecord
+from surface_sampling_tpu_torch.core.engine import SweepRecord, make_generator
 from surface_sampling_tpu_torch.core.local_relax import (
     build_ball_masks,
     make_local_relax_canonical_step,
@@ -191,7 +191,7 @@ def test_locality_rollback_and_carried_energies(toy):
         assert torch.equal(new.site_state[rejected], states.site_state[rejected])
         states = new
     run_fn = make_local_relax_run(step, 2, spec.n_sites, spec.n_codes)
-    out, rec = run_fn(states, np.array([0.05, 0.04]), seed=1)
+    out, rec = run_fn(states, np.array([0.05, 0.04]), make_generator(1, "cpu"))
     assert isinstance(rec, SweepRecord) and rec.positions.shape == (3, 2, spec.n_slots, 3)
     assert torch.isfinite(rec.energy).all()
     ss = out.site_state

@@ -23,6 +23,14 @@ occupancies with 75% of the sites empty) and on its supercells:
                table, the atom convs (row 10) and the plain bond/angle branch
   chgnet_force_call  one force call of its relaxed path (8 chains): rows 10
                and 12, and autograd through the rest
+  cu_kernel_step  one semigrand MC step of Cu(100) 2x2x2 through the EAM
+               kernel potential (row 13), 16,384 chains (bench.py's
+               fallback shape); cu_rigid_step the same through
+               make_eam_rigid
+  cu_force_call  one force call of the relaxed Cu path (the cheb path and
+               autograd), 1,024 chains
+  au_canonical_step  one canonical MC step of au110_eam() (exact splines),
+               1,024 chains
 
 For each window it prints the wall time (host clock around work that ends
 in a synchronize), the summed device time of every kernel, the device busy
@@ -54,6 +62,7 @@ N_CHAINS = 128
 SC44_CHAINS = 32
 SC33_CHAINS = 16
 CHG_CHAINS, CHG_RELAX_CHAINS = 64, 8    # chip_smoke.py's paths A and B
+CU_CHAINS, CU_RELAX_CHAINS, AU_CHAINS = 16384, 1024, 1024   # chip_smoke.py's EAM paths
 
 
 def _window(name: str, fn, top: int = 12) -> dict:
@@ -93,8 +102,10 @@ def _window(name: str, fn, top: int = 12) -> dict:
 
 
 def force_call(pot, pos, types, alive):
-    """One force call of a relaxation: energy and forces on the edge
-    topology selected at ``pos``."""
+    """One force call of a relaxation: energy and forces, on the edge
+    topology selected at ``pos`` where the potential has topology hooks."""
+    if not hasattr(pot, "edge_topology"):
+        return lambda: pot.energy_and_forces(pos, types, alive)
     topo = pot.edge_topology(pos, alive)
 
     def call():
@@ -125,6 +136,64 @@ def local_relax_step(sys_relax, chains, rng):
              torch.as_tensor(rng.integers(0, spec.n_codes - 1, chains), device=dev),
              torch.as_tensor(rng.random(chains), dtype=torch.float32, device=dev))
     return lambda: step(state, 1.0, *draws)
+
+
+def eam_windows(dev, rng) -> dict:
+    """The EAM windows: one MC step of each EAM path at chip_smoke.py's
+    shapes, from seeded states (a site filled with probability 0.15, a
+    6-adsorbate occupancy on Au(110))."""
+    from surface_sampling_tpu_torch.core.energy import RelaxConfig
+    from surface_sampling_tpu_torch.core.engine import MCMCRun
+    from surface_sampling_tpu_torch.core.events import (
+        canonical_draws,
+        make_canonical_step,
+        make_semigrand_step,
+        semigrand_draws,
+    )
+    from surface_sampling_tpu_torch.core.state import (
+        realize_alive,
+        realize_positions,
+        realize_type_idx,
+    )
+    from surface_sampling_tpu_torch.ops.eam_kernels import make_eam_kernel_potential
+    from surface_sampling_tpu_torch.parallel.chains import chain_states
+    from surface_sampling_tpu_torch.potentials.eam import builtin_eam, make_eam_rigid
+    from surface_sampling_tpu_torch.systems import au110_eam, cu100_eam
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cu = cu100_eam(fast=True, device=dev)
+    tables = builtin_eam("Cu_u3")
+    runs = {"cu_kernel_step": MCMCRun(cu.spec, make_eam_kernel_potential(
+                tables, cu.static_nbr, device=dev), device=dev),
+            "cu_rigid_step": MCMCRun(cu.spec, make_eam_rigid(tables, cu.spec, device=dev),
+                                     device=dev)}
+    ss = torch.as_tensor((rng.random((CU_CHAINS, cu.spec.n_sites)) < 0.15).astype(np.int64),
+                         device=dev)
+    for name, run in runs.items():
+        step = make_semigrand_step(run.d, run.state_energy_fn)
+        state = chain_states(run.d, CU_CHAINS, ss)
+        state = state._replace(energy=run.state_energy_fn(ss).surface_energy)
+        draws = semigrand_draws(gen, CU_CHAINS, cu.spec.n_sites, cu.spec.n_codes)
+        out[name] = _window(name, lambda: step(state, 1.0, *draws))
+        out[name]["chains"] = CU_CHAINS
+    relax = cu100_eam(fast=True, relax=RelaxConfig(), device=dev)
+    d = relax.run.d
+    ss = ss[:CU_RELAX_CHAINS]
+    out["cu_force_call"] = _window("cu_force_call", force_call(
+        relax.potential, realize_positions(d, ss), realize_type_idx(d, ss), realize_alive(d, ss)))
+    out["cu_force_call"]["chains"] = CU_RELAX_CHAINS
+    au = au110_eam(device=dev)
+    ss = np.zeros((AU_CHAINS, 8), np.int64)
+    for c in range(AU_CHAINS):
+        ss[c, rng.choice(8, 6, replace=False)] = 1
+    state = chain_states(au.run.d, AU_CHAINS, ss)
+    state = state._replace(energy=au.run.state_energy_fn(state.site_state).surface_energy)
+    step = make_canonical_step(au.run.d, au.run.state_energy_fn)
+    draws = canonical_draws(gen, AU_CHAINS, 8, au.spec.n_codes)
+    out["au_canonical_step"] = _window("au_canonical_step", lambda: step(state, 0.3, *draws))
+    out["au_canonical_step"]["chains"] = AU_CHAINS
+    return out
 
 
 def main() -> int:
@@ -226,6 +295,7 @@ def main() -> int:
         report[name]["chains"] = chains
         del chg
         torch.cuda.empty_cache()
+    report.update(eam_windows(dev, rng))
     print(json.dumps(report))
     return 0
 
