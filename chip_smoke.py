@@ -12,8 +12,10 @@ CHGNet (A: rigid, 64 chains; B: FIRE-relaxed, 8 chains, 10 steps; C: the
 slab tiled 3x3, 2484 slots, rigid and banded, 8 chains); and the EAM
 systems, Cu(100) 2x2x2 semigrand and Au(110) 2x2 canonical, through the
 fused EAM kernel (row 13), the exact, Chebyshev and rigid paths and the
-canonical engine — through their entry points on the card, in thirty-one
-phases, each printing one line or more:
+canonical engine; and force-loss training of the PaiNN ensemble on jittered
+frames of the slab through the message block's second order (row 5), and
+the fine-tuning CLI — through their entry points on the card, in
+thirty-five phases, each printing one line or more:
 
   1. device     card name, count, and nvidia-smi's name and power limit
   2. build      compiles every kernel from csrc/ (nvcc -Xptxas -v, in parallel)
@@ -92,13 +94,27 @@ phases, each printing one line or more:
  31. cu-relax-mc relaxed Cu (cheb, autograd forces) at 1,024 chains x 4
                 steps: bitwise repeat, card vs CPU, the kernel refusing to
                 relax
+ 32. bwd2       row 5 against its plain version at the training path's
+                shapes (16 frames, the slab's real geometry, one member a
+                launch, for each of the 3; and the 3 stacked as an extra),
+                all nine outputs, with c_dw / c_db zero (the skip) and not,
+                a bitwise repeat; times and the bound over live edges
+ 33. train-grad one member, 2 frames: a training step's loss and every
+                parameter gradient, card vs the CPU plain path
+ 34. train      the main training path: the 3-member ensemble on 16 frames,
+                labels the ensemble mean, 1 + 3 x 4 Adam steps of one
+                trajectory; structures/s, launches of rows 2 / 4 / 5 per
+                step, the loss falling below its start over the timed steps
+ 35. finetune-cli the port's CLI on the card (--init one member, 2 epochs):
+                its four files, the saved model's energies
 
 Then it prints one JSON line {"kernels": [...]} (per kernel: source, the
 TPU kernel it replaces, launches on its main path — the rigid run for the
 1x1 forward kernels, the relaxed run for the backward, the 2x2 full
 evaluation run for the banded kernels, the delta run for the subset kernel,
 the relaxed 3x3 run for the banded backward, paths A, B and C for the CHGNet
-rows 10, 12 and 11, the Cu semigrand run for row 13, every path's count
+rows 10, 12 and 11, the Cu semigrand run for row 13, the training runs for
+row 5, every path's count
 under launches_by_path — max abs error, ms, plain_ms,
 bound_ms, bound_by, library_ms), the nvidia-smi line again, and last the
 JSON object
@@ -1827,6 +1843,309 @@ def eam_phases(dev) -> tuple[list, dict]:
     return [row], paths
 
 
+# ----------------------------------------------------------------------
+# PaiNN force-loss training (slice 7): row 5 and the fine-tuning path
+# ----------------------------------------------------------------------
+# tools/bench_all.py's bench_painn_train shape: 16 frames of the SrTiO3(001)
+# 2x2 slab (60 atoms, 9 image shifts, M = 64) jittered by N(0, 0.03 A), the
+# flagship's 3 members; 1 untimed step, then 3 timed runs of 4 Adam steps
+TRAIN_FRAMES, TRAIN_JITTER = 16, 0.03
+TRAIN_STEPS, TRAIN_RUNS, TRAIN_LR = 4, 3, 1e-4
+# card vs CPU of one training step: the loss to 1e-5 relative, every
+# gradient leaf within 1e-3 x max|cpu| of that leaf (f32 sums over 2 x 60
+# atoms and 64 edges in other orders, through two differentiations)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3
+
+
+def bwd2_flops_per_edge(F: int, R: int) -> int:
+    """Row 5's work per live edge and member, each term counted once
+    (csrc/painn_message_bwd2.cu, per channel f): the filter and G (3 x 2R
+    each), the d_dw partials (3 x 4R), the d_rbf product (5R), the sum over
+    the channels of the R + 4 edge cotangents (R + 4), and 126 scalar
+    operations: the channel terms (w, h, q, t, a, dwpre, Z and the d_gds /
+    d_gdv sums, 93), d_db (3), d_envm's summand (11), d_unit's (3) and the
+    neighbour kernel's d_phi / d_vcat sums (16). The neighbour kernel's
+    recomputation of the filter, G and the scalars they feed is the
+    design's, not the function's, and is not counted."""
+    return F * (30 * R + 130)
+
+
+def train_frames(n: int = TRAIN_FRAMES):
+    """``n`` frames of the SrTiO3(001) 2x2 slab, positions jittered by
+    N(0, TRAIN_JITTER A) from np.random.default_rng(0)."""
+    from surface_sampling_tpu_torch.structure.atoms import Structure
+    from surface_sampling_tpu_torch.systems import SYSTEMS_DATA
+
+    data = np.load(SYSTEMS_DATA / "SrTiO3_001_2x2.npz")
+    rng = np.random.default_rng(0)
+    return [Structure(data["numbers"],
+                      data["positions"] + rng.normal(0, TRAIN_JITTER, data["positions"].shape),
+                      data["cell"]) for _ in range(n)]
+
+
+def train_setup(dev):
+    """The flagship ensemble on ``dev``, the frames, and their labels: the
+    ensemble-mean energies and forces (``get_prediction``), so each
+    member's loss starts at its spread from the mean."""
+    from surface_sampling_tpu_torch.models.prediction import get_prediction
+    from surface_sampling_tpu_torch.models.train import pad_structures
+    from surface_sampling_tpu_torch.models.weights import load_painn_ensemble
+    from surface_sampling_tpu_torch.systems import MODEL_DATA
+
+    params, cfg = load_painn_ensemble(
+        [MODEL_DATA / f"srtio3_painn_{i:02d}.npz" for i in (1, 2, 3)], dev)
+    frames = train_frames()
+    unlabelled = pad_structures(frames, np.zeros(len(frames)),
+                                [np.zeros((len(s), 3)) for s in frames], cfg.cutoff)
+    pred = get_prediction(params, cfg, unlabelled, ensemble=True)
+    labels = (pred["energy"].cpu().numpy().astype(np.float64),
+              [f[:len(s)] for f, s in zip(pred["forces"].cpu().numpy(), frames)])
+    batch = unlabelled._replace(energy=labels[0], forces=pred["forces"].cpu().numpy())
+    return params, cfg, frames, labels, batch
+
+
+def bwd2_phase(params, cfg, batch, dev) -> dict:
+    """[bwd2] Row 5 against its plain version at the training path's
+    shapes: the 16 frames' real geometry from neighbor_list, seeded random
+    features and cotangents (c_envm zero on masked edges, as training makes
+    it), and, as make_loss_fn launches it, one member at a time (K = 1) with
+    that member's layer-2 weights, for each of the 3 members. All nine
+    outputs within KERNEL_RTOL x max|plain|, with c_dw = c_db = 0 (the skip
+    flag on) and nonzero; a bitwise repeat; times and the bound over live
+    edges per K = 1 launch. As an extra, the 3 members stacked in one launch
+    (K = 3), a shape the training path does not make."""
+    from surface_sampling_tpu_torch.models.painn import message_weights, structure_edges
+    from surface_sampling_tpu_torch.models.train import batch_to_device
+    from surface_sampling_tpu_torch.ops import painn_kernels as pk
+
+    b = batch_to_device(batch, dev)
+    _, (rbf, envm, nbr, unit, n_pad, rev) = structure_edges(cfg, b.positions, b.numbers,
+                                                             b.shifts)
+    dw3, db3 = message_weights(params["message"][1], cfg, rbf.shape[-1])
+    C, E, R = rbf.shape
+    n_members, F = dw3.shape[0], cfg.feat_dim
+    M = E // n_pad
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def operands(dw, db):
+        K = dw.shape[0]
+        args = (rn(C, K, n_pad, 3 * F), rn(C, K, n_pad, 3 * F), rbf, envm, nbr, unit, dw, db,
+                rn(C, K, n_pad, F), rn(C, K, n_pad, 3 * F))
+        cots = (rn(C, K, n_pad, 3 * F), rn(C, K, n_pad, 3 * F), rn(C, E, R),
+                rn(C, E) * (envm != 0), rn(C, 3, n_pad, M))
+        return args, cots
+
+    names = ("dphi", "dvcat", "drbf", "denvm", "dunit", "ddw", "ddb", "dgds", "dgdv")
+    errs = {}
+
+    def check(tag, args, cots):
+        K = args[6].shape[0]
+        for case, cw in (("c_dw=0", (None, None)), ("c_dw!=0", (rn(K, R, 3 * F), rn(K, 3 * F)))):
+            got = pk.painn_message_bwd2(*args, *cots, *cw, rev=rev)
+            ref = pk.painn_message_bwd2_plain(*args, *cots, *cw)
+            torch.cuda.synchronize()
+            for n, g, r in zip(names, got, ref):
+                err, scale = float((g - r).abs().max()), float(r.abs().max())
+                errs[f"{n} {case}"] = max(err, errs.get(f"{n} {case}", 0.0))
+                if not err <= KERNEL_RTOL * scale:
+                    raise AssertionError(
+                        f"painn_message_bwd2 {n} ({tag}, {case}): max abs error {err} "
+                        f"exceeds {KERNEL_RTOL} x max|plain| = {KERNEL_RTOL * scale}")
+            again = pk.painn_message_bwd2(*args, *cots, *cw, rev=rev)
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+                raise AssertionError(f"painn_message_bwd2 ({tag}, {case}): two launches differ")
+            del got, ref, again
+
+    # the main path's launches: one member (K = 1) at a time
+    members = [operands(dw3[k:k + 1], db3[k:k + 1]) for k in range(n_members)]
+    for k, (args, cots) in enumerate(members):
+        check(f"member {k + 1}", args, cots)
+    ms = _cuda_ms(lambda: [pk.painn_message_bwd2(*a, *c, rev=rev) for a, c in members],
+                  reps=10) / n_members
+    ms_cdw = _cuda_ms(lambda: [pk.painn_message_bwd2(*a, *c, a[6], a[7], rev=rev)
+                               for a, c in members], reps=5) / n_members
+    plain_ms = _cuda_ms(lambda: [pk.painn_message_bwd2_plain(*a, *c) for a, c in members],
+                        reps=2, warm=1) / n_members
+    # the extra: all members stacked in one launch
+    args3, cots3 = operands(dw3, db3)
+    check(f"K={n_members}", args3, cots3)
+    ms_k3 = _cuda_ms(lambda: pk.painn_message_bwd2(*args3, *cots3, rev=rev), reps=10)
+    n_live = int((envm != 0).sum())
+    flops = n_live * bwd2_flops_per_edge(F, cfg.n_rbf)
+    # one K = 1 launch: feature tables and their cotangents whole; edge
+    # arrays of live edges only (rbf, c_rbf, d_rbf: R; envm, c_envm,
+    # d_envm, nbr; unit, c_unit, d_unit: 3); one member's weights and
+    # their cotangents; the reverse table
+    feat = C * n_pad * (3 * F * 8 + F * 2)
+    nbytes = 4 * (feat + n_live * (3 * R + 4 + 9) + 2 * (R * 3 * F + 3 * F)) + _nbytes(rev)
+    bound_ms = 1e3 * max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS)
+    err = max(errs.values())
+    print(f"[bwd2] painn_message_bwd2 max_abs_err={err:.3e} (all nine outputs, K = 1 for each "
+          f"of {n_members} members and K = {n_members} stacked, c_dw zero and nonzero, each "
+          f"within {KERNEL_RTOL} x max|plain|; {json.dumps(errs)}) bitwise repeat ok; per K = 1 "
+          f"launch (the training path's): ms={ms:.4f} (c_dw=0, the training case) "
+          f"ms_with_c_dw={ms_cdw:.4f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} "
+          f"frames={C} n_pad={n_pad} M={M} live_edges={n_live} flops={flops:.4e} "
+          f"bytes={nbytes:.4e}; K = {n_members} in one launch (not on the training path): "
+          f"ms={ms_k3:.4f}; library_ms=null (no PyTorch call computes this fused "
+          f"second-order block)")
+    return {"name": "painn_message_bwd2", "route": "cuda",
+            "source": "surface_sampling_tpu_torch/csrc/painn_message_bwd2.cu",
+            "replaces": "surface_sampling_tpu/ops/pallas_painn.py:651",
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if flops / PEAK_F32_FLOPS > nbytes / PEAK_BYTES_PER_S
+            else "bytes", "library_ms": None, "ms_with_c_dw": ms_cdw,
+            f"ms_k{n_members}_stacked": ms_k3, "live_edges": n_live}
+
+
+def _loss_and_grads(params, cfg, batch, dev):
+    """The training loss of every member of ``params`` on ``batch`` and its
+    gradient over each parameter leaf, on the host."""
+    from surface_sampling_tpu_torch.models.painn import tree_leaves, tree_map
+    from surface_sampling_tpu_torch.models.train import TrainConfig, batch_to_device, make_loss_fn
+
+    leaves = [p.detach().clone().requires_grad_(True) for p in tree_leaves(params)]
+    it = iter(leaves)
+    p = tree_map(lambda _: next(it), params)
+    loss = make_loss_fn(cfg, TrainConfig())(p, batch_to_device(batch, dev))
+    return loss.detach().cpu(), [g.cpu() for g in torch.autograd.grad(loss.sum(), leaves)]
+
+
+def train_grad_phase(params, cfg, batch, dev) -> None:
+    """[train-grad] One training step's loss and every parameter gradient
+    of one member (srtio3_painn_01.npz) on 2 frames: the card against the
+    CPU plain path."""
+    from surface_sampling_tpu_torch.models.painn import tree_map
+
+    one = tree_map(lambda x: x[:1], params)
+    two = batch._replace(**{k: getattr(batch, k)[:2] for k in
+                            ("positions", "numbers", "shifts", "energy", "forces")})
+    lg, gg = _loss_and_grads(one, cfg, two, dev)
+    lc, gc = _loss_and_grads(tree_map(lambda x: x.cpu(), one), cfg, two, torch.device("cpu"))
+    dl = abs(float(lg[0]) - float(lc[0])) / abs(float(lc[0]))
+    worst = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(gg, gc))
+    print(f"[train-grad] one member, 2 frames: loss card {float(lg[0]):.8e} cpu "
+          f"{float(lc[0]):.8e} rel diff {dl:.3e} (tol {TRAIN_LOSS_RTOL}); {len(gg)} gradient "
+          f"leaves, worst max|card - cpu| / max|cpu| {worst:.3e} (tol {TRAIN_GRAD_RTOL})")
+    if not (dl <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_RTOL):
+        raise AssertionError("card and CPU training gradients differ")
+
+
+def train_phase(params, cfg, batch, dev) -> dict:
+    """[train] The main path: a Trainer on the 3-member ensemble, 16 frames,
+    lr 1e-4 (TrainConfig defaults otherwise): 1 untimed step, then
+    TRAIN_RUNS timed runs of TRAIN_STEPS Adam steps, one optimizer
+    trajectory; structures/s and ms a step (best run), row 2, 4 and 5
+    launches per step, the loss before each step, which must stay finite and
+    fall over the timed steps.
+    Returns the launch counts of the timed runs."""
+    from surface_sampling_tpu_torch.models.train import TrainConfig, Trainer, batch_to_device
+
+    trainer = Trainer(params, cfg, TrainConfig(learning_rate=TRAIN_LR), ensemble=True)
+    b = batch_to_device(batch, dev)
+    history = [trainer.step(b)]
+    torch.cuda.synchronize()
+    times = []
+    reset_launch_counts()
+    for _ in range(TRAIN_RUNS):
+        t0 = time.perf_counter()
+        history += [trainer.step(b) for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / TRAIN_STEPS)
+    counts = launch_counts()
+    steps = TRAIN_RUNS * TRAIN_STEPS
+    per_step = {k: counts[k] / steps for k in ("painn_message_fused", "painn_message_bwd",
+                                               "painn_message_bwd.g_dw", "painn_message_bwd2")}
+    step = min(times)
+    print(f"[train] 3 members x {TRAIN_FRAMES} frames, 1 + {TRAIN_RUNS} x {TRAIN_STEPS} Adam "
+          f"steps (lr {TRAIN_LR}): {TRAIN_FRAMES / step:.2f} structures/s, step "
+          f"{1e3 * step:.3f} ms (best run; runs {[round(1e3 * t, 3) for t in times]} ms); "
+          f"launches per step {json.dumps(per_step)} (rows 2 / 4 / 5); loss before each step "
+          f"{[float(f'{h:.6e}') for h in history]}")
+    # from the labels' own ensemble the first Adam step (lr per parameter in
+    # the gradient's sign) overshoots; the timed steps must bring the loss
+    # below both the starting loss and that overshoot
+    if not all(np.isfinite(history)) or not history[-1] < min(history[0], history[1]):
+        raise AssertionError(f"the training loss did not fall over the timed steps: {history}")
+    if counts["painn_message_bwd2"] == 0:
+        raise AssertionError("the training path did not launch painn_message_bwd2")
+    return counts
+
+
+def finetune_cli_phase(frames, labels, dev) -> None:
+    """[finetune-cli] The port's CLI on the card (default device): a flat
+    JSON dataset of the frames and their labels, --init with one member, 2
+    epochs. The four output files exist, and the saved model gives the
+    energies of the same training run in this process (same data, split
+    and seed) within 1e-6 relative."""
+    import tempfile
+    from pathlib import Path
+
+    from surface_sampling_tpu_torch.cli import finetune
+    from surface_sampling_tpu_torch.models.dataset import get_train_val_test_loader
+    from surface_sampling_tpu_torch.models.painn import painn_apply_structures, stack_members
+    from surface_sampling_tpu_torch.models.train import TrainConfig, batch_to_device, train_painn
+    from surface_sampling_tpu_torch.models.weights import (
+        from_jax_params,
+        load_painn_npz,
+    )
+    from surface_sampling_tpu_torch.systems import MODEL_DATA
+
+    init = MODEL_DATA / "srtio3_painn_01.npz"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        recs = [{"numbers": s.numbers.tolist(), "positions": s.positions.tolist(),
+                 "cell": s.cell.tolist(), "energy": float(e), "forces": f.tolist()}
+                for s, e, f in zip(frames, labels[0], labels[1])]
+        (tmp / "frames.json").write_text(json.dumps(recs))
+        t0 = time.perf_counter()
+        finetune.main(["--data", str(tmp / "frames.json"), "--init", str(init), "--out",
+                       str(tmp / "out"), "--epochs", "2"])
+        dt = time.perf_counter() - t0
+        missing = [n for n in ("model.npz", "history.csv", "metrics.json", "settings.json")
+                   if not (tmp / "out" / n).exists()]
+        if missing:
+            raise AssertionError(f"finetune CLI wrote no {missing}")
+        metrics = json.loads((tmp / "out" / "metrics.json").read_text())
+        saved, cfg = load_painn_npz(tmp / "out" / "model.npz")
+        tree, _ = load_painn_npz(init)
+        train, _, _ = get_train_val_test_loader(tmp / "frames.json", cfg.cutoff)
+        trained, _ = train_painn(from_jax_params(tree, dev), cfg, train,
+                                 TrainConfig(epochs=2))
+        b = batch_to_device(train[0], dev)
+        e_saved, e_here = (painn_apply_structures(stack_members([p]), cfg, b.positions,
+                                                  b.numbers, b.shifts)["energy"][:, 0]
+                           for p in (from_jax_params(saved, dev), trained))
+        diff = float(((e_saved - e_here).abs() / e_here.abs()).max())
+    print(f"[finetune-cli] --init srtio3_painn_01.npz, 2 epochs on {len(frames)} frames: "
+          f"{dt:.1f}s wall, final train loss {metrics['final_train_loss']:.6e} val "
+          f"{metrics['val_loss']:.6e} test {metrics['test_loss']:.6e} on {metrics['device']}; "
+          f"four files written; saved model vs the same training in-process: max rel energy "
+          f"diff {diff:.3e} (tol 1e-6)")
+    if not diff <= 1e-6:
+        raise AssertionError(f"the saved model's energies differ from the trained ones: {diff}")
+
+
+def training_phases(dev) -> tuple[list, dict]:
+    """Every training phase; returns row 5 and the launch counts of the
+    training path."""
+    t0 = time.perf_counter()
+    params, cfg, frames, labels, batch = train_setup(dev)
+    print(f"[train-build] {len(frames)} frames, labels from the 3-member ensemble mean "
+          f"({time.perf_counter() - t0:.1f}s); label energies {labels[0][:4].tolist()} ...")
+    row = bwd2_phase(params, cfg, batch, dev)
+    torch.cuda.empty_cache()
+    train_grad_phase(params, cfg, batch, dev)
+    counts = train_phase(params, cfg, batch, dev)
+    torch.cuda.empty_cache()
+    finetune_cli_phase(frames, labels, dev)
+    return [row], {"train": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1944,12 +2263,17 @@ def main() -> int:
     # EAM: Cu(100) semigrand and Au(110) canonical, row 13
     eam_rows, eam_paths = eam_phases(dev)
     rows += eam_rows
+    torch.cuda.empty_cache()
+
+    # PaiNN force-loss training and fine-tuning, row 5
+    train_rows, train_paths = training_phases(dev)
+    rows += train_rows
 
     main_path = {"painn_message_bwd": "relaxed_mc", "painn_message_l1_banded": "sc_mc",
                  "painn_message_fused_banded": "sc_mc", "painn_message_subset": "inc_mc",
                  "painn_message_bwd_banded": "sc_relax_mc", "chgnet_conv": "chgnet_mc",
                  "chgnet_conv_banded": "chgnet_3x3_mc", "chgnet_conv_bwd": "chgnet_relax_mc",
-                 "eam_rho_ep": "cu_mc"}
+                 "eam_rho_ep": "cu_mc", "painn_message_bwd2": "train"}
     for row in rows:
         by_path = {"rigid_mc": launches[row["name"]],
                    "relaxed_mc": relax_launches[row["name"]],
@@ -1959,7 +2283,8 @@ def main() -> int:
                    "chgnet_mc": chg_launches[row["name"]],
                    "chgnet_relax_mc": chg_relax_launches[row["name"]],
                    "chgnet_3x3_mc": chg_3x3_launches[row["name"]],
-                   **{k: v[row["name"]] for k, v in eam_paths.items()}}
+                   **{k: v[row["name"]] for k, v in eam_paths.items()},
+                   **{k: v[row["name"]] for k, v in train_paths.items()}}
         row["launches"] = by_path[main_path.get(row["name"], "rigid_mc")]
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on its path: {by_path}")

@@ -1,0 +1,160 @@
+"""Fine-tune (or train from scratch) a PaiNN potential from a labelled
+dataset, on the card.
+
+The port's counterpart of the JAX package's ``sst-finetune`` for the PaiNN
+family:
+
+    python -m surface_sampling_tpu_torch.cli.finetune --data labelled.json \\
+        --out run_ft [--init model.npz | --config cfg.json] [--epochs 100] \\
+        [--lr 1e-3] [--ensemble 3] [--device cuda|cpu]
+
+Outputs in --out: ``model.npz`` (or ``model_01..K.npz`` with --ensemble K;
+the checkpoint layout both packages load), ``history.csv`` (per-epoch
+train loss), ``metrics.json`` (final train / val / test losses and the
+training time) and ``settings.json`` (the arguments). ``--device``
+defaults to the card; ``cpu`` runs the plain PyTorch path.
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import json
+import time
+from pathlib import Path
+
+import torch
+
+from surface_sampling_tpu_torch.device import resolve_device
+from surface_sampling_tpu_torch.models.dataset import get_train_val_test_loader
+from surface_sampling_tpu_torch.models.painn import (
+    PaiNNConfig,
+    init_ensemble,
+    init_painn,
+    stack_members,
+)
+from surface_sampling_tpu_torch.models.train import (
+    TrainConfig,
+    batch_to_device,
+    make_loss_fn,
+    train_painn,
+)
+from surface_sampling_tpu_torch.models.weights import (
+    from_jax_params,
+    load_painn_npz,
+    save_painn_npz,
+)
+
+# where the families the JAX CLI also trains wait in ROADMAP.md
+NOT_PORTED = {
+    "chgnet": "CHGNet training waits on the full image-search edge path of the port's "
+              "CHGNet (ROADMAP.md, Queue 1 item 6)",
+    "mace": "MACE is not ported (ROADMAP.md, Queue 1 item 6)",
+}
+
+
+def _epoch_loss(loss_fn, params: dict, batches, device) -> float:
+    """Mean over batches of the member-mean loss; nan without batches."""
+    if not batches:
+        return float("nan")
+    losses = (loss_fn(params, batch_to_device(b, device), create_graph=False).detach()
+              for b in batches)
+    return sum(float(x.mean()) for x in losses) / len(batches)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--data", required=True,
+                    help="labelled dataset: JSON list / npz / MPtrj shard dir")
+    ap.add_argument("--family", choices=["painn", "chgnet", "mace"], default="painn")
+    ap.add_argument("--init", default=None, help="checkpoint npz to fine-tune from")
+    ap.add_argument("--config", default=None,
+                    help="JSON of PaiNNConfig kwargs for a fresh model (ignored with --init)")
+    ap.add_argument("--out", default="finetune_out")
+    ap.add_argument("--epochs", type=int, default=100)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--batch-size", type=int, default=16)
+    ap.add_argument("--energy-weight", type=float, default=0.05)
+    ap.add_argument("--force-weight", type=float, default=0.95)
+    ap.add_argument("--grad-clip", type=float, default=10.0)
+    ap.add_argument("--train-ratio", type=float, default=0.8)
+    ap.add_argument("--val-ratio", type=float, default=0.1)
+    ap.add_argument("--ensemble", type=int, default=1,
+                    help="train K independently initialised members")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="data-parallel devices (not ported: must stay 0)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    if args.family != "painn":
+        raise SystemExit(f"--family {args.family}: {NOT_PORTED[args.family]}")
+    if args.mesh > 0:
+        raise SystemExit("--mesh: data-parallel training waits on the port of "
+                         "parallel/training.py (ROADMAP.md, Queue 1 item 5)")
+    if args.epochs < 1:
+        raise SystemExit("--epochs must be >= 1")
+    device = resolve_device(args.device)
+    ensemble = args.ensemble > 1
+    if args.init:
+        if ensemble:
+            raise SystemExit("--ensemble trains fresh members; it cannot combine with "
+                             "--init (one checkpoint)")
+        tree, cfg = load_painn_npz(args.init)
+        params = from_jax_params(tree, device)
+    else:
+        cfg_kw = json.loads(Path(args.config).read_text()) if args.config else {}
+        for tpu_key in ("message_mode", "pallas_routing"):
+            cfg_kw.pop(tpu_key, None)
+        cfg = PaiNNConfig(**cfg_kw)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = (init_ensemble(gen, cfg, args.ensemble) if ensemble
+                  else init_painn(gen, cfg))
+
+    tcfg = TrainConfig(learning_rate=args.lr, energy_weight=args.energy_weight,
+                       force_weight=args.force_weight, epochs=args.epochs,
+                       grad_clip=args.grad_clip)
+    train, val, test = get_train_val_test_loader(
+        args.data, cfg.cutoff, batch_size=args.batch_size, train_ratio=args.train_ratio,
+        val_ratio=args.val_ratio, seed=args.seed)
+    if not train:
+        raise SystemExit(f"no training frames found in {args.data}")
+
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "settings.json").write_text(json.dumps(vars(args), indent=2, default=str))
+
+    t0 = time.perf_counter()
+    params, history = train_painn(params, cfg, train, tcfg, ensemble=ensemble)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+
+    loss_fn = make_loss_fn(cfg, tcfg)
+    stacked = params if ensemble else stack_members([params])
+    val_loss = _epoch_loss(loss_fn, stacked, val, device)
+    test_loss = _epoch_loss(loss_fn, stacked, test, device)
+
+    with (out / "history.csv").open("w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(["epoch", "train_loss"])
+        for i, h in enumerate(history):
+            w.writerow([i, h])
+    (out / "metrics.json").write_text(json.dumps({
+        "final_train_loss": history[-1], "val_loss": val_loss, "test_loss": test_loss,
+        "epochs": args.epochs, "train_seconds": round(dt, 2), "device": str(device),
+    }, indent=2, default=str))
+    if ensemble:
+        for i in range(args.ensemble):
+            save_painn_npz(out / f"model_{i + 1:02d}.npz", params, cfg, member=i)
+    else:
+        save_painn_npz(out / "model.npz", params, cfg)
+
+    print(f"Trained painn for {args.epochs} epochs in {dt:.1f} s on {device}; final train "
+          f"loss {history[-1]:.6f}, val {val_loss:.6f}, test {test_loss:.6f}")
+    print(f"Output folder: {out}")
+
+
+if __name__ == "__main__":
+    main()

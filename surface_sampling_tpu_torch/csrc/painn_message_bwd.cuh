@@ -66,36 +66,9 @@
 #include <cuda_runtime.h>
 
 #include "painn_band.cuh"
+#include "warp_reduce.cuh"
 
 namespace msgbwd {
-
-constexpr unsigned FULL = 0xffffffffu;
-
-// One level of the butterfly: lanes that differ in bit S swap halves of
-// the live slots v[0..2S) and keep the sum of the half their bit selects.
-// S is a template argument so every index is a constant and v stays in
-// registers.
-template <int S>
-__device__ __forceinline__ void reduce_level(float (&v)[32], int lane) {
-  const bool upper = (lane & S) != 0;
-#pragma unroll
-  for (int t = 0; t < S; ++t) {
-    const float send = upper ? v[t] : v[t + S];
-    const float keep = upper ? v[t + S] : v[t];
-    v[t] = keep + __shfl_xor_sync(FULL, send, S);
-  }
-}
-
-// After the butterfly, lane l holds the warp's sum of slot l (slots are
-// v[0..31]); every lane adds in a fixed order, so the sums repeat bitwise.
-__device__ __forceinline__ float reduce_scatter32(float (&v)[32], int lane) {
-  reduce_level<16>(v, lane);
-  reduce_level<8>(v, lane);
-  reduce_level<4>(v, lane);
-  reduce_level<2>(v, lane);
-  reduce_level<1>(v, lane);
-  return v[0];
-}
 
 // Where each (chain, member) plane of the tables starts and how an edge
 // finds its neighbour's row. phi / vcat / g_phi / g_vcat have n_tab rows a
@@ -230,7 +203,7 @@ __global__ void __launch_bounds__(128, WANT_DW ? 2 : 3) center_kernel(
           dbv += ev; dbs += es; dbu += eu;
         }
       }
-      s_part[(m * n_warps + warp) * 32 + lane] = reduce_scatter32(v, lane);
+      s_part[(m * n_warps + warp) * 32 + lane] = warp_reduce::reduce_scatter32(v, lane);
       pv = npv; ps = nps; pu = npu; qx = nqx; qy = nqy; qz = nqz;
     }
     __syncthreads();

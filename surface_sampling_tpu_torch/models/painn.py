@@ -8,7 +8,10 @@ configuration, the radial basis and envelope, the rigid trunk
 collect every layer's inputs for the delta engine), the general,
 differentiable trunk (``painn_features`` in the JAX package's "pallas"
 message mode, without the layer-1 species table; banded for supercells) and
-the readout with the excluded-volume term and the overflow override. Parameters are a tree
+the readout with the excluded-volume term and the overflow override, the
+parameter initialisation (``init_painn``, ``init_ensemble``) and the forward
+of a padded batch of structures with their own image shifts
+(``painn_apply_structures``: training and prediction). Parameters are a tree
 of tensors with a leading member axis K (``models/weights.py``); features
 carry two batch axes, chains C and members K: s is (C, K, n_pad, F) and
 the vector features are kept x-major as vcat (C, K, n_pad, 3F) =
@@ -34,7 +37,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as tnf
 
-from surface_sampling_tpu_torch.ops.neighbors import Edges, padded_rows
+from surface_sampling_tpu_torch.ops.neighbors import Edges, neighbor_list, padded_rows
 from surface_sampling_tpu_torch.ops.banding import DeviceBand
 from surface_sampling_tpu_torch.ops.painn_kernels import (
     painn_message_fused,
@@ -58,6 +61,76 @@ class PaiNNConfig:
     sigma: float = 1.5
     readout_hidden: int = 64
     max_neighbors: int = 64
+
+
+# ----------------------------------------------------------------------
+# Parameter initialisation (training from scratch and tests; checkpoints
+# override it)
+# ----------------------------------------------------------------------
+def _dense_init(gen: torch.Generator, n_in: int, n_out: int, bias: bool = True) -> dict:
+    scale = 1.0 / math.sqrt(n_in)
+    w = (torch.rand((n_in, n_out), generator=gen, device=gen.device) * 2.0 - 1.0) * scale
+    p = {"w": w}
+    if bias:
+        p["b"] = torch.zeros(n_out, device=gen.device)
+    return p
+
+
+def init_painn(generator: torch.Generator, cfg: PaiNNConfig) -> dict:
+    """One model's parameters (no member axis), drawn from ``generator``
+    on its device with the JAX package's distributions (``init_painn``):
+    atom embeddings N(0, 0.1^2), dense weights U(-1/sqrt(n_in),
+    1/sqrt(n_in)), zero biases. The values differ from JAX's (another
+    generator); the tree, shapes and distributions are the same."""
+    F = cfg.feat_dim
+    gen = generator
+    params = {"atom_embed": torch.randn((cfg.max_z, F), generator=gen, device=gen.device) * 0.1,
+              "message": [], "update": []}
+    for _ in range(cfg.n_layers):
+        params["message"].append({
+            "inv_dense0": _dense_init(gen, F, F),
+            "inv_dense1": _dense_init(gen, F, 3 * F),
+            "dist_embed": _dense_init(gen, cfg.n_rbf, 3 * F),
+        })
+        params["update"].append({
+            "u_mat": _dense_init(gen, F, F, bias=False),
+            "v_mat": _dense_init(gen, F, F, bias=False),
+            "s_dense0": _dense_init(gen, 2 * F, F),
+            "s_dense1": _dense_init(gen, F, 3 * F),
+        })
+    params["readout"] = {"dense0": _dense_init(gen, F, cfg.readout_hidden),
+                         "dense1": _dense_init(gen, cfg.readout_hidden, 1)}
+    return params
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of parameter trees of one structure."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, list):
+        return [tree_map(fn, *(t[i] for t in trees)) for i in range(len(t0))]
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a parameter tree in a fixed order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
+def stack_members(trees) -> dict:
+    """Models of one configuration stacked along a leading member axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def init_ensemble(generator: torch.Generator, cfg: PaiNNConfig, n_members: int) -> dict:
+    """``n_members`` independently drawn models stacked along a leading
+    member axis (the JAX package's ``init_ensemble``)."""
+    return stack_members([init_painn(generator, cfg) for _ in range(n_members)])
 
 
 def _rbf(d: torch.Tensor, n_rbf: int, cutoff: float) -> torch.Tensor:
@@ -347,7 +420,46 @@ def painn_apply(params: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
                 band: DeviceBand | None = None) -> dict:
     """Full general forward of every member, differentiable in the
     positions the edges were built from: ``energy`` (C, K) and
-    ``per_atom_energy`` (C, K, N) in training units; banded under ``band``
+    ``per_atom_energy`` (C, K, N) in training units, and ``embedding``
+    (C, K, N, F), the final scalar features; banded under ``band``
     (``msg_geom`` then built with it)."""
     s = painn_features(params, cfg, numbers, alive, msg_geom, band)
-    return _readout(params, cfg, s, alive, edges.r, edges.mask, edges.overflow)
+    out = _readout(params, cfg, s, alive, edges.r, edges.mask, edges.overflow)
+    out["embedding"] = s
+    return out
+
+
+def painn_apply_structures(params: dict, cfg: PaiNNConfig, positions: torch.Tensor,
+                           numbers: torch.Tensor, shifts: torch.Tensor) -> dict:
+    """Forward of every member on a padded batch of structures, each with
+    its own image shifts: the JAX package's ``painn_apply`` batched over
+    structures C (and members K), twice differentiable in the positions.
+
+    It builds the edges (``ops.neighbors.neighbor_list``: the M =
+    ``cfg.max_neighbors`` nearest in-range image pairs), then the padded
+    message geometry, the general trunk (the message kernel and its
+    backward kernels) and the readout.
+
+    Args:
+        params: a stacked tree (leading member axis K).
+        positions: (C, N, 3) f32; numbers: (C, N) int, 0 = padding;
+            shifts: (C, Ks, 3) f32 image shifts, unused slots far away.
+    Returns:
+        ``energy`` (C, K) (1e6 where the neighbour list overflowed, as in
+        the JAX package), ``per_atom_energy`` (C, K, N), ``embedding``
+        (C, K, N, F) (the final scalar features) and ``overflow`` (C,), in
+        training units.
+    """
+    edges, msg_geom = structure_edges(cfg, positions, numbers, shifts)
+    out = painn_apply(params, cfg, numbers, numbers > 0, msg_geom, edges)
+    out["overflow"] = edges.overflow
+    return out
+
+
+def structure_edges(cfg: PaiNNConfig, positions: torch.Tensor, numbers: torch.Tensor,
+                    shifts: torch.Tensor):
+    """The member-invariant part of :func:`painn_apply_structures`: the
+    edges of a padded batch of structures and their padded message
+    geometry, ``(edges, msg_geom)`` for :func:`painn_apply`."""
+    edges = neighbor_list(positions, shifts, numbers > 0, cfg.cutoff, cfg.max_neighbors)
+    return edges, prepare_message_geometry(cfg, edges)

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from surface_sampling_tpu_torch.models.chgnet import CHGNetConfig
-from surface_sampling_tpu_torch.models.painn import PaiNNConfig
+from surface_sampling_tpu_torch.models.painn import PaiNNConfig, tree_map
 
 
 def _unflatten(flat: dict) -> dict:
@@ -40,24 +40,30 @@ def _unflatten(flat: dict) -> dict:
     return listify(tree)
 
 
-def _tree_map(fn, *trees):
-    t0 = trees[0]
-    if isinstance(t0, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
-    if isinstance(t0, list):
-        return [_tree_map(fn, *(t[i] for t in trees)) for i in range(len(t0))]
-    return fn(*trees)
+def _flatten(tree, prefix: str = "") -> dict:
+    """Nested dicts and lists -> dotted keys (list levels as digits)."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items() for k2, v2 in _flatten(v, f"{prefix}{k}.").items()}
+    if isinstance(tree, list):
+        return {k2: v2 for i, v in enumerate(tree)
+                for k2, v2 in _flatten(v, f"{prefix}{i}.").items()}
+    x = tree.detach().cpu().numpy() if isinstance(tree, torch.Tensor) else np.asarray(tree)
+    return {prefix[:-1]: x}
 
 
 def load_painn_npz(path) -> tuple[dict, PaiNNConfig]:
     """One checkpoint as a tree of numpy arrays plus its configuration.
 
     ``max_neighbors`` is a runtime padding choice, not a property of the
-    checkpoint: a stored value is dropped and the caller's default kept."""
+    checkpoint: a stored value is dropped and the caller's default kept.
+    The JAX package's TPU execution choices (``message_mode``,
+    ``pallas_routing``: which Pallas routing its forward takes), which every
+    checkpoint it writes carries, mean nothing here and are dropped too."""
     with np.load(path) as d:
         flat = {k: d[k] for k in d.files if not k.startswith("__cfg__")}
         cfg_kw = {k[len("__cfg__"):]: d[k].item() for k in d.files if k.startswith("__cfg__")}
-    cfg_kw.pop("max_neighbors", None)
+    for runtime_key in ("max_neighbors", "message_mode", "pallas_routing"):
+        cfg_kw.pop(runtime_key, None)
     for int_key in ("feat_dim", "n_rbf", "n_layers", "max_z", "readout_hidden"):
         if int_key in cfg_kw:
             cfg_kw[int_key] = int(cfg_kw[int_key])
@@ -69,13 +75,24 @@ def load_painn_npz(path) -> tuple[dict, PaiNNConfig]:
     return _unflatten(flat), PaiNNConfig(**cfg_kw)
 
 
+def save_painn_npz(path, params: dict, cfg: PaiNNConfig, member: int | None = None) -> None:
+    """Write one model as a checkpoint: flat keys plus ``__cfg__<field>``,
+    the layout the JAX package's ``load_params_npz`` reads (and
+    :func:`load_painn_npz`). ``params`` is a tree of tensors or arrays;
+    with ``member``, a stacked tree whose member ``member`` is written."""
+    if member is not None:
+        params = tree_map(lambda x: x[member], params)
+    meta = {f"__cfg__{k}": np.asarray(v) for k, v in cfg.__dict__.items()}
+    np.savez_compressed(path, **_flatten(params), **meta)
+
+
 def load_painn_ensemble(paths, device) -> tuple[dict, PaiNNConfig]:
     """Checkpoints of an ensemble stacked along a leading member axis, as
     f32 tensors on ``device``. All members must share one configuration."""
     trees, cfgs = zip(*(load_painn_npz(p) for p in paths))
     if any(c != cfgs[0] for c in cfgs[1:]):
         raise ValueError("ensemble members have different configurations")
-    stacked = _tree_map(lambda *xs: np.stack(xs), *trees)
+    stacked = tree_map(lambda *xs: np.stack(xs), *trees)
     return from_jax_params(stacked, device), cfgs[0]
 
 
@@ -109,5 +126,5 @@ def from_jax_params(tree, device) -> dict:
     """A JAX parameter tree (leaves converted to numpy arrays: a stacked
     PaiNN ensemble with its leading member axis, or one CHGNet model) as f32
     tensors on ``device``."""
-    return _tree_map(
+    return tree_map(
         lambda x: torch.as_tensor(np.array(x, np.float32), device=device), tree)

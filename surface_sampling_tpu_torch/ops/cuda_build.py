@@ -36,6 +36,7 @@ ARITY = {
     "painn_message_fused_banded": (11, 9),
     "painn_message_subset": (11, 10),
     "painn_message_bwd_banded": (18, 11),
+    "painn_message_bwd2": (26, 8),
     "chgnet_conv": (14, 5),
     "chgnet_conv_banded": (15, 8),
     "chgnet_conv_bwd": (24, 8),

@@ -7,7 +7,9 @@ The counterpart of ``surface_sampling_tpu/ops/neighbors.py``:
 ``image_distances`` and ``image_pair_mask`` are the dense all-image pair
 geometry of the exact classical potentials; ``neighbor_list_from_table``, ``select_edge_topology`` and
 ``edges_from_topology`` build the edges of displaced geometries, the path
-that forces and relaxation take.
+that forces and relaxation take; ``neighbor_list`` builds the edges of a
+batch of structures with their own image shifts (training and
+prediction), twice differentiable in the positions.
 
 The rank-select is a cumsum plus a scatter of the kept candidates'
 indices (as in ``ops/static_edges.py``), not the JAX package's
@@ -270,26 +272,49 @@ class _GatherRows(torch.autograd.Function):
     """positions[c, nbr_j[c]] whose backward sums each slot's incoming
     edges through the reverse table: a gather and a sum over a fixed axis,
     with no float atomics. Unselected edges are left out, which is exact
-    as long as their cotangent is 0 (``edges_from_topology`` masks them)."""
+    as long as their cotangent is 0 (the edge builders mask them). Twice
+    differentiable: the backward is ``_SumIncoming``, whose own backward is
+    this gather again (the two are adjoint linear maps)."""
 
     @staticmethod
     def forward(ctx, positions, nbr_j, rev_edges):
-        ctx.save_for_backward(rev_edges)
-        ctx.shape = positions.shape
+        ctx.save_for_backward(nbr_j, rev_edges)
+        ctx.n_rows = positions.shape[1]
         C, N, M = nbr_j.shape
         flat = nbr_j.reshape(C, N * M, 1).expand(C, N * M, 3)
         return torch.gather(positions, 1, flat).reshape(C, N, M, 3)
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        (rev_edges,) = ctx.saved_tensors
-        C, N, _ = ctx.shape
+        nbr_j, rev_edges = ctx.saved_tensors
+        return _SumIncoming.apply(g, nbr_j, rev_edges, ctx.n_rows), None, None
+
+
+class _SumIncoming(torch.autograd.Function):
+    """Per-edge rows g (C, N, M, 3) summed onto their neighbour slots
+    (C, n_rows, 3) through the reverse table, in its fixed order; the
+    adjoint of ``_GatherRows`` (edges the table leaves out get zeros)."""
+
+    @staticmethod
+    def forward(ctx, g, nbr_j, rev_edges, n_rows):
+        ctx.save_for_backward(nbr_j, rev_edges)
+        C = g.shape[0]
         D = rev_edges.shape[-1]
         gz = torch.cat([g.reshape(C, -1, 3), g.new_zeros((C, 1, 3))], dim=1)
-        idx = rev_edges[:, :N].long()
-        idx = torch.where(idx < 0, gz.shape[1] - 1, idx).reshape(C, N * D, 1)
-        return torch.gather(gz, 1, idx.expand(-1, -1, 3)).reshape(C, N, D, 3).sum(2), None, None
+        idx = rev_edges[:, :n_rows].long()
+        idx = torch.where(idx < 0, gz.shape[1] - 1, idx).reshape(C, n_rows * D, 1)
+        return torch.gather(gz, 1, idx.expand(-1, -1, 3)).reshape(C, n_rows, D, 3).sum(2)
+
+    @staticmethod
+    def backward(ctx, gg):
+        nbr_j, rev_edges = ctx.saved_tensors
+        C, N, M = nbr_j.shape
+        n_pad = rev_edges.shape[1]
+        listed = torch.zeros((C, n_pad * M + 1), dtype=torch.bool, device=nbr_j.device)
+        listed.scatter_(1, torch.where(rev_edges < 0, n_pad * M, rev_edges).long()
+                        .reshape(C, -1), True)
+        listed = listed[:, :N * M].reshape(C, N, M, 1)
+        return _GatherRows.apply(gg, nbr_j, rev_edges) * listed, None, None, None
 
 
 def edges_from_topology(positions, topology: EdgeTopology, cutoff: float) -> Edges:
@@ -298,11 +323,74 @@ def edges_from_topology(positions, topology: EdgeTopology, cutoff: float) -> Edg
     Edges that drift past the cutoff stay in the list with their true
     distance: every radial envelope vanishes there."""
     nbr_j, shift, mask, overflow, rev, rev_band = topology
+    disp, r = _edge_geometry(positions, nbr_j, shift, mask, rev, cutoff)
+    return Edges(disp, r, nbr_j, mask, overflow, rev, rev_band)
+
+
+def _edge_geometry(positions, nbr_j, shift, mask, rev, cutoff: float):
+    """disp (C, N, M, 3) and r (C, N, M) of the edges i -> (nbr_j, shift)
+    at ``positions``, twice differentiable, with the neighbour gather's
+    backward a fixed-order sum over ``rev``; 0 and ``cutoff`` on unselected
+    edges."""
     disp = positions[:, :, None, :] - (_GatherRows.apply(positions, nbr_j, rev) + shift)
     r = torch.sqrt(torch.clamp((disp * disp).sum(-1), min=1e-12))
     r = torch.where(mask, r, torch.full_like(r, cutoff))
     disp = torch.where(mask[..., None], disp, torch.zeros_like(disp))
-    return Edges(disp, r, nbr_j, mask, overflow, rev, rev_band)
+    return disp, r
+
+
+def neighbor_list(positions, shifts, alive, cutoff: float, max_neighbors: int) -> Edges:
+    """Padded neighbour list of a batch of structures, each with its own
+    image shifts: the counterpart of the JAX package's ``neighbor_list``
+    (``lax.top_k`` over the fused (shift, atom) axis), batched over
+    structures C.
+
+    Each atom keeps its M = min(max_neighbors, K * N) nearest in-range
+    image pairs (alive, within ``cutoff``, not the self pair of shift 0),
+    nearest first, ties to the lower fused index k * N + j, the rule of
+    ``lax.top_k`` that a stable ascending sort of r keeps. Selection runs on
+    detached positions; disp and r are recomputed from the chosen (k, j),
+    twice differentiable in the positions (force-loss training
+    differentiates the forces). Shift slots a structure does not use should
+    be parked far away (``models.train.pad_structures`` puts them at 1e6).
+
+    Args:
+        positions: (C, N, 3) f32; shifts: (C, K, 3) cartesian image shifts,
+            the zero shift first; alive: (C, N) bool.
+    Returns:
+        ``Edges`` with disp (C, N, M, 3) (0 on padding), r (C, N, M)
+        (``cutoff`` on padding), nbr_j (C, N, M) int64 (as ``lax.top_k``'s
+        index on padding), mask, overflow (C,) (an atom had more than M
+        in-range pairs) and the reverse table of the selected edges over
+        padded rows (``reverse_table``).
+    """
+    C, N, _ = positions.shape
+    K = shifts.shape[1]
+    M = min(max_neighbors, K * N)                                    # static clamp
+    with torch.no_grad():
+        pos = positions.detach()
+        sh = shifts.detach().to(pos.dtype)
+        disp = pos[:, None, :, None, :] - (pos[:, None, None, :, :] + sh[:, :, None, None, :])
+        r = torch.sqrt(torch.clamp((disp * disp).sum(-1), min=1e-12))  # (C, K, N, N)
+        self_pair = torch.zeros((K, N, N), dtype=torch.bool, device=pos.device)
+        self_pair[0] = torch.eye(N, dtype=torch.bool, device=pos.device)
+        both = alive[:, None, :, None] & alive[:, None, None, :]
+        in_range = both & ~self_pair & (r < cutoff)
+        scores = torch.where(in_range, r, torch.full_like(r, float("inf")))
+        flat = scores.permute(0, 2, 1, 3).reshape(C, N, K * N)       # fused (k, j) axis
+        vals, idx = torch.sort(flat, dim=-1, stable=True)
+        vals, idx = vals[..., :M], idx[..., :M]
+        mask = torch.isfinite(vals)
+        nbr_j, nbr_k = idx % N, idx // N
+        overflow = (in_range.sum(dim=(1, 3)) > M).any(dim=-1)
+        shift = torch.gather(shifts, 1, nbr_k.reshape(C, N * M, 1).expand(C, N * M, 3))
+        n_pad = padded_rows(N)
+        pad = (0, 0, 0, n_pad - N)
+        rev = reverse_table(torch.nn.functional.pad(nbr_j, pad).reshape(C, -1),
+                            torch.nn.functional.pad(mask, pad).reshape(C, -1), n_pad)
+    disp, r = _edge_geometry(positions, nbr_j, shift.reshape(C, N, M, 3).to(positions.dtype),
+                             mask, rev, cutoff)
+    return Edges(disp, r, nbr_j, mask, overflow, rev)
 
 
 def neighbor_list_from_table(positions, alive, table: CandidateTable,

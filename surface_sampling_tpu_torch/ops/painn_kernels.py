@@ -15,6 +15,12 @@ Each block replaces a Pallas TPU kernel of
                          ``_msg_bwd_kernel``); ``painn_message_fused`` is a
                          ``torch.autograd.Function`` whose backward
                          launches it
+    painn_message_bwd2   the VJP of painn_message_bwd, for force-loss
+                         training (replaces ``_message_bwd2_pallas`` /
+                         ``_msg_bwd2_kernel``); the message backward is a
+                         ``torch.autograd.Function`` whose backward
+                         launches it, so ``painn_message_fused`` can be
+                         differentiated twice
     painn_message_l1_banded     the layer-1 message of a supercell, neighbour
                                 rows read through the routing band's window
                                 (replaces ``painn_message_l1_banded``)
@@ -200,9 +206,10 @@ def painn_message_fused(phi, vcat, rbf, envm, nbr, unit, dw, db, rev=None):
         ds (C, K, n_pad, F), dv (C, K, n_pad, 3F) x-major.
 
     The backward launches :func:`painn_message_bwd` (the plain version on
-    the CPU). It is once-differentiable: grad-of-grad (force-loss
-    training) needs the second-order kernel, which is not ported, and
-    raises.
+    the CPU) through ``_MessageBwd``, whose own backward launches
+    :func:`painn_message_bwd2`: the block is twice differentiable, as
+    force-loss training needs (grad over parameters of a loss holding
+    F = -dE/dx). A third order raises.
     """
     return _MessageFused.apply(phi, vcat, rbf, envm, nbr, unit, dw, db, rev)
 
@@ -239,14 +246,53 @@ class _MessageFused(torch.autograd.Function):
         return _message_fused_forward(phi, vcat, rbf, envm, nbr, unit, dw, db)
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, gds, gdv):
         need = ctx.needs_input_grad
-        g = painn_message_bwd(*ctx.saved_tensors, gds.contiguous(), gdv.contiguous(),
-                              rev=ctx.rev, want_dw=need[6] or need[7])
+        g = _MessageBwd.apply(*ctx.saved_tensors, gds.contiguous(), gdv.contiguous(), ctx.rev,
+                              need[6] or need[7])
         g_phi, g_vcat, g_rbf, g_envm, g_unit, g_dw, g_db = (
             x if n else None for x, n in zip(g, (*need[:4], need[5], need[6], need[7])))
         return g_phi, g_vcat, g_rbf, g_envm, None, g_unit, g_dw, g_db, None
+
+
+class _MessageBwd(torch.autograd.Function):
+    """:func:`painn_message_bwd` as a differentiable op: the backward of
+    ``_MessageFused``, and under ``create_graph`` a node of the outer graph
+    whose backward launches :func:`painn_message_bwd2` (the JAX package's
+    ``_message_bwd_op``). Cotangents of outputs nobody consumed arrive as
+    None: the c_dw / c_db of force-loss training, which lets the second-order
+    kernel skip their terms. The reverse table ``rev`` serves both orders,
+    so an edge it leaves out must have envm == 0 and, in the second order,
+    a zero cotangent of g_envm too (see :func:`painn_message_bwd2`)."""
+
+    @staticmethod
+    def forward(ctx, phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv, rev, want_dw):
+        ctx.save_for_backward(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv)
+        ctx.rev = rev
+        ctx.set_materialize_grads(False)
+        return painn_message_bwd(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv, rev=rev,
+                                 want_dw=want_dw)
+
+    @staticmethod
+    def backward(ctx, cphi, cvcat, crbf, cenvm, cunit, cdw, cdb):
+        phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv = ctx.saved_tensors
+
+        def given(ct, like):
+            return torch.zeros_like(like) if ct is None else ct.contiguous()
+
+        with torch.no_grad():
+            d = painn_message_bwd2(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
+                                   given(cphi, phi), given(cvcat, vcat), given(crbf, rbf),
+                                   given(cenvm, envm), given(cunit, unit),
+                                   None if cdw is None else cdw.contiguous(),
+                                   None if cdb is None else cdb.contiguous(), rev=ctx.rev)
+        need = ctx.needs_input_grad
+        d = tuple(x if n else None for x, n in zip(d, (*need[:4], need[5], *need[6:10])))
+        dphi, dvcat, drbf, denvm, dunit, ddw, ddb, dgds, dgdv = _first_order_only(
+            d, (*ctx.saved_tensors, cphi, cvcat, crbf, cenvm, cunit, cdw, cdb),
+            "painn_message_bwd is differentiable once: its backward, painn_message_bwd2, "
+            "has no VJP (nor has the JAX package's _message_bwd2_pallas)")
+        return dphi, dvcat, drbf, denvm, None, dunit, ddw, ddb, dgds, dgdv, None, None
 
 
 painn_message_fused.launches = 0
@@ -391,6 +437,111 @@ painn_message_bwd.dw_launches = 0   # launches that also computed g_dw / g_db
 
 
 # ----------------------------------------------------------------------
+# Second-order backward of the general message
+# ----------------------------------------------------------------------
+def painn_message_bwd2_plain(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
+                             cphi, cvcat, crbf, cenvm, cunit, cdw=None, cdb=None):
+    """Plain PyTorch version of :func:`painn_message_bwd2`: the VJP of
+    :func:`painn_message_bwd_plain` taken by ``torch.autograd.grad``,
+    independent of the kernel's hand derivation. Every term is kept: a None
+    c_dw / c_db counts as zeros."""
+    with torch.enable_grad():
+        x = [t.detach().requires_grad_(True)
+             for t in (phi, vcat, rbf, envm, unit, dw, db, gds, gdv)]
+        p, v, r, e, u, w, b, gs, gv = x
+        outs = painn_message_bwd_plain(p, v, r, e, nbr, u, w, b, gs, gv, want_dw=True)
+        cots = (cphi, cvcat, crbf, cenvm, cunit,
+                torch.zeros_like(dw) if cdw is None else cdw,
+                torch.zeros_like(db) if cdb is None else cdb)
+        d = torch.autograd.grad(outs, x, cots, allow_unused=True)
+    dphi, dvcat, drbf, denvm, dunit, ddw, ddb, dgds, dgdv = (
+        torch.zeros_like(t) if g is None else g for g, t in zip(d, x))
+    return dphi, dvcat, drbf, denvm, dunit, ddw, ddb, dgds, dgdv
+
+
+def painn_message_bwd2(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
+                       cphi, cvcat, crbf, cenvm, cunit, cdw=None, cdb=None, rev=None):
+    """Second-order backward of the general message: the VJP of
+    :func:`painn_message_bwd`, batched over chains and members.
+
+    With B(phi, vcat, rbf, envm, unit, dw, db; gds, gdv) the seven
+    cotangents of :func:`painn_message_bwd`, this returns the gradient of
+    <c, B> over B's ten float inputs, for cotangents c of B's outputs.
+
+    Args:
+        phi .. gdv: the backward's inputs (:func:`painn_message_bwd`).
+        cphi, cvcat: (C, K, n_pad, 3F), cotangents of g_phi and g_vcat
+            (cvcat x-major).
+        crbf (C, E, R), cenvm (C, E), cunit (C, 3, n_pad, M): cotangents of
+            the member-summed edge cotangents.
+        cdw (K, R, 3F), cdb (K, 3F): cotangents of g_dw and g_db, or None.
+            When both are None or zero, the kernel skips their terms
+            (rbf . c_dw and c_db of G, Z . c_dw of d_rbf): force-loss
+            training never consumes g_dw, so they arrive as None there.
+        rev: (C, n_pad, D) int32 reverse table (``ops.neighbors.reverse_table``).
+            An edge left out must have envm == 0 AND cenvm == 0: at such an
+            edge the neighbour terms reduce to cenvm * wpre * (...), which
+            vanish only with cenvm. Training meets this (the cotangent of
+            g_envm passes back through envm = envelope * mask). None builds
+            it from ``nbr`` and ``(envm != 0) | (cenvm != 0)``.
+    Returns:
+        dphi, dvcat (C, K, n_pad, 3F), drbf (C, E, R), denvm (C, E), dunit
+        (C, 3, n_pad, M) summed over the members, ddw (K, R, 3F), ddb
+        (K, 3F) summed over the chains, dgds (C, K, n_pad, F), dgdv
+        (C, K, n_pad, 3F) x-major.
+    """
+    C, K, n_pad, F3 = phi.shape
+    F = F3 // 3
+    E, R = rbf.shape[1], rbf.shape[2]
+    M = E // n_pad
+    f32, i32 = torch.float32, torch.int32
+    dev = phi.device
+    feat, edge = (C, K, n_pad, F3), (C, E)
+    _check("painn_message_bwd2", dev,
+           phi=(phi, f32, feat), vcat=(vcat, f32, feat), rbf=(rbf, f32, (C, n_pad * M, R)),
+           envm=(envm, f32, edge), nbr=(nbr, i32, edge), unit=(unit, f32, (C, 3, n_pad, M)),
+           dw=(dw, f32, (K, R, F3)), db=(db, f32, (K, F3)), gds=(gds, f32, (C, K, n_pad, F)),
+           gdv=(gdv, f32, feat), cphi=(cphi, f32, feat), cvcat=(cvcat, f32, feat),
+           crbf=(crbf, f32, (C, E, R)), cenvm=(cenvm, f32, edge),
+           cunit=(cunit, f32, (C, 3, n_pad, M)))
+    for name, t, shape in (("cdw", cdw, (K, R, F3)), ("cdb", cdb, (K, F3))):
+        if t is not None:
+            _check("painn_message_bwd2", dev, **{name: (t, f32, shape)})
+    if dev.type == "cpu":
+        return painn_message_bwd2_plain(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
+                                        cphi, cvcat, crbf, cenvm, cunit, cdw, cdb)
+    _check_bwd_kernel("painn_message_bwd2", C, K, R, F)
+    has_cdw = any(t is not None and bool(t.any()) for t in (cdw, cdb))
+    if has_cdw:
+        cdw = torch.zeros_like(dw) if cdw is None else cdw
+        cdb = torch.zeros_like(db) if cdb is None else cdb
+    else:
+        cdw = cdb = None
+    if rev is None:
+        rev = reverse_table(nbr, (envm != 0) | (cenvm != 0), n_pad)
+    D = rev.shape[-1]
+    _check("painn_message_bwd2", dev, rev=(rev, i32, (C, n_pad, D)))
+    d = (torch.empty_like(phi), torch.empty_like(vcat), torch.empty_like(rbf),
+         torch.empty_like(envm), torch.empty_like(unit), torch.empty_like(gds),
+         torch.empty_like(gdv))
+    part = torch.empty((C * n_pad, K, R + 1, F3), dtype=f32, device=dev)
+    _launch("painn_message_bwd2",
+            (phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv, cphi, cvcat, crbf, cenvm,
+             cunit, cdw, cdb, rev, *d, part),
+            (C, K, n_pad, M, R, F, D, int(has_cdw)))
+    painn_message_bwd2.launches += 1
+    painn_message_bwd2.cdw_launches += int(has_cdw)
+    dphi, dvcat, drbf, denvm, dunit, dgds, dgdv = d
+    ddw = part.sum(dim=0)                       # per-block partials, one fixed order
+    return (dphi, dvcat, drbf, denvm, dunit, ddw[:, :R].contiguous(), ddw[:, R].contiguous(),
+            dgds, dgdv)
+
+
+painn_message_bwd2.launches = 0
+painn_message_bwd2.cdw_launches = 0   # launches that also ran the c_dw / c_db terms
+
+
+# ----------------------------------------------------------------------
 # Banded messages (supercells): rows in the routing band's sorted order
 # ----------------------------------------------------------------------
 def _edge_starts(ws_rows, M):
@@ -523,8 +674,8 @@ def painn_message_fused_banded(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, 
     The backward launches :func:`painn_message_bwd_banded` (the plain
     version on the CPU); the cotangents of the halo rows are returned as
     rows of their own, and fold back onto their slots through the
-    concatenation that built the halo. Once-differentiable, like
-    :func:`painn_message_fused`.
+    concatenation that built the halo. Once-differentiable: differentiating
+    its backward raises, as the JAX package's banded backward has no VJP.
     """
     return _MessageFusedBanded.apply(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, band, rev)
 
@@ -554,14 +705,43 @@ class _MessageFusedBanded(torch.autograd.Function):
                                              band)
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, gds, gdv):
         need = ctx.needs_input_grad
-        g = painn_message_bwd_banded(*ctx.saved_tensors, gds.contiguous(), gdv.contiguous(),
-                                     ctx.band, rev=ctx.rev, want_dw=need[6] or need[7])
-        g_phi, g_vcat, g_rbf, g_envm, g_unit, g_dw, g_db = (
-            x if n else None for x, n in zip(g, (*need[:4], need[5], need[6], need[7])))
+        with torch.no_grad():
+            g = painn_message_bwd_banded(*ctx.saved_tensors, gds.contiguous(),
+                                         gdv.contiguous(), ctx.band, rev=ctx.rev,
+                                         want_dw=need[6] or need[7])
+        g = tuple(x if n else None for x, n in zip(g, (*need[:4], need[5], need[6], need[7])))
+        g_phi, g_vcat, g_rbf, g_envm, g_unit, g_dw, g_db = _first_order_only(
+            g, (*ctx.saved_tensors, gds, gdv),
+            "painn_message_fused_banded is once-differentiable: its backward "
+            "(painn_message_bwd_banded) has no second order. Force-loss training runs "
+            "the unbanded painn_message_fused, whose second order is painn_message_bwd2")
         return g_phi, g_vcat, g_rbf, g_envm, None, g_unit, g_dw, g_db, None, None
+
+
+def _first_order_only(results, sources, message: str):
+    """A backward's ``results`` (computed under ``no_grad``) that raise
+    ``RuntimeError(message)`` when differentiated. Under ``create_graph``
+    they are tied to every ``sources`` tensor that requires grad, so any
+    derivative through them reaches the error. ``once_differentiable`` ties
+    its error node to nothing: ``torch.autograd.grad`` over chosen inputs
+    prunes it and silently drops the missing order."""
+    links = [t for t in sources if t is not None and t.requires_grad]
+    if not (torch.is_grad_enabled() and links):
+        return results
+    return _FirstOrderOnly.apply(message, results, *links)
+
+
+class _FirstOrderOnly(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, message, results, *links):
+        ctx.message = message
+        return tuple(None if r is None else r.clone() for r in results)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(ctx.message)
 
 
 painn_message_fused_banded.launches = 0
@@ -747,7 +927,7 @@ painn_update_fused.launches = 0
 
 WRAPPERS = (painn_message_l1, painn_message_fused, painn_update_fused, painn_message_bwd,
             painn_message_l1_banded, painn_message_fused_banded, painn_message_subset,
-            painn_message_bwd_banded)
+            painn_message_bwd_banded, painn_message_bwd2)
 PLAIN = {
     painn_message_l1: painn_message_l1_plain,
     painn_message_fused: painn_message_fused_plain,
@@ -757,6 +937,7 @@ PLAIN = {
     painn_message_fused_banded: painn_message_fused_banded_plain,
     painn_message_subset: painn_message_subset_plain,
     painn_message_bwd_banded: painn_message_bwd_banded_plain,
+    painn_message_bwd2: painn_message_bwd2_plain,
 }
 
 
@@ -764,10 +945,12 @@ def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
     painn_message_bwd.dw_launches = painn_message_bwd_banded.dw_launches = 0
+    painn_message_bwd2.cdw_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
     counts = {fn.__name__: fn.launches for fn in WRAPPERS}
     counts["painn_message_bwd.g_dw"] = painn_message_bwd.dw_launches
     counts["painn_message_bwd_banded.g_dw"] = painn_message_bwd_banded.dw_launches
+    counts["painn_message_bwd2.c_dw"] = painn_message_bwd2.cdw_launches
     return counts

@@ -1,8 +1,9 @@
 """Minimal periodic structure container (host side, numpy).
 
 The part of ``surface_sampling_tpu/structure/atoms.py`` that building the
-ported systems uses: construction, tiling, sorting by height, centring in
-vacuum, layer tagging and the formula.
+ported systems and loading training data use: construction, fractional
+coordinates, tiling, sorting by height, centring in vacuum, layer tagging
+and the formula.
 """
 
 from __future__ import annotations
@@ -40,6 +41,14 @@ class Structure:
 
     def __len__(self) -> int:
         return len(self.numbers)
+
+    @property
+    def scaled_positions(self) -> np.ndarray:
+        """Fractional coordinates (cell-row convention: cart = frac @ cell)."""
+        return np.linalg.solve(self.cell.T, self.positions.T).T
+
+    def set_scaled_positions(self, frac: np.ndarray) -> None:
+        self.positions = np.asarray(frac) @ self.cell
 
     def repeat(self, reps) -> "Structure":
         """Tile the structure (nx, ny, nz) times; images are ordered with

@@ -560,3 +560,109 @@ def test_canonical_run_repeats_and_continues_bitwise_on_card(cuda_device):
     end, rec_2 = run(half, temps[2:], gen)
     assert torch.equal(rec.site_state, torch.cat([rec_1.site_state, rec_2.site_state], dim=1))
     assert torch.equal(whole.energy, end.energy)
+
+
+def _bwd2_args(x, R):
+    """Second-order backward inputs on the card: the backward's inputs of
+    ``_bwd_args`` and random cotangents of its outputs, c_envm zero on the
+    masked edges as training makes it."""
+    rn, C, K, n_pad, F = x["rn"], x["C"], x["K"], x["n_pad"], x["F"]
+    M = x["unit"].shape[-1]
+    args = _bwd_args(x, R)
+    cots = (rn(C, K, n_pad, 3 * F), rn(C, K, n_pad, 3 * F), rn(C, n_pad * M, R),
+            rn(C, n_pad * M) * (args[3] != 0), rn(C, 3, n_pad, M))
+    return args, cots
+
+
+@pytest.mark.parametrize("R,with_cdw", [(8, False), (24, False), (24, True)])
+def test_message_bwd2_kernel_matches_plain(cuda_device, R, with_cdw):
+    """All nine outputs of the second-order kernel against its plain
+    version, with and without c_dw / c_db (the training case skips their
+    terms, and explicit zeros take the same path); a second launch repeats
+    the first bitwise."""
+    from surface_sampling_tpu_torch.ops.neighbors import reverse_table
+
+    x = _inputs(cuda_device, R=R, seed=8)
+    args, cots = _bwd2_args(x, R)
+    rn, K, F = x["rn"], x["K"], x["F"]
+    rev = reverse_table(args[4], args[3] != 0, x["n_pad"])
+    cdw, cdb = (rn(K, R, 3 * F), rn(K, 3 * F)) if with_cdw else (None, None)
+    before = pk.painn_message_bwd2.launches, pk.painn_message_bwd2.cdw_launches
+    got = pk.painn_message_bwd2(*args, *cots, cdw, cdb, rev=rev)
+    assert (pk.painn_message_bwd2.launches, pk.painn_message_bwd2.cdw_launches) == (
+        before[0] + 1, before[1] + int(with_cdw))
+    _assert_close(got, pk.painn_message_bwd2_plain(*args, *cots, cdw, cdb))
+    again = pk.painn_message_bwd2(*args, *cots, cdw, cdb, rev=rev)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    if not with_cdw:
+        dev = x["rbf"].device
+        zeros = pk.painn_message_bwd2(*args, *cots, torch.zeros((K, R, 3 * F), device=dev),
+                                      torch.zeros((K, 3 * F), device=dev), rev=rev)
+        for a, b in zip(got, zeros):
+            assert torch.equal(a, b)
+
+
+def test_message_bwd2_reverse_table_contract(cuda_device):
+    """A reverse table that leaves the masked edges out is exact only when
+    c_envm is zero there too: with random c_envm on masked edges the kernel
+    and the plain version differ; with a table that lists every edge, masked
+    ones included, they agree; with c_envm zeroed, the short table agrees."""
+    from surface_sampling_tpu_torch.ops.neighbors import reverse_table
+
+    x = _inputs(cuda_device, R=24, seed=9)
+    args, cots = _bwd2_args(x, 24)
+    mask = args[3] != 0
+    n_pad = x["n_pad"]
+    bad = list(cots)
+    bad[3] = cots[3] + x["rn"](*mask.shape) * ~mask
+    short = reverse_table(args[4], mask, n_pad)
+    full = reverse_table(args[4], torch.ones_like(mask), n_pad)
+    ref = pk.painn_message_bwd2_plain(*args, *bad)
+    got = pk.painn_message_bwd2(*args, *bad, rev=short)
+    torch.cuda.synchronize()
+    assert float((got[0] - ref[0]).abs().max()) > RTOL * float(ref[0].abs().max())
+    _assert_close(pk.painn_message_bwd2(*args, *bad, rev=full), ref)
+    _assert_close(pk.painn_message_bwd2(*args, *cots, rev=short),
+                  pk.painn_message_bwd2_plain(*args, *cots))
+
+
+def test_training_step_on_card_repeats_and_matches_cpu(cuda_device):
+    """One full-width force-loss step (srtio3_painn_01.npz, two jittered
+    frames of the SrTiO3(001) 2x2 slab): the loss and every parameter
+    gradient repeat bitwise on the card, run the second-order kernel once
+    per layer, and agree with the CPU plain path (loss relative 1e-5, each
+    leaf within 1e-3 x max|cpu| of that leaf)."""
+    import numpy as np
+
+    from surface_sampling_tpu_torch.models import train as tr
+    from surface_sampling_tpu_torch.models.painn import tree_leaves
+    from surface_sampling_tpu_torch.models.weights import load_painn_ensemble
+    from surface_sampling_tpu_torch.structure.atoms import Structure
+    from surface_sampling_tpu_torch.systems import MODEL_DATA, SYSTEMS_DATA
+
+    data = np.load(SYSTEMS_DATA / "SrTiO3_001_2x2.npz")
+    rng = np.random.default_rng(0)
+    frames = [Structure(data["numbers"], data["positions"]
+                        + rng.normal(0, 0.03, data["positions"].shape), data["cell"])
+              for _ in range(2)]
+    batch = tr.pad_structures(frames, [-10780.0, -10781.0],
+                              [rng.normal(0, 1.0, (60, 3)) for _ in frames], 5.0)
+    out = {}
+    for dev in (cuda_device, cuda_device, torch.device("cpu")):
+        params, cfg = load_painn_ensemble([MODEL_DATA / "srtio3_painn_01.npz"], dev)
+        leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+        pk.reset_launch_counts()
+        loss = tr.make_loss_fn(cfg, tr.TrainConfig())(params, tr.batch_to_device(batch, dev))
+        grads = torch.autograd.grad(loss.sum(), leaves)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert pk.painn_message_bwd2.launches == 3
+            assert pk.painn_message_bwd2.cdw_launches == 0
+        out.setdefault(dev.type, []).append((loss.detach().cpu(), [g.cpu() for g in grads]))
+    (l1, g1), (l2, g2) = out["cuda"]
+    assert torch.equal(l1, l2) and all(torch.equal(a, b) for a, b in zip(g1, g2))
+    lc, gc = out["cpu"][0]
+    assert abs(float(l1) - float(lc)) <= 1e-5 * abs(float(lc))
+    for a, b in zip(g1, gc):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())

@@ -108,3 +108,19 @@ def test_eam_entry_points_default_to_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()
+
+
+def test_training_modules_import_and_finetune_defaults_to_cuda(monkeypatch, tmp_path):
+    """The training slice's modules are part of the port's import walk, and
+    the fine-tuning CLI runs on the card unless ``--device cpu`` is given:
+    without a card it raises before any work."""
+    import importlib
+
+    for name in ("models.train", "models.dataset", "models.prediction", "cli.finetune"):
+        importlib.import_module(f"surface_sampling_tpu_torch.{name}")
+    from surface_sampling_tpu_torch.cli import finetune
+
+    (tmp_path / "d.json").write_text("[]")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        finetune.main(["--data", str(tmp_path / "d.json"), "--out", str(tmp_path / "o")])

@@ -126,8 +126,10 @@ def test_message_backward_matches_pallas(route):
 
 def test_fused_backward_is_the_wrapper_and_once_differentiable():
     """The backward of painn_message_fused goes through painn_message_bwd
-    (the plain version for CPU tensors: no launch counted), asks for g_dw
-    only when dw or db requires grad, and grad-of-grad raises."""
+    (the plain version for CPU tensors: no launch counted) and asks for g_dw
+    only when dw or db requires grad. The backward is itself differentiable
+    once (its backward is painn_message_bwd2, here its plain version:
+    grad-of-grad equals the plain forward's), and a third order raises."""
     x = {n: torch.as_tensor(v) for n, v in _bwd_inputs(5).items()}
     phi = x["phi"].clone().requires_grad_(True)
     rbf = x["rbf"].clone().requires_grad_(True)
@@ -141,8 +143,15 @@ def test_fused_backward_is_the_wrapper_and_once_differentiable():
     assert pk.painn_message_bwd.launches == 0
     ds, _ = pk.painn_message_fused(*args)
     (g,) = torch.autograd.grad(ds.sum(), phi, create_graph=True)
-    with pytest.raises(RuntimeError):
-        torch.autograd.grad(g.sum(), rbf)
+    (gg,) = torch.autograd.grad(g.sum(), rbf, create_graph=True)
+    ds_ref, _ = pk.painn_message_fused_plain(*args)
+    (g_ref,) = torch.autograd.grad(ds_ref.sum(), phi, create_graph=True)
+    (gg_ref,) = torch.autograd.grad(g_ref.sum(), rbf)
+    torch.testing.assert_close(gg, gg_ref, rtol=1e-5, atol=1e-5)
+    with pytest.raises(RuntimeError, match="differentiable once"):
+        torch.autograd.grad(gg.sum(), phi)
+    with pytest.raises(RuntimeError, match="differentiable once"):
+        torch.autograd.grad(gg.sum() + (phi ** 2).sum(), phi)
 
 
 # ----------------------------------------------------------------------

@@ -355,7 +355,11 @@ def test_banded_messages_are_forward_only(toy_band, monkeypatch):
     ds, dv = pk.painn_message_fused_banded(phi, phi.detach(), *geom, *w, dband)
     (g,) = torch.autograd.grad(ds.sum() + dv.sum(), phi, create_graph=True)
     assert calls == [False] and g.shape == phi.shape and bool(g.abs().sum() > 0)
-    with pytest.raises(RuntimeError):
+    with pytest.raises(RuntimeError, match="once-differentiable"):
         torch.autograd.grad(g.sum(), phi)
+    # phi reaches this loss by another path too: the missing order must
+    # still raise, not drop out of the sum
+    with pytest.raises(RuntimeError, match="once-differentiable"):
+        torch.autograd.grad(g.sum() + (phi ** 2).sum(), phi)
     with pytest.raises(NotImplementedError, match="forward only"):
         pk.painn_message_subset(phi, phi.detach(), *geom, *w, dband.win_start[None, :6], dband)

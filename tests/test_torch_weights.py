@@ -10,11 +10,8 @@ import torch
 
 from surface_sampling_tpu.models.convert_nff import load_params_npz
 from surface_sampling_tpu.models.ensemble import stack_params
-from surface_sampling_tpu_torch.models.weights import (
-    _tree_map,
-    from_jax_params,
-    load_painn_ensemble,
-)
+from surface_sampling_tpu_torch.models.painn import tree_map
+from surface_sampling_tpu_torch.models.weights import from_jax_params, load_painn_ensemble
 from surface_sampling_tpu_torch.systems import MODEL_DATA
 
 PATHS = [MODEL_DATA / f"srtio3_painn_{i:02d}.npz" for i in range(1, 4)]
@@ -32,7 +29,7 @@ def test_npz_loader_matches_from_jax_params():
         assert torch.equal(a, b)
         leaves.append(a)
 
-    _tree_map(same, loaded, carried)
+    tree_map(same, loaded, carried)
     assert len(leaves) == 1 + 3 * 6 + 3 * 6 + 4       # embed, message, update, readout
     for f in dataclasses.fields(cfg):
         assert getattr(cfg, f.name) == getattr(jcfg[0], f.name), f.name

@@ -31,6 +31,12 @@ occupancies with 75% of the sites empty) and on its supercells:
                autograd), 1,024 chains
   au_canonical_step  one canonical MC step of au110_eam() (exact splines),
                1,024 chains
+  train_step   one force-loss training step of the 3-member flagship
+               ensemble on 16 jittered frames of the SrTiO3(001) 2x2 slab
+               (chip_smoke.py's [train] shape): the loss with its force pass,
+               the outer backward and the Adam update; the device ms of the
+               general message (row 2), its backward (row 4), its second
+               order (row 5) and of everything else
 
 For each window it prints the wall time (host clock around work that ends
 in a synchronize), the summed device time of every kernel, the device busy
@@ -63,6 +69,9 @@ SC44_CHAINS = 32
 SC33_CHAINS = 16
 CHG_CHAINS, CHG_RELAX_CHAINS = 64, 8    # chip_smoke.py's paths A and B
 CU_CHAINS, CU_RELAX_CHAINS, AU_CHAINS = 16384, 1024, 1024   # chip_smoke.py's EAM paths
+# the kernels of rows 2, 4 and 5 by their names in a trace
+TRAIN_ROWS = {"row 2 painn_message_fused": "message_kernel",
+              "row 4 painn_message_bwd": "msgbwd::", "row 5 painn_message_bwd2": "msgbwd2::"}
 
 
 def _window(name: str, fn, top: int = 12) -> dict:
@@ -196,6 +205,26 @@ def eam_windows(dev, rng) -> dict:
     return out
 
 
+def train_step_window(dev) -> dict:
+    """The train_step window: one Trainer step (loss, force pass, outer
+    backward, clipped Adam update) on chip_smoke.py's [train] ensemble,
+    frames and labels; the window's kernels summed by row."""
+    from chip_smoke import train_setup
+    from surface_sampling_tpu_torch.models import train as tr
+
+    params, cfg, frames, _, batch = train_setup(dev)
+    dev_batch = tr.batch_to_device(batch, dev)
+    trainer = tr.Trainer(params, cfg, tr.TrainConfig(learning_rate=1e-4), ensemble=True)
+    out = _window("train_step", lambda: trainer.step(dev_batch))
+    rows = {name: sum(k["ms"] for k in out["kernels"] if key in k["name"])
+            for name, key in TRAIN_ROWS.items()}
+    rows["rest (plain PyTorch)"] = out["device_ms"] - sum(rows.values())
+    out["device_ms_by_row"] = rows
+    out["frames"], out["members"] = len(frames), params["atom_embed"].shape[0]
+    print(f"    device ms by row: {json.dumps(rows)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("port_profile: no CUDA device is available", file=sys.stderr)
@@ -296,6 +325,8 @@ def main() -> int:
         del chg
         torch.cuda.empty_cache()
     report.update(eam_windows(dev, rng))
+    torch.cuda.empty_cache()
+    report["train_step"] = train_step_window(dev)
     print(json.dumps(report))
     return 0
 
