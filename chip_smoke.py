@@ -18,7 +18,8 @@ the fine-tuning CLI — through their entry points on the card, in
 thirty-five phases, each printing one line or more:
 
   1. device     card name, count, and nvidia-smi's name and power limit
-  2. build      compiles every kernel from csrc/ (nvcc -Xptxas -v, in parallel)
+  2. build      compiles every kernel from csrc/ (nvcc -Xptxas -v, in parallel);
+                registers, spills and static shared memory of each entry function
   3. kernels    each forward kernel against its plain PyTorch version at the
                 rigid path's shapes, with times and bounds
   4. anchor     pristine potential / surface energy on the card
@@ -26,8 +27,10 @@ thirty-five phases, each printing one line or more:
   6. mc         rigid MC, 128 chains x 2 sweeps x 8 steps; launch counts of
                 every kernel during that run, throughput, finite energies
   7. bwd        the message backward kernel against its plain version on
-                relaxed-path geometry (C = 32, g_dw / g_db requested), its
-                time at C = 128 and its bound
+                relaxed-path geometry (C = 32, g_dw / g_db requested; g_envm
+                on live edges, exactly 0 on dead ones), its time at C = 128,
+                its live share, shared memory and two bounds (f32, and the
+                radial products at 3 TF32 passes)
   8. forces     energy_and_forces at the compile entry point's inputs: card
                 vs the CPU plain path
   9. relaxed    FIRE-relaxed pristine surface energy (the tutorial anchor)
@@ -50,9 +53,9 @@ thirty-five phases, each printing one line or more:
                 steps: delta-engine steps/s vs full-evaluation evals/s
  16. bwd-banded the banded message backward against its plain version at
                 the relaxed 3x3 supercell's geometry (16 chains, g_dw / g_db
-                requested, the plain version on chunks of chains), its time
-                and bound; against the unbanded backward on the same geometry
-                in slot order
+                requested, the plain version on chunks of chains; g_envm as in
+                7), its time, live share and bounds; against the unbanded
+                backward on the same geometry in slot order
  17. sc-relax   the relaxed 3x3 cell: card vs the CPU plain path (one member:
                 energies, forces and a short relaxation), banded vs unbanded
                 forces, the FIRE-relaxed pristine surface energy
@@ -140,6 +143,10 @@ import torch
 # and HBM3 bandwidth. bound_ms = max(bytes / BW, flops / F32) for each kernel.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# TF32 on the tensor cores (dense): the message backward's radial products
+# run there as 3 TF32 passes (3xTF32), so its second bound counts them
+# three times at this rate and the rest at PEAK_F32_FLOPS
+PEAK_TF32_FLOPS = 495e12
 # A kernel agrees with its plain version when max|kernel - plain| is at
 # most KERNEL_RTOL * max|plain|: both sum the same f32 terms in another
 # order (R radial terms, then M edges or F channels), which moves the last
@@ -354,6 +361,55 @@ def bwd_case(sys_relax, n_chains: int, seed: int):
     return args, rev, int(edges.mask.sum())
 
 
+def bwd_flops(K: int, n_live: int, F: int, R: int) -> tuple[int, int]:
+    """Operations of the message backward (rows 4 and 9) per call, over the
+    live edges: the radial products (the filter and the g_rbf product, 3F
+    channels x 2R each, per edge and member) and ~49F of elementwise
+    products and sums."""
+    return K * n_live * 12 * F * R, K * n_live * 49 * F
+
+
+def bwd_bounds(products: int, rest: int, nbytes: int) -> tuple[float, float, bool]:
+    """bound_ms with every operation at the f32 rate; the bound of the
+    tensor-core design (products at 3 TF32 passes, the rest at f32); and
+    whether operations, not bytes, bound the first."""
+    ops_s = (products + rest) / PEAK_F32_FLOPS
+    tc_s = 3 * products / PEAK_TF32_FLOPS + rest / PEAK_F32_FLOPS
+    bytes_s = nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(bytes_s, ops_s), 1e3 * max(bytes_s, tc_s), ops_s > bytes_s
+
+
+def bwd_smem(R: int, M: int, D: int) -> tuple[int, int]:
+    """Dynamic shared memory (bytes) of a centre and a neighbour block of
+    rows 4 and 9 on the forces path (no g_dw), as the library's launch asks
+    for it."""
+    from surface_sampling_tpu_torch.ops.cuda_build import _lib
+
+    size = _lib("painn_message_bwd").painn_message_bwd_smem
+    return size(R, M, D, 0, 0), size(R, M, D, 0, 1)
+
+
+def bwd_errors(name: str, got, ref, envm, names) -> dict:
+    """Max abs error of each cotangent of rows 4 / 9 against the plain
+    version, each within KERNEL_RTOL x max|plain|, under the dead-edge
+    contract: g_envm (index 3) on the edges with envm != 0, and exactly 0
+    on the others (where the plain version's value never reaches a
+    position)."""
+    live = envm != 0
+    if bool((got[3][~live] != 0).any()):
+        raise AssertionError(f"{name}: g_envm is not exactly zero on dead edges")
+    errs = {}
+    for k, (n, g, r) in enumerate(zip(names, got, ref)):
+        if k == 3:
+            g, r = g[live], r[live]
+        err, scale = float((g - r).abs().max()), float(r.abs().max())
+        errs[n] = err
+        if not err <= KERNEL_RTOL * scale:
+            raise AssertionError(f"{name} {n}: max abs error {err} exceeds "
+                                 f"{KERNEL_RTOL} x max|plain| = {KERNEL_RTOL * scale}")
+    return errs
+
+
 def backward_phase(dev) -> dict:
     """7. The backward kernel against its plain version (all seven
     cotangents, g_dw requested) at C = 32; its time at C = 128, where the
@@ -368,13 +424,7 @@ def backward_phase(dev) -> dict:
     ref = pk.painn_message_bwd_plain(*args)
     torch.cuda.synchronize()
     names = ("g_phi", "g_vcat", "g_rbf", "g_envm", "g_unit", "g_dw", "g_db")
-    errs = {}
-    for n, g, r in zip(names, got, ref):
-        err, scale = float((g - r).abs().max()), float(r.abs().max())
-        errs[n] = err
-        if not err <= KERNEL_RTOL * scale:
-            raise AssertionError(f"painn_message_bwd {n}: max abs error {err} exceeds "
-                                 f"{KERNEL_RTOL} x max|plain| = {KERNEL_RTOL * scale}")
+    errs = bwd_errors("painn_message_bwd", got, ref, args[3], names)
     again = pk.painn_message_bwd(*args, rev=rev, want_dw=True)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError("painn_message_bwd: two launches on the same inputs differ")
@@ -388,29 +438,31 @@ def backward_phase(dev) -> dict:
     ms_dw = _cuda_ms(lambda: pk.painn_message_bwd(*args, rev=rev, want_dw=True), reps=3)
     cfg = sys_relax.potential.cfg
     K, F, R = args[0].shape[1], cfg.feat_dim, cfg.n_rbf
-    # per selected edge and member: the radial filter (3F channels x 2R),
-    # the g_rbf product (3F x 2R), ~49F of elementwise products and sums
-    flops = K * n_live * (12 * F * R + 49 * F)
+    C, n_pad, M = N_CHAINS, args[0].shape[2], args[5].shape[-1]
+    products, rest = bwd_flops(K, n_live, F, R)
+    flops = products + rest
     outs = (args[0], args[1], args[2], args[3], args[5])   # g_* have these shapes
     nbytes = _nbytes(*args, rev, *outs)
-    bound_ms = 1e3 * max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS)
+    bound_ms, bound_tc_ms, by_ops = bwd_bounds(products, rest, nbytes)
+    smem = bwd_smem(args[2].shape[-1], M, rev.shape[-1])
     row = {
         "name": "painn_message_bwd", "route": "cuda",
         "source": "surface_sampling_tpu_torch/csrc/painn_message_bwd.cu",
         "replaces": "surface_sampling_tpu/ops/pallas_painn.py:452",
         "launches": None, "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if flops / PEAK_F32_FLOPS > nbytes / PEAK_BYTES_PER_S
-        else "bytes",
+        "bound_ms": bound_ms, "bound_by": "operations" if by_ops else "bytes",
         "library_ms": None,
         "ms_chains": N_CHAINS, "plain_ms_chains": BWD_CHECK_CHAINS, "ms_at_plain_chains": ms_check,
-        "ms_with_g_dw": ms_dw,
+        "ms_with_g_dw": ms_dw, "live_share": n_live / (C * n_pad * M),
     }
     print(f"[bwd] painn_message_bwd errors {json.dumps(errs)} (tol {KERNEL_RTOL} x max|plain| "
-          f"each, C={BWD_CHECK_CHAINS}, g_dw requested) bitwise repeat ok; "
-          f"ms={ms:.4f} (C={N_CHAINS}) ms_with_g_dw={ms_dw:.4f} ms={ms_check:.4f} "
-          f"plain_ms={plain_ms:.3f} (C={BWD_CHECK_CHAINS}) bound_ms={bound_ms:.4f} "
-          f"live_edges={n_live} flops={flops:.4e} bytes={nbytes:.4e} library_ms=null "
+          f"each, g_envm on live edges and 0 on dead ones, C={BWD_CHECK_CHAINS}, g_dw requested) "
+          f"bitwise repeat ok; ms={ms:.4f} (C={N_CHAINS}) ms_with_g_dw={ms_dw:.4f} "
+          f"ms={ms_check:.4f} plain_ms={plain_ms:.3f} (C={BWD_CHECK_CHAINS}) "
+          f"bound_ms={bound_ms:.4f} (f32) bound_tc_ms={bound_tc_ms:.4f} (3xTF32 products) "
+          f"live_edges={n_live} of {C * n_pad * M} slots (live share {row['live_share']:.4f}) "
+          f"flops={flops:.4e} bytes={nbytes:.4e} shared memory centre/neighbour={smem[0]}/"
+          f"{smem[1]} B (D={rev.shape[-1]}) library_ms=null "
           f"(no single PyTorch call computes this fused backward)")
     return row
 
@@ -978,13 +1030,7 @@ def bwd_banded_phase(sys33, dev) -> dict:
     ref = plain_chunked(True)
     torch.cuda.synchronize()
     names = ("g_phi_ext", "g_vcat_ext", "g_rbf", "g_envm", "g_unit", "g_dw", "g_db")
-    errs = {}
-    for n, g, r in zip(names, got, ref):
-        err, scale = float((g - r).abs().max()), float(r.abs().max())
-        errs[n] = err
-        if not err <= KERNEL_RTOL * scale:
-            raise AssertionError(f"painn_message_bwd_banded {n}: max abs error {err} exceeds "
-                                 f"{KERNEL_RTOL} x max|plain| = {KERNEL_RTOL * scale}")
+    errs = bwd_errors("painn_message_bwd_banded", got, ref, envm, names)
     again = pk.painn_message_bwd_banded(*args, band, rev=rev, want_dw=True)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError("painn_message_bwd_banded: two launches on the same inputs differ")
@@ -1023,15 +1069,20 @@ def bwd_banded_phase(sys33, dev) -> dict:
 
     n_live = int((envm != 0).sum())
     R = cfg.n_rbf
-    flops = K * n_live * (12 * F * R + 49 * F)
+    products, rest = bwd_flops(K, n_live, F, R)
+    flops = products + rest
     nbytes = _nbytes(*args, band.win_start, rev, *got[:5])
-    bound_ms = 1e3 * max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS)
-    by_ops = flops / PEAK_F32_FLOPS > nbytes / PEAK_BYTES_PER_S
+    bound_ms, bound_tc_ms, by_ops = bwd_bounds(products, rest, nbytes)
+    live_share = n_live / envm.numel()
+    smem = bwd_smem(rbf.shape[-1], M, rev.shape[-1])
     print(f"[bwd-banded] painn_message_bwd_banded errors {json.dumps(errs)} (tol {KERNEL_RTOL} x "
-          f"max|plain| each, C={C}, g_dw requested, plain on chunks of {PLAIN_BWD_CHUNK}) "
-          f"bitwise repeat ok; ms={ms:.4f} ms_with_g_dw={ms_dw:.4f} plain_ms={plain_ms:.3f} "
-          f"bound_ms={bound_ms:.4f} ({'operations' if by_ops else 'bytes'}) live_edges={n_live} "
-          f"flops={flops:.4e} bytes={nbytes:.4e} n_ext={n_pad + band.halo} library_ms=null "
+          f"max|plain| each, g_envm on live edges and 0 on dead ones, C={C}, g_dw requested, "
+          f"plain on chunks of {PLAIN_BWD_CHUNK}) bitwise repeat ok; ms={ms:.4f} "
+          f"ms_with_g_dw={ms_dw:.4f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} "
+          f"({'operations' if by_ops else 'bytes'}, f32) bound_tc_ms={bound_tc_ms:.4f} (3xTF32 "
+          f"products) live_edges={n_live} of {envm.numel()} slots (live share {live_share:.4f}) "
+          f"flops={flops:.4e} bytes={nbytes:.4e} n_ext={n_pad + band.halo} shared memory "
+          f"centre/neighbour={smem[0]}/{smem[1]} B (D={rev.shape[-1]}) library_ms=null "
           f"(no single PyTorch call computes this fused backward)")
     print(f"[bwd-banding] row 9 vs row 4 on the same 3x3 geometry: banded ms={ms_b:.4f} "
           f"unbanded ms={ms_u:.4f}; max|row 9 (un-permuted, halo folded) - row 4| / max|row 4| "
@@ -1041,7 +1092,8 @@ def bwd_banded_phase(sys33, dev) -> dict:
             "replaces": "surface_sampling_tpu/ops/pallas_painn.py:966",
             "launches": None, "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "operations" if by_ops else "bytes",
-            "library_ms": None, "ms_chains": C, "plain_chunk_chains": PLAIN_BWD_CHUNK,
+            "library_ms": None, "live_share": live_share,
+            "ms_chains": C, "plain_chunk_chains": PLAIN_BWD_CHUNK,
             "ms_with_g_dw": ms_dw, "unbanded_ms": ms_u, "max_rel_diff_vs_unbanded": diffs}
 
 
@@ -2168,7 +2220,8 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build_kernels()
     ptxas = {k: " | ".join(ln.strip() for ln in v.splitlines()
-                           if "registers" in ln or "spill" in ln) for k, v in logs.items()}
+                           if "registers" in ln or "spill" in ln or "Compiling entry" in ln)
+             for k, v in logs.items()}
     print(f"[build] {time.perf_counter() - t0:.1f}s {json.dumps(ptxas)}")
 
     # 3. kernels

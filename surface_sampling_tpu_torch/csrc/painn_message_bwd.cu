@@ -7,7 +7,8 @@
 // The kernels, their design and their bound are in painn_message_bwd.cuh;
 // here the neighbour of edge e is row nbr[e] of the (C, K, n_pad, 3F)
 // tables, and the reverse table (C, n_pad, D) lists each slot's incoming
-// edges.
+// edges. A dead edge (envm == 0) gets exact zeros in g_rbf, g_envm and
+// g_unit (the header's dead-edge contract).
 
 #include "painn_message_bwd.cuh"
 
@@ -22,4 +23,10 @@ extern "C" int painn_message_bwd(
   return msgbwd::backward(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv, rev,
                           g_phi, g_vcat, g_rbf, g_envm, g_unit, gdw_part, C, K, R,
                           L, D, want_dw, stream);
+}
+
+// Bytes of dynamic shared memory that a centre block (neighbour = 0) or a
+// neighbour block of the launch above takes; 0 for an R it does not take.
+extern "C" int painn_message_bwd_smem(int R, int M, int D, int want_dw, int neighbour) {
+  return int(msgbwd::smem_bytes(R, M, D, want_dw != 0, neighbour != 0));
 }

@@ -15,8 +15,8 @@
 // row's cotangents over a reverse table keyed by extended row
 // (ops/banding.banded_reverse_table). The caller folds a halo row's
 // cotangents onto its slot (the backward of the concatenation that built the
-// halo). No float atomics: results repeat bitwise. Bound: operations, as
-// painn_message_bwd.cu.
+// halo). No float atomics: results repeat bitwise. A dead edge (envm == 0)
+// gets exact zeros in g_rbf, g_envm and g_unit, as in painn_message_bwd.cu.
 
 #include "painn_message_bwd.cuh"
 

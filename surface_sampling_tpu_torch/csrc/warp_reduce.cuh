@@ -1,7 +1,7 @@
-// Warp reduce-scatter of 32 per-lane slots, shared by the message
-// backward kernels (painn_message_bwd.cuh, painn_message_bwd2.cu): after
-// it, lane l holds the warp's sum of slot l, added in a fixed order, so the
-// sums repeat bitwise.
+// Warp reduce-scatter of 32 per-lane slots, used by the second-order
+// message backward (painn_message_bwd2.cu, row 5): after it, lane l holds
+// the warp's sum of slot l, added in a fixed order, so the sums repeat
+// bitwise.
 
 #pragma once
 

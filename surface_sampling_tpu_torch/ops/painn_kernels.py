@@ -356,6 +356,19 @@ def painn_message_bwd_plain(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
 
 
 def _check_bwd_kernel(name, C, K, R, F):
+    """Limits of rows 4 and 9: the radial width is 8, 16 or 24 (a whole
+    number of the tensor-core step, and the widths the kernels are built
+    for), the channels a whole number of the neighbour kernel's 16-channel
+    tile. A block whose shared memory does not fit is refused by the
+    launch itself."""
+    _check_grid(name, C, K, R)
+    if R > 24:
+        raise ValueError(f"{name}: the radial width must be 8, 16 or 24, got {R}")
+    if F % 16:
+        raise ValueError(f"{name}: F={F} must be a multiple of 16 (the kernel's channel tile)")
+
+
+def _check_bwd2_kernel(name, C, K, R, F):
     _check_grid(name, C, K, R)
     if R > 24:
         raise ValueError(f"{name}: the radial width must be 8, 16 or 24, got {R} "
@@ -406,6 +419,22 @@ def painn_message_bwd(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
         (g_phi, g_vcat) (C, K, n_pad, 3F), g_rbf (C, E, R), g_envm (C, E),
         g_unit (C, 3, n_pad, M), g_dw, g_db. The edge cotangents sum over
         the members: rbf, envm and unit carry no member axis.
+
+    Dead-edge contract: the kernel computes the edges with envm != 0 only
+    and gives exact zeros in g_rbf, g_unit and g_envm on the others. The
+    plain version (as the JAX package) gives zeros for the first two too
+    but sum_{t,f} g_w * wpre for g_envm there; that value never reaches a
+    position, since envm = envelope * mask is zero through its own factors
+    (``tests/test_torch_bwd_contract.py``, ROADMAP Queue 3). One shell is
+    the exception: within cutoff * 2^-12 / pi below the cutoff (3.9e-4 A
+    at 5 A) the f32 envelope rounds to exactly 0 while its slope is up to
+    2^-13 * pi / cutoff (7.7e-5 per A at 5 A), so for an edge there the
+    kernel drops at most |g_envm| x 7.7e-5 eV/A from the forces that the
+    plain version keeps.
+
+    The kernel takes R of 8, 16 or 24 and F a multiple of 16; a block
+    whose shared memory (M edge slots, a reverse table D wide) does not
+    fit is refused at the launch.
     """
     C, K, n_pad, F3 = phi.shape
     F = F3 // 3
@@ -510,7 +539,7 @@ def painn_message_bwd2(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
     if dev.type == "cpu":
         return painn_message_bwd2_plain(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
                                         cphi, cvcat, crbf, cenvm, cunit, cdw, cdb)
-    _check_bwd_kernel("painn_message_bwd2", C, K, R, F)
+    _check_bwd2_kernel("painn_message_bwd2", C, K, R, F)
     has_cdw = any(t is not None and bool(t.any()) for t in (cdw, cdb))
     if has_cdw:
         cdw = torch.zeros_like(dw) if cdw is None else cdw
@@ -776,6 +805,9 @@ def painn_message_bwd_banded(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, gd
         row's own cotangent (a halo row and its slot are summed by the
         caller's fold); g_rbf (C, E, R), g_envm (C, E), g_unit
         (C, 3, n_pad, M) summed over the members; g_dw, g_db.
+
+    The dead-edge contract and the kernel's limits are those of
+    :func:`painn_message_bwd`.
     """
     name = "painn_message_bwd_banded"
     C, K, n_ext, F3 = phi_ext.shape

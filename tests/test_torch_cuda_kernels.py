@@ -56,6 +56,20 @@ def _assert_close(got, ref):
         assert err <= RTOL * float(b.abs().max()), err
 
 
+def _assert_bwd_close(got, ref, envm):
+    """Rows 4 and 9 against their plain versions under the dead-edge
+    contract: every output within RTOL x max|plain|, except g_envm (index
+    3), which is compared on the edges with envm != 0 and must be exactly 0
+    on the others (the plain version's value there never reaches a
+    position; ROADMAP Queue 3)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    live = (envm != 0).cpu()
+    assert bool((got[3].cpu()[~live] == 0).all())
+    _assert_close([*got[:3], got[3].cpu()[live], *got[4:]],
+                  [*ref[:3], ref[3].cpu()[live], *ref[4:]])
+
+
 @pytest.mark.parametrize("R", [8, 24])
 def test_message_l1_kernel_matches_plain(cuda_device, R):
     x = _inputs(cuda_device, R=R)
@@ -134,29 +148,65 @@ def _bwd_args(x, R, dead_rows=4):
             rn(K, 3 * F), rn(C, K, n_pad, F), rn(C, K, n_pad, 3 * F))
 
 
-@pytest.mark.parametrize("R", [8, 24])
-def test_message_bwd_kernel_matches_plain(cuda_device, R):
-    """All seven cotangents (g_dw / g_db requested) against the plain
-    version, with masked and padded edges; a second launch repeats the
-    first bitwise (no float atomics)."""
-    from surface_sampling_tpu_torch.ops.neighbors import reverse_table
+def _bwd_tile_case(dev, K, n_pad, M, R, F, seed):
+    """Backward inputs whose live edges cross the kernels' tiles: centre 0
+    has all M slots live, centre 1 none, centre 3 a count that ends a
+    16-edge tile inside the centre, the last centre (the chain's end) a
+    few; row 2 is padding (no edges out, none in); row 4 is read by many
+    edges (several 8-edge tiles of the neighbour kernel)."""
+    C = 2
+    g = torch.Generator(device=dev).manual_seed(seed)
 
-    x = _inputs(cuda_device, R=R, seed=3)
-    args = _bwd_args(x, R)
-    rev = reverse_table(args[4], args[3] != 0, x["n_pad"])
-    before = pk.painn_message_bwd.launches, pk.painn_message_bwd.dw_launches
-    got = pk.painn_message_bwd(*args, rev=rev, want_dw=True)
-    assert (pk.painn_message_bwd.launches, pk.painn_message_bwd.dw_launches) == (
-        before[0] + 1, before[1] + 1)
-    _assert_close(got, pk.painn_message_bwd_plain(*args))
-    again = pk.painn_message_bwd(*args, rev=None, want_dw=True)
-    for a, b in zip(got, again):
-        assert torch.equal(a, b)
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    live = torch.rand((C, n_pad, M), generator=g, device=dev) < 0.35
+    live[:, 0] = True
+    live[:, 1] = False
+    live[:, 2] = False
+    live[:, 3] = torch.arange(M, device=dev) < min(M, 21)
+    live[:, n_pad - 1] = torch.arange(M, device=dev) < 3
+    envm = (rn(C, n_pad, M).abs() + 0.05) * live
+    nbr = torch.randint(0, n_pad - 1, (C, n_pad, M), generator=g, device=dev)
+    nbr = torch.where(nbr >= 2, nbr + 1, nbr)               # never row 2
+    nbr[:, :, : M // 2] = torch.where(live[:, :, : M // 2], 4, nbr[:, :, : M // 2])
+    nbr = torch.where(live, nbr, 0).to(torch.int32).view(C, -1).contiguous()
+    return (rn(C, K, n_pad, 3 * F), rn(C, K, n_pad, 3 * F), rn(C, n_pad * M, R),
+            envm.view(C, -1).contiguous(), nbr, rn(C, 3, n_pad, M), rn(K, R, 3 * F),
+            rn(K, 3 * F), rn(C, K, n_pad, F), rn(C, K, n_pad, 3 * F))
+
+
+@pytest.mark.parametrize("want_dw", [False, True])
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("F", [64, 128])
+@pytest.mark.parametrize("R", [8, 16, 24])
+def test_message_bwd_kernel_matches_plain(cuda_device, R, F, K, want_dw):
+    """Row 4 against the plain version under the dead-edge contract, on
+    live edges that cross the kernels' tiles (``_bwd_tile_case``) and on
+    ``_bwd_args``' masked and padded edges; one launch counted (and one
+    g_dw launch when asked), and a second launch repeats the first bitwise
+    (no float atomics)."""
+    x = _inputs(cuda_device, K=K, F=F, R=R, seed=3)
+    for args in (_bwd_args(x, R), _bwd_tile_case(cuda_device, K, 24, 40, R, F, seed=R + F + K)):
+        n_pad = args[0].shape[2]
+        rev = reverse_table(args[4], args[3] != 0, n_pad)
+        before = pk.painn_message_bwd.launches, pk.painn_message_bwd.dw_launches
+        got = pk.painn_message_bwd(*args, rev=rev, want_dw=want_dw)
+        assert (pk.painn_message_bwd.launches, pk.painn_message_bwd.dw_launches) == (
+            before[0] + 1, before[1] + int(want_dw))
+        ref = pk.painn_message_bwd_plain(*args, want_dw=want_dw)
+        n_out = 7 if want_dw else 5
+        assert all(r is None for r in got[n_out:])
+        _assert_bwd_close(got[:n_out], ref[:n_out], args[3])
+        again = pk.painn_message_bwd(*args, rev=None, want_dw=want_dw)
+        for a, b in zip(got[:n_out], again[:n_out]):
+            assert torch.equal(a, b)
 
 
 def test_fused_autograd_on_card_matches_cpu(cuda_device):
     """The gradient through painn_message_fused (forward kernel, backward
-    kernel) equals the CPU plain path's; g_dw only when dw requires grad."""
+    kernel) equals the CPU plain path's (the envm leaf on live edges, zero
+    on dead ones); g_dw only when dw requires grad."""
     x = _inputs(cuda_device, R=24, seed=4)
     args = _bwd_args(x, 24)
     grads = []
@@ -165,7 +215,9 @@ def test_fused_autograd_on_card_matches_cpu(cuda_device):
         leaves = [a[i].requires_grad_(True) for i in (0, 1, 2, 3, 5, 6, 7)]
         ds, dv = pk.painn_message_fused(*a)
         grads.append(torch.autograd.grad((ds, dv), leaves, (args[8].to(dev), args[9].to(dev))))
-    _assert_close([g.cpu() for g in grads[0]], grads[1])
+    # the envm leaf (index 3) on live edges only: the kernel gives exact
+    # zeros at dead edges (dead-edge contract, ROADMAP Queue 3)
+    _assert_bwd_close([g.cpu() for g in grads[0]], grads[1], args[3])
     before = pk.painn_message_bwd.dw_launches
     a = [t.detach().clone() for t in args[:8]]
     a[0].requires_grad_(True)
@@ -268,7 +320,8 @@ def test_banded_kernels_match_plain(cuda_device, R):
 def test_banded_backward_kernel_matches_plain(cuda_device, R):
     """Row 9 (the banded message backward) against its plain version on a
     band of 8-blocks with a halo whose windows wrap, all seven cotangents
-    (g_dw / g_db requested), with the reverse table keyed by extended row;
+    (g_dw / g_db requested; g_envm under the dead-edge contract), with the
+    reverse table keyed by extended row;
     one launch counted, and a second launch repeats the first bitwise."""
     import numpy as np
 
@@ -297,7 +350,7 @@ def test_banded_backward_kernel_matches_plain(cuda_device, R):
     before = fn.launches, fn.dw_launches
     got = fn(*args, dband, rev=rev, want_dw=True)
     assert (fn.launches, fn.dw_launches) == (before[0] + 1, before[1] + 1)
-    _assert_close(got, pk.painn_message_bwd_banded_plain(*args, dband))
+    _assert_bwd_close(got, pk.painn_message_bwd_banded_plain(*args, dband), envm)
     again = fn(*args, dband, rev=None, want_dw=True)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
