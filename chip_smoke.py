@@ -39,8 +39,11 @@ thirty-five phases, each printing one line or more:
  11. sc-kernels the banded layer-1, banded general and subset message
                 kernels against their plain versions at the 2x2 supercell's
                 shapes (128 chains; the subset over the hop balls of random
-                per-chain sites, all three layers), with times and bounds;
-                the banded kernels against the unbanded ones on the same
+                per-chain sites, all three layers), with times and bounds
+                (rows 7 and 8 also their live share, shared memory a block
+                and the bound with the filter at 3 TF32 passes); the subset
+                kernel over every block bitwise equal to the banded one; the
+                banded kernels against the unbanded ones on the same
                 geometry in slot order
  12. sc-anchor  pristine 2x2 network energy = 4 x the 1x1 cell's; card vs the
                 CPU plain path; banded vs unbanded rigid forward
@@ -389,6 +392,14 @@ def bwd_smem(R: int, M: int, D: int) -> tuple[int, int]:
     return size(R, M, D, 0, 0), size(R, M, D, 0, 1)
 
 
+def banded_smem(R: int, M: int, n_blk: int) -> int:
+    """Dynamic shared memory (bytes) of a block of rows 7 and 8, as the
+    library's launch asks for it."""
+    from surface_sampling_tpu_torch.ops.cuda_build import _lib
+
+    return _lib("painn_message_fused_banded").painn_message_banded_smem(R, M, n_blk)
+
+
 def bwd_errors(name: str, got, ref, envm, names) -> dict:
     """Max abs error of each cotangent of rows 4 / 9 against the plain
     version, each within KERNEL_RTOL x max|plain|, under the dead-edge
@@ -732,11 +743,12 @@ def sc_kernels_phase(sys_sc, dev) -> list:
         envm_s = take(envm, 1)
         sub_args = (phi_ext, vcat_ext, take(rbf, 1), envm_s, take(nbr, 1), take(unit, 2),
                     rw["dw"][li], rw["db"][li], band.win_start[blocks], band)
+        live_s = int((envm_s != 0).sum())
         layers.append(_measure("painn_message_subset", pk.painn_message_subset,
                                pk.painn_message_subset_plain, sub_args,
                                (True,) * 6 + (False, False, True, False),
-                               K * int((envm_s != 0).sum()) * msg_flops_per_edge(F, R),
-                               PLAIN_CHUNK))
+                               K * live_s * msg_flops_per_edge(F, R), PLAIN_CHUNK))
+        layers[-1].update(n_live=live_s, n_slots=envm_s.numel())
     by["subset"] = {k: (max if k in ("err", "scale", "plain_chunk_chains") else np.mean)(
         [m[k] for m in layers]) for k in layers[0]}
     replaces = {"l1": "surface_sampling_tpu/ops/pallas_painn.py:240",
@@ -744,17 +756,42 @@ def sc_kernels_phase(sys_sc, dev) -> list:
                 "subset": "surface_sampling_tpu/ops/pallas_painn.py:838"}
     names = {"l1": "painn_message_l1_banded", "msg": "painn_message_fused_banded",
              "subset": "painn_message_subset"}
+    # rows 7 and 8: the live share of the edge slots they read, a block's
+    # shared memory, and the bound with the filter at 3 TF32 passes
+    smem = banded_smem(rbf.shape[-1], M, band.n_blk)
+    live_slots = {"msg": (n_live, envm.numel()),
+                  "subset": (sum(x["n_live"] for x in layers),
+                             sum(x["n_slots"] for x in layers))}
     for key in ("l1", "msg", "subset"):
         m = by[key]
-        extra = {}
+        extra, text = {}, ""
         if key == "subset":
             extra = {"blocks_per_layer": list(tables.nb),
                      "ms_by_layer": [x["ms"] for x in layers]}
+            text = (f"blocks_per_layer={list(tables.nb)} ms_by_layer="
+                    f"{[round(x['ms'], 4) for x in layers]} (mean per launch) ")
+        if key in live_slots:
+            live, slots = live_slots[key]
+            products = K * live * 6 * F * R // (1 if key == "msg" else len(layers))
+            _, bound_tc_ms, _ = bwd_bounds(products, m["flops"] - products, m["bytes"])
+            text += (f"bound_tc_ms={bound_tc_ms:.4f} (3xTF32 filter) live_edges={live} of "
+                     f"{slots} slots (live share {live / slots:.4f}) shared memory={smem} B "
+                     f"a block (n_blk={band.n_blk}, W={band.window}) ")
         rows.append(_row(names[key], replaces[key], m, **extra))
-        _print_measure("sc-kernel", names[key], m,
-                       f"blocks_per_layer={list(tables.nb)} ms_by_layer="
-                       f"{[round(x['ms'], 4) for x in layers]} (mean per launch) "
-                       if extra else "")
+        _print_measure("sc-kernel", names[key], m, text)
+
+    # row 8 over every block of the cell, in block order, is row 7 bitwise
+    every = torch.arange(n_blocks, device=dev).expand(N_CHAINS, -1)
+    sub = pk.painn_message_subset(*msg_args[:8], band.win_start[every].contiguous(), band)
+    full = pk.painn_message_fused_banded(*msg_args)
+    same = all(torch.equal(a, b) for a, b in zip(full, sub))
+    print(f"[sc-subset-vs-full] painn_message_subset over all {n_blocks} blocks of each of "
+          f"{N_CHAINS} chains vs painn_message_fused_banded on the 2x2 geometry: bitwise equal: "
+          f"{same}")
+    if not same:
+        raise AssertionError("painn_message_subset over every block differs from "
+                             "painn_message_fused_banded")
+    del sub, full
 
     # banded vs unbanded on the same geometry, slot order
     pack_u = build_static_edge_pack(spec, sys_sc.static_nbr, cfg, dev)

@@ -9,9 +9,11 @@
 // (rbf_sel (C, NB*n_blk*M, R), unit_sel (C, 3, NB*n_blk, M)) with the
 // blocks' window starts ws_sel (C, NB), while phi_ext and vcat_ext stay the
 // full sorted, halo-extended tables (C, K, n_pad + halo, 3F). Outputs are
-// compact, (C, K, NB*n_blk, F) and (C, K, NB*n_blk, 3F). The kernel and its
-// bound are in painn_message_banded.cuh: one block per (compact centre,
-// member, chain).
+// compact, (C, K, NB*n_blk, F) and (C, K, NB*n_blk, 3F). The kernel, its
+// design and its bound are in painn_message_banded.cuh: one block per
+// (selected block, chain), the members inside the block. A centre gets the
+// same bits here as in painn_message_fused_banded.cu: its sums run over its
+// own live edges only, in one fixed order.
 
 #include "painn_message_banded.cuh"
 

@@ -663,11 +663,27 @@ def _check_banded(name, phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, ws, ws_
            dw=(dw, f32, (K, R, F3)), db=(db, f32, (K, F3)), ws=(ws, i32, ws_shape))
 
 
+def _check_banded_kernel(name, C, K, R, F, *tables):
+    """Limits of rows 7 and 8: the radial width is 8, 16 or 24 (a whole
+    number of the tensor-core step, and the widths the kernel is built for),
+    the channels a whole number of the kernel's 16-channel slice, and every
+    table it reads 16 bytes at a time (phi, vcat, rbf, db) 16-byte aligned.
+    A block whose shared memory does not fit is refused by the launch
+    itself."""
+    _check_grid(name, C, K, R)
+    if R > 24:
+        raise ValueError(f"{name}: the radial width must be 8, 16 or 24, got {R}")
+    if F % 16:
+        raise ValueError(f"{name}: F={F} must be a multiple of 16 (the kernel's channel slice)")
+    if any(t.data_ptr() % 16 for t in tables):
+        raise ValueError(f"{name}: phi, vcat, rbf and db must start on a 16-byte boundary")
+
+
 def _launch_banded(name, phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, ws, n_rows, ints):
     """Allocate the outputs of a banded general message over n_rows centre
     rows and launch ``name`` (its C entry's int arguments are ``ints``)."""
     C, K, _, F3 = phi_ext.shape
-    _check_grid(name, C, K, rbf.shape[2])
+    _check_banded_kernel(name, C, K, rbf.shape[2], F3 // 3, phi_ext, vcat_ext, rbf, db)
     ds = torch.empty((C, K, n_rows, F3 // 3), dtype=torch.float32, device=phi_ext.device)
     dv = torch.empty((C, K, n_rows, F3), dtype=torch.float32, device=phi_ext.device)
     _launch(name, (phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, ws, ds, dv), ints)
@@ -705,6 +721,11 @@ def painn_message_fused_banded(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, 
     rows of their own, and fold back onto their slots through the
     concatenation that built the halo. Once-differentiable: differentiating
     its backward raises, as the JAX package's banded backward has no VJP.
+
+    The kernel (``csrc/painn_message_banded.cuh``) sums each centre's live
+    edges (envm != 0) only, in one fixed order, so a centre gets the same
+    bits here as in :func:`painn_message_subset`; it takes R of 8, 16 or 24
+    and F a multiple of 16.
     """
     return _MessageFusedBanded.apply(phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, band, rev)
 
@@ -864,6 +885,10 @@ def painn_message_subset(phi_ext, vcat_ext, rbf_sel, envm_sel, nbr_sel, unit_sel
         band: the ``ops.banding.DeviceBand``.
     Returns:
         compact ds (C, K, NB*n_blk, F), dv (C, K, NB*n_blk, 3F).
+
+    A centre's outputs are bitwise those of :func:`painn_message_fused_banded`
+    on the same rows (the delta engine mixes the two); the kernel's limits
+    are that function's.
     """
     name = "painn_message_subset"
     if torch.is_grad_enabled() and any(

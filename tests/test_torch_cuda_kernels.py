@@ -252,68 +252,138 @@ def test_forces_on_card_match_cpu_without_g_dw(cuda_device):
     assert float((f_gpu.cpu() - f_cpu).abs().max()) <= 1e-3
 
 
-def _line_band():
-    """A routing band over 42 slots on a 42 A periodic line (candidates:
-    the 12 nearest), n_pad 48 in blocks of 16, with a halo."""
+def _line_band(n_blk=16, n=42, n_pad=48, n_cand=12):
+    """A routing band over n slots on an n A periodic line (candidates:
+    the n_cand nearest), n_pad rows in blocks of n_blk, with a halo."""
     import numpy as np
 
     from surface_sampling_tpu_torch.ops.banding import build_routing_band
 
-    n = 42
     x = np.arange(n, dtype=np.float64)
     diff = (x[None, :] - x[:, None] + n / 2) % n - n / 2
-    slot_j = np.argsort(np.abs(diff) + np.eye(n) * 1e9, axis=1)[:, :12].astype(np.int32)
+    slot_j = np.argsort(np.abs(diff) + np.eye(n) * 1e9, axis=1)[:, :n_cand].astype(np.int32)
     band = build_routing_band(np.stack([x, 0 * x, 0 * x], 1), slot_j,
-                              np.ones_like(slot_j, bool), 16, 48)
+                              np.ones_like(slot_j, bool), n_blk, n_pad)
     return band, slot_j
 
 
-def _banded_geometry(dev, band, slot_j, centre_slot, M, R, g):
+def _banded_geometry(dev, band, slot_j, centre_slot, M, R, g, prefix=False):
     """Edge geometry of the centres ``centre_slot`` (C, rows): neighbour
-    ranks among each centre's candidates, a third of the edges masked."""
+    ranks among each centre's candidates, a third of the edges masked at
+    random, or (``prefix``) each centre's live edges a random prefix of its
+    slots, as the rigid tables order them."""
     C, rows = centre_slot.shape
     cand = torch.as_tensor(slot_j, device=dev)[centre_slot.clamp(max=slot_j.shape[0] - 1)]
     pick = torch.randint(0, cand.shape[-1], (C, rows, M), generator=g, device=dev)
     rank = torch.as_tensor(band.rank, device=dev).long()
     nbr = rank[torch.gather(cand.long(), 2, pick)].reshape(C, rows * M).to(torch.int32)
     envm = torch.rand((C, rows * M), generator=g, device=dev)
-    envm = envm * (torch.rand((C, rows * M), generator=g, device=dev) > 0.33)
-    return (torch.randn((C, rows * M, R), generator=g, device=dev), envm, nbr.contiguous(),
-            torch.randn((C, 3, rows, M), generator=g, device=dev))
+    if prefix:
+        n_live = torch.randint(0, M + 1, (C, rows, 1), generator=g, device=dev)
+        live = (torch.arange(M, device=dev) < n_live).reshape(C, rows * M)
+    else:
+        live = torch.rand((C, rows * M), generator=g, device=dev) > 0.33
+    return (torch.randn((C, rows * M, R), generator=g, device=dev), envm * live,
+            nbr.contiguous(), torch.randn((C, 3, rows, M), generator=g, device=dev))
 
 
-@pytest.mark.parametrize("R", [8, 24])
+def _banded_case(dev, R, n_blk=16, M=16, prefix=False, seed=7, **band_kw):
+    """Row 7's inputs on a line band (C = 3, K = 2, F = 128), and row 8's
+    over per-chain blocks with one chain repeating a block."""
+    from surface_sampling_tpu_torch.ops.banding import stage_band
+
+    C, K, F = 3, 2, 128
+    band, slot_j = _line_band(n_blk, **band_kw)
+    dband = stage_band(band, dev)
+    n_pad = dband.n_pad
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
+    geom = _banded_geometry(dev, band, slot_j, dband.perm.expand(C, -1), M, R, g, prefix)
+    n_ext = n_pad + band.halo
+    phi, vcat = rn(C, K, n_ext, 3 * F), rn(C, K, n_ext, 3 * F)
+    dw, db = rn(K, R, 3 * F), rn(K, 3 * F)
+    nb = n_pad // n_blk
+    blocks = torch.tensor([[nb - 1, 0], [1, 1], [0, nb - 1]], device=dev)
+    rows = (blocks[..., None] * n_blk + torch.arange(n_blk, device=dev)).reshape(C, -1)
+    sub_geom = _banded_geometry(dev, band, slot_j, dband.perm[rows], M, R, g, prefix)
+    return dict(g=g, rn=rn, full=(phi, vcat, *geom, dw, db, dband),
+                subset=(phi, vcat, *sub_geom, dw, db, dband.win_start[blocks], dband))
+
+
+@pytest.mark.parametrize("R", [8, 16, 24])
 def test_banded_kernels_match_plain(cuda_device, R):
     """Rows 6-8 (banded layer-1, banded general, subset) against their
     plain versions on a real band with a halo; the subset over per-chain
-    blocks, one chain repeating a block; each kernel counts one launch."""
-    from surface_sampling_tpu_torch.ops.banding import stage_band
-
-    dev, C, K, F, M, T = cuda_device, 3, 2, 128, 16, 3
-    band, slot_j = _line_band()
-    dband = stage_band(band, dev)
-    g = torch.Generator(device=dev).manual_seed(7)
-    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
-    perm = dband.perm.expand(C, -1)
-    rbf, envm, nbr, unit = _banded_geometry(dev, band, slot_j, perm, M, R, g)
-    n_ext = 48 + band.halo
-    species = torch.randint(0, T + 1, (C, n_ext), generator=g, device=dev, dtype=torch.int32)
+    blocks, one chain repeating a block; each kernel counts one launch.
+    Rows 7 and 8 also at a production-like shape: blocks of 8 centres, 64
+    edge slots a centre, live edges both scattered and a prefix."""
+    dev, T = cuda_device, 3
+    x = _banded_case(dev, R)
+    rn, (phi, vcat, rbf, envm, nbr, unit, dw, db, dband) = x["rn"], x["full"]
+    C, K, F = phi.shape[0], phi.shape[1], phi.shape[3] // 3
+    species = torch.randint(0, T + 1, (C, phi.shape[2]), generator=x["g"], device=dev,
+                            dtype=torch.int32)
     philt = torch.cat([rn(K, T, 2 * F), torch.zeros((K, 1, 2 * F), device=dev)], 1)
-    phi, vcat = rn(C, K, n_ext, 3 * F), rn(C, K, n_ext, 3 * F)
-    dw, db = rn(K, R, 3 * F), rn(K, 3 * F)
     cases = [(pk.painn_message_l1_banded,
               (species, philt, rbf, envm, nbr, unit, rn(K, R, 2 * F), rn(K, 2 * F), dband)),
-             (pk.painn_message_fused_banded, (phi, vcat, rbf, envm, nbr, unit, dw, db, dband))]
-    blocks = torch.tensor([[2, 0], [1, 1], [0, 2]], device=dev)
-    rows = (blocks[..., None] * 16 + torch.arange(16, device=dev)).reshape(C, -1)
-    geom = _banded_geometry(dev, band, slot_j, dband.perm[rows], M, R, g)
-    cases.append((pk.painn_message_subset,
-                  (phi, vcat, *geom, dw, db, dband.win_start[blocks], dband)))
+             (pk.painn_message_fused_banded, x["full"]),
+             (pk.painn_message_subset, x["subset"])]
+    for prefix in (False, True):
+        y = _banded_case(dev, R, n_blk=8, M=64, prefix=prefix, seed=8, n=124, n_pad=128,
+                         n_cand=40)
+        cases += [(pk.painn_message_fused_banded, y["full"]),
+                  (pk.painn_message_subset, y["subset"])]
     for fn, args in cases:
         before = fn.launches
         got = fn(*args)
         assert fn.launches == before + 1
         _assert_close(got, pk.PLAIN[fn](*args))
+
+
+@pytest.mark.parametrize("prefix", [False, True])
+def test_banded_message_is_per_centre_and_bitwise(cuda_device, prefix):
+    """Row 8 over every block of the band, in block order, and over a
+    shuffled subset of blocks per chain gives each centre row 7's bits; two
+    launches repeat bitwise; dead edges (envm == 0) carrying arbitrary
+    finite rbf and unit values change no bit of the output."""
+    dev = cuda_device
+    x = _banded_case(dev, 24, n_blk=8, M=64, prefix=prefix, seed=9, n=124, n_pad=128,
+                     n_cand=40)
+    phi, vcat, rbf, envm, nbr, unit, dw, db, dband = x["full"]
+    g, C, n_blk = x["g"], phi.shape[0], dband.n_blk
+    n_pad, M = dband.n_pad, unit.shape[-1]
+    nb = n_pad // n_blk
+    full = pk.painn_message_fused_banded(*x["full"])
+    again = pk.painn_message_fused_banded(*x["full"])
+    assert all(torch.equal(a, b) for a, b in zip(full, again))
+
+    blocks = torch.arange(nb, device=dev).expand(C, -1).contiguous()
+    every = pk.painn_message_subset(phi, vcat, rbf, envm, nbr, unit, dw, db,
+                                    dband.win_start[blocks], dband)
+    assert all(torch.equal(a, b) for a, b in zip(full, every))
+
+    blocks = torch.stack([torch.randperm(nb, generator=g, device=dev)[:nb - 3]
+                          for _ in range(C)])
+    rows = (blocks[..., None] * n_blk + torch.arange(n_blk, device=dev)).reshape(C, -1)
+
+    def take(t, dim, width):
+        v = t.reshape(t.shape[:dim] + (n_pad, width) + t.shape[dim + 1:])
+        return torch.stack([v[c].index_select(dim - 1, rows[c]) for c in range(C)]).reshape(
+            t.shape[:dim] + (-1,) + t.shape[dim + 1:]).contiguous()
+
+    sub = pk.painn_message_subset(phi, vcat, take(rbf, 1, M), take(envm, 1, M),
+                                  take(nbr, 1, M), take(unit, 2, 1),
+                                  dw, db, dband.win_start[blocks].contiguous(), dband)
+    for a, b in zip(full, sub):
+        assert torch.equal(torch.stack([a[c][:, rows[c]] for c in range(C)]), b)
+
+    dead = envm == 0
+    rbf_d = torch.where(dead[..., None], 10 * torch.randn(rbf.shape, generator=g, device=dev),
+                        rbf)
+    unit_d = torch.where(dead.reshape(C, 1, n_pad, M),
+                         10 * torch.randn(unit.shape, generator=g, device=dev), unit)
+    pert = pk.painn_message_fused_banded(phi, vcat, rbf_d, envm, nbr, unit_d, dw, db, dband)
+    assert all(torch.equal(a, b) for a, b in zip(full, pert))
 
 
 @pytest.mark.parametrize("R", [8, 24])
@@ -323,21 +393,10 @@ def test_banded_backward_kernel_matches_plain(cuda_device, R):
     (g_dw / g_db requested; g_envm under the dead-edge contract), with the
     reverse table keyed by extended row;
     one launch counted, and a second launch repeats the first bitwise."""
-    import numpy as np
-
-    from surface_sampling_tpu_torch.ops.banding import (
-        banded_reverse_table,
-        build_routing_band,
-        stage_band,
-    )
+    from surface_sampling_tpu_torch.ops.banding import banded_reverse_table, stage_band
 
     dev, C, K, F, M = cuda_device, 3, 2, 128, 16
-    n = 42
-    x = np.arange(n, dtype=np.float64)
-    diff = (x[None, :] - x[:, None] + n / 2) % n - n / 2
-    slot_j = np.argsort(np.abs(diff) + np.eye(n) * 1e9, axis=1)[:, :12].astype(np.int32)
-    band = build_routing_band(np.stack([x, 0 * x, 0 * x], 1), slot_j,
-                              np.ones_like(slot_j, bool), 8, 48)
+    band, slot_j = _line_band(8)
     dband = stage_band(band, dev)
     g = torch.Generator(device=dev).manual_seed(11)
     rn = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731

@@ -47,7 +47,10 @@ the span on the device timeline of each of the forward's stages (the
 their calls). The last line of its output is all
 of it as one JSON object. Each window runs twice untraced first.
 
-Run from the repository root:  python3 tools/port_profile.py
+Run from the repository root:  python3 tools/port_profile.py [WINDOW ...]
+Window names as above (e.g. ``sc inc_2x2 inc_4x4 force_call_3x3``) trace
+only those; the systems and draws before them are made as in a full run, so
+a window sees the same states either way. None given traces them all.
 """
 
 from __future__ import annotations
@@ -270,10 +273,16 @@ def main() -> int:
                 mp["dist_embed"]["b"].contiguous(), feats[2], feats[3])
 
     report = {"device": smi, "chains": N_CHAINS}
-    report["rigid"] = _window("rigid", lambda: rigid.run.state_energy_fn(ss))
-    report["force_call"] = _window("force_call", force_call(pot, pos, types, alive))
-    report["bwd"] = _window("bwd", lambda: pk.painn_message_bwd(*bwd_args, rev=rev))
-    report["local_relax_1x1"] = _window("local_relax_1x1", local_relax_step(relax, N_CHAINS, rng))
+    only = set(sys.argv[1:])
+
+    def trace(name, fn):
+        if not only or name in only:
+            report[name] = _window(name, fn)
+
+    trace("rigid", lambda: rigid.run.state_energy_fn(ss))
+    trace("force_call", force_call(pot, pos, types, alive))
+    trace("bwd", lambda: pk.painn_message_bwd(*bwd_args, rev=rev))
+    trace("local_relax_1x1", local_relax_step(relax, N_CHAINS, rng))
     del relax, rigid, feats, bwd_args, edges
     torch.cuda.empty_cache()
 
@@ -281,11 +290,13 @@ def main() -> int:
     spec, d = sc33.spec, sc33.run.d
     ss = rng.integers(0, spec.n_codes, (SC33_CHAINS, spec.n_sites))
     ss = torch.as_tensor(np.where(rng.random(ss.shape) < 0.75, 0, ss), device=dev)
-    report["force_call_3x3"] = _window("force_call_3x3", force_call(
+    trace("force_call_3x3", force_call(
         sc33.potential, realize_positions(d, ss), realize_type_idx(d, ss), realize_alive(d, ss)))
-    report["force_call_3x3"]["chains"] = SC33_CHAINS
-    report["local_relax_3x3"] = _window("local_relax_3x3", local_relax_step(sc33, SC33_CHAINS, rng))
-    report["local_relax_3x3"]["chains"] = SC33_CHAINS
+    if "force_call_3x3" in report:
+        report["force_call_3x3"]["chains"] = SC33_CHAINS
+    trace("local_relax_3x3", local_relax_step(sc33, SC33_CHAINS, rng))
+    if "local_relax_3x3" in report:
+        report["local_relax_3x3"]["chains"] = SC33_CHAINS
     del sc33
     torch.cuda.empty_cache()
 
@@ -295,7 +306,7 @@ def main() -> int:
         ss = rng.integers(0, spec.n_codes, (chains, spec.n_sites))
         ss = torch.as_tensor(np.where(rng.random(ss.shape) < 0.75, 0, ss), device=dev)
         if cell == (2, 2):
-            report["sc"] = _window("sc", lambda: sc.run.state_energy_fn(ss))
+            trace("sc", lambda: sc.run.state_energy_fn(ss))
         engine = make_incremental_painn_from_system(sc)
         step = make_incremental_semigrand_step(engine)
         state = engine.init_state(ss)
@@ -303,8 +314,9 @@ def main() -> int:
                  torch.as_tensor(rng.integers(0, spec.n_codes - 1, chains), device=dev),
                  torch.as_tensor(rng.random(chains), dtype=torch.float32, device=dev))
         name = f"inc_{cell[0]}x{cell[1]}"
-        report[name] = _window(name, lambda: step(state, 1.0, *draws))
-        report[name]["chains"] = chains
+        trace(name, lambda: step(state, 1.0, *draws))
+        if name in report:
+            report[name]["chains"] = chains
         del sc, engine, state
         torch.cuda.empty_cache()
 
@@ -315,18 +327,21 @@ def main() -> int:
         ss = torch.as_tensor(np.where(rng.random(ss.shape) < 0.75, 0, ss), device=dev)
         if relax is None:
             name = "chgnet_rigid"
-            report[name] = _window(name, lambda: chg.run.state_energy_fn(ss))
+            trace(name, lambda: chg.run.state_energy_fn(ss))
         else:
             name = "chgnet_force_call"
-            report[name] = _window(name, force_call(
-                chg.potential, realize_positions(d, ss), realize_type_idx(d, ss),
-                realize_alive(d, ss)))
-        report[name]["chains"] = chains
+            trace(name, force_call(chg.potential, realize_positions(d, ss),
+                                   realize_type_idx(d, ss), realize_alive(d, ss)))
+        if name in report:
+            report[name]["chains"] = chains
         del chg
         torch.cuda.empty_cache()
-    report.update(eam_windows(dev, rng))
-    torch.cuda.empty_cache()
-    report["train_step"] = train_step_window(dev)
+    if not only or only & {"cu_kernel_step", "cu_rigid_step", "cu_force_call",
+                           "au_canonical_step"}:
+        report.update(eam_windows(dev, rng))
+        torch.cuda.empty_cache()
+    if not only or "train_step" in only:
+        report["train_step"] = train_step_window(dev)
     print(json.dumps(report))
     return 0
 
