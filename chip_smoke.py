@@ -19,7 +19,8 @@ thirty-five phases, each printing one line or more:
 
   1. device     card name, count, and nvidia-smi's name and power limit
   2. build      compiles every kernel from csrc/ (nvcc -Xptxas -v, in parallel);
-                registers, spills and static shared memory of each entry function
+                registers, spills and static shared memory of each entry function,
+                and those of rows 10-12 by entry (a spill fails the run)
   3. kernels    each forward kernel against its plain PyTorch version at the
                 rigid path's shapes, with times and bounds
   4. anchor     pristine potential / surface energy on the card
@@ -73,7 +74,9 @@ thirty-five phases, each printing one line or more:
  20. chgnet-kernel the three CHGNet atom-conv kernels against their plain
                 versions at this slice's shapes (row 10 at path A's, row 11
                 at path C's, row 12 at path B's, with and without the weight
-                cotangents, a bitwise repeat), with times and bounds
+                cotangents, a bitwise repeat of each), with times, bounds
+                (also with the products at 3 TF32 passes), and the live and
+                computed shares of the edge slots
  21. chgnet-anchor the golden cases of tests/data/chgnet_golden.json at the
                 JAX test's tolerances; the pristine system card vs CPU
  22. chgnet-mc  path A, 64 chains x 2 sweeps x 8 steps: launch counts (row
@@ -1307,6 +1310,47 @@ def conv_bwd_flops_per_edge(F: int, weights: bool) -> int:
     return conv_flops_per_edge(F) + 8 * F * F + 60 * F + (8 * F * F if weights else 0)
 
 
+def conv_products_per_edge(F: int, backward: bool) -> int:
+    """The part of rows 10 / 12's operations per edge that runs on the
+    tensor cores: be . w2 and h0 . [wc1 | wg1] (8 F^2 flop), and for the
+    backward also dh . [wc1 | wg1]^T and dpre . w2^T (8 F^2 more)."""
+    return (16 if backward else 8) * F * F
+
+
+def conv_computed_rows(maskf, M: int) -> int:
+    """Edge rows rows 10-12 compute: each centre's live slots, padded to the
+    16-edge tiles of the mma (csrc/chgnet_conv.cuh)."""
+    live = (maskf != 0).reshape(-1, M).sum(-1)
+    return int(((live + 15) // 16 * 16).sum())
+
+
+def conv_blocks_per_sm(name: str, M: int) -> int:
+    """Blocks of row 10 / 11's forward or row 12's centre kernel an SM
+    holds at M slots (registers and shared memory), as the library's
+    occupancy query gives it."""
+    from surface_sampling_tpu_torch.ops.cuda_build import _lib
+
+    if name == "chgnet_conv_bwd":
+        return _lib(name).chgnet_conv_bwd_blocks_per_sm(M, 0)
+    return getattr(_lib(name), f"{name}_blocks_per_sm")(M)
+
+
+def conv_extra(args, n_live: int, backward: bool, nbytes: int) -> tuple[float, str]:
+    """bound_tc_ms of rows 10-12 (the products at 3 TF32 passes, the rest at
+    f32) and the text of their live and computed shares."""
+    maskf = args[4]
+    slots, M = maskf.numel(), maskf.shape[1] // args[0].shape[1]
+    F = args[0].shape[-1] // 2
+    flops = n_live * (conv_bwd_flops_per_edge(F, False) if backward else conv_flops_per_edge(F))
+    products = n_live * conv_products_per_edge(F, backward)
+    _, bound_tc_ms, _ = bwd_bounds(products, flops - products, nbytes)
+    rows = conv_computed_rows(maskf, M)
+    return bound_tc_ms, (
+        f"bound_tc_ms={bound_tc_ms:.4f} (3xTF32 products) live_edges={n_live} of {slots} slots "
+        f"(live share {n_live / slots:.4f}) computed_rows={rows} (computed share "
+        f"{rows / slots:.4f}: live slots padded to 16-edge tiles) ")
+
+
 def conv_bytes(args, n_live: int, *rest) -> int:
     """Bytes rows 10-12 must move: be and bw of the live edges only (a
     masked edge's are never needed), maskf and nbr of every edge, and the
@@ -1408,12 +1452,20 @@ def chgnet_bwd_measure(args, rev, gagg, n_live: int) -> dict:
             "bound_ms": 1e3 * max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS)}
 
 
+def _repeat_bitwise(name: str, fn) -> None:
+    """Two launches on the same inputs give the same bits."""
+    if not torch.equal(fn(), fn()):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
+
+
 def chgnet_kernels_phase(sys_a, sys_b, sys_c) -> list:
     """20. Rows 10, 11 and 12 at this slice's shapes against their plain
     versions: row 10 at path A's (1x1, CHG_CHAINS chains), row 11 at path
     C's (3x3 banded, CHG_3X3_CHAINS chains), row 12 at path B's (the relax
     table's displaced geometry, CHG_RELAX_CHAINS chains, seeded random
-    cotangents) with and without the weight cotangents."""
+    cotangents) with and without the weight cotangents; a bitwise repeat of
+    each; their live and computed shares and the bound with the products at
+    3 TF32 passes (printed, not in the kernels line)."""
     from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
 
     rows = []
@@ -1425,7 +1477,11 @@ def chgnet_kernels_phase(sys_a, sys_b, sys_c) -> list:
                  lambda *a: (ck.chgnet_conv_plain(*a),), args, per_chain,
                  n_live * conv_flops_per_edge(F), CHG_PLAIN_CHUNK,
                  conv_bytes(args, n_live) + agg_bytes)
-    _print_measure("chgnet-kernel", "chgnet_conv", m, f"live_edges={n_live} ")
+    _repeat_bitwise("chgnet_conv", lambda: ck.chgnet_conv(*args))
+    blocks = conv_blocks_per_sm("chgnet_conv", args[2].shape[1] // args[0].shape[1])
+    _print_measure("chgnet-kernel", "chgnet_conv", m,
+                   conv_extra(args, n_live, False, m["bytes"])[1]
+                   + f"blocks an SM {blocks} bitwise repeat ok ")
     rows.append(_row("chgnet_conv", "surface_sampling_tpu/ops/pallas_chgnet.py:104", m,
                      ms_chains=CHG_CHAINS))
     del args
@@ -1435,8 +1491,12 @@ def chgnet_kernels_phase(sys_a, sys_b, sys_c) -> list:
                  lambda *a: (ck.chgnet_conv_banded_plain(*a, band),), args, per_chain,
                  n_live * conv_flops_per_edge(F), CHG_PLAIN_CHUNK_3X3,
                  conv_bytes(args, n_live, band.win_start) + _nbytes(args[0]) // 2)
+    _repeat_bitwise("chgnet_conv_banded", lambda: ck.chgnet_conv_banded(*args, band))
+    blocks = conv_blocks_per_sm("chgnet_conv_banded", args[2].shape[1] // args[0].shape[1])
     _print_measure("chgnet-kernel", "chgnet_conv_banded", m,
-                   f"live_edges={n_live} n_pad={band.n_pad} W={band.window} halo={band.halo} ")
+                   conv_extra(args, n_live, False, m["bytes"])[1]
+                   + f"n_pad={band.n_pad} W={band.window} halo={band.halo} blocks an SM {blocks} "
+                   "bitwise repeat ok ")
     rows.append(_row("chgnet_conv_banded", "surface_sampling_tpu/ops/pallas_chgnet.py:184", m,
                      ms_chains=CHG_3X3_CHAINS))
     del args
@@ -1445,12 +1505,14 @@ def chgnet_kernels_phase(sys_a, sys_b, sys_c) -> list:
     gen = torch.Generator(device=args[0].device).manual_seed(12)
     gagg = torch.randn(args[0].shape[:2] + (F,), generator=gen, device=args[0].device)
     m = chgnet_bwd_measure(args, rev, gagg, n_live)
+    blocks = conv_blocks_per_sm("chgnet_conv_bwd", args[2].shape[1] // args[0].shape[1])
     print(f"[chgnet-kernel] chgnet_conv_bwd errors {json.dumps(m['errs'])} (tol {KERNEL_RTOL} x "
           f"max|plain| each, C={CHG_RELAX_CHAINS}) bitwise repeat ok; ms={m['ms']:.4f} "
           f"ms_with_weights={m['ms_with_weights']:.4f} plain_ms={m['plain_ms']:.3f} "
-          f"bound_ms={m['bound_ms']:.4f} live_edges={n_live} flops={m['flops']:.4e} "
-          f"bytes={m['bytes']:.4e} library_ms=null (no single PyTorch call computes this "
-          f"fused backward)")
+          f"bound_ms={m['bound_ms']:.4f} {conv_extra(args, n_live, True, m['bytes'])[1]}"
+          f"blocks an SM {blocks} "
+          f"flops={m['flops']:.4e} bytes={m['bytes']:.4e} library_ms=null (no single PyTorch "
+          f"call computes this fused backward)")
     rows.append(_row("chgnet_conv_bwd", "surface_sampling_tpu/ops/pallas_chgnet.py:327", m,
                      ms_chains=CHG_RELAX_CHAINS, ms_with_weights=m["ms_with_weights"],
                      max_abs_err_by_output=m["errs"]))
@@ -2235,6 +2297,30 @@ def training_phases(dev) -> tuple[list, dict]:
     return [row], {"train": counts}
 
 
+def entry_registers(log: str) -> dict:
+    """ptxas -v's report per entry function: {short name: [registers, spill
+    store bytes, spill load bytes]}, the name the mangled one's kernel
+    identifier (with <true> / <false> for a bool template argument)."""
+    import re
+
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)(ILb([01])E)?", m.group(1))
+            name = (k.group(1) + ({"0": "<false>", "1": "<true>"}[k.group(3)] if k.group(2)
+                                  else "")) if k else m.group(1)
+            out[name] = [None, 0, 0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name][0] = int(m.group(1))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2260,6 +2346,12 @@ def main() -> int:
                            if "registers" in ln or "spill" in ln or "Compiling entry" in ln)
              for k, v in logs.items()}
     print(f"[build] {time.perf_counter() - t0:.1f}s {json.dumps(ptxas)}")
+    conv_regs = {e: r for name in ("chgnet_conv", "chgnet_conv_banded", "chgnet_conv_bwd")
+                 for e, r in entry_registers(logs.get(name, "")).items()}
+    print(f"[build] rows 10-12 registers / spill stores / spill loads (bytes) by entry: "
+          f"{json.dumps(conv_regs)}")
+    if any(r[1] or r[2] for r in conv_regs.values()):
+        raise AssertionError(f"rows 10-12 spill registers: {conv_regs}")
 
     # 3. kernels
     dev = torch.device("cuda")

@@ -11,31 +11,48 @@
 
 namespace {
 
-__global__ void __launch_bounds__(chgconv::NT, 2)
+__device__ int work[2];   // the work list's counters (chgconv::WorkList)
+using chgconv::FWD_BLOCKS_PER_SM;
+using chgconv::FWD_WARPS;
+
+__global__ void __launch_bounds__(FWD_WARPS * 32, FWD_BLOCKS_PER_SM)
 conv_kernel(const float* __restrict__ ai2, const float* __restrict__ aj2,
             const float* __restrict__ be, const float* __restrict__ bw,
             const float* __restrict__ maskf, const int* __restrict__ nbr, chgconv::Weights W,
-            float* __restrict__ agg, int n_pad, int M, int cpb) {
-  const float* aj2c = aj2 + size_t(blockIdx.y) * n_pad * chgconv::F2;
-  chgconv::forward(ai2, aj2c, be, bw, maskf, nbr, W, agg, n_pad, M, cpb,
+            float* __restrict__ agg, int C, int n_pad, int M) {
+  chgconv::forward(ai2, aj2, n_pad, be, bw, maskf, nbr, W, agg, n_pad, M, work, C * n_pad,
                    chgconv::DirectRowsOf{});
 }
 
 }  // namespace
 
+// n_sm: the card's SMs (the grid is about n_sm x FWD_BLOCKS_PER_SM).
 extern "C" int chgnet_conv(const float* ai2, const float* aj2, const float* be, const float* bw,
                            const float* maskf, const int* nbr, const float* w2, const float* wc1,
                            const float* wg1, const float* bc1, const float* bg1,
                            const float* lnc, const float* lng, float* agg, int C, int n_pad,
-                           int M, int F, int cpb, cudaStream_t stream) {
-  if (F != chgconv::F || cpb < 1) return int(cudaErrorInvalidValue);
-  const size_t smem = chgconv::smem_bytes(false);
+                           int M, int F, int n_sm, cudaStream_t stream) {
+  if (F != chgconv::F || n_sm < 1 || M < 1 || M > chgconv::MAX_M)
+    return int(cudaErrorInvalidValue);
+  const size_t smem = chgconv::forward_smem_bytes(M);
   cudaError_t err =
       cudaFuncSetAttribute(conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((n_pad + cpb - 1) / cpb, C);
-  conv_kernel<<<grid, chgconv::NT, smem, stream>>>(
-      ai2, aj2, be, bw, maskf, nbr, chgconv::Weights{w2, wc1, wg1, bc1, bg1, lnc, lng}, agg,
-      n_pad, M, cpb);
+  const int grid = chgconv::grid_blocks(n_sm, FWD_BLOCKS_PER_SM, (long long)C * n_pad);
+  conv_kernel<<<grid, FWD_WARPS * 32, smem, stream>>>(
+      ai2, aj2, be, bw, maskf, nbr, chgconv::Weights{w2, wc1, wg1, bc1, bg1, lnc, lng}, agg, C,
+      n_pad, M);
   return int(cudaGetLastError());
+}
+
+// Blocks of the kernel an SM holds at M slots, as its registers and shared
+// memory allow (the grid counts on FWD_BLOCKS_PER_SM); -1 on an error.
+extern "C" int chgnet_conv_blocks_per_sm(int M) {
+  const int smem = int(chgconv::forward_smem_bytes(M));
+  int n = -1;
+  cudaError_t err =
+      cudaFuncSetAttribute(conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, conv_kernel, FWD_WARPS * 32, smem);
+  return err == cudaSuccess ? n : -1;
 }

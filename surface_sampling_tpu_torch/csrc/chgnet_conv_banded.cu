@@ -10,41 +10,59 @@
 // i, s = win_start[i / n_blk], and the neighbour of rank r is row
 // s + ((r - s) mod n_pad) of the extended table, or zeros outside
 // [s, s + W) (painn_band.cuh). The math, the bound and the design are in
-// chgnet_conv.cuh, which row 10 shares.
+// chgnet_conv.cuh, whose forward row 10 shares.
 
 #include "chgnet_conv.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(chgconv::NT, 2)
+__device__ int work[2];   // the work list's counters (chgconv::WorkList)
+using chgconv::FWD_BLOCKS_PER_SM;
+using chgconv::FWD_WARPS;
+
+__global__ void __launch_bounds__(FWD_WARPS * 32, FWD_BLOCKS_PER_SM)
 conv_banded_kernel(const float* __restrict__ ai2, const float* __restrict__ aj2_ext,
                    const float* __restrict__ be, const float* __restrict__ bw,
                    const float* __restrict__ maskf, const int* __restrict__ nbr,
                    chgconv::Weights W, const int* __restrict__ win_start,
-                   float* __restrict__ agg, int n_pad, int n_ext, int M, int cpb, int n_blk,
+                   float* __restrict__ agg, int C, int n_pad, int n_ext, int M, int n_blk,
                    int window) {
-  const float* aj2c = aj2_ext + size_t(blockIdx.y) * n_ext * chgconv::F2;
-  chgconv::forward(ai2, aj2c, be, bw, maskf, nbr, W, agg, n_pad, M, cpb,
+  chgconv::forward(ai2, aj2_ext, n_ext, be, bw, maskf, nbr, W, agg, n_pad, M, work, C * n_pad,
                    chgconv::BandRowsOf{win_start, n_blk, n_pad, window});
 }
 
 }  // namespace
 
+// n_sm: the card's SMs (the grid is about n_sm x FWD_BLOCKS_PER_SM).
 extern "C" int chgnet_conv_banded(const float* ai2, const float* aj2_ext, const float* be,
                                   const float* bw, const float* maskf, const int* nbr,
                                   const float* w2, const float* wc1, const float* wg1,
                                   const float* bc1, const float* bg1, const float* lnc,
                                   const float* lng, const int* win_start, float* agg, int C,
-                                  int n_pad, int n_ext, int M, int F, int cpb, int n_blk,
+                                  int n_pad, int n_ext, int M, int F, int n_sm, int n_blk,
                                   int window, cudaStream_t stream) {
-  if (F != chgconv::F || cpb < 1 || n_blk < 1) return int(cudaErrorInvalidValue);
-  const size_t smem = chgconv::smem_bytes(false);
+  if (F != chgconv::F || n_sm < 1 || n_blk < 1 || M < 1 || M > chgconv::MAX_M)
+    return int(cudaErrorInvalidValue);
+  const size_t smem = chgconv::forward_smem_bytes(M);
   cudaError_t err = cudaFuncSetAttribute(conv_banded_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((n_pad + cpb - 1) / cpb, C);
-  conv_banded_kernel<<<grid, chgconv::NT, smem, stream>>>(
+  const int grid = chgconv::grid_blocks(n_sm, FWD_BLOCKS_PER_SM, (long long)C * n_pad);
+  conv_banded_kernel<<<grid, FWD_WARPS * 32, smem, stream>>>(
       ai2, aj2_ext, be, bw, maskf, nbr, chgconv::Weights{w2, wc1, wg1, bc1, bg1, lnc, lng},
-      win_start, agg, n_pad, n_ext, M, cpb, n_blk, window);
+      win_start, agg, C, n_pad, n_ext, M, n_blk, window);
   return int(cudaGetLastError());
+}
+
+// Blocks of the kernel an SM holds at M slots, as its registers and shared
+// memory allow (the grid counts on FWD_BLOCKS_PER_SM); -1 on an error.
+extern "C" int chgnet_conv_banded_blocks_per_sm(int M) {
+  const int smem = int(chgconv::forward_smem_bytes(M));
+  int n = -1;
+  cudaError_t err =
+      cudaFuncSetAttribute(conv_banded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, conv_banded_kernel, FWD_WARPS * 32,
+                                                        smem);
+  return err == cudaSuccess ? n : -1;
 }

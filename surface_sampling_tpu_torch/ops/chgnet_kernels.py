@@ -53,9 +53,12 @@ from surface_sampling_tpu_torch.ops.cuda_build import check_inputs, launch
 
 # the kernels' width: one checkpoint's atom features (F = 64)
 KERNEL_F = 64
-# centres per block of the centre kernels, and edges per block of the
-# weight-gradient pass (both also size the per-block partial sums)
-CENTRES_PER_BLOCK = 4
+# slots a centre the kernels take (a block lists its centre's live slots and
+# keeps their tile sums in shared memory), and the grid limit of the
+# neighbour pass
+KERNEL_MAX_M = 128
+MAX_CHAINS = 65535
+# edges per block of the weight-gradient pass (also sizes its partial sums)
 WGRAD_EDGES_PER_BLOCK = 2048
 GRAD_NAMES = ("g_ai2", "g_aj2", "g_be", "g_bw", "g_w2", "g_wc1", "g_wg1", "g_bc1", "g_bg1",
               "g_lnc", "g_lng")
@@ -108,11 +111,27 @@ def _check_conv(name, ai2, n_tab, be, bw, maskf, nbr, weights, aj2):
         raise ValueError(f"{name}: {E} edges are not M per each of {n_pad} rows")
 
 
-def _check_kernel(name, C, F):
+def _check_kernel(name, C, n_pad, M, F, *tensors):
+    """What the kernels take, refused before a launch: F = 64, at most
+    KERNEL_MAX_M slots a centre, at most MAX_CHAINS chains, fewer than 2^31
+    (chain, centre) items, and tensors that start on a 16-byte boundary
+    (rows are read and written as 16-byte vectors)."""
     if F != KERNEL_F:
         raise ValueError(f"{name}: the kernel is built for F = {KERNEL_F}, got {F}")
-    if C > 65535:
-        raise ValueError(f"{name}: C={C} must be at most 65535 (grid limit)")
+    if M > KERNEL_MAX_M:
+        raise ValueError(f"{name}: M={M} slots a centre, the kernel takes at most {KERNEL_MAX_M}")
+    if C > MAX_CHAINS:
+        raise ValueError(f"{name}: C={C} must be at most {MAX_CHAINS} (grid limit)")
+    if C * n_pad >= 2 ** 31:
+        raise ValueError(f"{name}: {C} x {n_pad} (chain, centre) items exceed the work list")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: every row tensor must start on a 16-byte boundary")
+
+
+def _n_sm(dev) -> int:
+    """The card's SMs: the kernels size their grids by it (a few resident
+    blocks an SM, each staging the weights once, walking a work list)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _conv_forward(ai2, aj2, be, bw, maskf, nbr, *weights):
@@ -121,10 +140,11 @@ def _conv_forward(ai2, aj2, be, bw, maskf, nbr, *weights):
     _check_conv(name, ai2, n_pad, be, bw, maskf, nbr, weights, aj2)
     if ai2.device.type == "cpu":
         return chgnet_conv_plain(ai2, aj2, be, bw, maskf, nbr, *weights)
-    _check_kernel(name, C, F2 // 2)
+    M = be.shape[1] // n_pad
+    _check_kernel(name, C, n_pad, M, F2 // 2, ai2, aj2, be, bw)
     agg = torch.empty((C, n_pad, F2 // 2), dtype=torch.float32, device=ai2.device)
     launch(name, (ai2, aj2, be, bw, maskf, nbr, *weights, agg),
-           (C, n_pad, be.shape[1] // n_pad, F2 // 2, CENTRES_PER_BLOCK))
+           (C, n_pad, M, F2 // 2, _n_sm(ai2.device)))
     chgnet_conv.launches += 1
     return agg
 
@@ -221,11 +241,11 @@ def chgnet_conv_banded(ai2, aj2_ext, be, bw, maskf, nbr, w2, wc1, wg1, bc1, bg1,
                  win_start=(band.win_start, torch.int32, (n_pad // band.n_blk,)))
     if ai2.device.type == "cpu":
         return chgnet_conv_banded_plain(ai2, aj2_ext, be, bw, maskf, nbr, *weights, band)
-    _check_kernel(name, C, F2 // 2)
+    M = be.shape[1] // n_pad
+    _check_kernel(name, C, n_pad, M, F2 // 2, ai2, aj2_ext, be, bw)
     agg = torch.empty((C, n_pad, F2 // 2), dtype=torch.float32, device=ai2.device)
     launch(name, (ai2, aj2_ext, be, bw, maskf, nbr, *weights, band.win_start, agg),
-           (C, n_pad, n_ext, be.shape[1] // n_pad, F2 // 2, CENTRES_PER_BLOCK, band.n_blk,
-            band.window))
+           (C, n_pad, n_ext, M, F2 // 2, _n_sm(ai2.device), band.n_blk, band.window))
     chgnet_conv_banded.launches += 1
     return agg
 
@@ -262,7 +282,8 @@ def chgnet_conv_bwd(ai2, aj2, be, bw, maskf, nbr, w2, wc1, wg1, bc1, bg1, lnc, l
         rev: (C, n_pad, D) int32 reverse-neighbour table: row j lists the
             ids of the edges whose neighbour is j, ascending, then -1
             (``ops.neighbors.reverse_table``). Edges left out must have
-            maskf == 0; it may also list masked edges (their dpre is 0).
+            maskf == 0; it may also list masked edges (the kernel skips
+            them).
             Required on the card, unused by the plain version.
         want_weights: also return the seven weight cotangents (summed over
             every edge and chain); else they are None and that pass of the
@@ -283,7 +304,7 @@ def chgnet_conv_bwd(ai2, aj2, be, bw, maskf, nbr, w2, wc1, wg1, bc1, bg1, lnc, l
     if dev.type == "cpu":
         return chgnet_conv_bwd_plain(ai2, aj2, be, bw, maskf, nbr, *weights, gagg,
                                      want_weights=want_weights)
-    _check_kernel(name, C, F)
+    _check_kernel(name, C, n_pad, M, F, ai2, aj2, be, bw, gagg)
     if rev is None:
         raise ValueError(f"{name}: the kernel needs the edges' reverse table rev")
     D = rev.shape[-1]
@@ -291,22 +312,21 @@ def chgnet_conv_bwd(ai2, aj2, be, bw, maskf, nbr, w2, wc1, wg1, bc1, bg1, lnc, l
     f32 = torch.float32
     g_ai2, g_aj2 = torch.empty_like(ai2), torch.empty_like(aj2)
     g_be, g_bw = torch.empty_like(be), torch.empty_like(bw)
-    dpre = torch.empty((C, E, F2), dtype=f32, device=dev)
+    dpre = torch.empty((C, E, F2), dtype=f32, device=dev)   # written for live edges only
     h0 = dh = lnpart = wpart = None
     if want_weights:
-        n_cblk = -(-n_pad // CENTRES_PER_BLOCK) * C
         n_wblk = -(-(C * E) // WGRAD_EDGES_PER_BLOCK)
         h0, dh = torch.empty_like(dpre), torch.empty_like(dpre)
-        lnpart = torch.empty((n_cblk, 4 * F), dtype=f32, device=dev)
+        lnpart = torch.empty((C * n_pad, 4 * F), dtype=f32, device=dev)   # per centre
         wpart = torch.empty((n_wblk, F * F2 + 2 * F * F + 2 * F), dtype=f32, device=dev)
     launch(name, (ai2, aj2, be, bw, maskf, nbr, *weights, gagg, rev, g_ai2, g_aj2, g_be, g_bw,
                   dpre, h0, dh, lnpart, wpart),
-           (C, n_pad, M, F, D, int(want_weights), CENTRES_PER_BLOCK, WGRAD_EDGES_PER_BLOCK))
+           (C, n_pad, M, F, D, int(want_weights), _n_sm(dev), WGRAD_EDGES_PER_BLOCK))
     chgnet_conv_bwd.launches += 1
     if not want_weights:
         return g_ai2, g_aj2, g_be, g_bw, *(None,) * 7
     chgnet_conv_bwd.weight_launches += 1
-    ln = lnpart.sum(dim=0)                      # per-block partials, one fixed order
+    ln = lnpart.sum(dim=0)                      # per-centre partials, one fixed order
     w = wpart.sum(dim=0)
     sizes = (F * F2, F * F, F * F, F, F)
     g_w2, g_wc1, g_wg1, g_bc1, g_bg1 = torch.split(w, sizes)

@@ -541,9 +541,9 @@ def test_chgnet_conv_bwd_kernel_matches_plain(cuda_device, want_weights):
 
 def test_chgnet_conv_bwd_reverse_table_may_list_masked_edges(cuda_device):
     """A reverse table that also lists masked edges, among them the edges
-    of the dead centres' all-masked tiles, gives the same g_aj2: the kernel
-    writes dpre = 0 for every masked edge, also where the device memory it
-    reuses held NaN."""
+    of the dead centres, gives the same g_aj2: the neighbour pass skips
+    every masked edge, whose dpre is never written (the device memory the
+    kernel reuses holds NaN here)."""
     from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
 
     args, rn = _conv_inputs(cuda_device, seed=13)
@@ -558,6 +558,69 @@ def test_chgnet_conv_bwd_reverse_table_may_list_masked_edges(cuda_device):
     got = ck.chgnet_conv_bwd(*args, gagg, rev=rev_all)
     ref = ck.chgnet_conv_bwd_plain(*args, gagg, want_weights=False)
     _assert_close(got[:4], ref[:4])
+
+
+# Shapes of the live-edge cases: M not a multiple of the 16-edge tile; a
+# centre whose live edges span 8 tiles (M at the kernels' limit, more tiles
+# than a block has warps); a work list of 4,800 (chain, centre) items, many
+# for every block of the grid.
+CONV_SHAPES = [(3, 36, 40), (2, 20, 128), (16, 300, 24)]
+
+
+def _masked_nan_case(dev, C, n_pad, M, seed):
+    """Conv inputs with scattered live slots (not a prefix), every fifth
+    centre all dead and centre 1 all live; and a copy whose masked edges
+    carry NaN in be and bw. The kernels never load a masked edge's be or
+    bw, so on the NaN copy they must give the plain version's result on the
+    clean one."""
+    args, rn = _conv_inputs(dev, C=C, n_pad=n_pad, M=M, seed=seed, dead_rows=0)
+    args = list(args)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    maskf = (torch.rand((C, n_pad, M), generator=g, device=dev) > 0.6).float()
+    maskf[:, ::5] = 0.0
+    maskf[:, 1] = 1.0
+    args[4] = maskf.reshape(C, -1).contiguous()
+    args[5] = torch.where(args[4] > 0, args[5], 0).to(torch.int32).contiguous()
+    dirty = list(args)
+    dead = (args[4] == 0)[..., None]
+    for k in (2, 3):
+        dirty[k] = torch.where(dead, float("nan"), args[k]).contiguous()
+    return args, dirty, rn
+
+
+@pytest.mark.parametrize("C,n_pad,M", CONV_SHAPES)
+def test_chgnet_conv_kernel_never_loads_masked_edges(cuda_device, C, n_pad, M):
+    """Row 10 on inputs whose masked edges hold NaN in be and bw equals the
+    plain version on the clean inputs, and repeats bitwise."""
+    from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
+
+    clean, dirty, _ = _masked_nan_case(cuda_device, C, n_pad, M, seed=17)
+    got = ck.chgnet_conv(*dirty)
+    _assert_close([got], [ck.chgnet_conv_plain(*clean)])
+    assert torch.equal(got, ck.chgnet_conv(*dirty))
+
+
+@pytest.mark.parametrize("want_weights", [False, True])
+@pytest.mark.parametrize("C,n_pad,M", CONV_SHAPES)
+def test_chgnet_conv_bwd_kernel_never_loads_masked_edges(cuda_device, C, n_pad, M,
+                                                         want_weights):
+    """Row 12 on the NaN copy against the plain version on the clean
+    inputs: every cotangent within tolerance, g_be and g_bw exactly 0 at
+    masked slots, a bitwise repeat."""
+    from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
+
+    clean, dirty, rn = _masked_nan_case(cuda_device, C, n_pad, M, seed=19)
+    gagg = rn(C, n_pad, ck.KERNEL_F)
+    rev = reverse_table(clean[5], clean[4] != 0, n_pad)
+    got = ck.chgnet_conv_bwd(*dirty, gagg, rev=rev, want_weights=want_weights)
+    ref = ck.chgnet_conv_bwd_plain(*clean, gagg, want_weights=want_weights)
+    n = 11 if want_weights else 4
+    _assert_close(got[:n], ref[:n])
+    masked = clean[4] == 0
+    assert bool((got[2][masked] == 0).all()) and bool((got[3][masked] == 0).all())
+    again = ck.chgnet_conv_bwd(*dirty, gagg, rev=rev, want_weights=want_weights)
+    for a, b in zip(got[:n], again[:n]):
+        assert torch.equal(a, b)
 
 
 def test_lamno3_energy_and_forces_on_card_match_cpu(cuda_device):

@@ -43,7 +43,10 @@ def _imports(path: Path):
 
 
 def test_no_import_of_the_jax_package_or_jax():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """Neither the port nor the scripts that drive it on the card import the
+    JAX package or JAX."""
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                           REPO / "tools" / "port_profile.py"]
     assert len(files) >= 20
     for path in files:
         for name in _imports(path):

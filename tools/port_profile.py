@@ -22,7 +22,9 @@ occupancies with 75% of the sites empty) and on its supercells:
                system (276 slots, 64 chains): edges ranked over the static
                table, the atom convs (row 10) and the plain bond/angle branch
   chgnet_force_call  one force call of its relaxed path (8 chains): rows 10
-               and 12, and autograd through the rest
+               and 12, and autograd through the rest; both CHGNet windows
+               also print their device ms by row (10, 12's centre and
+               neighbour passes, the rest)
   cu_kernel_step  one semigrand MC step of Cu(100) 2x2x2 through the EAM
                kernel potential (row 13), 16,384 chains (bench.py's
                fallback shape); cu_rigid_step the same through
@@ -47,6 +49,21 @@ the span on the device timeline of each of the forward's stages (the
 their calls). The last line of its output is all
 of it as one JSON object. Each window runs twice untraced first.
 
+Two more modes, for the CHGNet atom conv (rows 10-12) and the tensor cores:
+
+  --variants [NAME ...]   one-edit variants of rows 10-12 (edits of a copy
+      of csrc/, built into _build/variants/, loaded in place of the built
+      kernels), timed in turns by CUDA events at chip_smoke.py's shapes: row
+      10 at paths A and B, row 11 at path C, row 12 at path B, two rounds,
+      the second in reverse order; each variant's largest difference from
+      the sources. Built in: one_pass (one TF32 pass), no_mma, no_act
+      (sigmoid(x) = x), fwd_4x3 (rows 10 / 11 at 4 warps x 3 blocks an SM),
+      bwd_8x1 (row 12 at 8 x 1), clk (clock64 marks: warp clocks by phase).
+      --variants --spec FILE takes {name: [[file, old, new], ...]} instead.
+  --mma-peak   mma.sync throughput: TF32 m16n8k8 with 1, 4, 8 accumulators
+      a warp, BF16 m16n8k16, and the conv's inner loop (B from shared
+      memory, split, three passes), at 4-32 warps an SM.
+
 Run from the repository root:  python3 tools/port_profile.py [WINDOW ...]
 Window names as above (e.g. ``sc inc_2x2 inc_4x4 force_call_3x3``) trace
 only those; the systems and draws before them are made as in a full run, so
@@ -55,7 +72,9 @@ a window sees the same states either way. None given traces them all.
 
 from __future__ import annotations
 
+import ctypes
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -75,6 +94,20 @@ CU_CHAINS, CU_RELAX_CHAINS, AU_CHAINS = 16384, 1024, 1024   # chip_smoke.py's EA
 # the kernels of rows 2, 4 and 5 by their names in a trace
 TRAIN_ROWS = {"row 2 painn_message_fused": "message_kernel",
               "row 4 painn_message_bwd": "msgbwd::", "row 5 painn_message_bwd2": "msgbwd2::"}
+# the kernels of rows 10 and 12 (centre and neighbour pass) by their names
+CHGNET_ROWS = {"row 10 chgnet_conv": "::conv_kernel", "row 12 centre": "centre_kernel",
+               "row 12 neighbour": "neighbour_kernel"}
+
+
+def _by_row(out: dict, rows: dict) -> dict:
+    """A window's device ms summed by row (kernel-name keys), the rest as
+    plain PyTorch; stored under device_ms_by_row and printed."""
+    ms = {name: sum(k["ms"] for k in out["kernels"] if key in k["name"])
+          for name, key in rows.items()}
+    ms["rest (plain PyTorch)"] = out["device_ms"] - sum(ms.values())
+    out["device_ms_by_row"] = ms
+    print(f"    device ms by row: {json.dumps(ms)}")
+    return ms
 
 
 def _window(name: str, fn, top: int = 12) -> dict:
@@ -219,19 +252,337 @@ def train_step_window(dev) -> dict:
     dev_batch = tr.batch_to_device(batch, dev)
     trainer = tr.Trainer(params, cfg, tr.TrainConfig(learning_rate=1e-4), ensemble=True)
     out = _window("train_step", lambda: trainer.step(dev_batch))
-    rows = {name: sum(k["ms"] for k in out["kernels"] if key in k["name"])
-            for name, key in TRAIN_ROWS.items()}
-    rows["rest (plain PyTorch)"] = out["device_ms"] - sum(rows.values())
-    out["device_ms_by_row"] = rows
+    _by_row(out, TRAIN_ROWS)
     out["frames"], out["members"] = len(frames), params["atom_embed"].shape[0]
-    print(f"    device ms by row: {json.dumps(rows)}")
     return out
+
+
+# ----------------------------------------------------------------------
+# --variants: one-edit variants of rows 10-12 timed in turns
+# ----------------------------------------------------------------------
+HDR, BWD_SRC, MMA_HDR = "chgnet_conv.cuh", "chgnet_conv_bwd.cu", "tf32_mma.cuh"
+CONV_KERNELS = ("chgnet_conv", "chgnet_conv_banded", "chgnet_conv_bwd")
+FWD_PLAN = ("constexpr int FWD_WARPS = 6;   // warps a block of the forward (rows 10, 11)\n"
+            "constexpr int FWD_BLOCKS_PER_SM = 2;")
+BWD_PLAN = ("constexpr int BWD_WARPS = 4;   // warps a block of the centre kernel\n"
+            "constexpr int BWD_BLOCKS_PER_SM = 2;")
+MMA3 = "  mma_tf32(d, al, bh);\n  mma_tf32(d, ah, bl);\n  mma_tf32(d, ah, bh);"
+
+# clock64 marks: CLK(i) adds the warp's clocks since the last mark to slot i
+CLK_DEFS = """
+__device__ unsigned long long g_clk[16];
+#define CLK(i) { __syncwarp(); const long long now_ = clock64(); \\
+  if ((threadIdx.x & 31) == 0) atomicAdd(&g_clk[i], (unsigned long long)(now_ - t_prev)); \\
+  t_prev = now_; }
+extern "C" int read_clk(unsigned long long* out) {
+  return int(cudaMemcpyFromSymbol(out, g_clk, sizeof(g_clk)));
+}
+extern "C" int reset_clk() {
+  unsigned long long z[16] = {};
+  return int(cudaMemcpyToSymbol(g_clk, z, sizeof(z)));
+}
+"""
+CLK_FWD = ["compaction (warp 0) + barrier", "tile_pre", "hidden products",
+           "elementwise + tile sums", "barrier", "agg"]
+CLK_BWD = ["g_ai2 + compaction (warp 0) + barrier + zeros", "tile_pre + silu'",
+           "hidden products", "LayerNorm backward", "dpre products + store", "tile sums",
+           "g_be product", "barrier"]
+VARIANTS = {
+    "base": [],
+    "one_pass": [[MMA_HDR, MMA3, "  mma_tf32(d, ah, bh);"]],
+    "no_mma": [[MMA_HDR, MMA3, "  d[0] += __uint_as_float(ah[0] ^ al[1] ^ bh[0] ^ bl[1]);"]],
+    "no_act": [[HDR, "float sigmoid(float x) { return __fdividef(1.f, 1.f + __expf(-x)); }",
+                "float sigmoid(float x) { return x; }"]],
+    "fwd_4x3": [[HDR, FWD_PLAN, FWD_PLAN.replace("WARPS = 6", "WARPS = 4")
+                 .replace("PER_SM = 2", "PER_SM = 3")]],
+    "bwd_8x1": [[BWD_SRC, BWD_PLAN, BWD_PLAN.replace("WARPS = 4", "WARPS = 8")
+                 .replace("PER_SM = 2", "PER_SM = 1")]],
+    "clk": [
+        [HDR, "using namespace tf32mma;\n", "using namespace tf32mma;\n" + CLK_DEFS],
+        [HDR, "  const WorkList list{work, n_items, cs.s_item};\n  __syncthreads();\n",
+         "  const WorkList list{work, n_items, cs.s_item};\n  __syncthreads();\n"
+         "  long long t_prev = clock64();\n"],
+        [HDR, "rows_of(item - c * n_pad));\n    __syncthreads();\n",
+         "rows_of(item - c * n_pad));\n    __syncthreads();\n    CLK(0)\n"],
+        [HDR, "      tile_pre(s, ai, aj2c, be, e0, r, p);\n",
+         "      tile_pre(s, ai, aj2c, be, e0, r, p);\n      CLK(1)\n"],
+        [HDR, "      tile_hidden<8>(s.wg, s.vec + F, p, hg);\n",
+         "      tile_hidden<8>(s.wg, s.vec + F, p, hg);\n      CLK(2)\n"],
+        [HDR, "out[4 * j + 3]);\n      }\n    }\n    list.post(next);\n    __syncthreads();\n",
+         "out[4 * j + 3]);\n      }\n      CLK(3)\n"
+         "      if ((threadIdx.x & 31) == 0) atomicAdd(&g_clk[15], 1ull);\n    }\n"
+         "    list.post(next);\n    __syncthreads();\n    CLK(4)\n"],
+        [HDR, "    item = following;\n  }\n  list.leave();\n}\n\n}  // namespace chgconv",
+         "    item = following;\n    CLK(5)\n  }\n  list.leave();\n}\n\n"
+         "}  // namespace chgconv"],
+        [BWD_SRC, "  const WorkList list{work, n_items, cs.s_item};\n  __syncthreads();\n",
+         "  const WorkList list{work, n_items, cs.s_item};\n  __syncthreads();\n"
+         "  long long t_prev = clock64();\n"],
+        [BWD_SRC, "    const float* gi = gagg + size_t(item) * F;\n",
+         "    const float* gi = gagg + size_t(item) * F;\n    CLK(6)\n"],
+        [BWD_SRC, "      float hc[8][4], hg[8][4];\n",
+         "      CLK(7)\n      float hc[8][4], hg[8][4];\n"],
+        [BWD_SRC, "      tile_hidden<8>(s.wg, s.vec + F, p, hg);\n",
+         "      tile_hidden<8>(s.wg, s.vec + F, p, hg);\n      CLK(8)\n"],
+        [BWD_SRC, "      tile_dpre<0>(s.wc, hc, s_dsp, p);\n",
+         "      CLK(9)\n      tile_dpre<0>(s.wc, hc, s_dsp, p);\n"],
+        [BWD_SRC, "      store_pre_rows(dpre_out, e0, r, p, Identity{});\n",
+         "      store_pre_rows(dpre_out, e0, r, p, Identity{});\n      CLK(10)\n"],
+        [BWD_SRC, "      // g_be = dpre . w2^T", "      CLK(11)\n      // g_be = dpre . w2^T"],
+        [BWD_SRC, "      if (WANT_W) {\n        // the tile's LayerNorm cotangent sums",
+         "      CLK(12)\n      if ((threadIdx.x & 31) == 0) atomicAdd(&g_clk[14], 1ull);\n"
+         "      if (WANT_W) {\n        // the tile's LayerNorm cotangent sums"],
+        [BWD_SRC, "    list.post(next);\n    __syncthreads();\n",
+         "    list.post(next);\n    __syncthreads();\n    CLK(13)\n"],
+    ],
+}
+
+
+def build_variants(spec: dict) -> dict:
+    """Apply each variant's edits to a copy of csrc/ and build its three
+    libraries, all nvcc processes at once. Returns {(variant, kernel): path}."""
+    import chip_smoke as cs
+    from surface_sampling_tpu_torch.ops import cuda_build as cb
+
+    root = cb.BUILD_DIR / "variants"
+    shutil.rmtree(root, ignore_errors=True)
+    procs = []
+    for name, edits in spec.items():
+        src = root / name
+        shutil.copytree(cb.CSRC, src)
+        missing = [old[:60] for f, old, _ in edits if old not in (src / f).read_text()]
+        if missing:
+            print(f"[variants] {name}: edit no longer matches, left out: {missing}")
+            continue
+        for f, old, new in edits:
+            (src / f).write_text((src / f).read_text().replace(old, new))
+        for k in CONV_KERNELS:
+            out = src / f"lib{k}.so"
+            procs.append((name, k, out, subprocess.Popen(
+                [cb._nvcc(), *cb.NVCC_FLAGS, "-o", str(out), str(src / f"{k}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for name, k, out, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            print(f"[variants] {name} {k}: build failed\n{log[-2000:]}")
+            continue
+        libs[(name, k)] = out
+        print(f"[ptxas] {name} {k} {json.dumps(cs.entry_registers(log))}")
+    return libs
+
+
+def use_variant(libs: dict, name: str) -> None:
+    from surface_sampling_tpu_torch.ops import cuda_build as cb
+
+    for k in CONV_KERNELS:
+        lib = ctypes.CDLL(str(libs[(name, k)]))
+        fn = getattr(lib, k)
+        n_ptr, n_int = cb.ARITY[k]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        cb._LIBS[k] = lib
+
+
+def variants_main(args: list) -> int:
+    """--variants: the named built-in variants (all with none named), or
+    those of --spec FILE, timed in turns beside the sources."""
+    import chip_smoke as cs
+    from surface_sampling_tpu_torch.core.energy import RelaxConfig
+    from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
+    from surface_sampling_tpu_torch.systems import lamno3_001_chgnet
+
+    if args[:1] == ["--spec"]:
+        spec = {"base": [], **json.loads(Path(args[1]).read_text())}
+    else:
+        spec = {n: VARIANTS[n] for n in ["base"] + [a for a in args if a != "base"]} if args \
+            else VARIANTS
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    libs = build_variants(spec)
+    names = [n for n in spec if all((n, k) in libs for k in CONV_KERNELS)]
+
+    dev = torch.device("cuda")
+    sys_a = lamno3_001_chgnet(device=dev)
+    sys_b = lamno3_001_chgnet(relax=RelaxConfig(steps=cs.CHG_RELAX_STEPS), device=dev)
+    sys_c = lamno3_001_chgnet(supercell=(3, 3), device=dev)
+    a, _, _ = cs.chgnet_conv_case(sys_a, cs.CHG_CHAINS, seed=10)
+    b, rev, _ = cs.chgnet_conv_case(sys_b, cs.CHG_RELAX_CHAINS, seed=12, relaxed=True)
+    c, _, _ = cs.chgnet_conv_case(sys_c, cs.CHG_3X3_CHAINS, seed=11)
+    band = sys_c.potential.band
+    gagg = torch.randn(b[0].shape[:2] + (ck.KERNEL_F,), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(12))
+    cases = {"row 10 A": lambda: (ck.chgnet_conv(*a),), "row 10 B": lambda: (ck.chgnet_conv(*b),),
+             "row 11 C": lambda: (ck.chgnet_conv_banded(*c, band),),
+             "row 12 B": lambda: ck.chgnet_conv_bwd(*b, gagg, rev=rev)[:4]}
+    use_variant(libs, "base")
+    ref = {k: f() for k, f in cases.items()}
+    ms = {n: {k: [] for k in cases} for n in names}
+    diff = {}
+    for rnd in range(2):
+        for n in names if rnd == 0 else names[::-1]:
+            use_variant(libs, n)
+            for k, f in cases.items():
+                ms[n][k].append(cs._cuda_ms(f, reps=20))
+            if rnd == 0:
+                diff[n] = {k: max(float((x - y).abs().max()) for x, y in zip(f(), ref[k]))
+                           for k, f in cases.items()}
+    for n in names:
+        print(f"[variant] {n:10s} " + "  ".join(f"{k} {ms[n][k][0]:.4f} {ms[n][k][1]:.4f}"
+                                                for k in cases)
+              + f"  max diff from base {json.dumps(diff[n])}")
+    if "clk" in names:
+        use_variant(libs, "clk")
+        for case, kernel, labels, slots, count in (
+                ("row 10 A", "chgnet_conv", CLK_FWD, range(0, 6), 15),
+                ("row 12 B", "chgnet_conv_bwd", CLK_BWD, range(6, 14), 14)):
+            lib = ctypes.CDLL(str(libs[("clk", kernel)]))
+            buf = (ctypes.c_ulonglong * 16)()
+            lib.reset_clk()
+            for _ in range(5):
+                cases[case]()
+            torch.cuda.synchronize()
+            lib.read_clk(buf)
+            v = np.array(list(buf), dtype=np.float64)
+            total = v[list(slots)].sum()
+            print(f"[clk] {case}: {v[count] / 5:.0f} tiles a launch, {total / v[count]:.0f} warp "
+                  "clocks a tile; share by phase: " + ", ".join(
+                      f"{lab} {v[i] / total:.3f}" for lab, i in zip(labels, slots)))
+    return 0
+
+
+
+# ----------------------------------------------------------------------
+# --mma-peak: what mma.sync reaches on the card
+# ----------------------------------------------------------------------
+MMA_SOURCE = r"""
+#include <cuda_runtime.h>
+#include "tf32_mma.cuh"
+using namespace tf32mma;
+
+template <int CH>
+__global__ void tf32_kernel(float* out, int iters) {
+  float d[CH][4] = {};
+  unsigned a[4], b[2];
+  for (int q = 0; q < 4; ++q) a[q] = __float_as_uint(threadIdx.x * 1e-3f + q) & 0xffffe000u;
+  for (int q = 0; q < 2; ++q) b[q] = __float_as_uint(threadIdx.x * 2e-3f + q) & 0xffffe000u;
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int c = 0; c < CH; ++c) mma_tf32(d[c], a, b);
+  float s = 0.f;
+  for (int c = 0; c < CH; ++c) s += d[c][0] + d[c][1] + d[c][2] + d[c][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+__global__ void bf16_kernel(float* out, int iters) {
+  float d[8][4] = {};
+  unsigned a[4], b[2];
+  for (int q = 0; q < 4; ++q) a[q] = 0x3f803f80u + threadIdx.x;
+  for (int q = 0; q < 2; ++q) b[q] = 0x3f803f80u + q;
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+                   "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+                   : "+f"(d[c][0]), "+f"(d[c][1]), "+f"(d[c][2]), "+f"(d[c][3])
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  float s = 0.f;
+  for (int c = 0; c < 8; ++c) s += d[c][0] + d[c][1] + d[c][2] + d[c][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+__global__ void conv_loop_kernel(float* out, int iters) {
+  __shared__ float w[16 * 64];
+  for (int x = threadIdx.x; x < 16 * 64; x += blockDim.x) w[x] = x * 1e-3f;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  float d[16][4] = {};
+  float a[4];
+  for (int q = 0; q < 4; ++q) a[q] = lane * 1e-2f + q;
+  unsigned ah[4], al[4];
+  split_all(a, ah, al);
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      const float2 b = *reinterpret_cast<const float2*>(w + nt * 64 + 2 * lane);
+      unsigned bh[2], bl[2];
+      split(b.x, bh[0], bl[0]);
+      split(b.y, bh[1], bl[1]);
+      mma3(d[nt], ah, al, bh, bl);
+    }
+  float s = 0.f;
+  for (int c = 0; c < 16; ++c) s += d[c][0] + d[c][1] + d[c][2] + d[c][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+extern "C" int mma_sync_peak(float* out, int which, int blocks, int threads, int iters) {
+  switch (which) {
+    case 0: tf32_kernel<1><<<blocks, threads>>>(out, iters); break;
+    case 1: tf32_kernel<4><<<blocks, threads>>>(out, iters); break;
+    case 2: tf32_kernel<8><<<blocks, threads>>>(out, iters); break;
+    case 3: bf16_kernel<<<blocks, threads>>>(out, iters); break;
+    default: conv_loop_kernel<<<blocks, threads>>>(out, iters); break;
+  }
+  return int(cudaGetLastError());
+}
+"""
+# (name, mma instructions an iteration, flop an mma)
+MMA_CASES = [("tf32 m16n8k8, 1 accumulator a warp", 1, 2048),
+         ("tf32 m16n8k8, 4 accumulators", 4, 2048),
+         ("tf32 m16n8k8, 8 accumulators", 8, 2048),
+         ("bf16 m16n8k16, 8 accumulators", 8, 4096),
+         ("the conv loop: 16 accumulators x 3 passes", 48, 2048)]
+
+
+def mma_peak_main() -> int:
+    """--mma-peak: each case of MMA_CASES at 4, 8, 16 and 32 warps an SM."""
+    from surface_sampling_tpu_torch.ops import cuda_build as cb
+
+    out_dir = cb.BUILD_DIR / "mma_sync_peak"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "mma_sync_peak.cu").write_text(MMA_SOURCE)
+    lib_path = out_dir / "libmma_sync_peak.so"
+    subprocess.run([cb._nvcc(), *cb.NVCC_FLAGS, "-I", str(cb.CSRC), "-o", str(lib_path),
+                    str(out_dir / "mma_sync_peak.cu")], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.mma_sync_peak.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4
+    props = torch.cuda.get_device_properties(0)
+    n_sm = props.multi_processor_count
+    clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]) * 1e6
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
+    out = torch.empty(n_sm * 32 * 32, device="cuda")
+    iters = 2000
+    for which, (name, per_iter, flop) in enumerate(MMA_CASES):
+        for warps in (4, 8, 16, 32):
+            threads = min(warps, 8) * 32
+            blocks = n_sm * warps * 32 // threads
+            lib.mma_sync_peak(out.data_ptr(), which, blocks, threads, 10)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            err = lib.mma_sync_peak(out.data_ptr(), which, blocks, threads, iters)
+            e1.record()
+            torch.cuda.synchronize()
+            if err:
+                raise RuntimeError(f"mma_sync_peak: launch failed with CUDA error {err}")
+            s = e0.elapsed_time(e1) / 1e3
+            n_mma = blocks * threads // 32 * iters * per_iter
+            print(f"[mma] {name:42s} {warps:2d} warps an SM: {n_mma * flop / s / 1e12:7.1f} "
+                  f"TFLOP/s, {n_mma / s / n_sm / clock_hz:.3f} mma a clock an SM")
+    return 0
+
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("port_profile: no CUDA device is available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--variants"]:
+        return variants_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--mma-peak"]:
+        return mma_peak_main()
     from surface_sampling_tpu_torch.core.energy import RelaxConfig
     from surface_sampling_tpu_torch.core.incremental import (
         make_incremental_painn_from_system,
@@ -334,6 +685,7 @@ def main() -> int:
                                    realize_type_idx(d, ss), realize_alive(d, ss)))
         if name in report:
             report[name]["chains"] = chains
+            _by_row(report[name], CHGNET_ROWS)
         del chg
         torch.cuda.empty_cache()
     if not only or only & {"cu_kernel_step", "cu_rigid_step", "cu_force_call",
