@@ -22,7 +22,10 @@ thirty-five phases, each printing one line or more:
                 registers, spills and static shared memory of each entry function,
                 and those of rows 10-12 by entry (a spill fails the run)
   3. kernels    each forward kernel against its plain PyTorch version at the
-                rigid path's shapes, with times and bounds
+                rigid path's shapes, with times and bounds; the general
+                message (row 2) also bitwise equal to the banded message on
+                an identity band, bitwise on repeat, and unchanged by NaN /
+                out-of-range values on its dead edges (kernel-contract)
   4. anchor     pristine potential / surface energy on the card
   5. states     random occupancies: card energies vs the CPU plain path
   6. mc         rigid MC, 128 chains x 2 sweeps x 8 steps; launch counts of
@@ -76,7 +79,9 @@ thirty-five phases, each printing one line or more:
                 at path C's, row 12 at path B's, with and without the weight
                 cotangents, a bitwise repeat of each), with times, bounds
                 (also with the products at 3 TF32 passes), and the live and
-                computed shares of the edge slots
+                computed shares of the edge slots; then the three at M = 160
+                slots a centre (max_neighbors=160: the kernels' 256-slot
+                instantiation) against their plain versions
  21. chgnet-anchor the golden cases of tests/data/chgnet_golden.json at the
                 JAX test's tolerances; the pristine system card vs CPU
  22. chgnet-mc  path A, 64 chains x 2 sweeps x 8 steps: launch counts (row
@@ -92,7 +97,8 @@ thirty-five phases, each printing one line or more:
  27. eam-kernel row 13 against its plain version at Cu (16,384 chains, the
                 shape of cu-mc, the row's numbers; and 8,192) and Au (1,024),
                 rho and ep each within 1e-4 x max|plain|, a bitwise repeat,
-                kernel vs cheb energies; times and bounds
+                the same bits with NaN on dead pairs and dead slots, kernel
+                vs cheb energies; times and bounds
  28. eam-anchor the Cu pristine pin and the Au(110) ground state -79.0349 eV
                 by every path; card vs the CPU plain path
  29. cu-mc      semigrand Cu through the kernel potential, 16,384 chains x 8 x
@@ -193,6 +199,9 @@ LOCAL_SWEEP_SIZE = 4
 # per 8 chains at 3x3: it runs on chunks of chains.
 CHG_CHAINS, CHG_RELAX_CHAINS, CHG_3X3_CHAINS = 64, 8, 8
 CHG_RELAX_STEPS = 10
+# slots a centre past the atom-conv kernels' 128-slot instantiation:
+# lamno3_001_chgnet(max_neighbors=CHG_WIDE_M) runs the 256-slot one
+CHG_WIDE_M = 160
 CHG_PLAIN_CHUNK, CHG_PLAIN_CHUNK_3X3 = 16, 4
 # kernel launches per full rigid evaluation of 3 layers: the 1x1 trunk and
 # the banded supercell trunk
@@ -401,6 +410,49 @@ def banded_smem(R: int, M: int, n_blk: int) -> int:
     from surface_sampling_tpu_torch.ops.cuda_build import _lib
 
     return _lib("painn_message_fused_banded").painn_message_banded_smem(R, M, n_blk)
+
+
+def message_fused_contract(args, m: dict) -> str:
+    """Row 2 on the main path's inputs: bitwise equal to row 7 on an
+    identity band (the banded body it runs), bitwise on repeat, and dead
+    edges inert (NaN rbf and unit, out-of-range nbr on every envm == 0 edge
+    leave ds and dv bitwise unchanged); raises otherwise. Returns the text
+    of its live share, block and shared memory, and the bound with the
+    filter at 3 TF32 passes."""
+    from surface_sampling_tpu_torch.ops import painn_kernels as pk
+    from surface_sampling_tpu_torch.ops.banding import identity_band
+    from surface_sampling_tpu_torch.ops.cuda_build import _lib
+
+    phi, vcat, rbf, envm, nbr, unit, dw, db = args
+    C, K, n_pad, F3 = phi.shape
+    M, R = unit.shape[-1], rbf.shape[-1]
+    dev = phi.device
+    got = pk.painn_message_fused(*args)
+    dead = envm == 0
+    nan = float("nan")
+    far = torch.randint(-2 ** 30, 2 ** 30, nbr.shape, generator=_gen(2), device=dev,
+                        dtype=torch.int32)
+    dirty = (phi, vcat, torch.where(dead[..., None], nan, rbf), envm,
+             torch.where(dead, far, nbr), torch.where(dead.reshape(C, 1, n_pad, M), nan, unit),
+             dw, db)
+    for label, out in (("a second launch", pk.painn_message_fused(*args)),
+                       ("row 7 on an identity band",
+                        pk.painn_message_fused_banded(*args, identity_band(n_pad, 16, dev))),
+                       ("NaN rbf / unit and out-of-range nbr on dead edges",
+                        pk.painn_message_fused(*dirty))):
+        if not all(torch.equal(a, b) for a, b in zip(got, out)):
+            raise AssertionError(f"painn_message_fused vs {label}: not bitwise equal")
+    print(f"[kernel-contract] painn_message_fused bitwise equal to a second launch, to "
+          f"painn_message_fused_banded on an identity band, and with NaN rbf / unit and "
+          f"out-of-range nbr on its {int(dead.sum())} dead edges")
+    n_live = int((~dead).sum())
+    products = K * n_live * 6 * (F3 // 3) * R
+    _, bound_tc_ms, _ = bwd_bounds(products, m["flops"] - products, m["bytes"])
+    lib = _lib("painn_message_fused")
+    return (f"bound_tc_ms={bound_tc_ms:.4f} (3xTF32 filter) live_edges={n_live} of "
+            f"{envm.numel()} slots (live share {n_live / envm.numel():.4f}) n_blk="
+            f"{lib.painn_message_fused_n_blk(n_pad)} shared memory="
+            f"{lib.painn_message_fused_smem(R, M, n_pad)} B a block ")
 
 
 def bwd_errors(name: str, got, ref, envm, names) -> dict:
@@ -1465,8 +1517,12 @@ def chgnet_kernels_phase(sys_a, sys_b, sys_c) -> list:
     table's displaced geometry, CHG_RELAX_CHAINS chains, seeded random
     cotangents) with and without the weight cotangents; a bitwise repeat of
     each; their live and computed shares and the bound with the products at
-    3 TF32 passes (printed, not in the kernels line)."""
+    3 TF32 passes (printed, not in the kernels line). Then the three at M =
+    CHG_WIDE_M slots a centre (``lamno3_001_chgnet(max_neighbors=160)``,
+    the kernels' 256-slot instantiation) against their plain versions, their
+    times under ``m160`` in the kernels line."""
     from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
+    from surface_sampling_tpu_torch.systems import lamno3_001_chgnet
 
     rows = []
     args, _, n_live = chgnet_conv_case(sys_a, CHG_CHAINS, seed=10)
@@ -1516,6 +1572,53 @@ def chgnet_kernels_phase(sys_a, sys_b, sys_c) -> list:
     rows.append(_row("chgnet_conv_bwd", "surface_sampling_tpu/ops/pallas_chgnet.py:327", m,
                      ms_chains=CHG_RELAX_CHAINS, ms_with_weights=m["ms_with_weights"],
                      max_abs_err_by_output=m["errs"]))
+    del args, rev, gagg
+    torch.cuda.empty_cache()
+
+    # M = CHG_WIDE_M: rows 10 and 12 on the rigid 1x1 system (row 12 at path
+    # B's chain count), row 11 on the banded 3x3
+    dev = sys_a.run.d.device
+    keep = ("err", "ms", "plain_ms", "bound_ms")
+    wide = lamno3_001_chgnet(max_neighbors=CHG_WIDE_M, device=dev)
+    args, _, n_live = chgnet_conv_case(wide, CHG_CHAINS, seed=13)
+    M = args[2].shape[1] // args[0].shape[1]
+    if M != CHG_WIDE_M:
+        raise AssertionError(f"max_neighbors={CHG_WIDE_M} gave M={M}")
+    m = _measure("chgnet_conv", lambda *a: (ck.chgnet_conv(*a),),
+                 lambda *a: (ck.chgnet_conv_plain(*a),), args, per_chain,
+                 n_live * conv_flops_per_edge(F), CHG_PLAIN_CHUNK,
+                 conv_bytes(args, n_live) + _nbytes(args[0]) // 2)
+    _repeat_bitwise("chgnet_conv", lambda: ck.chgnet_conv(*args))
+    _print_measure("chgnet-kernel", f"chgnet_conv M={M}", m,
+                   conv_extra(args, n_live, False, m["bytes"])[1]
+                   + f"blocks an SM {conv_blocks_per_sm('chgnet_conv', M)} bitwise repeat ok ")
+    rows[0]["m160"] = {k: m[k] for k in keep}
+    del args
+    args, rev, n_live = chgnet_conv_case(wide, CHG_RELAX_CHAINS, seed=14)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    gagg = torch.randn(args[0].shape[:2] + (F,), generator=gen, device=dev)
+    m = chgnet_bwd_measure(args, rev, gagg, n_live)
+    print(f"[chgnet-kernel] chgnet_conv_bwd M={M} errors {json.dumps(m['errs'])} (tol "
+          f"{KERNEL_RTOL} x max|plain| each, C={CHG_RELAX_CHAINS}) bitwise repeat ok; "
+          f"ms={m['ms']:.4f} ms_with_weights={m['ms_with_weights']:.4f} "
+          f"plain_ms={m['plain_ms']:.3f} bound_ms={m['bound_ms']:.4f} "
+          f"{conv_extra(args, n_live, True, m['bytes'])[1]}"
+          f"blocks an SM {conv_blocks_per_sm('chgnet_conv_bwd', M)}")
+    rows[2]["m160"] = {k: m[k] for k in keep}
+    del args, rev, gagg, wide
+    torch.cuda.empty_cache()
+    wide = lamno3_001_chgnet(supercell=(3, 3), max_neighbors=CHG_WIDE_M, device=dev)
+    band = wide.potential.band
+    args, _, n_live = chgnet_conv_case(wide, CHG_3X3_CHAINS, seed=15)
+    m = _measure("chgnet_conv_banded", lambda *a: (ck.chgnet_conv_banded(*a, band),),
+                 lambda *a: (ck.chgnet_conv_banded_plain(*a, band),), args, per_chain,
+                 n_live * conv_flops_per_edge(F), CHG_PLAIN_CHUNK_3X3,
+                 conv_bytes(args, n_live, band.win_start) + _nbytes(args[0]) // 2)
+    _repeat_bitwise("chgnet_conv_banded", lambda: ck.chgnet_conv_banded(*args, band))
+    _print_measure("chgnet-kernel", f"chgnet_conv_banded M={M}", m,
+                   conv_extra(args, n_live, False, m["bytes"])[1]
+                   + f"n_pad={band.n_pad} W={band.window} bitwise repeat ok ")
+    rows[1]["m160"] = {k: m[k] for k in keep}
     return rows
 
 
@@ -1690,7 +1793,9 @@ def eam_live_pairs(positions, alive_f, pairs, cutoff: float) -> int:
 def eam_kernel_case(tag: str, spec, kernel_pot, cheb_pot, d, n_chains: int, seed: int) -> dict:
     """Row 13 against its plain version on seeded occupancies at a path's
     shapes: rho and ep each within KERNEL_RTOL x max|plain|, a bitwise
-    repeat, the kernel potential's energies against the cheb path's within
+    repeat, the same bits with NaN in the shift of every padding pair and in
+    the position of every dead slot (dead pairs are never read), the kernel
+    potential's energies against the cheb path's within
     1e-3 eV where |E| < 999 eV (tests/test_pallas_eam.py's rule); times and
     the bound (live pairs x EAM_FLOPS_PER_PAIR, or the bytes: positions,
     alive, the table and the coefficients read once, rho and ep written
@@ -1720,6 +1825,14 @@ def eam_kernel_case(tag: str, spec, kernel_pot, cheb_pot, d, n_chains: int, seed
                                  f"{KERNEL_RTOL} x max|plain| = {KERNEL_RTOL * scale}")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"[{tag}] eam_rho_ep does not repeat bitwise")
+    nan = float("nan")
+    pad, dead = pairs.kernel_j < 0, alive_f == 0
+    dirty = ek.eam_rho_ep(torch.where(dead[..., None], nan, pos).contiguous(), alive_f,
+                          pairs._replace(shift=torch.where(pad[..., None], nan, pairs.shift)
+                                         .contiguous()), cheb)
+    if not all(torch.equal(a, b) for a, b in zip(got, dirty)):
+        raise AssertionError(f"[{tag}] eam_rho_ep: NaN on dead pairs changed its output")
+    del again, dirty
     e_k = kernel_pot.energy(pos, ti, alive)
     e_c = cheb_pot.energy(pos, ti, alive)
     phys = e_c.abs() < 999.0
@@ -1735,6 +1848,8 @@ def eam_kernel_case(tag: str, spec, kernel_pot, cheb_pot, d, n_chains: int, seed
     _print_measure(tag, "eam_rho_ep", m,
                    f"C={n_chains} N={N} M={M} live_pairs={n_live} ({n_live / n_chains:.1f} a "
                    f"chain) errors rho {errs['rho']:.3e} ep {errs['ep']:.3e} bitwise repeat ok; "
+                   f"NaN shifts on {int(pad.sum())} padding pairs and NaN positions on "
+                   f"{int(dead.sum())} dead slots: bitwise unchanged; "
                    f"kernel vs cheb energies max|d| {de:.3e} eV over {int(phys.sum())} physical "
                    f"states (tol 1e-3); ")
     return {**m, "errs": errs, "live_pairs": n_live, "chains": n_chains, "N": N, "M": M}
@@ -2300,16 +2415,20 @@ def training_phases(dev) -> tuple[list, dict]:
 def entry_registers(log: str) -> dict:
     """ptxas -v's report per entry function: {short name: [registers, spill
     store bytes, spill load bytes]}, the name the mangled one's kernel
-    identifier (with <true> / <false> for a bool template argument)."""
+    identifier with its int and bool template arguments (``<128,true>``)."""
     import re
 
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            k = re.search(r"\d+([a-z_]+_kernel)(ILb([01])E)?", m.group(1))
-            name = (k.group(1) + ({"0": "<false>", "1": "<true>"}[k.group(3)] if k.group(2)
-                                  else "")) if k else m.group(1)
+            k = re.search(r"\d+([a-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?", m.group(1))
+            if k:
+                targs = [("false", "true")[int(v)] if t == "b" else v
+                         for t, v in re.findall(r"L([ib])(\d+)E", k.group(2) or "")]
+                name = k.group(1) + (f"<{','.join(targs)}>" if targs else "")
+            else:
+                name = m.group(1)
             out[name] = [None, 0, 0]
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -2360,7 +2479,8 @@ def main() -> int:
     for kname, fn, replaces, args, per_chain, flops in kernel_cases(sys_gpu, dev):
         m = _measure(kname, fn, pk.PLAIN[fn], args, per_chain, flops)
         rows.append(_row(kname, replaces, m))
-        _print_measure("kernel", kname, m)
+        _print_measure("kernel", kname, m,
+                       message_fused_contract(args, m) if fn is pk.painn_message_fused else "")
 
     # 4. pristine anchor
     run = sys_gpu.run

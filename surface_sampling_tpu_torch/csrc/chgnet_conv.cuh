@@ -91,9 +91,20 @@ constexpr int F2 = 2 * F;
 constexpr int ET = 16;         // live edges a tile (the mma rows)
 constexpr int FWD_WARPS = 6;   // warps a block of the forward (rows 10, 11)
 constexpr int FWD_BLOCKS_PER_SM = 2;
-constexpr int MAX_M = 128;     // slots a centre (the slot lists, the tile sums)
+// Slots a centre: the slot-list capacity MAXM (a template argument of the
+// forward and of row 12's centre kernel) sizes the ballot words, the lists
+// and the tile sums. Two instantiations: 128 (every system of the repo,
+// M = 96 by default) and 256; the C entries pick the smaller one that
+// holds M (capacity_for) and refuse M past the larger.
+constexpr int SMALL_M = 128;
+constexpr int MAX_M = 256;
 constexpr int W2_TILES = F2 / 8;   // n tiles of w2 (k steps: F / 8)
 constexpr int W1_TILES = F / 8;    // n tiles (and k steps) of wc1 / wg1
+
+// The instantiation's capacity for M slots, 0 past MAX_M.
+inline int capacity_for(int M) {
+  return M < 1 ? 0 : M <= SMALL_M ? SMALL_M : M <= MAX_M ? MAX_M : 0;
+}
 
 struct Weights {
   const float *w2, *wc1, *wg1, *bc1, *bg1, *lnc, *lng;
@@ -235,14 +246,16 @@ struct Lists {
 // ascending order, into the lists: slot[k] and its neighbour's row
 // (rows(nbr), -1 = zeros). Returns their number to every lane of the warp,
 // and in live[u] the ballot of slots 32u .. 32u + 31. Every mask and
-// index of the centre is loaded first (MAX_M / 32 a lane), so that their
+// index of the centre is loaded first (MAXM / 32 a lane), so that their
 // latencies overlap.
-constexpr int SLOT_WORDS = MAX_M / 32;
+template <int MAXM>
+__host__ __device__ constexpr int slot_words() { return MAXM / 32; }
 
-template <class Rows>
+template <int MAXM, class Rows>
 __device__ inline int compact(const float* __restrict__ maskf, const int* __restrict__ nbr,
                               size_t e0, int M, Rows rows, const Lists& l,
-                              unsigned (&live)[SLOT_WORDS]) {
+                              unsigned (&live)[slot_words<MAXM>()]) {
+  constexpr int SLOT_WORDS = slot_words<MAXM>();
   const int lane = threadIdx.x & 31;
   float mk[SLOT_WORDS];
   int nb[SLOT_WORDS];
@@ -454,13 +467,16 @@ __device__ __forceinline__ int tiles(int n) { return (n + ET - 1) / ET; }
 
 // Shared memory past the weights: the centre's tile sums (max_tiles(M) x
 // width floats); its item, live-edge count and live-slot ballots (4 +
-// SLOT_WORDS words); its live-edge lists (2M words).
+// MAXM / 32 words); its live-edge lists (2M words).
+template <int MAXM>
 __host__ __device__ constexpr size_t tail_bytes(int M, int width) {
-  return (size_t(max_tiles(M)) * width + 4 + SLOT_WORDS + 2 * size_t(M)) * sizeof(float);
+  return (size_t(max_tiles(M)) * width + 4 + slot_words<MAXM>() + 2 * size_t(M)) *
+         sizeof(float);
 }
 
+template <int MAXM>
 __host__ __device__ constexpr size_t forward_smem_bytes(int M) {
-  return weight_floats() * sizeof(float) + tail_bytes(M, F);
+  return weight_floats() * sizeof(float) + tail_bytes<MAXM>(M, F);
 }
 
 // The block's centre: its item and live-edge count, and its lists (in
@@ -472,24 +488,25 @@ struct Centre {
   Lists lists;
 };
 
+template <int MAXM>
 __device__ inline Centre carve_centre(float* s_sum, int M, int width) {
   int* words = reinterpret_cast<int*>(s_sum + max_tiles(M) * width);
-  int* l = words + 4 + SLOT_WORDS;
+  int* l = words + 4 + slot_words<MAXM>();
   return Centre{words, words + 1, reinterpret_cast<unsigned*>(words + 4), Lists{l, l + M}};
 }
 
 // Warp 0: the centre's live slots into the block's lists, their count and
 // ballots into shared memory (the caller ends with a barrier).
-template <class Rows>
+template <int MAXM, class Rows>
 __device__ inline void compact_centre(const Centre& cs, const float* __restrict__ maskf,
                                       const int* __restrict__ nbr, size_t e0, int M, Rows rows) {
   if (threadIdx.x >= 32) return;
-  unsigned live[SLOT_WORDS];
-  const int n = compact(maskf, nbr, e0, M, rows, cs.lists, live);
+  unsigned live[slot_words<MAXM>()];
+  const int n = compact<MAXM>(maskf, nbr, e0, M, rows, cs.lists, live);
   if (threadIdx.x == 0) {
     *cs.s_n = n;
 #pragma unroll
-    for (int u = 0; u < SLOT_WORDS; ++u) cs.s_live[u] = live[u];
+    for (int u = 0; u < slot_words<MAXM>(); ++u) cs.s_live[u] = live[u];
   }
 }
 
@@ -497,8 +514,9 @@ __device__ inline void compact_centre(const Centre& cs, const float* __restrict_
 // warps a centre at a time. ``aj2`` has n_tab rows a chain; ``rows_of(i)``
 // gives centre i's neighbour-row map. Warp 0 compacts the centre; warp w
 // then takes tiles w, w + NW, ...; each tile's sums over its 16 edges go to
-// shared memory, and the centre's agg is their sum in tile order.
-template <class RowsOf>
+// shared memory, and the centre's agg is their sum in tile order. M is at
+// most MAXM.
+template <int MAXM, class RowsOf>
 __device__ inline void forward(const float* __restrict__ ai2, const float* __restrict__ aj2,
                                int n_tab, const float* __restrict__ be,
                                const float* __restrict__ bw, const float* __restrict__ maskf,
@@ -510,7 +528,7 @@ __device__ inline void forward(const float* __restrict__ ai2, const float* __res
   const Staged s = stage_weights<NW * 32>(W, smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   float* s_sum = smem + weight_floats();             // [max_tiles(M)][F]
-  const Centre cs = carve_centre(s_sum, M, F);
+  const Centre cs = carve_centre<MAXM>(s_sum, M, F);
   const WorkList list{work, n_items, cs.s_item};
   __syncthreads();
 
@@ -518,7 +536,7 @@ __device__ inline void forward(const float* __restrict__ ai2, const float* __res
     const int next = list.ask();
     const int c = item / n_pad;
     const size_t e0 = size_t(item) * M;
-    compact_centre(cs, maskf, nbr, e0, M, rows_of(item - c * n_pad));
+    compact_centre<MAXM>(cs, maskf, nbr, e0, M, rows_of(item - c * n_pad));
     __syncthreads();
     const int n = *cs.s_n;
     const float* ai = ai2 + size_t(item) * F2;

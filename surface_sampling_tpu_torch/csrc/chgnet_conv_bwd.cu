@@ -65,8 +65,9 @@ constexpr int BWD_BLOCKS_PER_SM = 2;
 // here, not in registers, so that the kernel does not spill); on request
 // each warp's LayerNorm cotangent partials of its tile (64 a lane) and the
 // centre's tile sums of them (4F a tile).
+template <int MAXM>
 __host__ __device__ constexpr size_t centre_smem_bytes(int M, bool want_w) {
-  return weight_floats() * sizeof(float) + tail_bytes(M, F2) +
+  return weight_floats() * sizeof(float) + tail_bytes<MAXM>(M, F2) +
          (size_t(BWD_WARPS) * (64 * 32 + (want_w ? 64 * 32 : 0)) +
           (want_w ? size_t(max_tiles(M)) * 4 * F : 0)) * sizeof(float);
 }
@@ -135,7 +136,8 @@ struct Silu {
   __device__ float operator()(float x) const { return silu(x); }
 };
 
-template <bool WANT_W>
+// M is at most MAXM, the slot-list capacity (chgconv::capacity_for).
+template <int MAXM, bool WANT_W>
 __global__ void __launch_bounds__(BWD_WARPS * 32, BWD_BLOCKS_PER_SM)
 centre_kernel(const float* __restrict__ ai2, const float* __restrict__ aj2,
               const float* __restrict__ be, const float* __restrict__ bw,
@@ -149,8 +151,8 @@ centre_kernel(const float* __restrict__ ai2, const float* __restrict__ aj2,
   const Staged s = stage_weights<NW * 32>(W, smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   float* s_sum = smem + weight_floats();                      // [max_tiles(M)][F2]
-  const Centre cs = carve_centre(s_sum, M, F2);
-  float* s_dsp = s_sum + tail_bytes(M, F2) / sizeof(float) + warp * 64 * 32;
+  const Centre cs = carve_centre<MAXM>(s_sum, M, F2);
+  float* s_dsp = s_sum + tail_bytes<MAXM>(M, F2) / sizeof(float) + warp * 64 * 32;
   float* s_ln = s_dsp + NW * 64 * 32;                         // [NW][64][32], this warp's
   float* s_lnt = s_ln - warp * 64 * 32 + NW * 64 * 32;        // [max_tiles(M)][4F]
   const int n_items = C * n_pad;
@@ -161,7 +163,7 @@ centre_kernel(const float* __restrict__ ai2, const float* __restrict__ aj2,
     const int next = list.ask();
     const int c = item / n_pad;
     const size_t e0 = size_t(item) * M;
-    compact_centre(cs, maskf, nbr, e0, M, DirectRows{});
+    compact_centre<MAXM>(cs, maskf, nbr, e0, M, DirectRows{});
     __syncthreads();
     const int n = *cs.s_n;
     // masked slots: exact zeros in g_be and g_bw (16 threads a slot, 16
@@ -431,22 +433,40 @@ wgrad_kernel(const float* __restrict__ be, const float* __restrict__ maskf,
   if (t < F2) out[F * F2 + 2 * F * F + t] = gbias;
 }
 
-template <bool WANT_W, class... Args>
-cudaError_t launch_centre(int grid, size_t smem, cudaStream_t stream, Args... args) {
+template <int MAXM, bool WANT_W, class... Args>
+cudaError_t launch_centre(int grid, int M, cudaStream_t stream, Args... args) {
+  const size_t smem = centre_smem_bytes<MAXM>(M, WANT_W);
   const cudaError_t err = cudaFuncSetAttribute(
-      centre_kernel<WANT_W>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      centre_kernel<MAXM, WANT_W>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  centre_kernel<WANT_W><<<grid, BWD_WARPS * 32, smem, stream>>>(args...);
+  centre_kernel<MAXM, WANT_W><<<grid, BWD_WARPS * 32, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-template <bool WANT_W>
-cudaError_t centre_occupancy(int* n, int smem) {
+// The instantiation of the centre kernel for M slots and want_w.
+template <class... Args>
+cudaError_t launch_centre_for(int grid, int M, bool want_w, cudaStream_t stream,
+                              Args... args) {
+  switch (capacity_for(M)) {
+    case SMALL_M:
+      return want_w ? launch_centre<SMALL_M, true>(grid, M, stream, args...)
+                    : launch_centre<SMALL_M, false>(grid, M, stream, args...);
+    case MAX_M:
+      return want_w ? launch_centre<MAX_M, true>(grid, M, stream, args...)
+                    : launch_centre<MAX_M, false>(grid, M, stream, args...);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <int MAXM, bool WANT_W>
+cudaError_t centre_occupancy(int* n, int M) {
+  const int smem = int(centre_smem_bytes<MAXM>(M, WANT_W));
   const cudaError_t err = cudaFuncSetAttribute(
-      centre_kernel<WANT_W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      centre_kernel<MAXM, WANT_W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, centre_kernel<WANT_W>, BWD_WARPS * 32,
-                                                       smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, centre_kernel<MAXM, WANT_W>,
+                                                       BWD_WARPS * 32, smem);
 }
 
 }  // namespace
@@ -460,16 +480,13 @@ extern "C" int chgnet_conv_bwd(const float* ai2, const float* aj2, const float* 
                                float* h0, float* dh, float* lnpart, float* wpart, int C,
                                int n_pad, int M, int F_, int D, int want_w, int n_sm,
                                int chunk, cudaStream_t stream) {
-  if (F_ != F || n_sm < 1 || chunk < 1 || D < 1 || M < 1 || M > MAX_M)
+  if (F_ != F || n_sm < 1 || chunk < 1 || D < 1 || capacity_for(M) == 0)
     return int(cudaErrorInvalidValue);
-  const size_t smem = centre_smem_bytes(M, want_w);
   const Weights W{w2, wc1, wg1, bc1, bg1, lnc, lng};
   const int grid = grid_blocks(n_sm, BWD_BLOCKS_PER_SM, (long long)C * n_pad);
-  cudaError_t err =
-      want_w ? launch_centre<true>(grid, smem, stream, ai2, aj2, be, bw, maskf, nbr, W, gagg,
-                                   g_ai2, g_be, g_bw, dpre, h0, dh, lnpart, C, n_pad, M)
-             : launch_centre<false>(grid, smem, stream, ai2, aj2, be, bw, maskf, nbr, W, gagg,
-                                    g_ai2, g_be, g_bw, dpre, h0, dh, lnpart, C, n_pad, M);
+  cudaError_t err = launch_centre_for(grid, M, want_w != 0, stream, ai2, aj2, be, bw, maskf,
+                                      nbr, W, gagg, g_ai2, g_be, g_bw, dpre, h0, dh, lnpart, C,
+                                      n_pad, M);
   if (err != cudaSuccess) return int(err);
   neighbour_kernel<<<dim3(n_pad, C), F2, 0, stream>>>(dpre, maskf, rev, g_aj2, n_pad, M, D);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
@@ -489,9 +506,17 @@ extern "C" int chgnet_conv_bwd(const float* ai2, const float* aj2, const float* 
 // shared memory allow (the grid counts on BWD_BLOCKS_PER_SM); -1 on an
 // error.
 extern "C" int chgnet_conv_bwd_blocks_per_sm(int M, int want_w) {
-  const int smem = int(centre_smem_bytes(M, want_w));
   int n = -1;
-  const cudaError_t err = want_w ? centre_occupancy<true>(&n, smem)
-                                 : centre_occupancy<false>(&n, smem);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (capacity_for(M)) {
+    case SMALL_M:
+      err = want_w ? centre_occupancy<SMALL_M, true>(&n, M)
+                   : centre_occupancy<SMALL_M, false>(&n, M);
+      break;
+    case MAX_M:
+      err = want_w ? centre_occupancy<MAX_M, true>(&n, M)
+                   : centre_occupancy<MAX_M, false>(&n, M);
+      break;
+  }
   return err == cudaSuccess ? n : -1;
 }

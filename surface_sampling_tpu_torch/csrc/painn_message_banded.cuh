@@ -1,7 +1,9 @@
 // Windowed (banded) general PaiNN message, shared by
-// painn_message_fused_banded.cu (every centre of the sorted cell) and
+// painn_message_fused_banded.cu (every centre of the sorted cell),
 // painn_message_subset.cu (the centres of selected blocks, chosen per
-// chain). Batched over chains C and ensemble members K.
+// chain) and painn_message_fused.cu (the unbanded message: an identity
+// band, every window starting at 0 and W = n_pad, no halo). Batched over
+// chains C and ensemble members K.
 //
 // Replaces the body of surface_sampling_tpu/ops/pallas_painn.py,
 // _msg_kernel_banded. Slots are in the routing band's spatial order
@@ -115,8 +117,10 @@ __host__ __device__ constexpr size_t smem_words(int M, int n_blk) {
 // of n_rows read their window start from ws[c * ws_stride + blockIdx.x]:
 // ws_stride = 0 shares one table of starts over the chains (the full cell),
 // ws_stride = n_rows / n_blk gives every chain its own list of blocks (a
-// subset). Lane (g, t) = (lane / 4, lane % 4) holds, in the mma's
-// accumulator layout, edge rows g and g + 8 of a tile.
+// subset); ws = nullptr starts every window at 0 (with W = n_pad: the
+// identity band of the unbanded message). Lane (g, t) = (lane / 4,
+// lane % 4) holds, in the mma's accumulator layout, edge rows g and g + 8
+// of a tile.
 template <int R>
 __global__ void __launch_bounds__(THREADS, 2) message_kernel(
     const float* __restrict__ phi, const float* __restrict__ vcat,
@@ -135,7 +139,7 @@ __global__ void __launch_bounds__(THREADS, 2) message_kernel(
   const unsigned below = (1u << lane) - 1u;
   const int F3 = 3 * F;
   const int CE = cap_edges(M);
-  const int s = ws[size_t(c) * ws_stride + b];
+  const int s = ws ? ws[size_t(c) * ws_stride + b] : 0;
   const int row0 = b * n_blk;
   const size_t e_blk = (size_t(c) * n_rows + row0) * M;   // first edge slot of the block
 

@@ -185,6 +185,17 @@ class DeviceBand(NamedTuple):
         return self.perm.shape[0]
 
 
+def identity_band(n_pad: int, n_blk: int, device) -> DeviceBand:
+    """The band on which the banded general message is the unbanded one:
+    slots in their own order, every window starting at row 0 and n_pad
+    wide, no halo. ``painn_message_fused``'s kernel runs the banded body on
+    it; the tests and ``chip_smoke.py`` hold the two equal on it."""
+    ident = torch.arange(n_pad, device=device)
+    return DeviceBand(perm=ident, inv_perm=ident, rank=ident,
+                      win_start=torch.zeros(n_pad // n_blk, dtype=torch.int32, device=device),
+                      window=n_pad, halo=0, n_blk=n_blk)
+
+
 def stage_band(band: RoutingBand | None, device) -> DeviceBand | None:
     """Host RoutingBand -> DeviceBand on ``device`` (None passes through)."""
     if band is None:

@@ -36,6 +36,16 @@ wrapper takes the plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device; there is no fallback between the two.
 The kernels (``csrc/chgnet_conv*.cu``) are built at first use
 (``ops/cuda_build.py``).
+
+Limits of the kernels, refused before a launch (``_check_kernel``):
+
+- F = 64 (``KERNEL_F``): the kernels are built for one width, that of every
+  CHGNet checkpoint the repo loads (the weights are staged in tensor-core
+  fragment order for it).
+- M at most 256 slots a centre (``KERNEL_MAX_M``): the slot lists, ballots
+  and tile sums of a centre are sized by a compile-time capacity, built
+  twice, 128 (every system of the repo; ``lamno3_001_chgnet`` defaults to
+  M = 96) and 256; the C entries pick the smaller one that holds M.
 """
 
 from __future__ import annotations
@@ -53,10 +63,10 @@ from surface_sampling_tpu_torch.ops.cuda_build import check_inputs, launch
 
 # the kernels' width: one checkpoint's atom features (F = 64)
 KERNEL_F = 64
-# slots a centre the kernels take (a block lists its centre's live slots and
-# keeps their tile sums in shared memory), and the grid limit of the
-# neighbour pass
-KERNEL_MAX_M = 128
+# slots a centre the kernels take: the larger of the two slot-list
+# capacities they are built with (csrc/chgnet_conv.cuh, capacity_for)
+KERNEL_MAX_M = 256
+# chains: the grid limit of row 12's neighbour pass (a block per row and chain)
 MAX_CHAINS = 65535
 # edges per block of the weight-gradient pass (also sizes its partial sums)
 WGRAD_EDGES_PER_BLOCK = 2048
@@ -119,7 +129,8 @@ def _check_kernel(name, C, n_pad, M, F, *tensors):
     if F != KERNEL_F:
         raise ValueError(f"{name}: the kernel is built for F = {KERNEL_F}, got {F}")
     if M > KERNEL_MAX_M:
-        raise ValueError(f"{name}: M={M} slots a centre, the kernel takes at most {KERNEL_MAX_M}")
+        raise ValueError(f"{name}: M={M} slots a centre, the kernel takes at most "
+                         f"KERNEL_MAX_M = {KERNEL_MAX_M}")
     if C > MAX_CHAINS:
         raise ValueError(f"{name}: C={C} must be at most {MAX_CHAINS} (grid limit)")
     if C * n_pad >= 2 ** 31:

@@ -24,12 +24,17 @@ package. The same plain math, :func:`cheb_rho_ep`, is the ``"cheb"`` mode of
 
 The TPU kernel forms the pair endpoints and the per-atom sum as dense 0/1
 (N, N*M) matrix products on the MXU. The CUDA kernel
-(``csrc/eam_rho_ep.cu``) gathers the neighbour's position by index from
-the table staged in shared memory and reduces each centre's M pairs in a
-fixed order (a warp per row, lane-strided pairs, a shuffle tree), so
-results repeat bitwise. A wrapper takes the plain version for CPU tensors
-and launches the kernel for CUDA tensors; there is no fallback between
-the two. Energy only, as in the JAX package: there is no backward.
+(``csrc/eam_rho_ep.cu``) evaluates the two series on live pairs only: a
+warp stages one chain in shared memory, walks its alive centres, compacts
+each one's live pairs (cheap passes of the j >= 0, alive and cutoff
+tests) into a ring in shared memory, and evaluates them 32 at a time, the
+pairs of several centres sharing a round; each centre's terms are summed
+in ascending slot order and a fixed tree, so results repeat bitwise. A
+dead pair's shift and a dead slot's position are never read. The
+candidate table is read through L1. A wrapper takes the plain version for
+CPU tensors and launches the kernel for CUDA tensors; there is no fallback
+between the two. Energy only, as in the JAX package: there is no
+backward.
 """
 
 from __future__ import annotations
@@ -55,8 +60,7 @@ from surface_sampling_tpu_torch.potentials.base import Potential
 DEGREE = 24
 R_LO = 0.8
 N_FIT = 30000
-# chains per block of the kernel: the block stages the candidate table
-# once (49 kB at Cu(100) 2x2x2) for this many chains
+# chains per block of the kernel (its warps take them in turn, a chain a warp)
 CHAINS_PER_BLOCK = 16
 
 

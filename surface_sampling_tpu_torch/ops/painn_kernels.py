@@ -210,6 +210,14 @@ def painn_message_fused(phi, vcat, rbf, envm, nbr, unit, dw, db, rev=None):
     :func:`painn_message_bwd2`: the block is twice differentiable, as
     force-loss training needs (grad over parameters of a loss holding
     F = -dE/dx). A third order raises.
+
+    The kernel (``csrc/painn_message_fused.cu``) is the banded message's
+    body on an identity band: it sums each centre's live edges (envm != 0)
+    only, in one fixed order, giving a centre the bits
+    :func:`painn_message_fused_banded` gives it on an identity band; a dead
+    edge's rbf, unit and nbr are never read. It takes R of 8, 16 or 24 and
+    F a multiple of 16 (:func:`_check_banded_kernel`), refused before a
+    launch.
     """
     return _MessageFused.apply(phi, vcat, rbf, envm, nbr, unit, dw, db, rev)
 
@@ -228,7 +236,7 @@ def _message_fused_forward(phi, vcat, rbf, envm, nbr, unit, dw, db):
            dw=(dw, f32, (K, R, F3)), db=(db, f32, (K, F3)))
     if dev.type == "cpu":
         return painn_message_fused_plain(phi, vcat, rbf, envm, nbr, unit, dw, db)
-    _check_grid("painn_message_fused", C, K, R)
+    _check_banded_kernel("painn_message_fused", C, K, R, F, phi, vcat, rbf, db)
     ds = torch.empty((C, K, n_pad, F), dtype=f32, device=dev)
     dv = torch.empty((C, K, n_pad, F3), dtype=f32, device=dev)
     _launch("painn_message_fused",
@@ -664,7 +672,7 @@ def _check_banded(name, phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, ws, ws_
 
 
 def _check_banded_kernel(name, C, K, R, F, *tables):
-    """Limits of rows 7 and 8: the radial width is 8, 16 or 24 (a whole
+    """Limits of rows 2, 7 and 8: the radial width is 8, 16 or 24 (a whole
     number of the tensor-core step, and the widths the kernel is built for),
     the channels a whole number of the kernel's 16-channel slice, and every
     table it reads 16 bytes at a time (phi, vcat, rbf, db) 16-byte aligned.

@@ -18,7 +18,8 @@ The card tests (``tests/test_torch_cuda_kernels.py``) hold the kernels
 themselves to these on the GPU, with NaN in the masked edges' be and bw; the
 last test here pins the limits the wrappers check before a launch. The toy
 shapes and seeded inputs of ``tests/test_torch_chgnet_kernels.py`` (F = M =
-8), on one torch thread.
+8), and a case past the kernels' first slot-list capacity (M = 160, one
+chain of 8 centres), on one torch thread.
 """
 
 import jax.numpy as jnp
@@ -43,20 +44,30 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def case():
+def _case(seed, n_chains, n_pad, m):
     """Inputs (numpy), a copy whose masked edges carry random finite be and
     bw, and the cotangent of agg."""
-    rng = np.random.default_rng(31)
-    x = _inputs(rng, C, N_PAD)
+    rng = np.random.default_rng(seed)
+    x = _inputs(rng, n_chains, n_pad, m=m)
     dead = x["maskf"] == 0
     assert dead.any() and (~dead).any()
     y = dict(x)
     for k in ("be", "bw"):
         y[k] = np.where(dead[..., None], 10 * rng.normal(size=x[k].shape), x[k]).astype(np.float32)
         assert (y[k] != x[k]).any()
-    gagg = rng.normal(size=(C, N_PAD, F)).astype(np.float32)
-    return dict(x=x, replaced=y, gagg=gagg, dead=torch.as_tensor(dead))
+    gagg = rng.normal(size=(n_chains, n_pad, F)).astype(np.float32)
+    return dict(x=x, replaced=y, gagg=gagg, dead=torch.as_tensor(dead), chains=n_chains)
+
+
+@pytest.fixture(scope="module")
+def case():
+    return _case(31, C, N_PAD, 8)
+
+
+@pytest.fixture(scope="module")
+def case_m160():
+    """M = 160 slots a centre: past the kernels' 128-slot instantiation."""
+    return _case(37, 1, 8, 160)
 
 
 def test_masked_edges_leave_the_plain_conv_unchanged(case):
@@ -79,24 +90,28 @@ def test_plain_bond_cotangents_are_zero_at_masked_edges(case):
         assert bool((g[2][case["dead"]] == 0).all()) and bool((g[3][case["dead"]] == 0).all())
 
 
+@pytest.mark.parametrize("m", [8, 160])
 @pytest.mark.parametrize("part", ["forward", "backward"])
 @pytest.mark.parametrize("replaced", [False, True])
-def test_plain_conv_matches_pallas(case, part, replaced):
+def test_plain_conv_matches_pallas(request, m, part, replaced):
     """Rows 10 and 12's plain versions against the JAX Pallas kernels
     (``_conv_pallas``, ``_conv_bwd_pallas``; interpret mode, routing="f32"),
     each chain against one JAX call, with the masked edges' be and bw as
-    drawn or replaced."""
+    drawn or replaced; at M = 8 and at M = 160 slots a centre."""
+    case = request.getfixturevalue("case" if m == 8 else "case_m160")
     x = case["replaced" if replaced else "x"]
+    n_chains = case["chains"]
     if part == "forward":
         got = ck.chgnet_conv_plain(*_torch_args(x)).numpy()
-        for c in range(C):
+        for c in range(n_chains):
             want = pc._conv_pallas(*_jax_args(x, c), n_blk=8, routing="f32")
             np.testing.assert_allclose(got[c], np.asarray(want), **TOL)
         return
     gagg = case["gagg"]
     got = ck.chgnet_conv_bwd_plain(*_torch_args(x), torch.as_tensor(gagg))
     per_chain = [_live_halves(pc._conv_bwd_pallas(*_jax_args(x, c), jnp.asarray(gagg[c]),
-                                                  n_blk=8, routing="f32")) for c in range(C)]
+                                                  n_blk=8, routing="f32"))
+                 for c in range(n_chains)]
     for k, name in enumerate(ck.GRAD_NAMES):
         want = (np.stack([g[k] for g in per_chain]) if k < 4
                 else sum(g[k] for g in per_chain))
@@ -113,7 +128,7 @@ def test_conv_kernel_limits_raise():
     ck._check_kernel("row", 8, 288, ck.KERNEL_MAX_M, 64, x, x[4:])
     with pytest.raises(ValueError, match="built for F = 64, got 32"):
         ck._check_kernel("row", 8, 288, 96, 32)
-    with pytest.raises(ValueError, match="M=129 slots a centre"):
+    with pytest.raises(ValueError, match=f"M={ck.KERNEL_MAX_M + 1} slots a centre"):
         ck._check_kernel("row", 8, 288, ck.KERNEL_MAX_M + 1, 64)
     with pytest.raises(ValueError, match="grid limit"):
         ck._check_kernel("row", ck.MAX_CHAINS + 1, 288, 96, 64)
@@ -122,3 +137,16 @@ def test_conv_kernel_limits_raise():
     with pytest.raises(ValueError, match="16-byte boundary"):
         ck._check_kernel("row", 8, 288, 96, 64, x, x[1:])
 
+
+
+def test_conv_kernel_takes_m_past_128_and_names_its_limits():
+    """The kernels are built at two slot-list capacities, 128 and 256: M =
+    160 passes the wrapper's checks; one slot more than KERNEL_MAX_M, and F
+    other than KERNEL_F, are refused with messages naming the limit."""
+    x = torch.zeros(64)
+    assert ck.KERNEL_MAX_M == 256 and ck.KERNEL_F == 64
+    ck._check_kernel("row", 8, 288, 160, 64, x, x[4:])
+    with pytest.raises(ValueError, match="at most KERNEL_MAX_M = 256"):
+        ck._check_kernel("row", 8, 288, 257, 64)
+    with pytest.raises(ValueError, match="built for F = 64, got 128"):
+        ck._check_kernel("row", 8, 288, 160, 128)

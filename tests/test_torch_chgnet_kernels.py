@@ -37,10 +37,10 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _inputs(rng, C, n_pad, nbr=None):
+def _inputs(rng, C, n_pad, nbr=None, m=M):
     """Seeded conv inputs (numpy): per-chain tensors with a leading chain
-    axis, and the live-half weights."""
-    E = n_pad * M
+    axis (m edge slots a centre), and the live-half weights."""
+    E = n_pad * m
 
     def rn(*shape):
         return rng.normal(size=shape).astype(np.float32)

@@ -82,7 +82,7 @@ def test_message_l1_kernel_matches_plain(cuda_device, R):
     _assert_close(got, pk.painn_message_l1_plain(*args))
 
 
-@pytest.mark.parametrize("R", [16, 24])
+@pytest.mark.parametrize("R", [8, 16, 24])
 def test_message_fused_kernel_matches_plain(cuda_device, R):
     x = _inputs(cuda_device, R=R, seed=1)
     rn, C, K, n_pad, F = x["rn"], x["C"], x["K"], x["n_pad"], x["F"]
@@ -92,6 +92,52 @@ def test_message_fused_kernel_matches_plain(cuda_device, R):
     got = pk.painn_message_fused(*args)
     assert pk.painn_message_fused.launches == before + 1
     _assert_close(got, pk.painn_message_fused_plain(*args))
+
+
+def _message_case(dev, C, K, n_pad, M, R, F, seed, prefix=False):
+    """Row 2's inputs with ~60% dead edges (envm == 0), scattered over the
+    slots or the live ones a prefix of each centre's slots."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
+    E = n_pad * M
+    live = torch.rand((C, n_pad, M), generator=g, device=dev) > 0.6
+    if prefix:
+        live = torch.arange(M, device=dev) < live.sum(-1, keepdim=True)
+    envm = (rn(C, n_pad, M).abs() * live).reshape(C, E).contiguous()
+    nbr = torch.randint(0, n_pad, (C, E), generator=g, device=dev, dtype=torch.int32)
+    return (rn(C, K, n_pad, 3 * F), rn(C, K, n_pad, 3 * F), rn(C, E, R), envm, nbr,
+            rn(C, 3, n_pad, M), rn(K, R, 3 * F), rn(K, 3 * F)), g
+
+
+@pytest.mark.parametrize("shape", [(3, 2, 32, 16, 24, 128), (4, 3, 128, 64, 24, 128),
+                                   (16, 1, 64, 64, 8, 64)])
+@pytest.mark.parametrize("prefix", [False, True])
+def test_message_fused_is_the_banded_message_on_an_identity_band(cuda_device, shape, prefix):
+    """Row 2 equals row 7 on an identity band (every window at row 0, n_pad
+    wide, no halo) bitwise, repeats bitwise, and ignores what its dead edges
+    (envm == 0) hold: NaN rbf and unit, out-of-range nbr leave ds and dv
+    bitwise unchanged. Shapes: the card tests', the flagship's (n_pad 128,
+    M 64, three members) and a training step's (16 frames of n_pad 64, one
+    member)."""
+    from surface_sampling_tpu_torch.ops.banding import identity_band
+
+    C, K, n_pad, M, R, F = shape
+    args, g = _message_case(cuda_device, C, K, n_pad, M, R, F, seed=21, prefix=prefix)
+    got = pk.painn_message_fused(*args)
+    again = pk.painn_message_fused(*args)
+    band = pk.painn_message_fused_banded(*args, identity_band(n_pad, 16, cuda_device))
+    for a, b, c in zip(got, again, band):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    _assert_close(got, pk.painn_message_fused_plain(*args))
+    phi, vcat, rbf, envm, nbr, unit, dw, db = args
+    dead = envm == 0
+    nan = float("nan")
+    dirty = (phi, vcat, torch.where(dead[..., None], nan, rbf), envm,
+             torch.where(dead, torch.randint(-10 ** 6, 10 ** 6, nbr.shape, generator=g,
+                                             device=cuda_device, dtype=torch.int32), nbr),
+             torch.where(dead.reshape(C, 1, n_pad, M), nan, unit), dw, db)
+    for a, b in zip(got, pk.painn_message_fused(*dirty)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("n_pad", [32, 36])
@@ -486,14 +532,16 @@ def test_chgnet_conv_kernel_matches_plain(cuda_device):
     assert torch.equal(got, ck.chgnet_conv(*args))
 
 
-def test_chgnet_conv_banded_kernel_matches_plain(cuda_device):
+@pytest.mark.parametrize("M", [40, 160])
+def test_chgnet_conv_banded_kernel_matches_plain(cuda_device, M):
     """Row 11 on a synthetic band (every block's neighbours in a 16-wide
     window of n_pad 32, an 8-row halo) against its plain version and, on
-    the same edges, against row 10."""
+    the same edges, against row 10; M = 160 runs the 256-slot
+    instantiation."""
     from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
     from surface_sampling_tpu_torch.ops.banding import DeviceBand
 
-    n_pad, n_blk, window, halo, M, C = 32, 8, 16, 8, 40, 2
+    n_pad, n_blk, window, halo, C = 32, 8, 16, 8, 2
     args, _ = _conv_inputs(cuda_device, C=C, n_pad=n_pad, M=M, dead_rows=0)
     g = torch.Generator(device=cuda_device).manual_seed(8)
     ws = torch.tensor([0, 8, 16, 24], dtype=torch.int32, device=cuda_device)
@@ -561,10 +609,11 @@ def test_chgnet_conv_bwd_reverse_table_may_list_masked_edges(cuda_device):
 
 
 # Shapes of the live-edge cases: M not a multiple of the 16-edge tile; a
-# centre whose live edges span 8 tiles (M at the kernels' limit, more tiles
-# than a block has warps); a work list of 4,800 (chain, centre) items, many
-# for every block of the grid.
-CONV_SHAPES = [(3, 36, 40), (2, 20, 128), (16, 300, 24)]
+# centre whose live edges span 8 tiles (M at the 128-slot instantiation's
+# limit, more tiles than a block has warps); a work list of 4,800 (chain,
+# centre) items, many for every block of the grid; M = 160 and 256, the
+# 256-slot instantiation (up to 16 tiles a centre).
+CONV_SHAPES = [(3, 36, 40), (2, 20, 128), (16, 300, 24), (2, 20, 160), (2, 12, 256)]
 
 
 def _masked_nan_case(dev, C, n_pad, M, seed):
@@ -623,6 +672,45 @@ def test_chgnet_conv_bwd_kernel_never_loads_masked_edges(cuda_device, C, n_pad, 
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("want_weights", [False, True])
+def test_chgnet_conv_instantiations_agree_bitwise(cuda_device, want_weights):
+    """The same live edges at M = 96 (the 128-slot instantiation) and padded
+    with 64 masked slots to M = 160 (the 256-slot one): rows 10 and 12 give
+    the same bits (a centre's sums run over its live edges in tile order),
+    g_be / g_bw exactly 0 at the padding; the five weight cotangents summed
+    over chunks of edge slots (whose bounds move with M) within tolerance."""
+    from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
+
+    C, n_pad, M, pad = 3, 36, 96, 64
+    args, rn = _conv_inputs(cuda_device, C=C, n_pad=n_pad, M=M, seed=23)
+
+    def widen(t):
+        t = t.reshape(C, n_pad, M, *t.shape[2:])
+        z = torch.zeros((C, n_pad, pad, *t.shape[3:]), dtype=t.dtype, device=t.device)
+        return torch.cat([t, z], dim=2).reshape(C, n_pad * (M + pad), *t.shape[3:]).contiguous()
+
+    wide = list(args)
+    for k in (2, 3, 4, 5):
+        wide[k] = widen(args[k])
+    assert torch.equal(ck.chgnet_conv(*args), ck.chgnet_conv(*wide))
+    gagg = rn(C, n_pad, ck.KERNEL_F)
+    got = ck.chgnet_conv_bwd(*args, gagg, rev=reverse_table(args[5], args[4] != 0, n_pad),
+                             want_weights=want_weights)
+    got_w = ck.chgnet_conv_bwd(*wide, gagg, rev=reverse_table(wide[5], wide[4] != 0, n_pad),
+                               want_weights=want_weights)
+    n = 11 if want_weights else 4
+    for k in range(n):
+        a, b = got[k], got_w[k]
+        if k in (2, 3):   # g_be, g_bw: per edge slot
+            b = b.reshape(C, n_pad, M + pad, -1)
+            assert bool((b[:, :, M:] == 0).all())
+            b = b[:, :, :M].reshape(a.shape)
+        if 4 <= k <= 8:
+            _assert_close([b], [a])
+        else:
+            assert torch.equal(a, b), ck.GRAD_NAMES[k]
+
+
 def test_lamno3_energy_and_forces_on_card_match_cpu(cuda_device):
     """lamno3_001_chgnet through rows 10 and 12: the pristine anchor and a
     state with one OH, energies and forces card vs CPU within 1e-3 eV and
@@ -677,11 +765,11 @@ def _eam_case(dev, system: str, n_chains: int, seed: int):
     return pot, st.realize_positions(d, ss), st.realize_type_idx(d, ss), st.realize_alive(d, ss)
 
 
-@pytest.mark.parametrize("system,n_chains", [("cu", 37), ("au", 70)])
+@pytest.mark.parametrize("system,n_chains", [("cu", 37), ("au", 70), ("cu", 4099)])
 def test_eam_kernel_matches_plain(cuda_device, system, n_chains):
     """Row 13 against its plain version (chain counts that are not a
-    multiple of the kernel's 16-chain block), one launch a call, bitwise
-    on repeat."""
+    multiple of the kernel's 16-chain block; 4,099 spans 257 blocks), one
+    launch a call, bitwise on repeat."""
     from surface_sampling_tpu_torch.ops import eam_kernels as ek
 
     pot, pos, _, alive = _eam_case(cuda_device, system, n_chains, seed=n_chains)
@@ -691,6 +779,25 @@ def test_eam_kernel_matches_plain(cuda_device, system, n_chains):
     assert ek.eam_rho_ep.launches == before + 1
     _assert_close(got, ek.eam_rho_ep_plain(*args))
     for a, b in zip(got, ek.eam_rho_ep(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("system", ["cu", "au"])
+def test_eam_kernel_never_reads_dead_pairs(cuda_device, system):
+    """NaN in the shift of every padding pair (kernel_j == -1) and in the
+    positions of every dead slot changes no bit of rho and ep: the kernel
+    tests j >= 0 and aliveness before it reads a shift or a position."""
+    from surface_sampling_tpu_torch.ops import eam_kernels as ek
+
+    pot, pos, _, alive = _eam_case(cuda_device, system, 70, seed=3)
+    pos, alive_f, pairs = pos.contiguous(), alive.float(), pot.pairs
+    assert bool((pairs.kernel_j < 0).any()) and bool((alive_f == 0).any())
+    got = ek.eam_rho_ep(pos, alive_f, pairs, pot.cheb)
+    nan = float("nan")
+    dirty_pairs = pairs._replace(
+        shift=torch.where((pairs.kernel_j < 0)[..., None], nan, pairs.shift).contiguous())
+    dirty_pos = torch.where((alive_f == 0)[..., None], nan, pos).contiguous()
+    for a, b in zip(got, ek.eam_rho_ep(dirty_pos, alive_f, dirty_pairs, pot.cheb)):
         assert torch.equal(a, b)
 
 

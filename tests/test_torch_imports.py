@@ -46,7 +46,8 @@ def test_no_import_of_the_jax_package_or_jax():
     """Neither the port nor the scripts that drive it on the card import the
     JAX package or JAX."""
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                           REPO / "tools" / "port_profile.py"]
+                                           REPO / "tools" / "port_profile.py",
+                                           REPO / "tools" / "port_compare.py"]
     assert len(files) >= 20
     for path in files:
         for name in _imports(path):

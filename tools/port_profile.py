@@ -49,16 +49,32 @@ the span on the device timeline of each of the forward's stages (the
 their calls). The last line of its output is all
 of it as one JSON object. Each window runs twice untraced first.
 
-Two more modes, for the CHGNet atom conv (rows 10-12) and the tensor cores:
+Two more modes, for the redesigned kernels (rows 2, 10-13) and the tensor
+cores:
 
-  --variants [NAME ...]   one-edit variants of rows 10-12 (edits of a copy
-      of csrc/, built into _build/variants/, loaded in place of the built
-      kernels), timed in turns by CUDA events at chip_smoke.py's shapes: row
-      10 at paths A and B, row 11 at path C, row 12 at path B, two rounds,
-      the second in reverse order; each variant's largest difference from
-      the sources. Built in: one_pass (one TF32 pass), no_mma, no_act
-      (sigmoid(x) = x), fwd_4x3 (rows 10 / 11 at 4 warps x 3 blocks an SM),
-      bwd_8x1 (row 12 at 8 x 1), clk (clock64 marks: warp clocks by phase).
+  --variants [NAME ...]   one-edit variants of rows 2 and 10-13 (edits of a
+      copy of csrc/, built into _build/variants/, loaded in place of the
+      built kernels), timed in turns by CUDA events at chip_smoke.py's
+      shapes: row 10 at paths A and B, row 11 at path C, row 12 at path B,
+      row 2 at the 1x1 rigid path's (128 chains) and a training step's (16
+      frames, one member), row 13 at Cu (16,384 chains) and Au (1,024); two
+      rounds, the second in reverse order; each variant's largest
+      difference from the sources. A variant builds and times only the
+      kernels its edits reach (``FILE_KERNELS``); base builds and times them
+      all. Built in: one_pass (one TF32 pass), no_mma, no_act (sigmoid(x) =
+      x), fwd_4x3 (rows 10 / 11 at 4 warps x 3 blocks an SM), bwd_8x1 (row
+      12 at 8 x 1), clk (clock64 marks: warp clocks by phase); msg_blk16 /
+      msg_blk8 / msg_blk2 / msg_blk1 (row 2 at 16 / 8 / 2 / 1 centres a
+      block, not 4), msg_ident (row 2 without the window arithmetic);
+      eam_stage (row 13 with the candidate table staged in shared memory
+      once per resident block, a persistent grid walking the chains), eam_4w
+      / eam_8w (row 13 at 4 / 8 warps a block, not 16), eam_u1 / eam_u4 (its
+      candidate loads one / four chunks of 32 at a time, not two), eam_cv25
+      / eam_cv50 (a shared-memory carveout of 25 / 50% of the most, the rest
+      L1), eam_lb3 / eam_8w_lb6 (registers capped for 3 blocks of 16 warps /
+      6 of 8 an SM), eam_noseries (both series left out: the candidate pass,
+      the compaction and the sums), eam_clk (row 13's warp clocks by phase,
+      over its alive centres).
       --variants --spec FILE takes {name: [[file, old, new], ...]} instead.
   --mma-peak   mma.sync throughput: TF32 m16n8k8 with 1, 4, 8 accumulators
       a warp, BF16 m16n8k16, and the conv's inner loop (B from shared
@@ -91,7 +107,8 @@ SC44_CHAINS = 32
 SC33_CHAINS = 16
 CHG_CHAINS, CHG_RELAX_CHAINS = 64, 8    # chip_smoke.py's paths A and B
 CU_CHAINS, CU_RELAX_CHAINS, AU_CHAINS = 16384, 1024, 1024   # chip_smoke.py's EAM paths
-# the kernels of rows 2, 4 and 5 by their names in a trace
+# the kernels of rows 2, 4 and 5 by their names in a trace (row 2 runs the
+# banded body, banded::message_kernel, which row 7 runs too)
 TRAIN_ROWS = {"row 2 painn_message_fused": "message_kernel",
               "row 4 painn_message_bwd": "msgbwd::", "row 5 painn_message_bwd2": "msgbwd2::"}
 # the kernels of rows 10 and 12 (centre and neighbour pass) by their names
@@ -258,10 +275,74 @@ def train_step_window(dev) -> dict:
 
 
 # ----------------------------------------------------------------------
-# --variants: one-edit variants of rows 10-12 timed in turns
+# --variants: one-edit variants of rows 2 and 10-13 timed in turns
 # ----------------------------------------------------------------------
 HDR, BWD_SRC, MMA_HDR = "chgnet_conv.cuh", "chgnet_conv_bwd.cu", "tf32_mma.cuh"
+MSG_SRC, BANDED_HDR, EAM_SRC = ("painn_message_fused.cu", "painn_message_banded.cuh",
+                                "eam_rho_ep.cu")
 CONV_KERNELS = ("chgnet_conv", "chgnet_conv_banded", "chgnet_conv_bwd")
+# the kernels an edited file reaches (a variant builds and times only those)
+FILE_KERNELS = {HDR: CONV_KERNELS, BWD_SRC: ("chgnet_conv_bwd",),
+                MMA_HDR: CONV_KERNELS + ("painn_message_fused",),
+                MSG_SRC: ("painn_message_fused",), BANDED_HDR: ("painn_message_fused",),
+                EAM_SRC: ("eam_rho_ep",)}
+ALL_KERNELS = CONV_KERNELS + ("painn_message_fused", "eam_rho_ep")
+# row 13 with the candidate table staged in shared memory once per resident
+# block, and a persistent grid of blocks walking the chains
+EAM_STAGE = [
+    [EAM_SRC, "  float* s_a = s_z + N;\n", """  float* s_a = s_z + N;
+  int* s_tj = reinterpret_cast<int*>(reinterpret_cast<char*>(smem) +
+                                     n_warps * warp_smem_bytes(cap, N, M));
+  float* s_tsh = reinterpret_cast<float*>(s_tj + N * M);
+  for (int t = threadIdx.x; t < N * M; t += blockDim.x) s_tj[t] = kernel_j[t];
+  for (int t = threadIdx.x; t < 3 * N * M; t += blockDim.x) s_tsh[t] = shift[t];
+  __syncthreads();
+"""],
+    [EAM_SRC, "__ldg(kernel_j + i * M + m)", "s_tj[i * M + m]"],
+    [EAM_SRC, "__ldg(shift + 3 * p)", "s_tsh[3 * p]"],
+    [EAM_SRC, "__ldg(shift + 3 * p + 1)", "s_tsh[3 * p + 1]"],
+    [EAM_SRC, "__ldg(shift + 3 * p + 2)", "s_tsh[3 * p + 2]"],
+    [EAM_SRC, """  const int c_end = min(C, int(blockIdx.x + 1) * cpb);
+  for (int c = int(blockIdx.x) * cpb + warp; c < c_end; c += n_warps) {""",
+     """  for (int grp = blockIdx.x; grp < (C + cpb - 1) / cpb; grp += gridDim.x) {
+  const int c_end = min(C, (grp + 1) * cpb);
+  for (int c = grp * cpb + warp; c < c_end; c += n_warps) {"""],
+    [EAM_SRC, """    retire(w, rho_out, ep_out);
+  }
+}""", """    retire(w, rho_out, ep_out);
+  }
+  }
+}"""],
+    [EAM_SRC, "  const size_t smem = n_warps * warp_smem_bytes(cap, N, M);",
+     "  const size_t smem = n_warps * warp_smem_bytes(cap, N, M) + size_t(16) * N * M;"],
+    [EAM_SRC, "  const int blocks = (C + cpb - 1) / cpb;",
+     """  int blocks = (C + cpb - 1) / cpb, dev = 0, n_sm = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rho_ep_kernel, n_warps * 32, smem);
+  if (blocks > n_sm * per_sm) blocks = n_sm * per_sm;"""],
+]
+# row 13's clock64 marks: each lane adds its clocks by phase in registers,
+# lane 0 of each warp posts them once at the end
+EAM_CLK_DEFS = """
+__device__ unsigned long long g_clk[16];
+#define CLK(i) { const long long now_ = clock64(); clk_acc[i] += now_ - t_prev; t_prev = now_; }
+extern "C" int read_clk(unsigned long long* out) {
+  return int(cudaMemcpyFromSymbol(out, g_clk, sizeof(g_clk)));
+}
+extern "C" int reset_clk() {
+  unsigned long long z[16] = {};
+  return int(cudaMemcpyToSymbol(g_clk, z, sizeof(z)));
+}
+"""
+EAM_WARPS = "constexpr int NWARP = 16; "
+EAM_SMEM = """  cudaError_t err = cudaFuncSetAttribute(
+      rho_ep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+"""
+EAM_CARVEOUT = ("  cudaFuncSetAttribute(rho_ep_kernel,\n"
+                "                       cudaFuncAttributePreferredSharedMemoryCarveout, {});\n")
+MSG_BLK = "  int n_blk = 4;\n"
+MSG_WINDOW = "  return envm[e] == 0.f ? -1 : window_row(nbr[e], s, n_pad, W);"
 FWD_PLAN = ("constexpr int FWD_WARPS = 6;   // warps a block of the forward (rows 10, 11)\n"
             "constexpr int FWD_BLOCKS_PER_SM = 2;")
 BWD_PLAN = ("constexpr int BWD_WARPS = 4;   // warps a block of the centre kernel\n"
@@ -284,11 +365,31 @@ extern "C" int reset_clk() {
 """
 CLK_FWD = ["compaction (warp 0) + barrier", "tile_pre", "hidden products",
            "elementwise + tile sums", "barrier", "agg"]
+CLK_EAM = ["chain staging", "candidate list (j, alive)", "distances + append", "series",
+           "centre sums", "queue push"]
 CLK_BWD = ["g_ai2 + compaction (warp 0) + barrier + zeros", "tile_pre + silu'",
            "hidden products", "LayerNorm backward", "dpre products + store", "tile sums",
            "g_be product", "barrier"]
 VARIANTS = {
     "base": [],
+    "msg_blk16": [[MSG_SRC, MSG_BLK, MSG_BLK.replace("4", "16")]],
+    "msg_blk8": [[MSG_SRC, MSG_BLK, MSG_BLK.replace("4", "8")]],
+    "msg_blk2": [[MSG_SRC, MSG_BLK, MSG_BLK.replace("4", "2")]],
+    "msg_blk1": [[MSG_SRC, MSG_BLK, MSG_BLK.replace("4", "1")]],
+    "msg_ident": [[BANDED_HDR, MSG_WINDOW, "  return envm[e] == 0.f ? -1 : nbr[e];"]],
+    "eam_stage": EAM_STAGE,
+    "eam_4w": [[EAM_SRC, EAM_WARPS, EAM_WARPS.replace("16", "4")]],
+    "eam_8w": [[EAM_SRC, EAM_WARPS, EAM_WARPS.replace("16", "8")]],
+    "eam_u1": [[EAM_SRC, "constexpr int U = 2; ", "constexpr int U = 1; "]],
+    "eam_u4": [[EAM_SRC, "constexpr int U = 2; ", "constexpr int U = 4; "]],
+    "eam_cv25": [[EAM_SRC, EAM_SMEM, EAM_SMEM + EAM_CARVEOUT.format(25)]],
+    "eam_cv50": [[EAM_SRC, EAM_SMEM, EAM_SMEM + EAM_CARVEOUT.format(50)]],
+    "eam_lb3": [[EAM_SRC, "__global__ void __launch_bounds__(NWARP * 32)\n",
+                 "__global__ void __launch_bounds__(NWARP * 32, 3)\n"]],
+    "eam_8w_lb6": [[EAM_SRC, EAM_WARPS, EAM_WARPS.replace("16", "8")],
+                   [EAM_SRC, "__global__ void __launch_bounds__(NWARP * 32)\n",
+                    "__global__ void __launch_bounds__(NWARP * 32, 6)\n"]],
+    "eam_noseries": [[EAM_SRC, "    *e = pair_terms(e->x);", "    *e = make_float2(e->x, e->x);"]],
     "one_pass": [[MMA_HDR, MMA3, "  mma_tf32(d, ah, bh);"]],
     "no_mma": [[MMA_HDR, MMA3, "  d[0] += __uint_as_float(ah[0] ^ al[1] ^ bh[0] ^ bl[1]);"]],
     "no_act": [[HDR, "float sigmoid(float x) { return __fdividef(1.f, 1.f + __expf(-x)); }",
@@ -297,6 +398,28 @@ VARIANTS = {
                  .replace("PER_SM = 2", "PER_SM = 3")]],
     "bwd_8x1": [[BWD_SRC, BWD_PLAN, BWD_PLAN.replace("WARPS = 4", "WARPS = 8")
                  .replace("PER_SM = 2", "PER_SM = 1")]],
+    "eam_clk": [
+        [EAM_SRC, "#include <cuda_runtime.h>\n", "#include <cuda_runtime.h>\n" + EAM_CLK_DEFS],
+        [EAM_SRC, "  float* s_a = s_z + N;\n", "  float* s_a = s_z + N;\n"
+         "  long long t_prev = clock64(), clk_acc[6] = {}, n_centres = 0;\n"],
+        [EAM_SRC, "    w.tail = w.done = w.qh = w.qt = 0;\n",
+         "    w.tail = w.done = w.qh = w.qt = 0;\n    CLK(0)\n"],
+        [EAM_SRC, "        __syncwarp();\n        // their distances",
+         "        __syncwarp();\n        CLK(1)\n        // their distances"],
+        [EAM_SRC, "          w.tail += __popc(bal);\n          __syncwarp();\n",
+         "          w.tail += __popc(bal);\n          __syncwarp();\n          CLK(2)\n"],
+        [EAM_SRC, "            evaluate(w, 32);\n            retire(w, rho_out, ep_out);\n",
+         "            evaluate(w, 32);\n            CLK(3)\n"
+         "            retire(w, rho_out, ep_out);\n"
+         "            CLK(4)\n"],
+        [EAM_SRC, "          ep_out[row0 + i] = 0.f;\n        }\n",
+         "          ep_out[row0 + i] = 0.f;\n        }\n        CLK(5)\n        ++n_centres;\n"],
+        [EAM_SRC, "    retire(w, rho_out, ep_out);\n  }\n}",
+         "    retire(w, rho_out, ep_out);\n  }\n"
+         "  if (lane == 0) {\n    for (int k = 0; k < 6; ++k) atomicAdd(&g_clk[k], "
+         "(unsigned long long)clk_acc[k]);\n"
+         "    atomicAdd(&g_clk[15], (unsigned long long)n_centres);\n  }\n}"],
+    ],
     "clk": [
         [HDR, "using namespace tf32mma;\n", "using namespace tf32mma;\n" + CLK_DEFS],
         [HDR, "  const WorkList list{work, n_items, cs.s_item};\n  __syncthreads();\n",
@@ -338,9 +461,17 @@ VARIANTS = {
 }
 
 
+def variant_kernels(edits) -> tuple:
+    """The kernels a variant's edits reach; all of them for the sources."""
+    if not edits:
+        return ALL_KERNELS
+    return tuple(k for k in ALL_KERNELS if any(k in FILE_KERNELS[f] for f, _, _ in edits))
+
+
 def build_variants(spec: dict) -> dict:
-    """Apply each variant's edits to a copy of csrc/ and build its three
-    libraries, all nvcc processes at once. Returns {(variant, kernel): path}."""
+    """Apply each variant's edits to a copy of csrc/ and build the libraries
+    they reach, all nvcc processes at once. Returns {(variant, kernel):
+    path}."""
     import chip_smoke as cs
     from surface_sampling_tpu_torch.ops import cuda_build as cb
 
@@ -356,7 +487,7 @@ def build_variants(spec: dict) -> dict:
             continue
         for f, old, new in edits:
             (src / f).write_text((src / f).read_text().replace(old, new))
-        for k in CONV_KERNELS:
+        for k in variant_kernels(edits):
             out = src / f"lib{k}.so"
             procs.append((name, k, out, subprocess.Popen(
                 [cb._nvcc(), *cb.NVCC_FLAGS, "-o", str(out), str(src / f"{k}.cu")],
@@ -373,10 +504,12 @@ def build_variants(spec: dict) -> dict:
 
 
 def use_variant(libs: dict, name: str) -> None:
+    """Load the variant's libraries, and the sources' for the kernels it
+    does not reach."""
     from surface_sampling_tpu_torch.ops import cuda_build as cb
 
-    for k in CONV_KERNELS:
-        lib = ctypes.CDLL(str(libs[(name, k)]))
+    for k in ALL_KERNELS:
+        lib = ctypes.CDLL(str(libs.get((name, k), libs[("base", k)])))
         fn = getattr(lib, k)
         n_ptr, n_int = cb.ARITY[k]
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
@@ -384,25 +517,24 @@ def use_variant(libs: dict, name: str) -> None:
         cb._LIBS[k] = lib
 
 
-def variants_main(args: list) -> int:
-    """--variants: the named built-in variants (all with none named), or
-    those of --spec FILE, timed in turns beside the sources."""
+def variant_cases(dev) -> dict:
+    """{kernel: {case: fn}} at chip_smoke.py's shapes (fn returns the
+    outputs to compare)."""
     import chip_smoke as cs
     from surface_sampling_tpu_torch.core.energy import RelaxConfig
+    from surface_sampling_tpu_torch.core.state import realize_alive, realize_positions
+    from surface_sampling_tpu_torch.core.static_neighbors import build_static_neighbor_table
     from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
-    from surface_sampling_tpu_torch.systems import lamno3_001_chgnet
+    from surface_sampling_tpu_torch.ops import eam_kernels as ek
+    from surface_sampling_tpu_torch.ops import painn_kernels as pk
+    from surface_sampling_tpu_torch.potentials.eam import builtin_eam
+    from surface_sampling_tpu_torch.systems import (
+        au110_eam,
+        cu100_eam,
+        lamno3_001_chgnet,
+        srtio3_001_painn,
+    )
 
-    if args[:1] == ["--spec"]:
-        spec = {"base": [], **json.loads(Path(args[1]).read_text())}
-    else:
-        spec = {n: VARIANTS[n] for n in ["base"] + [a for a in args if a != "base"]} if args \
-            else VARIANTS
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip())
-    libs = build_variants(spec)
-    names = [n for n in spec if all((n, k) in libs for k in CONV_KERNELS)]
-
-    dev = torch.device("cuda")
     sys_a = lamno3_001_chgnet(device=dev)
     sys_b = lamno3_001_chgnet(relax=RelaxConfig(steps=cs.CHG_RELAX_STEPS), device=dev)
     sys_c = lamno3_001_chgnet(supercell=(3, 3), device=dev)
@@ -412,31 +544,88 @@ def variants_main(args: list) -> int:
     band = sys_c.potential.band
     gagg = torch.randn(b[0].shape[:2] + (ck.KERNEL_F,), device=dev,
                        generator=torch.Generator(device=dev).manual_seed(12))
-    cases = {"row 10 A": lambda: (ck.chgnet_conv(*a),), "row 10 B": lambda: (ck.chgnet_conv(*b),),
-             "row 11 C": lambda: (ck.chgnet_conv_banded(*c, band),),
-             "row 12 B": lambda: ck.chgnet_conv_bwd(*b, gagg, rev=rev)[:4]}
+    msg = next(x[3] for x in cs.kernel_cases(srtio3_001_painn(device=dev), dev)
+               if x[0] == "painn_message_fused")
+    g = torch.Generator(device=dev).manual_seed(3)
+    C, K, n_pad, M, R, F = 16, 1, 64, 64, 24, 128      # a training step's force pass
+    envm = (torch.rand((C, n_pad * M), generator=g, device=dev) < 0.6).float()
+    train = (torch.randn((C, K, n_pad, 3 * F), generator=g, device=dev),
+             torch.randn((C, K, n_pad, 3 * F), generator=g, device=dev),
+             torch.randn((C, n_pad * M, R), generator=g, device=dev), envm,
+             torch.randint(0, n_pad, (C, n_pad * M), generator=g, device=dev,
+                           dtype=torch.int32),
+             torch.randn((C, 3, n_pad, M), generator=g, device=dev),
+             torch.randn((K, R, 3 * F), generator=g, device=dev),
+             torch.randn((K, 3 * F), generator=g, device=dev))
+    cu = cu100_eam(fast=True, device=dev)
+    cu_pot = ek.make_eam_kernel_potential(builtin_eam("Cu_u3"), cu.static_nbr, device=dev)
+    au = au110_eam(device=dev)
+    au_pot = ek.make_eam_kernel_potential(builtin_eam("Au_u3"), build_static_neighbor_table(
+        au.spec, builtin_eam("Au_u3").cutoff, relax_slack=0.05), device=dev)
+
+    def eam_args(system, pot, n_chains, seed):
+        ss = cs._eam_states(system.spec.n_sites, n_chains, seed, dev)
+        d = system.run.d
+        return (realize_positions(d, ss).contiguous(), realize_alive(d, ss).float(), pot.pairs,
+                pot.cheb)
+
+    cu_args = eam_args(cu, cu_pot, cs.CU_MC_CHAINS, 32)
+    au_args = eam_args(au, au_pot, cs.EAM_AU_CHAINS, 31)
+    return {
+        "chgnet_conv": {"row 10 A": lambda: (ck.chgnet_conv(*a),),
+                        "row 10 B": lambda: (ck.chgnet_conv(*b),)},
+        "chgnet_conv_banded": {"row 11 C": lambda: (ck.chgnet_conv_banded(*c, band),)},
+        "chgnet_conv_bwd": {"row 12 B": lambda: ck.chgnet_conv_bwd(*b, gagg, rev=rev)[:4]},
+        "painn_message_fused": {"row 2 1x1": lambda: pk.painn_message_fused(*msg),
+                                "row 2 train": lambda: pk.painn_message_fused(*train)},
+        "eam_rho_ep": {"row 13 Cu": lambda: ek.eam_rho_ep(*cu_args),
+                       "row 13 Au": lambda: ek.eam_rho_ep(*au_args)},
+    }
+
+
+def variants_main(args: list) -> int:
+    """--variants: the named built-in variants (all with none named), or
+    those of --spec FILE, timed in turns beside the sources on the cases of
+    the kernels each reaches."""
+    import chip_smoke as cs
+
+    if args[:1] == ["--spec"]:
+        spec = {"base": [], **json.loads(Path(args[1]).read_text())}
+    else:
+        spec = {n: VARIANTS[n] for n in ["base"] + [a for a in args if a != "base"]} if args \
+            else VARIANTS
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    libs = build_variants(spec)
+    kernels = {n: variant_kernels(spec[n]) for n in spec}
+    names = [n for n in spec if all((n, k) in libs for k in kernels[n])]
+
+    by_kernel = variant_cases(torch.device("cuda"))
+    cases = {case: f for k in ALL_KERNELS for case, f in by_kernel[k].items()}
+    mine = {n: [case for k in kernels[n] for case in by_kernel[k]] for n in names}
     use_variant(libs, "base")
     ref = {k: f() for k, f in cases.items()}
-    ms = {n: {k: [] for k in cases} for n in names}
+    ms = {n: {k: [] for k in mine[n]} for n in names}
     diff = {}
     for rnd in range(2):
         for n in names if rnd == 0 else names[::-1]:
             use_variant(libs, n)
-            for k, f in cases.items():
-                ms[n][k].append(cs._cuda_ms(f, reps=20))
+            for k in mine[n]:
+                ms[n][k].append(cs._cuda_ms(cases[k], reps=20))
             if rnd == 0:
-                diff[n] = {k: max(float((x - y).abs().max()) for x, y in zip(f(), ref[k]))
-                           for k, f in cases.items()}
+                diff[n] = {k: max(float((x - y).abs().max()) for x, y in zip(cases[k](), ref[k]))
+                           for k in mine[n]}
     for n in names:
         print(f"[variant] {n:10s} " + "  ".join(f"{k} {ms[n][k][0]:.4f} {ms[n][k][1]:.4f}"
-                                                for k in cases)
+                                                for k in mine[n])
               + f"  max diff from base {json.dumps(diff[n])}")
-    if "clk" in names:
-        use_variant(libs, "clk")
-        for case, kernel, labels, slots, count in (
-                ("row 10 A", "chgnet_conv", CLK_FWD, range(0, 6), 15),
-                ("row 12 B", "chgnet_conv_bwd", CLK_BWD, range(6, 14), 14)):
-            lib = ctypes.CDLL(str(libs[("clk", kernel)]))
+    clk_cases = [("clk", "row 10 A", "chgnet_conv", CLK_FWD, range(0, 6), 15, "tiles"),
+                 ("clk", "row 12 B", "chgnet_conv_bwd", CLK_BWD, range(6, 14), 14, "tiles"),
+                 ("eam_clk", "row 13 Cu", "eam_rho_ep", CLK_EAM, range(0, 6), 15, "centres")]
+    for variant, case, kernel, labels, slots, count, unit in clk_cases:
+        if variant in names:
+            use_variant(libs, variant)
+            lib = ctypes.CDLL(str(libs[(variant, kernel)]))
             buf = (ctypes.c_ulonglong * 16)()
             lib.reset_clk()
             for _ in range(5):
@@ -445,8 +634,8 @@ def variants_main(args: list) -> int:
             lib.read_clk(buf)
             v = np.array(list(buf), dtype=np.float64)
             total = v[list(slots)].sum()
-            print(f"[clk] {case}: {v[count] / 5:.0f} tiles a launch, {total / v[count]:.0f} warp "
-                  "clocks a tile; share by phase: " + ", ".join(
+            print(f"[clk] {case}: {v[count] / 5:.0f} {unit} a launch, {total / v[count]:.0f} warp "
+                  f"clocks a {unit[:-1]}; share by phase: " + ", ".join(
                       f"{lab} {v[i] / total:.3f}" for lab, i in zip(labels, slots)))
     return 0
 
