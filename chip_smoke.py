@@ -45,7 +45,9 @@ thirty-five phases, each printing one line or more:
                 shapes (128 chains; the subset over the hop balls of random
                 per-chain sites, all three layers), with times and bounds
                 (rows 7 and 8 also their live share, shared memory a block
-                and the bound with the filter at 3 TF32 passes); the subset
+                and the bound with the filter at 3 TF32 passes; row 6 its
+                live share, species present a centre, shared memory a
+                block, a bitwise repeat and NaN on its dead edges); the subset
                 kernel over every block bitwise equal to the banded one; the
                 banded kernels against the unbanded ones on the same
                 geometry in slot order
@@ -112,8 +114,10 @@ thirty-five phases, each printing one line or more:
  32. bwd2       row 5 against its plain version at the training path's
                 shapes (16 frames, the slab's real geometry, one member a
                 launch, for each of the 3; and the 3 stacked as an extra),
-                all nine outputs, with c_dw / c_db zero (the skip) and not,
-                a bitwise repeat; times and the bound over live edges
+                all nine outputs (d_envm on the live slots, exactly 0 on the
+                dead ones), with c_dw / c_db zero (the skip) and not, a
+                bitwise repeat; times, the live share and two bounds over
+                live edges (f32, and the radial products at 3 TF32 passes)
  33. train-grad one member, 2 frames: a training step's loss and every
                 parameter gradient, card vs the CPU plain path
  34. train      the main training path: the 3-member ensemble on 16 frames,
@@ -215,6 +219,25 @@ def l1_flops_per_edge(F: int, R: int) -> int:
     mult-adds + bias + envelope on 2F channels), the phi product, the ds sum
     and three dv mult-adds."""
     return 2 * F * (2 * R + 2) + 2 * F + F + 6 * F
+
+
+def l1_binned_work(species_ext, envm, nbr, band, M: int, K: int, F: int, R: int,
+                   T1: int) -> tuple[int, int, int]:
+    """Operations of row 6's species-binned kernel on these inputs (csrc/
+    painn_message_l1_banded.cu): 8 (R + 1) per live edge for the bins, and
+    8 (R + 1) + 8 per (chain, centre, member, channel, species present
+    among the centre's live edges) for the products; with the number of
+    live edges and of (chain, centre, species present) triples."""
+    from surface_sampling_tpu_torch.ops.banding import edge_window_starts, window_rows
+
+    C = envm.shape[0]
+    row, inwin = window_rows(nbr, edge_window_starts(band, M)[None], band)
+    live = (envm != 0) & inwin
+    sp = torch.where(live, torch.gather(species_ext, 1, row).long(), T1)
+    present = torch.zeros((C, envm.shape[1] // M, T1 + 1), device=envm.device)
+    present.scatter_(2, sp.view(C, -1, M), 1.0)
+    n_live, n_present = int(live.sum()), int(present[..., :T1].sum())
+    return n_live * 8 * (R + 1) + K * F * n_present * (8 * (R + 1) + 8), n_live, n_present
 
 
 def msg_flops_per_edge(F: int, R: int) -> int:
@@ -410,6 +433,35 @@ def banded_smem(R: int, M: int, n_blk: int) -> int:
     from surface_sampling_tpu_torch.ops.cuda_build import _lib
 
     return _lib("painn_message_fused_banded").painn_message_banded_smem(R, M, n_blk)
+
+
+def layer1_smem(R: int, n_blk: int, T1: int) -> int:
+    """Dynamic shared memory (bytes) of a block of row 6, as the library's
+    launch asks for it."""
+    from surface_sampling_tpu_torch.ops.cuda_build import _lib
+
+    return _lib("painn_message_l1_banded").painn_message_l1_banded_smem(R, n_blk, T1)
+
+
+def layer1_contract(args) -> None:
+    """Row 6 on the main path's inputs: bitwise on repeat, and dead edges
+    inert (NaN rbf and unit vector on every envm == 0 edge leave ds and dv
+    bitwise unchanged); raises otherwise."""
+    from surface_sampling_tpu_torch.ops import painn_kernels as pk
+
+    species, philt, rbf, envm, nbr, unit = args[:6]
+    C, M = envm.shape[0], unit.shape[-1]
+    got = pk.painn_message_l1_banded(*args)
+    dead = envm == 0
+    nan = float("nan")
+    dirty = (species, philt, torch.where(dead[..., None], nan, rbf), envm, nbr,
+             torch.where(dead.reshape(C, 1, -1, M), nan, unit), *args[6:])
+    for label, out in (("a second launch", pk.painn_message_l1_banded(*args)),
+                       ("NaN rbf / unit on dead edges", pk.painn_message_l1_banded(*dirty))):
+        if not all(torch.equal(a, b) for a, b in zip(got, out)):
+            raise AssertionError(f"painn_message_l1_banded vs {label}: not bitwise equal")
+    print(f"[sc-kernel] painn_message_l1_banded bitwise equal to a second launch and with NaN "
+          f"rbf / unit on its {int(dead.sum())} dead edges")
 
 
 def message_fused_contract(args, m: dict) -> str:
@@ -779,9 +831,17 @@ def sc_kernels_phase(sys_sc, dev) -> list:
     msg_args = (phi_ext, vcat_ext, rbf, envm, nbr, unit, *msg_w, band)
     msg_pc = (True, True, True, True, True, True, False, False, False)
     rows, by = [], {}
+    # row 6 (species-binned): its operations, and the bytes it must move:
+    # every slot's envelope, a live edge's rbf row, unit vector, rank and
+    # species, the weights and tables once, the outputs
+    T1 = rw["philt"].shape[1]
+    l1_flops, l1_live, l1_present = l1_binned_work(l1_args[0], envm, nbr, band, M, K, F, R, T1)
+    l1_bytes = 4 * (envm.numel() + l1_live * (R + 5) + N_CHAINS * K * n_pad * 4 * F) + _nbytes(
+        rw["philt"], rw["dw2"], rw["db2"], band.win_start)
     by["l1"] = _measure("painn_message_l1_banded", pk.painn_message_l1_banded,
-                        pk.painn_message_l1_banded_plain, l1_args, l1_pc,
-                        K * n_live * l1_flops_per_edge(F, R), PLAIN_CHUNK)
+                        pk.painn_message_l1_banded_plain, l1_args, l1_pc, l1_flops,
+                        PLAIN_CHUNK, nbytes=l1_bytes)
+    layer1_contract(l1_args)
     by["msg"] = _measure("painn_message_fused_banded", pk.painn_message_fused_banded,
                          pk.painn_message_fused_banded_plain, msg_args, msg_pc,
                          K * n_live * msg_flops_per_edge(F, R), PLAIN_CHUNK)
@@ -820,6 +880,20 @@ def sc_kernels_phase(sys_sc, dev) -> list:
     for key in ("l1", "msg", "subset"):
         m = by[key]
         extra, text = {}, ""
+        if key == "l1":
+            # the per-edge form's f32 bound, for comparison (the work the
+            # TPU kernel's design does: 2R x 2F filter products an edge)
+            edges_bound_ms = 1e3 * K * n_live * l1_flops_per_edge(F, R) / PEAK_F32_FLOPS
+            n_centres = N_CHAINS * n_pad
+            extra = {"live_share": l1_live / envm.numel(),
+                     "species_present_per_centre": l1_present / n_centres,
+                     "per_edge_bound_ms": edges_bound_ms}
+            text = (f"live_edges={l1_live} of {envm.numel()} slots (live share "
+                    f"{l1_live / envm.numel():.4f}) species present per centre "
+                    f"{l1_present / n_centres:.3f} (T1={T1}) shared memory="
+                    f"{layer1_smem(R, band.n_blk, T1)} B a block (n_blk={band.n_blk}) "
+                    f"per_edge_bound_ms={edges_bound_ms:.4f} (f32, the per-edge sum's work; "
+                    f"no tensor-core product, so no bound_tc_ms) ")
         if key == "subset":
             extra = {"blocks_per_layer": list(tables.nb),
                      "ms_by_layer": [x["ms"] for x in layers]}
@@ -2124,10 +2198,10 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3
 
 
 def bwd2_flops_per_edge(F: int, R: int) -> int:
-    """Row 5's work per live edge and member, each term counted once
-    (csrc/painn_message_bwd2.cu, per channel f): the filter and G (3 x 2R
-    each), the d_dw partials (3 x 4R), the d_rbf product (5R), the sum over
-    the channels of the R + 4 edge cotangents (R + 4), and 126 scalar
+    """Row 5's work per live edge and member, each term counted once (per
+    channel f): the radial products, 29R (the filter and G, 3 x 2R each;
+    the d_dw partials, 3 x 4R; the d_rbf product, 5R), the sum over the
+    channels of the R + 4 edge cotangents (R + 4), and 126 scalar
     operations: the channel terms (w, h, q, t, a, dwpre, Z and the d_gds /
     d_gdv sums, 93), d_db (3), d_envm's summand (11), d_unit's (3) and the
     neighbour kernel's d_phi / d_vcat sums (16). The neighbour kernel's
@@ -2213,7 +2287,15 @@ def bwd2_phase(params, cfg, batch, dev) -> dict:
             got = pk.painn_message_bwd2(*args, *cots, *cw, rev=rev)
             ref = pk.painn_message_bwd2_plain(*args, *cots, *cw)
             torch.cuda.synchronize()
+            # the dead-slot contract: d_envm exactly 0 where envm and c_envm
+            # are, compared on the other slots
+            live = (args[3] != 0) | (cots[3] != 0)
+            if bool((got[3][~live] != 0).any()):
+                raise AssertionError(f"painn_message_bwd2 ({tag}, {case}): d_envm is not "
+                                     "exactly zero on dead slots")
             for n, g, r in zip(names, got, ref):
+                if n == "denvm":
+                    g, r = g[live], r[live]
                 err, scale = float((g - r).abs().max()), float(r.abs().max())
                 errs[f"{n} {case}"] = max(err, errs.get(f"{n} {case}", 0.0))
                 if not err <= KERNEL_RTOL * scale:
@@ -2241,20 +2323,25 @@ def bwd2_phase(params, cfg, batch, dev) -> dict:
     ms_k3 = _cuda_ms(lambda: pk.painn_message_bwd2(*args3, *cots3, rev=rev), reps=10)
     n_live = int((envm != 0).sum())
     flops = n_live * bwd2_flops_per_edge(F, cfg.n_rbf)
+    products = n_live * F * 29 * cfg.n_rbf       # the radial products of bwd2_flops_per_edge
     # one K = 1 launch: feature tables and their cotangents whole; edge
     # arrays of live edges only (rbf, c_rbf, d_rbf: R; envm, c_envm,
     # d_envm, nbr; unit, c_unit, d_unit: 3); one member's weights and
     # their cotangents; the reverse table
     feat = C * n_pad * (3 * F * 8 + F * 2)
     nbytes = 4 * (feat + n_live * (3 * R + 4 + 9) + 2 * (R * 3 * F + 3 * F)) + _nbytes(rev)
-    bound_ms = 1e3 * max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS)
+    bound_ms, bound_tc_ms, _ = bwd_bounds(products, flops - products, nbytes)
+    n_slots = C * n_pad * M
     err = max(errs.values())
     print(f"[bwd2] painn_message_bwd2 max_abs_err={err:.3e} (all nine outputs, K = 1 for each "
           f"of {n_members} members and K = {n_members} stacked, c_dw zero and nonzero, each "
           f"within {KERNEL_RTOL} x max|plain|; {json.dumps(errs)}) bitwise repeat ok; per K = 1 "
           f"launch (the training path's): ms={ms:.4f} (c_dw=0, the training case) "
-          f"ms_with_c_dw={ms_cdw:.4f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} "
-          f"frames={C} n_pad={n_pad} M={M} live_edges={n_live} flops={flops:.4e} "
+          f"ms_with_c_dw={ms_cdw:.4f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} (f32) "
+          f"bound_tc_ms={bound_tc_ms:.4f} (3xTF32 products) d_envm exactly 0 on the "
+          f"{n_slots - n_live} dead slots (envm == 0 and c_envm == 0), compared on the live "
+          f"ones; frames={C} n_pad={n_pad} M={M} live_edges={n_live} of {n_slots} slots "
+          f"(live share {n_live / n_slots:.4f}) flops={flops:.4e} "
           f"bytes={nbytes:.4e}; K = {n_members} in one launch (not on the training path): "
           f"ms={ms_k3:.4f}; library_ms=null (no PyTorch call computes this fused "
           f"second-order block)")
@@ -2265,7 +2352,8 @@ def bwd2_phase(params, cfg, batch, dev) -> dict:
             "bound_ms": bound_ms,
             "bound_by": "operations" if flops / PEAK_F32_FLOPS > nbytes / PEAK_BYTES_PER_S
             else "bytes", "library_ms": None, "ms_with_c_dw": ms_cdw,
-            f"ms_k{n_members}_stacked": ms_k3, "live_edges": n_live}
+            f"ms_k{n_members}_stacked": ms_k3, "live_edges": n_live,
+            "live_share": n_live / n_slots}
 
 
 def _loss_and_grads(params, cfg, batch, dev):

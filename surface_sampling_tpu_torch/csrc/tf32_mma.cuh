@@ -1,6 +1,7 @@
-// Tensor-core and copy primitives shared by the message kernels that run
-// their radial products as mma.sync tiles: painn_message_bwd.cuh (rows 4
-// and 9) and painn_message_banded.cuh (rows 7 and 8).
+// Tensor-core and copy primitives shared by the kernels that run their
+// radial products as mma.sync tiles: painn_message_bwd.cuh (rows 4 and 9),
+// painn_message_banded.cuh (rows 2, 7 and 8), painn_message_bwd2.cu (row 5)
+// and chgnet_conv.cuh (rows 10-12).
 //
 // f32 accuracy on TF32 tensor cores (3xTF32): each operand x = hi + lo with
 // both parts TF32, |x - hi - lo| <= 2^-20 |x|, and a.b ~ a_lo.b_hi +
@@ -55,6 +56,11 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
                "r"(valid ? 16 : 0)
                : "memory");
+}
+// 4 bytes global -> shared, asynchronous (no alignment beyond the float's).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");

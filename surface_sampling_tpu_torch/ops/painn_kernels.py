@@ -66,6 +66,7 @@ from surface_sampling_tpu_torch.ops.banding import (
     edge_window_starts,
     window_rows,
 )
+from surface_sampling_tpu_torch.ops.cuda_build import _lib
 from surface_sampling_tpu_torch.ops.cuda_build import check_inputs as _check
 from surface_sampling_tpu_torch.ops.cuda_build import launch as _launch
 from surface_sampling_tpu_torch.ops.neighbors import reverse_table
@@ -376,16 +377,6 @@ def _check_bwd_kernel(name, C, K, R, F):
         raise ValueError(f"{name}: F={F} must be a multiple of 16 (the kernel's channel tile)")
 
 
-def _check_bwd2_kernel(name, C, K, R, F):
-    _check_grid(name, C, K, R)
-    if R > 24:
-        raise ValueError(f"{name}: the radial width must be 8, 16 or 24, got {R} "
-                         "(R + 4 per-edge sums share one warp's 32 lanes)")
-    if F > 128:
-        raise ValueError(f"{name}: F={F} exceeds the kernel's 128 "
-                         "(one thread per channel, at most 128 threads a block)")
-
-
 def _launch_bwd(name, fn, ins, rev, ints, want_dw):
     """Allocate the cotangents of a message backward (g_phi / g_vcat shaped
     as the tables ins[0] / ins[1]), launch ``name`` on ``ins`` and the
@@ -526,6 +517,21 @@ def painn_message_bwd2(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
         (C, 3, n_pad, M) summed over the members, ddw (K, R, 3F), ddb
         (K, 3F) summed over the chains, dgds (C, K, n_pad, F), dgdv
         (C, K, n_pad, 3F) x-major.
+
+    Dead-slot contract (as :func:`painn_message_bwd`'s): the kernel computes
+    the slots with envm != 0 or cenvm != 0 only and writes exact zeros to
+    drbf, dunit and denvm on the others. The plain version gives zeros for
+    the first two but sum_{t,f} (A_t wpre_t + g_t P_t G_t) for denvm there;
+    that value reaches only envm's inputs, the positions, and force-loss
+    training takes its gradient over the parameters alone
+    (``tests/test_torch_bwd_contract.py``, ROADMAP Queue 3).
+
+    The kernel (``csrc/painn_message_bwd2.cu``) takes R of 8, 16 or 24 and
+    F a multiple of 16 (refused before a launch). Its centre kernel runs a
+    fixed grid (``painn_message_bwd2_blocks()`` of the library, two blocks
+    an SM), each block writing one d_dw / d_db partial over a contiguous
+    range of (chain, centre) rows; the partials are summed here in block
+    order, so the bits of ddw / ddb depend on the card's SM count.
     """
     C, K, n_pad, F3 = phi.shape
     F = F3 // 3
@@ -547,7 +553,7 @@ def painn_message_bwd2(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
     if dev.type == "cpu":
         return painn_message_bwd2_plain(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
                                         cphi, cvcat, crbf, cenvm, cunit, cdw, cdb)
-    _check_bwd2_kernel("painn_message_bwd2", C, K, R, F)
+    _check_bwd_kernel("painn_message_bwd2", C, K, R, F)
     has_cdw = any(t is not None and bool(t.any()) for t in (cdw, cdb))
     if has_cdw:
         cdw = torch.zeros_like(dw) if cdw is None else cdw
@@ -561,7 +567,9 @@ def painn_message_bwd2(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
     d = (torch.empty_like(phi), torch.empty_like(vcat), torch.empty_like(rbf),
          torch.empty_like(envm), torch.empty_like(unit), torch.empty_like(gds),
          torch.empty_like(gdv))
-    part = torch.empty((C * n_pad, K, R + 1, F3), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        n_part = _lib("painn_message_bwd2").painn_message_bwd2_blocks()
+    part = torch.empty((n_part, K, R + 1, F3), dtype=f32, device=dev)
     _launch("painn_message_bwd2",
             (phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv, cphi, cvcat, crbf, cenvm,
              cunit, cdw, cdb, rev, *d, part),
@@ -569,7 +577,7 @@ def painn_message_bwd2(phi, vcat, rbf, envm, nbr, unit, dw, db, gds, gdv,
     painn_message_bwd2.launches += 1
     painn_message_bwd2.cdw_launches += int(has_cdw)
     dphi, dvcat, drbf, denvm, dunit, dgds, dgdv = d
-    ddw = part.sum(dim=0)                       # per-block partials, one fixed order
+    ddw = part.sum(dim=0)                       # the blocks' partials, in block order
     return (dphi, dvcat, drbf, denvm, dunit, ddw[:, :R].contiguous(), ddw[:, R].contiguous(),
             dgds, dgdv)
 
@@ -618,6 +626,14 @@ def painn_message_l1_banded(species_ext, philt, rbf, envm, nbr, unit, dw2, db2, 
         band: the ``ops.banding.DeviceBand`` the tables were built for.
     Returns:
         ds (C, K, n_pad, F), dv (C, K, n_pad, 3F), in sorted order.
+
+    The kernel (``csrc/painn_message_l1_banded.cu``) reassociates each
+    centre's sum per species: it bins the centre's live edges (envm != 0)
+    by their neighbour's species, once for all members, and multiplies
+    each bin by the member's filter columns, every sum in one fixed order;
+    it never reads a dead edge's rbf, unit vector or species. It takes R of
+    8, 16 or 24 and at most 32 species rows (:func:`_check_layer1_kernel`),
+    refused before a launch.
     """
     C, E, R = rbf.shape
     K, T1, F2 = philt.shape
@@ -635,7 +651,7 @@ def painn_message_l1_banded(species_ext, philt, rbf, envm, nbr, unit, dw2, db2, 
     if dev.type == "cpu":
         return painn_message_l1_banded_plain(species_ext, philt, rbf, envm, nbr, unit, dw2,
                                              db2, band)
-    _check_grid("painn_message_l1_banded", C, K, R)
+    _check_layer1_kernel("painn_message_l1_banded", C, K, R, T1)
     ds = torch.empty((C, K, n_pad, F), dtype=f32, device=dev)
     dv = torch.empty((C, K, n_pad, 3 * F), dtype=f32, device=dev)
     _launch("painn_message_l1_banded",
@@ -669,6 +685,17 @@ def _check_banded(name, phi_ext, vcat_ext, rbf, envm, nbr, unit, dw, db, ws, ws_
            rbf=(rbf, f32, (C, n_rows * M, R)), envm=(envm, f32, (C, n_rows * M)),
            nbr=(nbr, i32, (C, n_rows * M)), unit=(unit, f32, (C, 3, n_rows, M)),
            dw=(dw, f32, (K, R, F3)), db=(db, f32, (K, F3)), ws=(ws, i32, ws_shape))
+
+
+def _check_layer1_kernel(name, C, K, R, T1):
+    """Limits of row 6: the radial width is 8, 16 or 24 (the widths the
+    kernel is built for), and the species rows (the zero row included) fit
+    its 32-bit mask of the species present at a centre."""
+    _check_grid(name, C, K, R)
+    if R > 24:
+        raise ValueError(f"{name}: the radial width must be 8, 16 or 24, got {R}")
+    if T1 > 32:
+        raise ValueError(f"{name}: {T1} species rows exceed the kernel's 32")
 
 
 def _check_banded_kernel(name, C, K, R, F, *tables):

@@ -16,8 +16,12 @@ ones. That is the same function only if
   replaced, at the ground rules' kernel tolerance (rtol 1e-6, atol 1e-5:
   the same f32 terms summed in another order).
 
+Row 6 (the banded layer-1 message) sums each centre's live edges only too,
+binned by species: its plain version is as blind to a dead edge's rbf and
+unit.
+
 The card tests (``tests/test_torch_cuda_kernels.py``) hold the kernel itself
-to these on the GPU; the last test here pins the limits its wrapper checks
+to these on the GPU; the last tests here pin the limits the wrappers check
 before a launch. A toy band (42 slots on a periodic line, blocks of 16,
 a halo, windows that wrap), two chains, two members, on one torch thread.
 """
@@ -121,6 +125,34 @@ def test_dead_edges_leave_the_plain_banded_message_unchanged(case):
     assert all(torch.equal(a, b) for a, b in zip(ref, got))
 
 
+def _layer1_args(case, dead_values):
+    """Row 6's inputs on the case's band and geometry: species rows of the
+    halo-extended table (T = 3 species and the zero row), philt and the
+    layer-1 weights drawn from a seed."""
+    band = case["band"]
+    _, _, rbf, envm, nbr, unit, _, _ = case["dead_args" if dead_values else "args"]
+    rng = np.random.default_rng(5)
+    T = 3
+    n_ext = len(band.perm) + band.halo
+    species = rng.integers(0, T + 1, (C, n_ext)).astype(np.int32)
+    philt = np.concatenate([rng.normal(size=(K, T, 2 * F)), np.zeros((K, 1, 2 * F))], 1)
+    dw2 = rng.normal(size=(K, R, 2 * F))
+    db2 = rng.normal(size=(K, 2 * F))
+    return (species, philt.astype(np.float32), rbf, envm, nbr, unit, dw2.astype(np.float32),
+            db2.astype(np.float32))
+
+
+def test_dead_edges_leave_the_plain_banded_layer1_message_unchanged(case):
+    """Random finite rbf and unit values on the envm == 0 edges change no
+    output of row 6's plain version (torch.equal): its kernel never reads
+    them either."""
+    band = stage_band(case["band"], "cpu")
+    ref = pk.painn_message_l1_banded_plain(*_t(_layer1_args(case, False)), band)
+    got = pk.painn_message_l1_banded_plain(*_t(_layer1_args(case, True)), band)
+    assert all(torch.equal(a, b) for a, b in zip(ref, got))
+    assert float(ref[1].abs().max()) > 0
+
+
 def test_plain_subset_over_every_block_is_the_full_message(case):
     """Row 8's plain version over all blocks, in block order, equals row
     7's bitwise."""
@@ -168,3 +200,38 @@ def test_banded_kernel_limits_raise():
         pk._check_banded_kernel("row", 2, 3, 24, 120, x)
     with pytest.raises(ValueError, match="16-byte boundary"):
         pk._check_banded_kernel("row", 2, 3, 24, 128, x, x[1:])
+
+
+@pytest.mark.parametrize("R_,T1,refusal", [
+    (32, 4, "radial width must be 8, 16 or 24, got 32"),
+    (24, 33, "33 species rows exceed the kernel's 32"),
+    (24, 4, None),
+    (8, 32, None),
+])
+def test_banded_layer1_wrapper_refuses_before_a_launch(case, monkeypatch, R_, T1, refusal):
+    """Row 6's wrapper refuses R = 32 and more than 32 species rows before
+    any launch: tensors on a device other than the CPU (meta here) take the
+    kernel's path, where the limits are checked before the launch, which
+    is replaced by one that fails the test. Shapes within the limits reach
+    it (F = 24: the kernel takes any width)."""
+
+    def launched(*args, **kwargs):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(pk, "_launch", launched)
+    band = stage_band(case["band"], "meta")
+    n_pad, n_ext = band.n_pad, band.n_pad + band.halo
+    F_ = 24
+
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+    args = (z(C, n_ext, dtype=torch.int32), z(K, T1, 2 * F_), z(C, n_pad * M, R_),
+            z(C, n_pad * M), z(C, n_pad * M, dtype=torch.int32), z(C, 3, n_pad, M),
+            z(K, R_, 2 * F_), z(K, 2 * F_))
+    if refusal is None:
+        with pytest.raises(AssertionError, match="launched"):
+            pk.painn_message_l1_banded(*args, band)
+    else:
+        with pytest.raises(ValueError, match=refusal):
+            pk.painn_message_l1_banded(*args, band)

@@ -1,4 +1,5 @@
-"""The dead-edge contract of the message backward (rows 4 and 9) is harmless.
+"""The dead-edge contracts of the message backward (rows 4 and 9) and of its
+second order (row 5) are harmless.
 
 The CUDA kernels of ``painn_message_bwd`` / ``painn_message_bwd_banded``
 compute live edges only (envm != 0) and write g_envm = 0 on the others,
@@ -15,6 +16,11 @@ envm == 0 changes nothing downstream, bitwise.
 - A banded relaxed toy (21 Ti on a 42 A line, its relax table banded, a
   2-member PaiNN drawn from a seed): the forces through row 9's plain
   version.
+
+Row 5's kernel computes the slots with envm != 0 or c_envm != 0 only and
+writes d_envm = 0 on the others, where the plain version does not: the last
+test takes a tiny force-loss training step with the plain row 5 and with its
+d_envm zeroed there, and finds every parameter gradient bitwise the same.
 
 Bitwise because both runs do the same operations in the same order on one
 torch thread; only the zeros of the dead edges differ in sign at most.
@@ -240,3 +246,59 @@ def test_dead_edge_g_envm_leaves_banded_forces_unchanged(monkeypatch):
     assert torch.equal(e_plain, e_zero)
     assert torch.equal(f_plain, f_zero)
     assert float(f_plain.abs().max()) > 0
+
+
+def _zero_dead_denvm(bwd2):
+    """Row 5 (``painn_message_bwd2``) with its d_envm (output 3) zeroed on
+    the slots where envm and c_envm (arguments 3 and 13) are both zero, as
+    its CUDA kernel writes it; ``wrapped.zeroed`` counts the entries it
+    changed."""
+
+    def wrapped(*args, **kwargs):
+        out = list(bwd2(*args, **kwargs))
+        dead = (args[3] == 0) & (args[13] == 0)
+        wrapped.zeroed += int((out[3][dead] != 0).sum())
+        out[3] = torch.where(dead, torch.zeros_like(out[3]), out[3])
+        return tuple(out)
+
+    wrapped.zeroed = 0
+    return wrapped
+
+
+def test_dead_slot_d_envm_leaves_training_gradients_unchanged(monkeypatch):
+    """One force-loss training step of a tiny 2-member PaiNN (F = 16, drawn
+    from a seed) on two random periodic frames, row 5's plain version in
+    the outer backward: every parameter gradient is bitwise the same when
+    row 5 returns d_envm = 0 on the slots where envm and c_envm are both
+    zero. That value flows only towards the positions, and training takes
+    its gradient over the parameters alone."""
+    from surface_sampling_tpu_torch.models import train as tr
+    from surface_sampling_tpu_torch.models.painn import tree_leaves, tree_map
+
+    cfg = PaiNNConfig(feat_dim=16, n_rbf=8, cutoff=4.0, n_layers=2, readout_hidden=8,
+                      max_neighbors=12)
+    params = init_ensemble(torch.Generator().manual_seed(7), cfg, 2)
+    rng = np.random.default_rng(7)
+    frames, energies, forces = [], [], []
+    for n, box in ((7, 6.0), (9, 7.0)):
+        numbers = np.asarray(([8, 22, 38] * n)[:n], np.int32)
+        frames.append(Structure(numbers, rng.uniform(0, box, (n, 3)), np.eye(3) * box))
+        energies.append(float(rng.normal()))
+        forces.append(rng.normal(size=(n, 3)))
+    batch = tr.batch_to_device(tr.pad_structures(frames, energies, forces, cfg.cutoff), "cpu")
+    loss_fn = tr.make_loss_fn(cfg, tr.TrainConfig())
+
+    def grads():
+        leaves = [x.detach().clone().requires_grad_(True) for x in tree_leaves(params)]
+        it = iter(leaves)
+        loss = loss_fn(tree_map(lambda _: next(it), params), batch)
+        return torch.autograd.grad(loss.sum(), leaves)
+
+    plain = grads()
+    zeroing = _zero_dead_denvm(pk.painn_message_bwd2)
+    monkeypatch.setattr(pk, "painn_message_bwd2", zeroing)
+    zeroed = grads()
+    assert zeroing.zeroed > 0
+    assert len(plain) == len(zeroed)
+    assert all(torch.equal(a, b) for a, b in zip(plain, zeroed))
+    assert max(float(g.abs().max()) for g in plain) > 0

@@ -356,13 +356,26 @@ def _banded_case(dev, R, n_blk=16, M=16, prefix=False, seed=7, **band_kw):
                 subset=(phi, vcat, *sub_geom, dw, db, dband.win_start[blocks], dband))
 
 
+def _layer1_args(x, R, T=3):
+    """Row 6's inputs on a _banded_case: its band and geometry, species rows
+    of the halo-extended table (T species and the zero row), philt and the
+    layer-1 weights from the case's generator."""
+    rn, (phi, _, rbf, envm, nbr, unit, _, _, dband) = x["rn"], x["full"]
+    C, K, n_ext, F = phi.shape[0], phi.shape[1], phi.shape[2], phi.shape[3] // 3
+    dev = phi.device
+    species = torch.randint(0, T + 1, (C, n_ext), generator=x["g"], device=dev,
+                            dtype=torch.int32)
+    philt = torch.cat([rn(K, T, 2 * F), torch.zeros((K, 1, 2 * F), device=dev)], 1)
+    return (species, philt, rbf, envm, nbr, unit, rn(K, R, 2 * F), rn(K, 2 * F), dband)
+
+
 @pytest.mark.parametrize("R", [8, 16, 24])
 def test_banded_kernels_match_plain(cuda_device, R):
     """Rows 6-8 (banded layer-1, banded general, subset) against their
     plain versions on a real band with a halo; the subset over per-chain
     blocks, one chain repeating a block; each kernel counts one launch.
-    Rows 7 and 8 also at a production-like shape: blocks of 8 centres, 64
-    edge slots a centre, live edges both scattered and a prefix."""
+    Rows 6-8 also at a production-like shape: blocks of 8 centres, 64 edge
+    slots a centre, live edges both scattered and a prefix."""
     dev, T = cuda_device, 3
     x = _banded_case(dev, R)
     rn, (phi, vcat, rbf, envm, nbr, unit, dw, db, dband) = x["rn"], x["full"]
@@ -378,7 +391,8 @@ def test_banded_kernels_match_plain(cuda_device, R):
         y = _banded_case(dev, R, n_blk=8, M=64, prefix=prefix, seed=8, n=124, n_pad=128,
                          n_cand=40)
         cases += [(pk.painn_message_fused_banded, y["full"]),
-                  (pk.painn_message_subset, y["subset"])]
+                  (pk.painn_message_subset, y["subset"]),
+                  (pk.painn_message_l1_banded, _layer1_args(y, R))]
     for fn, args in cases:
         before = fn.launches
         got = fn(*args)
@@ -430,6 +444,30 @@ def test_banded_message_is_per_centre_and_bitwise(cuda_device, prefix):
                          10 * torch.randn(unit.shape, generator=g, device=dev), unit)
     pert = pk.painn_message_fused_banded(phi, vcat, rbf_d, envm, nbr, unit_d, dw, db, dband)
     assert all(torch.equal(a, b) for a, b in zip(full, pert))
+
+
+@pytest.mark.parametrize("prefix", [False, True])
+def test_banded_layer1_is_bitwise_and_blind_to_dead_edges(cuda_device, prefix):
+    """Row 6 at the production-like shape (blocks of 8 centres, 64 slots a
+    centre): two launches repeat bitwise, and NaN in the rbf and unit
+    vector of every dead edge (envm == 0), and a species row out of range
+    read through no live edge, change no bit of ds and dv."""
+    x = _banded_case(cuda_device, 24, n_blk=8, M=64, prefix=prefix, seed=10, n=124,
+                     n_pad=128, n_cand=40)
+    args = _layer1_args(x, 24)
+    species, philt, rbf, envm, nbr, unit = args[:6]
+    C, M = rbf.shape[0], unit.shape[-1]
+    got = pk.painn_message_l1_banded(*args)
+    again = pk.painn_message_l1_banded(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    dead = envm == 0
+    assert bool(dead.any()) and bool((~dead).any())
+    nan = float("nan")
+    dirty = (species, philt, torch.where(dead[..., None], nan, rbf), envm, nbr,
+             torch.where(dead.reshape(C, 1, -1, M), nan, unit), *args[6:])
+    out = pk.painn_message_l1_banded(*dirty)
+    assert all(torch.equal(a, b) for a, b in zip(got, out))
+    assert float(got[1].abs().max()) > 0
 
 
 @pytest.mark.parametrize("R", [8, 24])
@@ -844,6 +882,15 @@ def test_canonical_run_repeats_and_continues_bitwise_on_card(cuda_device):
     assert torch.equal(whole.energy, end.energy)
 
 
+def _assert_bwd2_close(got, ref, envm, cenvm):
+    """Row 5 against its plain version under the dead-slot contract: every
+    output within RTOL x max|plain|, except d_envm (index 3), which is
+    compared on the slots with envm != 0 or c_envm != 0 and must be exactly
+    0 on the others (the plain version's value there reaches only the
+    positions; ROADMAP Queue 3)."""
+    _assert_bwd_close(got, ref, (envm != 0) | (cenvm != 0))
+
+
 def _bwd2_args(x, R):
     """Second-order backward inputs on the card: the backward's inputs of
     ``_bwd_args`` and random cotangents of its outputs, c_envm zero on the
@@ -859,9 +906,9 @@ def _bwd2_args(x, R):
 @pytest.mark.parametrize("R,with_cdw", [(8, False), (24, False), (24, True)])
 def test_message_bwd2_kernel_matches_plain(cuda_device, R, with_cdw):
     """All nine outputs of the second-order kernel against its plain
-    version, with and without c_dw / c_db (the training case skips their
-    terms, and explicit zeros take the same path); a second launch repeats
-    the first bitwise."""
+    version under the dead-slot contract, with and without c_dw / c_db (the
+    training case skips their terms, and explicit zeros take the same
+    path); a second launch repeats the first bitwise."""
     from surface_sampling_tpu_torch.ops.neighbors import reverse_table
 
     x = _inputs(cuda_device, R=R, seed=8)
@@ -873,7 +920,8 @@ def test_message_bwd2_kernel_matches_plain(cuda_device, R, with_cdw):
     got = pk.painn_message_bwd2(*args, *cots, cdw, cdb, rev=rev)
     assert (pk.painn_message_bwd2.launches, pk.painn_message_bwd2.cdw_launches) == (
         before[0] + 1, before[1] + int(with_cdw))
-    _assert_close(got, pk.painn_message_bwd2_plain(*args, *cots, cdw, cdb))
+    _assert_bwd2_close(got, pk.painn_message_bwd2_plain(*args, *cots, cdw, cdb), args[3],
+                       cots[3])
     again = pk.painn_message_bwd2(*args, *cots, cdw, cdb, rev=rev)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
@@ -904,9 +952,43 @@ def test_message_bwd2_reverse_table_contract(cuda_device):
     got = pk.painn_message_bwd2(*args, *bad, rev=short)
     torch.cuda.synchronize()
     assert float((got[0] - ref[0]).abs().max()) > RTOL * float(ref[0].abs().max())
-    _assert_close(pk.painn_message_bwd2(*args, *bad, rev=full), ref)
-    _assert_close(pk.painn_message_bwd2(*args, *cots, rev=short),
-                  pk.painn_message_bwd2_plain(*args, *cots))
+    _assert_bwd2_close(pk.painn_message_bwd2(*args, *bad, rev=full), ref, args[3], bad[3])
+    _assert_bwd2_close(pk.painn_message_bwd2(*args, *cots, rev=short),
+                       pk.painn_message_bwd2_plain(*args, *cots), args[3], cots[3])
+
+
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("with_cdw", [False, True])
+def test_message_bwd2_across_tiles_and_blind_to_dead_slots(cuda_device, K, with_cdw):
+    """Row 5 on live slots that cross its tiles (a centre with all 64 slots
+    live, one with none, a tile ending inside a centre and at the chain's
+    end, a row read by many edges) against its plain version under the
+    dead-slot contract; then NaN in the rbf, c_rbf, unit and c_unit of
+    every dead slot (envm == 0 and c_envm == 0) changes no bit of the
+    nine outputs."""
+    dev, C, n_pad, M, R, F = cuda_device, 2, 16, 64, 24, 128
+    args = _bwd_tile_case(dev, K, n_pad, M, R, F, seed=11)
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    cots = (rn(C, K, n_pad, 3 * F), rn(C, K, n_pad, 3 * F), rn(C, n_pad * M, R),
+            rn(C, n_pad * M) * (args[3] != 0), rn(C, 3, n_pad, M))
+    cw = (rn(K, R, 3 * F), rn(K, 3 * F)) if with_cdw else (None, None)
+    got = pk.painn_message_bwd2(*args, *cots, *cw)
+    _assert_bwd2_close(got, pk.painn_message_bwd2_plain(*args, *cots, *cw), args[3], cots[3])
+    dead = (args[3] == 0) & (cots[3] == 0)
+    assert bool(dead.any())
+    nan = float("nan")
+    edge, slot = dead[..., None], dead.reshape(C, 1, n_pad, M)
+    dirty = list(args)
+    dirty[2], dirty[5] = torch.where(edge, nan, args[2]), torch.where(slot, nan, args[5])
+    dirty_cots = list(cots)
+    dirty_cots[2] = torch.where(edge, nan, cots[2])
+    dirty_cots[4] = torch.where(slot, nan, cots[4])
+    out = pk.painn_message_bwd2(*dirty, *dirty_cots, *cw)
+    assert all(torch.equal(a, b) for a, b in zip(got, out))
 
 
 def test_training_step_on_card_repeats_and_matches_cpu(cuda_device):

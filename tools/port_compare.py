@@ -16,7 +16,11 @@ own ``_build/``) and measures there, at chip_smoke.py's shapes:
   end to end: chip_smoke.py's ``[mc]``, ``[cu-mc]`` and ``[relax-mc]``
     phases (their own evals/s lines), and one traced force call of the
     relaxed 1x1 path (port_profile.py's ``force_call`` window: wall, device
-    ms, and the device ms of the general message kernels).
+    ms, and the device ms of the general message kernels);
+  row 6 at the 2x2 supercell (128 chains, chip_smoke.py's [sc-kernel]
+    inputs), then chip_smoke.py's ``[sc-mc]`` and ``[inc-4x4]`` phases;
+    row 5 at a training step's shape (16 frames, one member, chip_smoke.py's
+    [bwd2] inputs; c_dw absent and given), then its ``[train]`` phase.
 
 It prints ``[result] {LABEL: {...}}`` and saves the kernels' outputs under
 ``surface_sampling_tpu_torch/_build/compare/LABEL.pt`` of the working
@@ -30,7 +34,9 @@ bitwise and by max abs difference. Parent against change, in one call:
     python3 tools/port_compare.py bits parent1 change1 change2 parent2
 
 The TREE may be older than this script: it needs only the chip_smoke.py
-functions named above.
+functions named above (and train_setup); the row 5 and row 6 inputs are made
+here (sc_layer1_args, train_bwd2_args, which port_profile.py's --variants
+uses too).
 """
 
 from __future__ import annotations
@@ -42,6 +48,58 @@ import time
 from pathlib import Path
 
 OUT = Path("surface_sampling_tpu_torch/_build/compare").resolve()
+
+
+def sc_layer1_args(sys_sc, dev, n_chains: int) -> tuple:
+    """Row 6's inputs as chip_smoke.py's [sc-kernel] makes them: the 2x2
+    supercell's banded static geometry of n_chains seeded occupancies (75%
+    of the sites empty), its species rows and layer-1 weights."""
+    import numpy as np
+    import torch
+    from surface_sampling_tpu_torch.core.state import realize_alive, realize_numbers
+    from surface_sampling_tpu_torch.models.painn import species_rows, with_halo
+    from surface_sampling_tpu_torch.ops.static_edges import static_edge_geometry
+
+    pot, d, spec = sys_sc.potential, sys_sc.run.d, sys_sc.spec
+    band = pot.static_edge_pack.band
+    rng = np.random.default_rng(4)
+    ss = rng.integers(0, spec.n_codes, (n_chains, spec.n_sites))
+    ss = torch.as_tensor(np.where(rng.random(ss.shape) < 0.75, 0, ss), device=dev)
+    (rbf, envm, nbr, unit, n_pad), _ = static_edge_geometry(pot.static_edge_pack,
+                                                            realize_alive(d, ss))
+    species = species_rows(pot.rw, pot.cfg, realize_numbers(d, ss), n_pad)
+    return (with_halo(species[:, band.perm], band.halo, 1), pot.rw["philt"], rbf, envm, nbr,
+            unit, pot.rw["dw2"], pot.rw["db2"], band)
+
+
+def train_bwd2_args(dev) -> tuple:
+    """Row 5's inputs at the training path's shape, as chip_smoke.py's
+    [bwd2] makes them for one member (K = 1): the 16 frames' geometry,
+    seeded features and cotangents (c_envm zero on masked edges); returns
+    (args, cotangents, reverse table)."""
+    import torch
+
+    import chip_smoke as cs
+    from surface_sampling_tpu_torch.models.painn import message_weights, structure_edges
+    from surface_sampling_tpu_torch.models.train import batch_to_device
+
+    params, cfg, _, _, batch = cs.train_setup(dev)
+    b = batch_to_device(batch, dev)
+    _, (rbf, envm, nbr, unit, n_pad, rev) = structure_edges(cfg, b.positions, b.numbers,
+                                                             b.shifts)
+    dw, db = message_weights(params["message"][1], cfg, rbf.shape[-1])
+    C, E, R = rbf.shape
+    F, M = cfg.feat_dim, E // n_pad
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    args = (rn(C, 1, n_pad, 3 * F), rn(C, 1, n_pad, 3 * F), rbf, envm, nbr, unit,
+            dw[:1].contiguous(), db[:1].contiguous(), rn(C, 1, n_pad, F), rn(C, 1, n_pad, 3 * F))
+    cots = (rn(C, 1, n_pad, 3 * F), rn(C, 1, n_pad, 3 * F), rn(C, E, R),
+            rn(C, E) * (envm != 0), rn(C, 3, n_pad, M))
+    return args, cots, rev
 
 
 def run(tree: str, label: str) -> int:
@@ -153,6 +211,32 @@ def run(tree: str, label: str) -> int:
     res["force_call_wall_ms"], res["force_call_device_ms"] = w["wall_ms"], w["device_ms"]
     res["force_call_message_ms"] = sum(k["ms"] for k in w["kernels"]
                                        if "message_kernel" in k["name"])
+    del sys_relax, w
+    torch.cuda.empty_cache()
+
+    # row 6 and the supercell's rigid paths
+    sys_sc = srtio3_001_painn(supercell=(2, 2), device=dev)
+    l1 = sc_layer1_args(sys_sc, dev, cs.N_CHAINS)
+    res["row6_2x2"] = ms(lambda: pk.painn_message_l1_banded(*l1))
+    out["row6"] = [t.cpu() for t in pk.painn_message_l1_banded(*l1)]
+    del l1
+    _, res["sc_mc_evals_s"], _ = cs.full_mc_phase("sc-mc", sys_sc, cs.SC_SWEEPS,
+                                                  cs.BANDED_LAUNCHES)
+    del sys_sc
+    torch.cuda.empty_cache()
+    cs.inc_4x4_phase(dev)
+    torch.cuda.empty_cache()
+
+    # row 5 and the training path
+    args5, cots5, rev5 = train_bwd2_args(dev)
+    res["row5_train"] = ms(lambda: pk.painn_message_bwd2(*args5, *cots5, rev=rev5))
+    res["row5_train_c_dw"] = ms(lambda: pk.painn_message_bwd2(*args5, *cots5, args5[6],
+                                                              args5[7], rev=rev5))
+    out["row5"] = [t.cpu() for t in pk.painn_message_bwd2(*args5, *cots5, rev=rev5)]
+    del args5, cots5, rev5
+    params, cfg, _, _, batch = cs.train_setup(dev)
+    cs.train_phase(params, cfg, batch, dev)
+
     OUT.mkdir(parents=True, exist_ok=True)
     torch.save(out, OUT / f"{label}.pt")
     print(f"[result] {json.dumps({label: res})}", flush=True)

@@ -49,19 +49,29 @@ the span on the device timeline of each of the forward's stages (the
 their calls). The last line of its output is all
 of it as one JSON object. Each window runs twice untraced first.
 
-Two more modes, for the redesigned kernels (rows 2, 10-13) and the tensor
-cores:
+Two more modes, for the redesigned kernels (rows 2, 5, 6, 10-13) and the
+tensor cores:
 
-  --variants [NAME ...]   one-edit variants of rows 2 and 10-13 (edits of a
-      copy of csrc/, built into _build/variants/, loaded in place of the
+  --variants [NAME ...]   one-edit variants of rows 2, 5, 6 and 10-13
+      (edits of a copy of csrc/, or a whole source replaced by a file of
+      tools/variants/, built into _build/variants/, loaded in place of the
       built kernels), timed in turns by CUDA events at chip_smoke.py's
       shapes: row 10 at paths A and B, row 11 at path C, row 12 at path B,
       row 2 at the 1x1 rigid path's (128 chains) and a training step's (16
-      frames, one member), row 13 at Cu (16,384 chains) and Au (1,024); two
-      rounds, the second in reverse order; each variant's largest
-      difference from the sources. A variant builds and times only the
-      kernels its edits reach (``FILE_KERNELS``); base builds and times them
-      all. Built in: one_pass (one TF32 pass), no_mma, no_act (sigmoid(x) =
+      frames, one member), row 13 at Cu (16,384 chains) and Au (1,024), row
+      6 at the 2x2 supercell (128 chains), row 5 at a training step's shape
+      (one member, c_dw absent and given); two rounds, the second in
+      reverse order; each variant's largest difference from the sources (a
+      NaN counts as infinite). A variant builds and times only the kernels
+      its edits reach (``FILE_KERNELS``); base builds and times them all.
+      Built in: l1_edges (row 6 as the layer-1 form of row 7's body, the
+      per-edge design the binned kernel replaced), l1_8w (row 6 at 8 warps
+      a block); bwd2_nb2 (row 5's neighbour kernel cut for 2 blocks an SM,
+      not 3), bwd2_clk (its centre kernel's warp clocks by phase),
+      bwd2_nodw / bwd2_noflush / bwd2_nodrbf / bwd2_noring (the centre
+      kernel without its d_dw products, their add to the block's partial,
+      the d_rbf product, or the ring's row copies: wrong results, for where
+      the time goes); one_pass (one TF32 pass), no_mma, no_act (sigmoid(x) =
       x), fwd_4x3 (rows 10 / 11 at 4 warps x 3 blocks an SM), bwd_8x1 (row
       12 at 8 x 1), clk (clock64 marks: warp clocks by phase); msg_blk16 /
       msg_blk8 / msg_blk2 / msg_blk1 (row 2 at 16 / 8 / 2 / 1 centres a
@@ -280,13 +290,19 @@ def train_step_window(dev) -> dict:
 HDR, BWD_SRC, MMA_HDR = "chgnet_conv.cuh", "chgnet_conv_bwd.cu", "tf32_mma.cuh"
 MSG_SRC, BANDED_HDR, EAM_SRC = ("painn_message_fused.cu", "painn_message_banded.cuh",
                                 "eam_rho_ep.cu")
+L1_SRC, BWD2_SRC = "painn_message_l1_banded.cu", "painn_message_bwd2.cu"
 CONV_KERNELS = ("chgnet_conv", "chgnet_conv_banded", "chgnet_conv_bwd")
 # the kernels an edited file reaches (a variant builds and times only those)
 FILE_KERNELS = {HDR: CONV_KERNELS, BWD_SRC: ("chgnet_conv_bwd",),
-                MMA_HDR: CONV_KERNELS + ("painn_message_fused",),
+                MMA_HDR: CONV_KERNELS + ("painn_message_fused", "painn_message_bwd2"),
                 MSG_SRC: ("painn_message_fused",), BANDED_HDR: ("painn_message_fused",),
-                EAM_SRC: ("eam_rho_ep",)}
-ALL_KERNELS = CONV_KERNELS + ("painn_message_fused", "eam_rho_ep")
+                EAM_SRC: ("eam_rho_ep",), L1_SRC: ("painn_message_l1_banded",),
+                BWD2_SRC: ("painn_message_bwd2",)}
+ALL_KERNELS = CONV_KERNELS + ("painn_message_fused", "eam_rho_ep", "painn_message_l1_banded",
+                              "painn_message_bwd2")
+# a whole source replaced (or a file added) by a file of tools/variants/: the
+# edit [file, None, name]
+VARIANT_DIR = Path(__file__).resolve().parent / "variants"
 # row 13 with the candidate table staged in shared memory once per resident
 # block, and a persistent grid of blocks walking the chains
 EAM_STAGE = [
@@ -367,6 +383,9 @@ CLK_FWD = ["compaction (warp 0) + barrier", "tile_pre", "hidden products",
            "elementwise + tile sums", "barrier", "agg"]
 CLK_EAM = ["chain staging", "candidate list (j, alive)", "distances + append", "series",
            "centre sums", "queue push"]
+CLK_BWD2 = ["compaction + zeros + staging", "ring wait + (k, cg) loads", "W, G products",
+            "elementwise", "d_rbf product + slices", "d_dw products", "partial + d_gds flush",
+            "centre end: barrier + slice sums"]
 CLK_BWD = ["g_ai2 + compaction (warp 0) + barrier + zeros", "tile_pre + silu'",
            "hidden products", "LayerNorm backward", "dpre products + store", "tile sums",
            "g_be product", "barrier"]
@@ -390,6 +409,39 @@ VARIANTS = {
                    [EAM_SRC, "__global__ void __launch_bounds__(NWARP * 32)\n",
                     "__global__ void __launch_bounds__(NWARP * 32, 6)\n"]],
     "eam_noseries": [[EAM_SRC, "    *e = pair_terms(e->x);", "    *e = make_float2(e->x, e->x);"]],
+    "l1_edges": [[L1_SRC, None, "l1_edges.cu"],
+                 ["painn_message_banded_l1.cuh", None, "painn_message_banded_l1.cuh"]],
+    "l1_8w": [[L1_SRC, "constexpr int NW = 4, THREADS", "constexpr int NW = 8, THREADS"]],
+    "bwd2_nb2": [[BWD2_SRC, "NB_BLOCKS_PER_SM = 3;", "NB_BLOCKS_PER_SM = 2;"]],
+    # row 5's centre kernel with one part of its work left out (wrong
+    # results; for where the time goes): the d_dw products, their flush to
+    # the block's partial, the d_rbf product, the ring's row copies
+    "bwd2_nodw": [[BWD2_SRC, "            mma3(dacc[mt][T], ah, al, dh[T], dl[T]);\n"
+                   "            mma3(dacc[mt][T], ch4, cl4, zh[T], zl[T]);\n", ""]],
+    "bwd2_noflush": [[BWD2_SRC, "              if (r > R) continue;\n",
+                      "              if (r >= 0) continue;\n"]],
+    "bwd2_nodrbf": [[BWD2_SRC, "          mma3(dr[nt], ah, al, bh, bl);\n        }\n        if constexpr",
+                     "        }\n        if constexpr"]],
+    "bwd2_noring": [[BWD2_SRC, "        issue(kn, cgn, rtn, (u + CT_STAGES - 1) % CT_STAGES);\n", ""]],
+    "bwd2_clk": [
+        [BWD2_SRC, "using namespace tf32mma;\n", "using namespace tf32mma;\n" + CLK_DEFS],
+        [BWD2_SRC, "  for (int q = q0; q < q1; ++q) {\n",
+         "  long long t_prev = clock64();\n  for (int q = q0; q < q1; ++q) {\n"],
+        [BWD2_SRC, "    const int n_rt = Lp / CT_ROWS;\n", "    CLK(0)\n    const int n_rt = Lp / CT_ROWS;\n"],
+        [BWD2_SRC, "      // W_T = RBF . dw_T and G_T", "      CLK(1)\n      // W_T = RBF . dw_T and G_T"],
+        [BWD2_SRC, "      // elementwise, on the accumulator fragments",
+         "      CLK(2)\n      // elementwise, on the accumulator fragments"],
+        [BWD2_SRC, "      // d_rbf (16 edges x R) = dwpre", "      CLK(3)\n      // d_rbf (16 edges x R) = dwpre"],
+        [BWD2_SRC, "      // d_dw_k (R + 1 x 24 channels) += RBF^T",
+         "      CLK(4)\n      // d_dw_k (R + 1 x 24 channels) += RBF^T"],
+        [BWD2_SRC, "      if (rt == n_rt - 1) {\n        // the centre's d_dw",
+         "      CLK(5)\n      if (rt == n_rt - 1) {\n        // the centre's d_dw"],
+        [BWD2_SRC, "      __syncwarp();\n    }\n    cp_async_wait<0>();\n    __syncthreads();\n",
+         "      __syncwarp();\n      CLK(6)\n      if (lane == 0) atomicAdd(&g_clk[15], 1ull);\n"
+         "    }\n    cp_async_wait<0>();\n    __syncthreads();\n"],
+        [BWD2_SRC, "n_pad + i) * M + m] = v;\n    }\n  }\n}",
+         "n_pad + i) * M + m] = v;\n    }\n    CLK(7)\n  }\n}"],
+    ],
     "one_pass": [[MMA_HDR, MMA3, "  mma_tf32(d, ah, bh);"]],
     "no_mma": [[MMA_HDR, MMA3, "  d[0] += __uint_as_float(ah[0] ^ al[1] ^ bh[0] ^ bl[1]);"]],
     "no_act": [[HDR, "float sigmoid(float x) { return __fdividef(1.f, 1.f + __expf(-x)); }",
@@ -465,7 +517,8 @@ def variant_kernels(edits) -> tuple:
     """The kernels a variant's edits reach; all of them for the sources."""
     if not edits:
         return ALL_KERNELS
-    return tuple(k for k in ALL_KERNELS if any(k in FILE_KERNELS[f] for f, _, _ in edits))
+    return tuple(k for k in ALL_KERNELS
+                 if any(k in FILE_KERNELS.get(f, ()) for f, _, _ in edits))
 
 
 def build_variants(spec: dict) -> dict:
@@ -481,12 +534,15 @@ def build_variants(spec: dict) -> dict:
     for name, edits in spec.items():
         src = root / name
         shutil.copytree(cb.CSRC, src)
-        missing = [old[:60] for f, old, _ in edits if old not in (src / f).read_text()]
+        missing = [old[:60] for f, old, _ in edits
+                   if old is not None and old not in (src / f).read_text()]
         if missing:
             print(f"[variants] {name}: edit no longer matches, left out: {missing}")
             continue
         for f, old, new in edits:
-            (src / f).write_text((src / f).read_text().replace(old, new))
+            text = (VARIANT_DIR / new).read_text() if old is None else \
+                (src / f).read_text().replace(old, new)
+            (src / f).write_text(text)
         for k in variant_kernels(edits):
             out = src / f"lib{k}.so"
             procs.append((name, k, out, subprocess.Popen(
@@ -521,6 +577,7 @@ def variant_cases(dev) -> dict:
     """{kernel: {case: fn}} at chip_smoke.py's shapes (fn returns the
     outputs to compare)."""
     import chip_smoke as cs
+    from port_compare import sc_layer1_args, train_bwd2_args
     from surface_sampling_tpu_torch.core.energy import RelaxConfig
     from surface_sampling_tpu_torch.core.state import realize_alive, realize_positions
     from surface_sampling_tpu_torch.core.static_neighbors import build_static_neighbor_table
@@ -571,7 +628,15 @@ def variant_cases(dev) -> dict:
 
     cu_args = eam_args(cu, cu_pot, cs.CU_MC_CHAINS, 32)
     au_args = eam_args(au, au_pot, cs.EAM_AU_CHAINS, 31)
+    l1 = sc_layer1_args(srtio3_001_painn(supercell=(2, 2), device=dev), dev, N_CHAINS)
+    bwd2, bwd2_cots, bwd2_rev = train_bwd2_args(dev)
+    bwd2_cw = (bwd2[6], bwd2[7])
     return {
+        "painn_message_l1_banded": {"row 6 2x2": lambda: pk.painn_message_l1_banded(*l1)},
+        "painn_message_bwd2": {
+            "row 5 train": lambda: pk.painn_message_bwd2(*bwd2, *bwd2_cots, rev=bwd2_rev),
+            "row 5 train c_dw": lambda: pk.painn_message_bwd2(*bwd2, *bwd2_cots, *bwd2_cw,
+                                                              rev=bwd2_rev)},
         "chgnet_conv": {"row 10 A": lambda: (ck.chgnet_conv(*a),),
                         "row 10 B": lambda: (ck.chgnet_conv(*b),)},
         "chgnet_conv_banded": {"row 11 C": lambda: (ck.chgnet_conv_banded(*c, band),)},
@@ -613,7 +678,9 @@ def variants_main(args: list) -> int:
             for k in mine[n]:
                 ms[n][k].append(cs._cuda_ms(cases[k], reps=20))
             if rnd == 0:
-                diff[n] = {k: max(float((x - y).abs().max()) for x, y in zip(cases[k](), ref[k]))
+                # a NaN counts as an infinite difference
+                diff[n] = {k: max(float(torch.nan_to_num((x - y).abs(), nan=float("inf")).max())
+                                  for x, y in zip(cases[k](), ref[k]))
                            for k in mine[n]}
     for n in names:
         print(f"[variant] {n:10s} " + "  ".join(f"{k} {ms[n][k][0]:.4f} {ms[n][k][1]:.4f}"
@@ -621,7 +688,9 @@ def variants_main(args: list) -> int:
               + f"  max diff from base {json.dumps(diff[n])}")
     clk_cases = [("clk", "row 10 A", "chgnet_conv", CLK_FWD, range(0, 6), 15, "tiles"),
                  ("clk", "row 12 B", "chgnet_conv_bwd", CLK_BWD, range(6, 14), 14, "tiles"),
-                 ("eam_clk", "row 13 Cu", "eam_rho_ep", CLK_EAM, range(0, 6), 15, "centres")]
+                 ("eam_clk", "row 13 Cu", "eam_rho_ep", CLK_EAM, range(0, 6), 15, "centres"),
+                 ("bwd2_clk", "row 5 train", "painn_message_bwd2", CLK_BWD2, range(0, 8), 15,
+                  "units")]
     for variant, case, kernel, labels, slots, count, unit in clk_cases:
         if variant in names:
             use_variant(libs, variant)
