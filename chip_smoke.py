@@ -302,13 +302,46 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def update_work(args) -> tuple[int, int, int]:
+    """Row 3's operations on these inputs, counting the alive rows only
+    (alive != 0; the kernel writes zeros to the others without computing
+    them): the products (22 F^2 per alive row and member: [v_0; v_1; v_2] .
+    [U | V], [s, |Vv|] . W0, h . W1) and ~30 F elementwise; and the bytes it
+    must move: an alive row's s and vcat read, every output row written, the
+    mask and the weights once. Returns (products, rest, bytes)."""
+    s, vcat, *weights, alive = args
+    C, K, n_pad, F = s.shape
+    rows = K * int((alive != 0).sum())
+    nbytes = 4 * (rows * 4 * F + C * K * n_pad * 4 * F) + _nbytes(*weights, alive)
+    return rows * 22 * F * F, rows * 30 * F, nbytes
+
+
+def layer1_work(args, band, F: int) -> tuple[int, int, int, int]:
+    """Row 1 or 6's operations on these inputs (l1_binned_work: the binned
+    kernel's count over live edges and species present) and the bytes it
+    must move: every slot's envelope, a live edge's rbf row, unit vector,
+    neighbour index and species, the weights and tables once, the outputs.
+    Returns (operations, bytes, live edges, (chain, centre, species
+    present) triples)."""
+    species, philt, rbf, envm, nbr, unit, dw2, db2 = args[:8]
+    C, R, M, K, T1 = rbf.shape[0], rbf.shape[2], unit.shape[-1], philt.shape[0], philt.shape[1]
+    n_pad = unit.shape[2]
+    flops, live, present = l1_binned_work(species, envm, nbr, band, M, K, F, R, T1)
+    nbytes = 4 * (envm.numel() + live * (R + 5) + C * K * n_pad * 4 * F) + _nbytes(
+        philt, dw2, db2, band.win_start)
+    return flops, nbytes, live, present
+
+
 def kernel_cases(sys_, dev):
     """Inputs of the three kernels at the main path's shapes: real edge
     geometry of N_CHAINS random occupancies, the real layer weights, and
-    seeded random features for the layer inputs."""
+    seeded random features for the layer inputs. Each case: (name, wrapper,
+    TPU kernel, arguments, which arguments carry the chain axis, operations,
+    bytes it must move)."""
     from surface_sampling_tpu_torch.core.state import realize_alive, realize_numbers
     from surface_sampling_tpu_torch.models.painn import species_rows
     from surface_sampling_tpu_torch.ops import painn_kernels as pk
+    from surface_sampling_tpu_torch.ops.banding import identity_band
     from surface_sampling_tpu_torch.ops.static_edges import static_edge_geometry
 
     pot, d, spec = sys_.potential, sys_.run.d, sys_.spec
@@ -330,26 +363,22 @@ def kernel_cases(sys_, dev):
 
     up = params["update"][0]
     R = cfg.n_rbf
-    C = N_CHAINS
     n_live = int((envm != 0).sum())      # edges that contribute (the rest are masked)
-    # (name, wrapper, TPU kernel, arguments, which arguments carry the chain
-    # axis, operations)
+    l1_args = (species, rw["philt"], rbf, envm, nbr, unit, rw["dw2"], rw["db2"])
+    l1_flops, l1_bytes, _, _ = layer1_work(l1_args, identity_band(n_pad, 8, dev), F)
+    # the features drawn in the rows' order: row 2's, then row 3's
+    msg_args = (feat(3 * F), feat(3 * F), rbf, envm, nbr, unit, rw["dw"][1], rw["db"][1])
+    upd_args = (feat(F), feat(3 * F), up["u_mat"]["w"], up["v_mat"]["w"], up["s_dense0"]["w"],
+                up["s_dense0"]["b"], up["s_dense1"]["w"], up["s_dense1"]["b"], alive_f)
+    products, rest, upd_bytes = update_work(upd_args)
     return [
         ("painn_message_l1", pk.painn_message_l1, "surface_sampling_tpu/ops/pallas_painn.py:162",
-         (species, rw["philt"], rbf, envm, nbr, unit, rw["dw2"], rw["db2"]),
-         (True, False, True, True, True, True, False, False),
-         K * n_live * l1_flops_per_edge(F, R)),
+         l1_args, (True, False, True, True, True, True, False, False), l1_flops, l1_bytes),
         ("painn_message_fused", pk.painn_message_fused,
-         "surface_sampling_tpu/ops/pallas_painn.py:1100",
-         (feat(3 * F), feat(3 * F), rbf, envm, nbr, unit, rw["dw"][1], rw["db"][1]),
-         (True,) * 6 + (False, False),
-         K * n_live * msg_flops_per_edge(F, R)),
+         "surface_sampling_tpu/ops/pallas_painn.py:1100", msg_args,
+         (True,) * 6 + (False, False), K * n_live * msg_flops_per_edge(F, R), None),
         ("painn_update_fused", pk.painn_update_fused, "surface_sampling_tpu/ops/pallas_painn.py:333",
-         (feat(F), feat(3 * F), up["u_mat"]["w"], up["v_mat"]["w"], up["s_dense0"]["w"],
-          up["s_dense0"]["b"], up["s_dense1"]["w"], up["s_dense1"]["b"], alive_f),
-         (True, True) + (False,) * 6 + (True,),
-         # 6 + 2 + 3 F x F mat-vecs per row, plus ~30 F elementwise
-         C * K * n_pad * (2 * 11 * F * F + 30 * F)),
+         upd_args, (True, True) + (False,) * 6 + (True,), products + rest, upd_bytes),
     ]
 
 
@@ -505,6 +534,80 @@ def message_fused_contract(args, m: dict) -> str:
             f"{envm.numel()} slots (live share {n_live / envm.numel():.4f}) n_blk="
             f"{lib.painn_message_fused_n_blk(n_pad)} shared memory="
             f"{lib.painn_message_fused_smem(R, M, n_pad)} B a block ")
+
+
+def layer1_unbanded_contract(args, m: dict) -> str:
+    """Row 1 on the main path's inputs: bitwise equal to row 6 on an
+    identity band (the binned body it runs), bitwise on repeat, and dead
+    edges inert (NaN rbf and unit, out-of-range nbr on every envm == 0 edge
+    leave ds and dv bitwise unchanged); raises otherwise. Returns the text
+    of its live share, species present, block and shared memory."""
+    from surface_sampling_tpu_torch.ops import painn_kernels as pk
+    from surface_sampling_tpu_torch.ops.banding import identity_band
+    from surface_sampling_tpu_torch.ops.cuda_build import _lib
+
+    species, philt, rbf, envm, nbr, unit, dw2, db2 = args
+    C, n_pad, M, R = species.shape[0], species.shape[1], unit.shape[-1], rbf.shape[-1]
+    T1, F = philt.shape[1], philt.shape[2] // 2
+    dev = rbf.device
+    got = pk.painn_message_l1(*args)
+    dead = envm == 0
+    nan = float("nan")
+    far = torch.randint(-2 ** 30, 2 ** 30, nbr.shape, generator=_gen(3), device=dev,
+                        dtype=torch.int32)
+    dirty = (species, philt, torch.where(dead[..., None], nan, rbf), envm,
+             torch.where(dead, far, nbr), torch.where(dead.reshape(C, 1, n_pad, M), nan, unit),
+             dw2, db2)
+    for label, out in (("a second launch", pk.painn_message_l1(*args)),
+                       ("row 6 on an identity band",
+                        pk.painn_message_l1_banded(*args, identity_band(n_pad, 16, dev))),
+                       ("NaN rbf / unit and out-of-range nbr on dead edges",
+                        pk.painn_message_l1(*dirty))):
+        if not all(torch.equal(a, b) for a, b in zip(got, out)):
+            raise AssertionError(f"painn_message_l1 vs {label}: not bitwise equal")
+    print(f"[kernel-contract] painn_message_l1 bitwise equal to a second launch, to "
+          f"painn_message_l1_banded on an identity band, and with NaN rbf / unit and "
+          f"out-of-range nbr on its {int(dead.sum())} dead edges")
+    _, _, live, present = layer1_work(args, identity_band(n_pad, 8, dev), F)
+    lib = _lib("painn_message_l1")
+    return (f"live_edges={live} of {envm.numel()} slots (live share {live / envm.numel():.4f}) "
+            f"species present per centre {present / (C * n_pad):.3f} (T1={T1}) n_blk="
+            f"{lib.painn_message_l1_n_blk(n_pad)} shared memory="
+            f"{lib.painn_message_l1_smem(R, n_pad, T1)} B a block (binned operations, f32; no "
+            f"tensor-core product, so no bound_tc_ms) ")
+
+
+def update_contract(args, m: dict, tag: str = "kernel-contract") -> str:
+    """Row 3 on these inputs: bitwise on repeat, dead rows exactly 0 and
+    inert (NaN s and vcat on every alive == 0 row leave the outputs bitwise
+    unchanged); raises otherwise. Returns the text of its alive share,
+    tile, shared memory, and the bound with the products at 3 TF32
+    passes."""
+    from surface_sampling_tpu_torch.ops import painn_kernels as pk
+    from surface_sampling_tpu_torch.ops.cuda_build import _lib
+
+    s, vcat, *_, alive = args
+    C, K, n_pad, F = s.shape
+    got = pk.painn_update_fused(*args)
+    dead = (alive == 0)[:, None, :, None]
+    nan = float("nan")
+    dirty = (torch.where(dead, nan, s), torch.where(dead, nan, vcat), *args[2:])
+    for label, out in (("a second launch", pk.painn_update_fused(*args)),
+                       ("NaN s / vcat on dead rows", pk.painn_update_fused(*dirty))):
+        if not all(torch.equal(a, b) for a, b in zip(got, out)):
+            raise AssertionError(f"painn_update_fused vs {label}: not bitwise equal")
+    if not all(bool((x.masked_select(dead) == 0).all()) for x in got):
+        raise AssertionError("painn_update_fused: a dead row is not exactly 0")
+    n_alive = int((alive != 0).sum())
+    print(f"[{tag}] painn_update_fused bitwise equal to a second launch and with NaN s / vcat "
+          f"on its {C * n_pad - n_alive} dead rows of each member, which are exactly 0")
+    products, rest, nbytes = update_work(args)
+    _, bound_tc_ms, _ = bwd_bounds(products, rest, nbytes)
+    lib = _lib("painn_update_fused")
+    return (f"bound_tc_ms={bound_tc_ms:.4f} (3xTF32 products) alive_rows={n_alive} of "
+            f"{C * n_pad} (alive share {n_alive / (C * n_pad):.4f}) tile rows="
+            f"{lib.painn_update_fused_tile_rows(F)} shared memory="
+            f"{lib.painn_update_fused_smem(F)} B a block ")
 
 
 def bwd_errors(name: str, got, ref, envm, names) -> dict:
@@ -835,9 +938,7 @@ def sc_kernels_phase(sys_sc, dev) -> list:
     # every slot's envelope, a live edge's rbf row, unit vector, rank and
     # species, the weights and tables once, the outputs
     T1 = rw["philt"].shape[1]
-    l1_flops, l1_live, l1_present = l1_binned_work(l1_args[0], envm, nbr, band, M, K, F, R, T1)
-    l1_bytes = 4 * (envm.numel() + l1_live * (R + 5) + N_CHAINS * K * n_pad * 4 * F) + _nbytes(
-        rw["philt"], rw["dw2"], rw["db2"], band.win_start)
+    l1_flops, l1_bytes, l1_live, l1_present = layer1_work(l1_args, band, F)
     by["l1"] = _measure("painn_message_l1_banded", pk.painn_message_l1_banded,
                         pk.painn_message_l1_banded_plain, l1_args, l1_pc, l1_flops,
                         PLAIN_CHUNK, nbytes=l1_bytes)
@@ -921,6 +1022,23 @@ def sc_kernels_phase(sys_sc, dev) -> list:
         raise AssertionError("painn_message_subset over every block differs from "
                              "painn_message_fused_banded")
     del sub, full
+
+    # row 3 at the 2x2 trunk's shape (its update, in the band's sorted
+    # order): printed here, its kernels-line entry is the 1x1's
+    up = params["update"][0]
+    alive_s = torch.nn.functional.pad(alive.float(), (0, n_pad - alive.shape[1]))[:, p]
+    upd_args = (torch.randn((N_CHAINS, K, n_pad, F), generator=gen, device=dev),
+                torch.randn((N_CHAINS, K, n_pad, 3 * F), generator=gen, device=dev),
+                up["u_mat"]["w"], up["v_mat"]["w"], up["s_dense0"]["w"], up["s_dense0"]["b"],
+                up["s_dense1"]["w"], up["s_dense1"]["b"], alive_s.contiguous())
+    products, rest, upd_bytes = update_work(upd_args)
+    m = _measure("painn_update_fused", pk.painn_update_fused, pk.painn_update_fused_plain,
+                 upd_args, (True, True) + (False,) * 6 + (True,), products + rest, PLAIN_CHUNK,
+                 nbytes=upd_bytes)
+    _print_measure("sc-kernel", "painn_update_fused", m,
+                   "(2x2, C = 128; the kernels line holds the 1x1's) "
+                   + update_contract(upd_args, m, "sc-kernel"))
+    del upd_args
 
     # banded vs unbanded on the same geometry, slot order
     pack_u = build_static_edge_pack(spec, sys_sc.static_nbr, cfg, dev)
@@ -2564,11 +2682,13 @@ def main() -> int:
     dev = torch.device("cuda")
     sys_gpu = srtio3_001_painn(device=dev)
     rows = []
-    for kname, fn, replaces, args, per_chain, flops in kernel_cases(sys_gpu, dev):
-        m = _measure(kname, fn, pk.PLAIN[fn], args, per_chain, flops)
+    contracts = {pk.painn_message_l1: layer1_unbanded_contract,
+                 pk.painn_message_fused: message_fused_contract,
+                 pk.painn_update_fused: update_contract}
+    for kname, fn, replaces, args, per_chain, flops, nbytes in kernel_cases(sys_gpu, dev):
+        m = _measure(kname, fn, pk.PLAIN[fn], args, per_chain, flops, nbytes=nbytes)
         rows.append(_row(kname, replaces, m))
-        _print_measure("kernel", kname, m,
-                       message_fused_contract(args, m) if fn is pk.painn_message_fused else "")
+        _print_measure("kernel", kname, m, contracts[fn](args, m))
 
     # 4. pristine anchor
     run = sys_gpu.run

@@ -4,8 +4,7 @@
 // Replaces: surface_sampling_tpu/ops/pallas_painn.py, painn_message_l1
 // (kernel _msg_kernel_l1). The TPU kernel routes the species one-hot of
 // every neighbour through one-hot MXU matmuls because TPU gathers
-// serialize; here a neighbour's species is read by index and selects a row
-// of the per-member species table philt.
+// serialize; here a neighbour's species is read by index.
 //
 // Per edge e = (i, m), neighbour j = nbr[e], for channel f of F:
 //     w_s = (rbf[e] . dw2[:, f]     + db2[f])     * envm[e]
@@ -13,115 +12,49 @@
 //     ds[i, f]      += philt[species[j], f]     * w_s
 //     dv[i, x*F+f]  += philt[species[j], F + f] * w_u * unit[x, i, m]
 //
-// Bound on an H100: operations. Per (chain, member) the radial filter is
-// 2 * E * R * 2F multiply-adds (E = n_pad * M edges) against inputs of a
-// few MB per chain, well above the card's f32 balance point (67 TFLOP/s
-// over 3.35 TB/s, ~20 FLOP per byte).
-//
-// Design: one block per (centre i, member k, chain c), one thread per
-// channel f. The centre's M edge rows (rbf, envelope, neighbour species,
-// unit vector) are staged once in shared memory and read as broadcasts;
-// thread f keeps its two dist_embed columns (2R floats) in registers, so
-// the inner loop is R fused multiply-adds per channel per edge with no
-// memory traffic. Blocks of one (member, chain) run together and share the
-// L2-resident geometry of that chain. Nothing is atomically accumulated:
-// each thread owns its outputs, so results are deterministic.
+// This is the banded layer-1 message on an identity band: every window
+// starts at row 0 and is n_pad wide, the species table carries no halo, so
+// every neighbour index is read as it is. The body is l1binned::message
+// (painn_message_l1_binned.cuh, which holds the design and the bound): a
+// block per n_blk centres and chain, each centre's live edges (envm != 0;
+// a dead edge's rbf, unit vector and neighbour index are never read)
+// binned by neighbour species once for all members, then a thread per
+// (member, channel) multiplying the bins of the species present, in
+// ascending order, by its filter columns. So a centre gets bitwise what
+// painn_message_l1_banded gives it on an identity band, and launches
+// repeat bitwise.
 
-#include <cuda_runtime.h>
+#include "painn_message_l1_binned.cuh"
 
 namespace {
 
-template <int R>
-__global__ void message_l1_kernel(
-    const int* __restrict__ species, const float* __restrict__ philt,
-    const float* __restrict__ rbf, const float* __restrict__ envm,
-    const int* __restrict__ nbr, const float* __restrict__ unit,
-    const float* __restrict__ dw2, const float* __restrict__ db2,
-    float* __restrict__ ds, float* __restrict__ dv,
-    int K, int n_pad, int M, int F, int T1) {
-  const int i = blockIdx.x, k = blockIdx.y, c = blockIdx.z;
-  const int f = threadIdx.x;
-
-  extern __shared__ float smem[];
-  float* s_rbf = smem;                  // M * R
-  float* s_env = s_rbf + M * R;         // M
-  float* s_unit = s_env + M;            // 3 * M
-  int* s_sp = reinterpret_cast<int*>(s_unit + 3 * M);  // M
-
-  const size_t e0 = (size_t(c) * n_pad + i) * M;       // first edge of centre i
-  for (int t = f; t < M * R; t += blockDim.x) s_rbf[t] = rbf[e0 * R + t];
-  for (int t = f; t < M; t += blockDim.x) {
-    s_env[t] = envm[e0 + t];
-    s_sp[t] = species[size_t(c) * n_pad + nbr[e0 + t]];
-    for (int x = 0; x < 3; ++x)
-      s_unit[x * M + t] = unit[((size_t(c) * 3 + x) * n_pad + i) * M + t];
-  }
-  __syncthreads();
-  if (f >= F) return;
-
-  const float* dwk = dw2 + size_t(k) * R * 2 * F;
-  float ws[R], wu[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    ws[r] = dwk[r * 2 * F + f];
-    wu[r] = dwk[r * 2 * F + F + f];
-  }
-  const float bs = db2[size_t(k) * 2 * F + f];
-  const float bu = db2[size_t(k) * 2 * F + F + f];
-  const float* ph = philt + size_t(k) * T1 * 2 * F;
-
-  float acc_s = 0.f, acc_x = 0.f, acc_y = 0.f, acc_z = 0.f;
-  for (int m = 0; m < M; ++m) {
-    const float* q = s_rbf + m * R;
-    float ts = 0.f, tu = 0.f;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      ts = fmaf(q[r], ws[r], ts);
-      tu = fmaf(q[r], wu[r], tu);
-    }
-    const float e = s_env[m];
-    ts = (ts + bs) * e;
-    tu = (tu + bu) * e;
-    const float* row = ph + size_t(s_sp[m]) * 2 * F;
-    const float cs = row[f] * ts;
-    const float cu = row[F + f] * tu;
-    acc_s += cs;
-    acc_x += cu * s_unit[m];
-    acc_y += cu * s_unit[M + m];
-    acc_z += cu * s_unit[2 * M + m];
-  }
-  const size_t row_out = (size_t(c) * K + k) * n_pad + i;
-  ds[row_out * F + f] = acc_s;
-  float* dvr = dv + row_out * 3 * F;
-  dvr[f] = acc_x;
-  dvr[F + f] = acc_y;
-  dvr[2 * F + f] = acc_z;
-}
-
-template <int R>
-void launch(const int* species, const float* philt, const float* rbf,
-            const float* envm, const int* nbr, const float* unit,
-            const float* dw2, const float* db2, float* ds, float* dv, int C,
-            int K, int n_pad, int M, int F, int T1, cudaStream_t stream) {
-  const dim3 grid(n_pad, K, C);
-  const size_t shmem = size_t(M) * (R + 4) * sizeof(float) + size_t(M) * sizeof(int);
-  message_l1_kernel<R><<<grid, F, shmem, stream>>>(
-      species, philt, rbf, envm, nbr, unit, dw2, db2, ds, dv, K, n_pad, M, F, T1);
+// Centres a block: 8 (of 16, 8, 4 and 2 at the flagship's 1x1 shape, C =
+// 128: 8 and 4 tie, 16 and 2 are slower), halved while it does not divide
+// n_pad. A centre's bits do not depend on it.
+int centres_a_block(int n_pad) {
+  int n_blk = 8;
+  while (n_pad % n_blk) n_blk >>= 1;
+  return n_blk;
 }
 
 }  // namespace
 
+// Launches the kernel for a radial width R of 8, 16 or 24 and at most 32
+// species rows, and returns cudaGetLastError() (a refused launch never
+// runs).
 extern "C" int painn_message_l1(
     const int* species, const float* philt, const float* rbf, const float* envm,
     const int* nbr, const float* unit, const float* dw2, const float* db2,
     float* ds, float* dv, int C, int K, int n_pad, int M, int R, int F, int T1,
     cudaStream_t stream) {
-  switch (R) {
-    case 8: launch<8>(species, philt, rbf, envm, nbr, unit, dw2, db2, ds, dv, C, K, n_pad, M, F, T1, stream); break;
-    case 16: launch<16>(species, philt, rbf, envm, nbr, unit, dw2, db2, ds, dv, C, K, n_pad, M, F, T1, stream); break;
-    case 24: launch<24>(species, philt, rbf, envm, nbr, unit, dw2, db2, ds, dv, C, K, n_pad, M, F, T1, stream); break;
-    case 32: launch<32>(species, philt, rbf, envm, nbr, unit, dw2, db2, ds, dv, C, K, n_pad, M, F, T1, stream); break;
-    default: return int(cudaErrorInvalidValue);
-  }
-  return int(cudaGetLastError());
+  return l1binned::message(species, philt, rbf, envm, nbr, unit, dw2, db2, /*ws=*/nullptr, ds,
+                           dv, C, K, n_pad, /*n_ext=*/n_pad, M, R, F, T1,
+                           centres_a_block(n_pad), /*W=*/n_pad, stream);
+}
+
+// Centres a block of a launch at n_pad rows, and the bytes of dynamic
+// shared memory the block takes, for chip_smoke.py.
+extern "C" int painn_message_l1_n_blk(int n_pad) { return centres_a_block(n_pad); }
+extern "C" int painn_message_l1_smem(int R, int n_pad, int T1) {
+  return int(l1binned::smem_bytes(R, centres_a_block(n_pad), T1));
 }

@@ -45,7 +45,6 @@ from surface_sampling_tpu_torch.ops.painn_kernels import (
     painn_message_l1,
     painn_message_l1_banded,
     painn_update_fused,
-    painn_update_fused_plain,
 )
 
 
@@ -153,6 +152,39 @@ def _dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"][:, None, :]
     return y
+
+
+def painn_update(s, vcat, u, v, w0, b0, w1, b1, alive):
+    """PaiNN update block over padded rows, batched over chains and members
+    (the JAX package's ``_painn_update``): differentiable PyTorch, for the
+    general trunk, whose forces and training differentiate through it, and
+    the plain version of the rigid trunk's kernel
+    (``ops.painn_kernels.painn_update_fused``, same arguments and layout).
+
+        Uv_x = v_x @ u,  Vv_x = v_x @ v                 per axis x
+        a    = silu([s, |Vv|] @ w0 + b0) @ w1 + b1      split a_vv | a_sv | a_ss
+        s'   = (s + a_sv * <Uv, Vv> + a_ss) * alive
+        v'_x = (v_x + a_vv * Uv_x) * alive
+
+    with |Vv| = sqrt(sum_x Vv_x^2 + 1e-16); s (C, K, n_pad, F), vcat (C, K,
+    n_pad, 3F) x-major, alive (C, n_pad) 0 on dead and padded rows.
+    """
+    C, K, n_pad, F = s.shape
+    vx = vcat.reshape(C, K, n_pad, 3, F)
+    # einsum batches the member axis: a broadcast matmul would copy each
+    # member's weights once per (chain, row)
+    uv = torch.einsum("cknxf,kfg->cknxg", vx, u)                     # (C, K, n, 3, F)
+    vv = torch.einsum("cknxf,kfg->cknxg", vx, v)
+    vv_norm = torch.sqrt((vv * vv).sum(dim=3) + 1e-16)
+    h = tnf.silu(torch.einsum("ckni,kio->ckno", torch.cat([s, vv_norm], dim=-1), w0)
+                 + b0[:, None, :])
+    a = torch.einsum("ckni,kio->ckno", h, w1) + b1[:, None, :]
+    a_vv, a_sv, a_ss = a[..., :F], a[..., F:2 * F], a[..., 2 * F:]
+    inner = (uv * vv).sum(dim=3)
+    am = alive[:, None, :, None]
+    s_out = (s + a_sv * inner + a_ss) * am
+    v_out = (vx + a_vv[..., None, :] * uv) * am[..., None]
+    return s_out, v_out.reshape(C, K, n_pad, 3 * F)
 
 
 def update_weights(up: dict) -> tuple:
@@ -365,7 +397,7 @@ def painn_features(params: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
             ds, dv = painn_message_fused_banded(with_halo(phi, band.halo, 2),
                                                 with_halo(vcat, band.halo, 2), rbf, envm, nbr,
                                                 unit, dw, db, band, rev)
-        s, vcat = painn_update_fused_plain(s + ds, vcat + dv, *update_weights(up), alive_f)
+        s, vcat = painn_update(s + ds, vcat + dv, *update_weights(up), alive_f)
     if band is not None:
         s = s[:, :, band.inv_perm]
     return s[:, :, :N]

@@ -186,10 +186,11 @@ class DeviceBand(NamedTuple):
 
 
 def identity_band(n_pad: int, n_blk: int, device) -> DeviceBand:
-    """The band on which the banded general message is the unbanded one:
-    slots in their own order, every window starting at row 0 and n_pad
-    wide, no halo. ``painn_message_fused``'s kernel runs the banded body on
-    it; the tests and ``chip_smoke.py`` hold the two equal on it."""
+    """The band on which the banded general and layer-1 messages are the
+    unbanded ones: slots in their own order, every window starting at row 0
+    and n_pad wide, no halo. The kernels of ``painn_message_fused`` and
+    ``painn_message_l1`` run the banded bodies on it; the tests and
+    ``chip_smoke.py`` hold each pair equal on it."""
     ident = torch.arange(n_pad, device=device)
     return DeviceBand(perm=ident, inv_perm=ident, rank=ident,
                       win_start=torch.zeros(n_pad // n_blk, dtype=torch.int32, device=device),

@@ -30,7 +30,7 @@ NVCC_FLAGS = (
 ARITY = {
     "painn_message_l1": (10, 7),
     "painn_message_fused": (10, 6),
-    "painn_update_fused": (11, 4),
+    "painn_update_fused": (12, 4),
     "painn_message_bwd": (17, 8),
     "painn_message_l1_banded": (11, 10),
     "painn_message_fused_banded": (11, 9),

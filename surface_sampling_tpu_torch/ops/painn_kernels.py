@@ -58,7 +58,6 @@ interface (``ops/cuda_build.py``).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as tnf
 
 from surface_sampling_tpu_torch.ops.banding import (
     assert_in_window,
@@ -83,11 +82,16 @@ def _check_grid(name: str, C: int, K: int, R: int | None = None) -> None:
 # Layer-1 message
 # ----------------------------------------------------------------------
 def _message_l1_of_species(sp_j, philt, rbf, envm, unit, dw2, db2):
-    """Layer-1 message from each edge's neighbour species sp_j (C, E)."""
+    """Layer-1 message from each edge's neighbour species sp_j (C, E). A
+    dead edge (envm == 0) contributes zero whatever its rbf and unit vector
+    hold, NaN included, as in the kernels, which never read them."""
     C, E, _ = rbf.shape
     K, _, F2 = philt.shape
     F = F2 // 2
     n_pad, M = unit.shape[2], unit.shape[3]
+    live = envm != 0
+    rbf = torch.where(live[..., None], rbf, 0.0)
+    unit = torch.where(live.reshape(C, 1, n_pad, M), unit, 0.0)
     w = (torch.matmul(rbf[:, None], dw2) + db2[None, :, None, :]) * envm[:, None, :, None]
     phij = philt[:, sp_j.long()].transpose(0, 1)                    # (C, K, E, 2F)
     inv = phij * w
@@ -125,6 +129,15 @@ def painn_message_l1(species, philt, rbf, envm, nbr, unit, dw2, db2):
         dw2, db2: (K, R, 2F), (K, 2F) f32 dist_embed weights, s|unit channels.
     Returns:
         ds (C, K, n_pad, F), dv (C, K, n_pad, 3F) x-major.
+
+    The kernel (``csrc/painn_message_l1.cu``) is row 6's species-binned body
+    on an identity band: it bins each centre's live edges (envm != 0) by
+    their neighbour's species, once for all members, and multiplies each
+    bin by the member's filter columns, every sum in one fixed order; it
+    never reads a dead edge's rbf, unit vector or neighbour index. A centre
+    gets bitwise what :func:`painn_message_l1_banded` gives it on
+    ``ops.banding.identity_band``. It takes R of 8, 16 or 24 and at most 32
+    species rows (:func:`_check_layer1_kernel`), refused before a launch.
     """
     C, E, R = rbf.shape
     K, T1, F2 = philt.shape
@@ -140,7 +153,7 @@ def painn_message_l1(species, philt, rbf, envm, nbr, unit, dw2, db2):
            dw2=(dw2, f32, (K, R, F2)), db2=(db2, f32, (K, F2)))
     if dev.type == "cpu":
         return painn_message_l1_plain(species, philt, rbf, envm, nbr, unit, dw2, db2)
-    _check_grid("painn_message_l1", C, K, R)
+    _check_layer1_kernel("painn_message_l1", C, K, R, T1)
     ds = torch.empty((C, K, n_pad, F), dtype=f32, device=dev)
     dv = torch.empty((C, K, n_pad, 3 * F), dtype=f32, device=dev)
     _launch("painn_message_l1",
@@ -954,23 +967,11 @@ painn_message_subset.launches = 0
 # Update block
 # ----------------------------------------------------------------------
 def painn_update_fused_plain(s, vcat, u, v, w0, b0, w1, b1, alive):
-    """Plain PyTorch version of :func:`painn_update_fused`."""
-    C, K, n_pad, F = s.shape
-    vx = vcat.reshape(C, K, n_pad, 3, F)
-    # einsum batches the member axis: a broadcast matmul would copy each
-    # member's weights once per (chain, row)
-    uv = torch.einsum("cknxf,kfg->cknxg", vx, u)                     # (C, K, n, 3, F)
-    vv = torch.einsum("cknxf,kfg->cknxg", vx, v)
-    vv_norm = torch.sqrt((vv * vv).sum(dim=3) + 1e-16)
-    h = tnf.silu(torch.einsum("ckni,kio->ckno", torch.cat([s, vv_norm], dim=-1), w0)
-                 + b0[:, None, :])
-    a = torch.einsum("ckni,kio->ckno", h, w1) + b1[:, None, :]
-    a_vv, a_sv, a_ss = a[..., :F], a[..., F:2 * F], a[..., 2 * F:]
-    inner = (uv * vv).sum(dim=3)
-    am = alive[:, None, :, None]
-    s_out = (s + a_sv * inner + a_ss) * am
-    v_out = (vx + a_vv[..., None, :] * uv) * am[..., None]
-    return s_out, v_out.reshape(C, K, n_pad, 3 * F)
+    """Plain PyTorch version of :func:`painn_update_fused`: the update of
+    the general trunk, ``models.painn.painn_update``."""
+    from surface_sampling_tpu_torch.models.painn import painn_update
+
+    return painn_update(s, vcat, u, v, w0, b0, w1, b1, alive)
 
 
 def painn_update_fused(s, vcat, u, v, w0, b0, w1, b1, alive):
@@ -990,6 +991,13 @@ def painn_update_fused(s, vcat, u, v, w0, b0, w1, b1, alive):
         alive: (C, n_pad) f32 mask (0 on dead and padded rows).
     Returns:
         s' (C, K, n_pad, F), vcat' (C, K, n_pad, 3F).
+
+    The kernel (``csrc/painn_update_fused.cu``) computes the alive rows
+    (alive != 0) only, packed into tiles across chains, with its products
+    on the tensor cores at f32 accuracy, and writes exact zeros to the
+    others: a dead row's s and vcat are never read. It takes F a multiple
+    of 16 up to 256 and 16-byte aligned row tables
+    (:func:`_check_update_kernel`), refused before a launch.
     """
     C, K, n_pad, F = s.shape
     f32 = torch.float32
@@ -1001,20 +1009,35 @@ def painn_update_fused(s, vcat, u, v, w0, b0, w1, b1, alive):
            alive=(alive, f32, (C, n_pad)))
     if dev.type == "cpu":
         return painn_update_fused_plain(s, vcat, u, v, w0, b0, w1, b1, alive)
-    _check_grid("painn_update_fused", C, K)
-    if F > 256:
-        raise ValueError(f"painn_update_fused: F={F} exceeds the kernel's 256 "
-                         "(one thread per channel, rows staged in 48 KB of shared memory)")
+    _check_update_kernel(C, n_pad, F, s, vcat, u, v, w0, w1, alive)
     s_out = torch.empty_like(s)
     v_out = torch.empty_like(vcat)
+    work = torch.empty(C * n_pad + 1, dtype=torch.int32, device=dev)   # the alive rows' list
     _launch("painn_update_fused",
-            (s, vcat, u, v, w0, b0, w1, b1, alive, s_out, v_out),
+            (s, vcat, u, v, w0, b0, w1, b1, alive, work, s_out, v_out),
             (C, K, n_pad, F))
     painn_update_fused.launches += 1
     return s_out, v_out
 
 
 painn_update_fused.launches = 0
+
+
+def _check_update_kernel(C, n_pad, F, *tables):
+    """Limits of row 3: F a multiple of 16 up to 256 (a warp a 16-channel
+    slice, at most 16 warps), the C x n_pad rows numbered by 32-bit ints in
+    its list of alive rows, and the tables it reads 16 bytes at a time (s,
+    vcat, u, v, w0, w1, alive) 16-byte aligned. A block whose shared memory
+    does not fit is refused by the launch itself."""
+    if C * n_pad >= 2 ** 31 - 1:
+        raise ValueError(f"painn_update_fused: C x n_pad = {C * n_pad} rows exceed the kernel's "
+                         "32-bit row numbers")
+    if F % 16 or not 16 <= F <= 256:
+        raise ValueError(f"painn_update_fused: F={F} must be a multiple of 16 up to 256 "
+                         "(the kernel's 16-channel warp slices)")
+    if any(t.data_ptr() % 16 for t in tables):
+        raise ValueError("painn_update_fused: s, vcat, u, v, w0, w1 and alive must start on a "
+                         "16-byte boundary")
 
 
 WRAPPERS = (painn_message_l1, painn_message_fused, painn_update_fused, painn_message_bwd,

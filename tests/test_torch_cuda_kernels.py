@@ -140,19 +140,104 @@ def test_message_fused_is_the_banded_message_on_an_identity_band(cuda_device, sh
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("n_pad", [32, 36])
-def test_update_kernel_matches_plain(cuda_device, n_pad):
-    """n_pad = 36 leaves a partial tile of rows in the last block."""
-    x = _inputs(cuda_device, n_pad=n_pad, seed=2)
-    rn, C, K, F = x["rn"], x["C"], x["K"], x["F"]
+def _update_case(dev, C, K, n_pad, F, share, seed):
+    """Row 3's inputs: seeded features and weights (scaled as a layer's),
+    an alive mask with about ``share`` of the rows alive."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
     w = 1.0 / F ** 0.5
-    alive = (torch.rand((C, n_pad), device=cuda_device) < 0.7).float()
-    args = (rn(C, K, n_pad, F), rn(C, K, n_pad, 3 * F), rn(K, F, F) * w, rn(K, F, F) * w,
+    alive = (torch.rand((C, n_pad), generator=g, device=dev) < share).float()
+    return (rn(C, K, n_pad, F), rn(C, K, n_pad, 3 * F), rn(K, F, F) * w, rn(K, F, F) * w,
             rn(K, 2 * F, F) * w, rn(K, F), rn(K, F, 3 * F) * w, rn(K, 3 * F), alive)
+
+
+@pytest.mark.parametrize("n_pad", [32, 36, 50])
+@pytest.mark.parametrize("share", [0.0, 0.5, 1.0])
+def test_update_kernel_matches_plain(cuda_device, n_pad, share):
+    """Row 3 at the flagship's width (F = 128, three members) against its
+    plain version. n_pad = 36 and 50 leave partial tiles of alive rows (the
+    delta engine gathers any row count); no row alive, about half, all."""
+    args = _update_case(cuda_device, 3, 3, n_pad, 128, share, seed=2)
     before = pk.painn_update_fused.launches
     got = pk.painn_update_fused(*args)
     assert pk.painn_update_fused.launches == before + 1
     _assert_close(got, pk.painn_update_fused_plain(*args))
+
+
+@pytest.mark.parametrize("F", [16, 64, 256])
+def test_update_kernel_widths(cuda_device, F):
+    """Row 3 at other widths: F = 256 takes tiles of 16 rows, F < 128 fewer
+    warps a block."""
+    args = _update_case(cuda_device, 4, 2, 40, F, 0.6, seed=3)
+    _assert_close(pk.painn_update_fused(*args), pk.painn_update_fused_plain(*args))
+
+
+def test_update_kernel_dead_rows_are_inert_and_bitwise(cuda_device):
+    """Row 3 at the 1x1 flagship's shape (n_pad 128, three members, ~56%
+    alive): dead rows come out exactly 0, NaN in their s and vcat changes
+    no bit of the outputs, and two launches repeat bitwise."""
+    args = _update_case(cuda_device, 16, 3, 128, 128, 0.56, seed=4)
+    got = pk.painn_update_fused(*args)
+    again = pk.painn_update_fused(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    dead = (args[-1] == 0)[:, None, :, None]
+    assert bool(dead.any()) and bool((~dead).any())
+    assert bool((got[0].masked_select(dead) == 0).all())
+    assert bool((got[1].masked_select(dead) == 0).all())
+    nan = float("nan")
+    dirty = (torch.where(dead, nan, args[0]), torch.where(dead, nan, args[1]), *args[2:])
+    out = pk.painn_update_fused(*dirty)
+    assert all(torch.equal(a, b) for a, b in zip(got, out))
+    _assert_close(got, pk.painn_update_fused_plain(*args))
+
+
+def test_update_kernel_rows_do_not_depend_on_their_tiles(cuda_device):
+    """A row's bits do not depend on the rows packed beside it: row 3 over
+    rows 16 .. 47 of each chain (as the delta engine gathers blocks) gives
+    those rows bitwise what it gives them over all 128."""
+    args = _update_case(cuda_device, 8, 3, 128, 128, 0.56, seed=5)
+    full = pk.painn_update_fused(*args)
+    sub = pk.painn_update_fused(*(a[:, :, 16:48].contiguous() for a in args[:2]), *args[2:8],
+                                args[8][:, 16:48].contiguous())
+    for a, b in zip(full, sub):
+        assert torch.equal(a[:, :, 16:48], b)
+
+
+@pytest.mark.parametrize("shape", [(3, 2, 32, 16, 24, 3), (4, 3, 128, 64, 24, 3),
+                                   (2, 1, 36, 12, 8, 5)])
+def test_message_l1_is_the_banded_layer1_on_an_identity_band(cuda_device, shape):
+    """Row 1 equals row 6 on an identity band (every window at row 0, n_pad
+    wide, no halo) bitwise, repeats bitwise, and ignores what its dead edges
+    (envm == 0) hold: NaN rbf and unit, out-of-range nbr leave ds and dv
+    bitwise unchanged. Shapes: the card tests', the flagship's (n_pad 128,
+    M 64, three members) and one whose n_pad takes 4 centres a block."""
+    from surface_sampling_tpu_torch.ops.banding import identity_band
+
+    C, K, n_pad, M, R, T = shape
+    x = _inputs(cuda_device, C=C, K=K, n_pad=n_pad, M=M, R=R, T=T, seed=5)
+    rn, F = x["rn"], x["F"]
+    args = (x["species"], x["philt"], x["rbf"], x["envm"], x["nbr"], x["unit"],
+            rn(K, R, 2 * F), rn(K, 2 * F))
+    got = pk.painn_message_l1(*args)
+    again = pk.painn_message_l1(*args)
+    band = pk.painn_message_l1_banded(*args, identity_band(n_pad, 4, cuda_device))
+    for a, b, c in zip(got, again, band):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    _assert_close(got, pk.painn_message_l1_plain(*args))
+    species, philt, rbf, envm, nbr, unit, dw2, db2 = args
+    dead = envm == 0
+    assert bool(dead.any())
+    nan = float("nan")
+    far = torch.randint(-10 ** 6, 10 ** 6, nbr.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(6), device=cuda_device, dtype=torch.int32)
+    dirty = (species, philt, torch.where(dead[..., None], nan, rbf), envm,
+             torch.where(dead, far, nbr), torch.where(dead.reshape(C, 1, n_pad, M), nan, unit),
+             dw2, db2)
+    for a, b in zip(got, pk.painn_message_l1(*dirty)):
+        assert torch.equal(a, b)
 
 
 def test_mixed_devices_raise(cuda_device):

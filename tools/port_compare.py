@@ -10,7 +10,8 @@ port package (TREE first on ``sys.path``; TREE builds its kernels into its
 own ``_build/``) and measures there, at chip_smoke.py's shapes:
 
   kernel ms (CUDA events, 20 launches): rows 1-3 at the 1x1 rigid path
-    (128 chains), row 2 at a training step's shape (16 frames of n_pad 64,
+    (128 chains), row 3 at the 2x2 supercell's (128 chains, sc_update_args),
+    row 2 at a training step's shape (16 frames of n_pad 64,
     one member, seeded), rows 10 / 11 / 12 at CHGNet paths A / C / B, row 13
     at Cu(100) (16,384 chains) and Au(110) (1,024);
   end to end: chip_smoke.py's ``[mc]``, ``[cu-mc]`` and ``[relax-mc]``
@@ -34,9 +35,9 @@ bitwise and by max abs difference. Parent against change, in one call:
     python3 tools/port_compare.py bits parent1 change1 change2 parent2
 
 The TREE may be older than this script: it needs only the chip_smoke.py
-functions named above (and train_setup); the row 5 and row 6 inputs are made
-here (sc_layer1_args, train_bwd2_args, which port_profile.py's --variants
-uses too).
+functions named above (and train_setup); the inputs of rows 3 and 6 at the
+2x2 and of row 5 are made here (sc_update_args, sc_layer1_args,
+train_bwd2_args, which port_profile.py's --variants uses too).
 """
 
 from __future__ import annotations
@@ -70,6 +71,31 @@ def sc_layer1_args(sys_sc, dev, n_chains: int) -> tuple:
     species = species_rows(pot.rw, pot.cfg, realize_numbers(d, ss), n_pad)
     return (with_halo(species[:, band.perm], band.halo, 1), pot.rw["philt"], rbf, envm, nbr,
             unit, pot.rw["dw2"], pot.rw["db2"], band)
+
+
+def sc_update_args(sys_sc, dev, n_chains: int) -> tuple:
+    """Row 3's inputs at the 2x2 supercell's shape (the [sc] trunk's update):
+    the alive rows of n_chains seeded occupancies (75% of the sites empty,
+    as sc_layer1_args draws them) padded to n_pad, layer 1's update weights
+    and seeded random features."""
+    import numpy as np
+    import torch
+    from surface_sampling_tpu_torch.core.state import realize_alive
+
+    pot, d, spec = sys_sc.potential, sys_sc.run.d, sys_sc.spec
+    band = pot.static_edge_pack.band
+    rng = np.random.default_rng(4)
+    ss = rng.integers(0, spec.n_codes, (n_chains, spec.n_sites))
+    ss = torch.as_tensor(np.where(rng.random(ss.shape) < 0.75, 0, ss), device=dev)
+    alive = realize_alive(d, ss).float()
+    alive = torch.nn.functional.pad(alive, (0, band.n_pad - alive.shape[1]))[:, band.perm]
+    K, F = pot.params["atom_embed"].shape[0], pot.cfg.feat_dim
+    up = pot.params["update"][0]
+    g = torch.Generator(device=dev).manual_seed(4)
+    return (torch.randn((n_chains, K, band.n_pad, F), generator=g, device=dev),
+            torch.randn((n_chains, K, band.n_pad, 3 * F), generator=g, device=dev),
+            up["u_mat"]["w"], up["v_mat"]["w"], up["s_dense0"]["w"], up["s_dense0"]["b"],
+            up["s_dense1"]["w"], up["s_dense1"]["b"], alive.contiguous())
 
 
 def train_bwd2_args(dev) -> tuple:
@@ -143,10 +169,11 @@ def run(tree: str, label: str) -> int:
         return cs._cuda_ms(fn, reps=20)
 
     sys_gpu = srtio3_001_painn(device=dev)
-    for name, fn, _, args, _, _ in cs.kernel_cases(sys_gpu, dev):
+    rows = {"painn_message_l1": "row1", "painn_message_fused": "row2",
+            "painn_update_fused": "row3"}
+    for name, fn, _, args, *_ in cs.kernel_cases(sys_gpu, dev):
         res[name] = ms(lambda: fn(*args))
-        if name == "painn_message_fused":
-            out["row2"] = [t.cpu() for t in fn(*args)]
+        out[rows[name]] = [t.cpu() for t in fn(*args)]
     g = torch.Generator(device=dev).manual_seed(3)
     C, K, n_pad, M, R, F = 16, 1, 64, 64, 24, 128
 
@@ -219,7 +246,10 @@ def run(tree: str, label: str) -> int:
     l1 = sc_layer1_args(sys_sc, dev, cs.N_CHAINS)
     res["row6_2x2"] = ms(lambda: pk.painn_message_l1_banded(*l1))
     out["row6"] = [t.cpu() for t in pk.painn_message_l1_banded(*l1)]
-    del l1
+    upd = sc_update_args(sys_sc, dev, cs.N_CHAINS)
+    res["row3_2x2"] = ms(lambda: pk.painn_update_fused(*upd))
+    out["row3_2x2"] = [t.cpu() for t in pk.painn_update_fused(*upd)]
+    del l1, upd
     _, res["sc_mc_evals_s"], _ = cs.full_mc_phase("sc-mc", sys_sc, cs.SC_SWEEPS,
                                                   cs.BANDED_LAUNCHES)
     del sys_sc

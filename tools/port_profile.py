@@ -49,10 +49,10 @@ the span on the device timeline of each of the forward's stages (the
 their calls). The last line of its output is all
 of it as one JSON object. Each window runs twice untraced first.
 
-Two more modes, for the redesigned kernels (rows 2, 5, 6, 10-13) and the
+Two more modes, for the redesigned kernels (rows 1-3, 5, 6, 10-13) and the
 tensor cores:
 
-  --variants [NAME ...]   one-edit variants of rows 2, 5, 6 and 10-13
+  --variants [NAME ...]   one-edit variants of rows 1-3, 5, 6 and 10-13
       (edits of a copy of csrc/, or a whole source replaced by a file of
       tools/variants/, built into _build/variants/, loaded in place of the
       built kernels), timed in turns by CUDA events at chip_smoke.py's
@@ -60,13 +60,30 @@ tensor cores:
       row 2 at the 1x1 rigid path's (128 chains) and a training step's (16
       frames, one member), row 13 at Cu (16,384 chains) and Au (1,024), row
       6 at the 2x2 supercell (128 chains), row 5 at a training step's shape
-      (one member, c_dw absent and given); two rounds, the second in
+      (one member, c_dw absent and given), rows 1 and 3 at the 1x1 rigid
+      path's (128 chains), row 3 also at the 2x2 supercell's (128 chains,
+      port_compare.sc_update_args); two rounds, the second in
       reverse order; each variant's largest difference from the sources (a
       NaN counts as infinite). A variant builds and times only the kernels
       its edits reach (``FILE_KERNELS``); base builds and times them all.
-      Built in: l1_edges (row 6 as the layer-1 form of row 7's body, the
-      per-edge design the binned kernel replaced), l1_8w (row 6 at 8 warps
-      a block); bwd2_nb2 (row 5's neighbour kernel cut for 2 blocks an SM,
+      Built in: upd_block_ring (row 3 with one weight ring for the block, a
+      barrier a k-slice, the tile loaded by plain loads: the first version
+      of the design, tools/variants/update_block_ring.cu), upd_tm16 (tiles
+      of 16 rows, not 32), upd_ks8 (k-slices of 8 weight rows, not 16),
+      upd_ring2 / upd_ring4 (2 / 4 slots a warp's ring, not 3), upd_p2ks
+      (P2's k-slices of 16 W0 rows, not 32), upd_l2_epi (the next tile
+      loaded during the last product, the epilogue reading s and v from
+      L2), upd_lds (A fragments by four
+      32-bit shared loads, not one ldmatrix), upd_trunc (tf32_mma.cuh's
+      truncating split, not the rounding one), upd_all
+      (every row computed, the dead ones zeroed after: what the alive list
+      buys), upd_fma (the products as f32 FMAs on the CUDA cores, the same
+      fragments and rings), upd_clk (row 3's warp clocks by phase: the
+      tile wait, each product, the epilogue, the dead-row zeros); l1_blk16
+      / l1_blk4 / l1_blk2 (row 1 at 16 / 4 / 2 centres a block, not 8);
+      l1_edges (row 6 as the layer-1 form of row 7's body, the
+      per-edge design the binned kernel replaced), l1_8w (rows 1 and 6 at 8
+      warps a block); bwd2_nb2 (row 5's neighbour kernel cut for 2 blocks an SM,
       not 3), bwd2_clk (its centre kernel's warp clocks by phase),
       bwd2_nodw / bwd2_noflush / bwd2_nodrbf / bwd2_noring (the centre
       kernel without its d_dw products, their add to the block's partial,
@@ -291,15 +308,20 @@ HDR, BWD_SRC, MMA_HDR = "chgnet_conv.cuh", "chgnet_conv_bwd.cu", "tf32_mma.cuh"
 MSG_SRC, BANDED_HDR, EAM_SRC = ("painn_message_fused.cu", "painn_message_banded.cuh",
                                 "eam_rho_ep.cu")
 L1_SRC, BWD2_SRC = "painn_message_l1_banded.cu", "painn_message_bwd2.cu"
+L1_HDR, L1_ROW1, UPD_SRC = ("painn_message_l1_binned.cuh", "painn_message_l1.cu",
+                            "painn_update_fused.cu")
 CONV_KERNELS = ("chgnet_conv", "chgnet_conv_banded", "chgnet_conv_bwd")
 # the kernels an edited file reaches (a variant builds and times only those)
 FILE_KERNELS = {HDR: CONV_KERNELS, BWD_SRC: ("chgnet_conv_bwd",),
-                MMA_HDR: CONV_KERNELS + ("painn_message_fused", "painn_message_bwd2"),
+                MMA_HDR: CONV_KERNELS + ("painn_message_fused", "painn_message_bwd2",
+                                         "painn_update_fused"),
                 MSG_SRC: ("painn_message_fused",), BANDED_HDR: ("painn_message_fused",),
                 EAM_SRC: ("eam_rho_ep",), L1_SRC: ("painn_message_l1_banded",),
+                L1_HDR: ("painn_message_l1_banded", "painn_message_l1"),
+                L1_ROW1: ("painn_message_l1",), UPD_SRC: ("painn_update_fused",),
                 BWD2_SRC: ("painn_message_bwd2",)}
 ALL_KERNELS = CONV_KERNELS + ("painn_message_fused", "eam_rho_ep", "painn_message_l1_banded",
-                              "painn_message_bwd2")
+                              "painn_message_bwd2", "painn_update_fused", "painn_message_l1")
 # a whole source replaced (or a file added) by a file of tools/variants/: the
 # edit [file, None, name]
 VARIANT_DIR = Path(__file__).resolve().parent / "variants"
@@ -358,6 +380,104 @@ EAM_SMEM = """  cudaError_t err = cudaFuncSetAttribute(
 EAM_CARVEOUT = ("  cudaFuncSetAttribute(rho_ep_kernel,\n"
                 "                       cudaFuncAttributePreferredSharedMemoryCarveout, {});\n")
 MSG_BLK = "  int n_blk = 4;\n"
+L1_BLK = "  int n_blk = 8;\n"
+UPD_TILE = "inline int tile_rows(int F) { return F <= 128 ? 32 : 16; }"
+UPD_SLICE = "inline int slice_rows(int F) { return F <= 128 ? 16 : 8; }"
+UPD_LAUNCH = "    return int(launch<32, 16>("
+UPD_STAGES = "constexpr int NSTAGE = 3;"
+# row 3 computing every row (the alive list holding all of them; the dead
+# rows' outputs, alive x (...) = 0, are zeroed again after)
+UPD_ALL = ["    const int n = __popcll(bits);\n",
+           "    bits = i0 >= N ? 0ull : N - i0 >= 64 ? ~0ull : ~0ull >> (64 - (N - i0));\n"
+           "    const int n = __popcll(bits);\n"]
+# row 3's products as f32 FMAs on the CUDA cores, the same fragments and
+# weight rings: each lane computes its own accumulator elements
+UPD_TILE_MMA = """  unsigned bh[NB][2], bl[NB][2];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    split_rn(slot[(kk + t) * BS + b_col[j] + g], bh[j][0], bl[j][0]);
+    split_rn(slot[(kk + t + 4) * BS + b_col[j] + g], bh[j][1], bl[j][1]);
+  }
+  const int lane = 4 * g + t;
+  const float* a_lane = a_base + ((lane & 7) + (lane & 8)) * AS + 4 * (lane >> 4);
+#pragma unroll
+  for (int i = 0; i < MA; ++i) {
+    float a[4];
+    ldmatrix_x4(a, a_lane + a_off[i]);
+    unsigned ah[4], al[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_rn(a[e], ah[e], al[e]);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) mma3(acc[i][j], ah, al, bh[j], bl[j]);
+  }"""
+# row 3 loading the next item's tile during the current item's P3 (its
+# cp.async group counted among the rings'), the epilogue reading s and v
+# again from global memory (L2)
+UPD_L2_EPI = [
+    [UPD_SRC, "  int* s_row = reinterpret_cast<int*>(s_h + TM * HS + NW * NSTAGE * WS);   // TM flat rows\n"
+     "  float* s_am = reinterpret_cast<float*>(s_row + TM);                       // TM alive values",
+     "  int* s_row = reinterpret_cast<int*>(s_h + TM * HS + NW * NSTAGE * WS);\n"
+     "  float* s_am = reinterpret_cast<float*>(s_row + 2 * TM);"],
+    [UPD_SRC, "  return floats * sizeof(float) + size_t(TM) * (sizeof(int) + sizeof(float));",
+     "  return floats * sizeof(float) + 2 * size_t(TM) * (sizeof(int) + sizeof(float));"],
+    [UPD_SRC, "  auto consume = [&](int q) -> const float* {\n    cp_async_wait<NSTAGE - 2>();\n",
+     "  auto consume = [&](int q, bool tile = false) -> const float* {\n    if (tile)\n"
+     "      cp_async_wait<NSTAGE - 1>();\n    else\n      cp_async_wait<NSTAGE - 2>();\n"],
+    [UPD_SRC, "  auto issue_tile = [&](int it) {\n",
+     "  auto issue_tile = [&](int it, int buf) {\n    if (it >= my_items) {\n"
+     "      cp_async_commit();\n      return;\n    }\n"],
+    [UPD_SRC, "      s_row[my_r] = flat;\n      s_am[my_r] = flat >= 0 ? alive[flat] : 0.f;",
+     "      s_row[buf * TM + my_r] = flat;\n      s_am[buf * TM + my_r] = flat >= 0 ? alive[flat] : 0.f;"],
+    [UPD_SRC, "  for (int q = 0; q < NSTAGE - 1; ++q) issue();\n",
+     "  issue_tile(0, 0);\n  for (int q = 0; q < NSTAGE - 1; ++q) issue();\n"],
+    [UPD_SRC, "    __syncthreads();\n    issue_tile(it);\n    cp_async_wait<0>();\n    __syncthreads();\n",
+     "    const int buf = it & 1;\n    if (NQ1 >= NSTAGE - 1)\n      cp_async_wait<NSTAGE - 1>();\n"
+     "    else\n      cp_async_wait<0>();\n    __syncthreads();\n"],
+    [UPD_SRC, "    __syncthreads();                  // every warp's h\n",
+     "    __syncthreads();                  // every warp's h\n    issue_tile(it + 1, buf ^ 1);\n"],
+    [UPD_SRC, "        const float* slot = consume(q);\n#pragma unroll\n        for (int ks = 0; ks < KSTEPS; ++ks)\n"
+     "          tile_step<MT, 6>",
+     "        const float* slot = consume(q, j < NSTAGE - 1);\n#pragma unroll\n"
+     "        for (int ks = 0; ks < KSTEPS; ++ks)\n          tile_step<MT, 6>"],
+    [UPD_SRC, "            const float am = s_am[r];\n            const int flat = s_row[r], c = flat / n_pad;",
+     "            const float am = s_am[buf * TM + r];\n"
+     "            const int flat = s_row[buf * TM + r], c = flat / n_pad;"],
+    [UPD_SRC, "*reinterpret_cast<const float2*>(s_sv + r * SVS + ch)",
+     "__ldg(reinterpret_cast<const float2*>(s + gr * F + ch))"],
+    [UPD_SRC, "*reinterpret_cast<const float2*>(s_v + r * VS + x * F + ch)",
+     "__ldg(reinterpret_cast<const float2*>(vcat + gr * F3 + x * F + ch))"],
+]
+# row 3's A fragments by four 32-bit shared loads each, not one ldmatrix
+UPD_LDS = ["""    float a[4];
+    ldmatrix_x4(a, a_lane + a_off[i]);
+""", """    const float* lo = a_base + a_off[i] + g * AS + t;
+    const float* hi = lo + 8 * AS;
+    const float a[4] = {lo[0], hi[0], lo[4], hi[4]};
+"""]
+UPD_TILE_FMA = """#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    float b[2][8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      b[0][k] = slot[(kk + k) * BS + b_col[j] + 2 * t];
+      b[1][k] = slot[(kk + k) * BS + b_col[j] + 2 * t + 1];
+    }
+#pragma unroll
+    for (int i = 0; i < MA; ++i) {
+      const float4* lo = reinterpret_cast<const float4*>(a_base + a_off[i] + g * AS);
+      const float4* hi = reinterpret_cast<const float4*>(a_base + a_off[i] + (g + 8) * AS);
+      const float4 l0 = lo[0], l1 = lo[1], h0 = hi[0], h1 = hi[1];
+      const float al[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
+      const float ahv[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          acc[i][j][p] = fmaf(al[k], b[p][k], acc[i][j][p]);
+          acc[i][j][2 + p] = fmaf(ahv[k], b[p][k], acc[i][j][2 + p]);
+        }
+    }
+  }"""
 MSG_WINDOW = "  return envm[e] == 0.f ? -1 : window_row(nbr[e], s, n_pad, W);"
 FWD_PLAN = ("constexpr int FWD_WARPS = 6;   // warps a block of the forward (rows 10, 11)\n"
             "constexpr int FWD_BLOCKS_PER_SM = 2;")
@@ -386,6 +506,9 @@ CLK_EAM = ["chain staging", "candidate list (j, alive)", "distances + append", "
 CLK_BWD2 = ["compaction + zeros + staging", "ring wait + (k, cg) loads", "W, G products",
             "elementwise", "d_rbf product + slices", "d_dw products", "partial + d_gds flush",
             "centre end: barrier + slice sums"]
+CLK_UPD = ["barrier + tile loads + barrier", "P1 products (v . [U | V])",
+           "|Vv|, <Uv, Vv> + barrier", "P2 products (W0) + silu + barrier", "P3 products (W1)",
+           "epilogue", "dead-row zeros"]
 CLK_BWD = ["g_ai2 + compaction (warp 0) + barrier + zeros", "tile_pre + silu'",
            "hidden products", "LayerNorm backward", "dpre products + store", "tile sums",
            "g_be product", "barrier"]
@@ -411,7 +534,53 @@ VARIANTS = {
     "eam_noseries": [[EAM_SRC, "    *e = pair_terms(e->x);", "    *e = make_float2(e->x, e->x);"]],
     "l1_edges": [[L1_SRC, None, "l1_edges.cu"],
                  ["painn_message_banded_l1.cuh", None, "painn_message_banded_l1.cuh"]],
-    "l1_8w": [[L1_SRC, "constexpr int NW = 4, THREADS", "constexpr int NW = 8, THREADS"]],
+    "l1_8w": [[L1_HDR, "constexpr int NW = 4, THREADS", "constexpr int NW = 8, THREADS"]],
+    "l1_blk16": [[L1_ROW1, L1_BLK, L1_BLK.replace("8", "16")]],
+    "l1_blk4": [[L1_ROW1, L1_BLK, L1_BLK.replace("8", "4")]],
+    "l1_blk2": [[L1_ROW1, L1_BLK, L1_BLK.replace("8", "2")]],
+    "upd_block_ring": [[UPD_SRC, None, "update_block_ring.cu"]],
+    "upd_tm16": [[UPD_SRC, UPD_TILE, "inline int tile_rows(int F) { return 16; }"],
+                 [UPD_SRC, UPD_LAUNCH, "    return int(launch<16, 16>("]],
+    "upd_ks8": [[UPD_SRC, UPD_SLICE, "inline int slice_rows(int F) { return 8; }"],
+                [UPD_SRC, UPD_LAUNCH, "    return int(launch<32, 8>("]],
+    "upd_ring2": [[UPD_SRC, UPD_STAGES, "constexpr int NSTAGE = 2;"]],
+    "upd_ring4": [[UPD_SRC, UPD_STAGES, "constexpr int NSTAGE = 4;"]],
+    "upd_all": [[UPD_SRC] + UPD_ALL],
+    "upd_p2ks": [[UPD_SRC, "constexpr int KS2 = 2 * KS;", "constexpr int KS2 = KS;"]],
+    "upd_l2_epi": UPD_L2_EPI,
+    "upd_lds": [[UPD_SRC] + UPD_LDS],
+    "upd_trunc": [[UPD_SRC, "  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
+                   "  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;\n",
+                   "  split(x, hi, lo);\n"]],
+    "upd_fma": [[UPD_SRC, UPD_TILE_MMA, UPD_TILE_FMA]],
+    "upd_clk": [
+        [UPD_SRC, '#include "tf32_mma.cuh"\n', '#include "tf32_mma.cuh"\n' + CLK_DEFS],
+        [UPD_SRC, "  for (int q = 0; q < NSTAGE - 1; ++q) issue();\n",
+         "  long long t_prev = clock64();\n  for (int q = 0; q < NSTAGE - 1; ++q) issue();\n"],
+        [UPD_SRC, "    __syncthreads();\n\n    // ---- P1:", "    __syncthreads();\n    CLK(0)\n\n    // ---- P1:"],
+        [UPD_SRC, "  auto consume = [&](int q) -> const float* {\n",
+         "  long long clk_wait = 0, clk_issue = 0;\n"
+         "  auto consume = [&](int q) -> const float* {\n"
+         "    const long long c0_ = clock64();\n"],
+        [UPD_SRC, "    __syncwarp();\n    issue();\n",
+         "    __syncwarp();\n    const long long c1_ = clock64();\n    clk_wait += c1_ - c0_;\n"
+         "    issue();\n    clk_issue += clock64() - c1_;\n"],
+        [UPD_SRC, "  if (!my_items) zero_dead(0, n_z);\n",
+         "  if (!my_items) zero_dead(0, n_z);\n"
+         "  if ((threadIdx.x & 31) == 0) {\n"
+         "    atomicAdd(&g_clk[7], (unsigned long long)clk_wait);\n"
+         "    atomicAdd(&g_clk[8], (unsigned long long)clk_issue);\n  }\n"],
+        [UPD_SRC, "    // |Vv| into s_sv[:, F:]", "    CLK(1)\n    // |Vv| into s_sv[:, F:]"],
+        [UPD_SRC, "    __syncthreads();                  // every warp's |Vv|\n",
+         "    __syncthreads();                  // every warp's |Vv|\n    CLK(2)\n"],
+        [UPD_SRC, "    __syncthreads();                  // every warp's h\n",
+         "    __syncthreads();                  // every warp's h\n    CLK(3)\n"],
+        [UPD_SRC, "      const float* b1k = b1 + size_t(k) * F3;\n",
+         "      CLK(4)\n      const float* b1k = b1 + size_t(k) * F3;\n"],
+        [UPD_SRC, "    zero_dead(it * z_per, min(n_z, (it + 1) * z_per));\n",
+         "    CLK(5)\n    zero_dead(it * z_per, min(n_z, (it + 1) * z_per));\n    CLK(6)\n"
+         "    if ((threadIdx.x & 31) == 0) atomicAdd(&g_clk[15], 1ull);\n"],
+    ],
     "bwd2_nb2": [[BWD2_SRC, "NB_BLOCKS_PER_SM = 3;", "NB_BLOCKS_PER_SM = 2;"]],
     # row 5's centre kernel with one part of its work left out (wrong
     # results; for where the time goes): the d_dw products, their flush to
@@ -577,7 +746,7 @@ def variant_cases(dev) -> dict:
     """{kernel: {case: fn}} at chip_smoke.py's shapes (fn returns the
     outputs to compare)."""
     import chip_smoke as cs
-    from port_compare import sc_layer1_args, train_bwd2_args
+    from port_compare import sc_layer1_args, sc_update_args, train_bwd2_args
     from surface_sampling_tpu_torch.core.energy import RelaxConfig
     from surface_sampling_tpu_torch.core.state import realize_alive, realize_positions
     from surface_sampling_tpu_torch.core.static_neighbors import build_static_neighbor_table
@@ -601,8 +770,6 @@ def variant_cases(dev) -> dict:
     band = sys_c.potential.band
     gagg = torch.randn(b[0].shape[:2] + (ck.KERNEL_F,), device=dev,
                        generator=torch.Generator(device=dev).manual_seed(12))
-    msg = next(x[3] for x in cs.kernel_cases(srtio3_001_painn(device=dev), dev)
-               if x[0] == "painn_message_fused")
     g = torch.Generator(device=dev).manual_seed(3)
     C, K, n_pad, M, R, F = 16, 1, 64, 64, 24, 128      # a training step's force pass
     envm = (torch.rand((C, n_pad * M), generator=g, device=dev) < 0.6).float()
@@ -628,11 +795,19 @@ def variant_cases(dev) -> dict:
 
     cu_args = eam_args(cu, cu_pot, cs.CU_MC_CHAINS, 32)
     au_args = eam_args(au, au_pot, cs.EAM_AU_CHAINS, 31)
-    l1 = sc_layer1_args(srtio3_001_painn(supercell=(2, 2), device=dev), dev, N_CHAINS)
+    sys_sc = srtio3_001_painn(supercell=(2, 2), device=dev)
+    l1 = sc_layer1_args(sys_sc, dev, N_CHAINS)
+    upd_sc = sc_update_args(sys_sc, dev, N_CHAINS)
+    rigid = {x[0]: x[3] for x in cs.kernel_cases(srtio3_001_painn(device=dev), dev)}
     bwd2, bwd2_cots, bwd2_rev = train_bwd2_args(dev)
     bwd2_cw = (bwd2[6], bwd2[7])
     return {
         "painn_message_l1_banded": {"row 6 2x2": lambda: pk.painn_message_l1_banded(*l1)},
+        "painn_message_l1": {"row 1 1x1": lambda: pk.painn_message_l1(
+            *rigid["painn_message_l1"])},
+        "painn_update_fused": {
+            "row 3 1x1": lambda: pk.painn_update_fused(*rigid["painn_update_fused"]),
+            "row 3 2x2": lambda: pk.painn_update_fused(*upd_sc)},
         "painn_message_bwd2": {
             "row 5 train": lambda: pk.painn_message_bwd2(*bwd2, *bwd2_cots, rev=bwd2_rev),
             "row 5 train c_dw": lambda: pk.painn_message_bwd2(*bwd2, *bwd2_cots, *bwd2_cw,
@@ -641,7 +816,8 @@ def variant_cases(dev) -> dict:
                         "row 10 B": lambda: (ck.chgnet_conv(*b),)},
         "chgnet_conv_banded": {"row 11 C": lambda: (ck.chgnet_conv_banded(*c, band),)},
         "chgnet_conv_bwd": {"row 12 B": lambda: ck.chgnet_conv_bwd(*b, gagg, rev=rev)[:4]},
-        "painn_message_fused": {"row 2 1x1": lambda: pk.painn_message_fused(*msg),
+        "painn_message_fused": {"row 2 1x1": lambda: pk.painn_message_fused(
+                                    *rigid["painn_message_fused"]),
                                 "row 2 train": lambda: pk.painn_message_fused(*train)},
         "eam_rho_ep": {"row 13 Cu": lambda: ek.eam_rho_ep(*cu_args),
                        "row 13 Au": lambda: ek.eam_rho_ep(*au_args)},
@@ -690,7 +866,11 @@ def variants_main(args: list) -> int:
                  ("clk", "row 12 B", "chgnet_conv_bwd", CLK_BWD, range(6, 14), 14, "tiles"),
                  ("eam_clk", "row 13 Cu", "eam_rho_ep", CLK_EAM, range(0, 6), 15, "centres"),
                  ("bwd2_clk", "row 5 train", "painn_message_bwd2", CLK_BWD2, range(0, 8), 15,
-                  "units")]
+                  "units"),
+                 ("upd_clk", "row 3 2x2", "painn_update_fused", CLK_UPD, range(0, 7), 15,
+                  "items")]
+    # slots counted inside the phases above, printed apart
+    inside = {"upd_clk": {"ring waits (inside P1-P3)": 7, "ring issues (inside P1-P3)": 8}}
     for variant, case, kernel, labels, slots, count, unit in clk_cases:
         if variant in names:
             use_variant(libs, variant)
@@ -705,7 +885,9 @@ def variants_main(args: list) -> int:
             total = v[list(slots)].sum()
             print(f"[clk] {case}: {v[count] / 5:.0f} {unit} a launch, {total / v[count]:.0f} warp "
                   f"clocks a {unit[:-1]}; share by phase: " + ", ".join(
-                      f"{lab} {v[i] / total:.3f}" for lab, i in zip(labels, slots)))
+                      f"{lab} {v[i] / total:.3f}" for lab, i in zip(labels, slots))
+                  + "".join(f"; {lab} {v[i] / total:.3f}"
+                            for lab, i in inside.get(variant, {}).items()))
     return 0
 
 
