@@ -14,8 +14,11 @@ systems, Cu(100) 2x2x2 semigrand and Au(110) 2x2 canonical, through the
 fused EAM kernel (row 13), the exact, Chebyshev and rigid paths and the
 canonical engine; and force-loss training of the PaiNN ensemble on jittered
 frames of the slab through the message block's second order (row 5), and
-the fine-tuning CLI — through their entry points on the card, in
-thirty-five phases, each printing one line or more:
+the fine-tuning CLI; and the rest of the MC engine (distance criteria,
+multiple-try Metropolis, the delta and local-relax canonical steps, L-BFGS,
+symmetric slabs) and the many-body systems GaN(0001) Tersoff and Si(111)
+5x5 SW — through their entry points on the card, in forty-two phases, each
+printing one line or more:
 
   1. device     card name, count, and nvidia-smi's name and power limit
   2. build      compiles every kernel from csrc/ (nvcc -Xptxas -v, in parallel);
@@ -126,6 +129,33 @@ thirty-five phases, each printing one line or more:
                 step, the loss falling below its start over the timed steps
  35. finetune-cli the port's CLI on the card (--init one member, 2 epochs):
                 its four files, the saved model's energies
+ 36. criteria   make_distance_accept's masks card vs CPU at 1x1 and 2x2;
+                metropolis_distance MC by full evaluation at 1x1 (dist-mc)
+                and by the delta engine at 2x2 (inc-dist), 128 chains x 8
+                steps: no recorded state violates the filter, launch counts
+ 37. mtm        semigrand MTM (K = 8) on the rigid 1x1, 128 chains x 4 steps
+                (steps/s, evaluations/s, launches a step, bitwise repeat);
+                canonical MTM (K = 4) on Au(110) through row 13, 1,024
+                chains (mtm-canonical: n_ads 6, bitwise repeat)
+ 38. inc-canonical delta canonical MC at 2x2, 128 chains x 2 x 8 from 8
+                adsorbates a chain: n_ads constant, cached vs fresh, bitwise
+                repeat, rows 3 and 6-8; one move from crowded occupancies,
+                one- and two-site deltas vs fresh at the JAX delta rule
+ 39. lbfgs-relax the 1x1 with RelaxConfig(method="lbfgs"): the relaxed
+                pristine energy, one state card vs CPU beside the card's own
+                response to a 1e-6 A perturbation, relaxed MC at 32 chains x
+                2 (force calls and line-search steps a move, rows 2 / 4,
+                bitwise repeat); local-relax-canonical: the local-relax
+                canonical step at 1x1, 128 chains x 4
+ 40. gan        gan0001_tersoff(): the tutorial slab anchor (-144.059 eV),
+                card vs CPU, canonical MC exact (512) and fast (8,192) with
+                n_ads constant and a bitwise repeat, FIRE-relaxed at 64
+ 41. si         si111_sw(): the SW85 pristine pin, fast vs exact, card vs
+                CPU, semigrand MC exact (512) and fast (2,048), relaxed at
+                64 under SW85 and a modified SW (relax_model=), the JAX
+                test's dual-potential check
+ 42. symmetric  a mirrored Cu(100) slab under exact EAM, rigid and
+                FIRE-relaxed, 1,024 chains, card vs CPU
 
 Then it prints one JSON line {"kernels": [...]} (per kernel: source, the
 TPU kernel it replaces, launches on its main path — the rigid run for the
@@ -133,8 +163,8 @@ TPU kernel it replaces, launches on its main path — the rigid run for the
 evaluation run for the banded kernels, the delta run for the subset kernel,
 the relaxed 3x3 run for the banded backward, paths A, B and C for the CHGNet
 rows 10, 12 and 11, the Cu semigrand run for row 13, the training runs for
-row 5, every path's count
-under launches_by_path — max abs error, ms, plain_ms,
+row 5, every path's count under launches_by_path, phases 36-39's paths
+included — max abs error, ms, plain_ms,
 bound_ms, bound_by, library_ms), the nvidia-smi line again, and last the
 JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2618,6 +2648,756 @@ def training_phases(dev) -> tuple[list, dict]:
     return [row], {"train": counts}
 
 
+# ----------------------------------------------------------------------
+# The rest of the MC engine (slice 14): distance criteria, multiple-try
+# Metropolis, the delta and local-relax canonical steps, L-BFGS and
+# symmetric slabs; the many-body systems GaN(0001) Tersoff, Si(111) 5x5 SW
+# ----------------------------------------------------------------------
+FILTER_DISTANCE = 1.5        # EngineConfig's default hard wall
+MTM_K, MTM_STEPS = 8, 4      # semigrand MTM on the rigid 1x1: 128 chains x 1 x 4
+# canonical MTM on Au(110) through the kernel potential (row 13), the chain
+# count of [au-canonical]
+MTM_CAN_K, MTM_CAN_SWEEPS = 4, 4
+LBFGS_CHAINS, LBFGS_STEPS = 32, 2
+# L-BFGS card vs CPU positions: its zoom line search branches on f32 value
+# comparisons, so the relaxed geometry moves by several 1e-2 A under a 1e-6 A
+# change of the start (`[lbfgs-relax]` prints the card's own response beside
+# the card-vs-CPU difference); energies stay within RELAXED_E_TOL
+LBFGS_POS_TOL = 0.1
+INC_CAN_SWEEPS = 2             # delta canonical at 2x2: 128 chains x 2 x 8
+INC_CAN_ADS = 8                # adsorbates a chain of its random start states
+LOCAL_CAN_STEPS = 4
+LOCAL_CAN_ADS = 4              # adsorbates a chain of its random start states
+# GaN(0001) 3x3 x 4 layers (the tutorial slab): canonical from an even
+# prefill of GAN_ADS adsorbates; Si(111) 5x5: semigrand from empty
+GAN_CHAINS, GAN_FAST_CHAINS, GAN_RELAX_CHAINS, GAN_ADS = 512, 8192, 64, 6
+SI_CHAINS, SI_FAST_CHAINS, SI_RELAX_CHAINS = 512, 2048, 64
+MB_SWEEPS, MB_RELAX_STEPS = 2, 2
+# card vs CPU of the plain many-body paths: sums of ~600 eV in another order
+MB_CARD_CPU_TOL = 1e-3
+GAN_TUTORIAL_E = -144.059            # the reference tutorial's LAMMPS value
+SI111_PRISTINE_E = -379.42511        # tests/test_manybody_potentials.py's pin
+SYM_CHAINS, SYM_CPU_CHAINS = 1024, 8
+
+
+def _bitwise(a, b) -> bool:
+    """Every tensor field of two (state, record) pairs equal bitwise."""
+    def leaves(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        return [t for v in x for t in leaves(v)] if isinstance(x, tuple) else []
+
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _rigid_launches(n_evals: int) -> dict:
+    return {k: v * n_evals for k, v in RIGID_LAUNCHES.items()}
+
+
+def _expect(tag: str, launches: dict, want: dict) -> None:
+    full = {k: want.get(k, 0) for k in launches}
+    if launches != full:
+        raise AssertionError(f"[{tag}] launch counts {launches}, expected {full}")
+
+
+def criteria_phase(sys1, sys2, dev) -> dict:
+    """36. The distance criteria: make_distance_accept's masks on random
+    occupancies of the 1x1 and the 2x2, card vs CPU bitwise; metropolis_distance
+    full-evaluation MC at 1x1 (N_CHAINS x 1 x SWEEP_SIZE) and delta-engine MC
+    at 2x2 (N_CHAINS x 1 x SWEEP_SIZE): no recorded state violates the
+    filter; launch counts. Returns the two runs' launch counts."""
+    from surface_sampling_tpu_torch.core.engine import EngineConfig, make_run_fn
+    from surface_sampling_tpu_torch.core.events import make_distance_accept
+    from surface_sampling_tpu_torch.core.incremental import (
+        make_incremental_painn_from_system,
+        make_incremental_run,
+        make_incremental_semigrand_step,
+    )
+    from surface_sampling_tpu_torch.core.state import device_spec
+    from surface_sampling_tpu_torch.parallel.chains import chain_states, incremental_chain_states
+
+    rng = np.random.default_rng(14)
+    masks = []
+    for tag, sys_ in (("1x1", sys1), ("2x2", sys2)):
+        # occupied shares spread from 1% to 25% over the chains, so that some
+        # states pass the filter and some do not
+        spec = sys_.spec
+        occupied = rng.random((N_CHAINS, spec.n_sites)) < np.linspace(0.01, 0.25, N_CHAINS)[:, None]
+        ss = torch.as_tensor(np.where(occupied, rng.integers(1, spec.n_codes, occupied.shape), 0))
+        t0 = time.perf_counter()
+        accept = make_distance_accept(sys_.run.d, FILTER_DISTANCE)
+        build_s = time.perf_counter() - t0
+        got = accept(ss.to(dev)).cpu()
+        want = make_distance_accept(device_spec(spec, torch.device("cpu")), FILTER_DISTANCE)(ss)
+        masks.append(f"{tag} {spec.n_sites} sites: card = cpu bitwise "
+                     f"{torch.equal(got, want)}, pass share {float(want.float().mean()):.3f}, "
+                     f"candidate build {build_s:.2f}s")
+        if not (torch.equal(got, want) and 0 < int(want.sum()) < N_CHAINS):
+            raise AssertionError(f"[criteria] {tag}: card {got.tolist()} cpu {want.tolist()}")
+    print(f"[criteria] make_distance_accept (filter {FILTER_DISTANCE} A, {N_CHAINS} random "
+          f"occupancies): " + "; ".join(masks))
+    temps = np.array([1.0])
+    out = {}
+
+    # full evaluation at 1x1
+    d, sef = sys1.run.d, sys1.run.state_energy_fn
+    check = make_distance_accept(d, FILTER_DISTANCE)
+    run = make_run_fn(d, sef, EngineConfig(sweep_size=SWEEP_SIZE, record_positions=False,
+                                           criterion="metropolis_distance",
+                                           filter_distance=FILTER_DISTANCE))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    states = chain_states(d, N_CHAINS)
+    states = states._replace(energy=sef(states.site_state).surface_energy)
+    t0 = time.perf_counter()
+    fin, rec = run(states, temps, _gen(0))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out["dist_mc"] = launch_counts()
+    _expect("dist-mc", out["dist_mc"], _rigid_launches(1 + SWEEP_SIZE))
+    ok = bool(check(rec.site_state.reshape(-1, d.site_coords.shape[0])).all())
+    print(f"[dist-mc] 1x1 metropolis_distance chains={N_CHAINS} sweeps=1x{SWEEP_SIZE} "
+          f"evals/s={N_CHAINS * SWEEP_SIZE / dt:.1f} (one run) accept="
+          f"{float(rec.accept_rate.mean()):.4f} n_ads mean {float(rec.n_ads.float().mean()):.2f}"
+          f"; every recorded state passes the filter: {ok}; "
+          f"launches={json.dumps(out['dist_mc'])}")
+    if not (ok and torch.isfinite(rec.energy).all()):
+        raise AssertionError("[dist-mc] a state violates the filter or an energy is not finite")
+
+    # the delta engine at 2x2
+    engine = make_incremental_painn_from_system(sys2)
+    d2 = sys2.run.d
+    check2 = make_distance_accept(d2, FILTER_DISTANCE)
+    step = make_incremental_semigrand_step(engine, d2, criterion="metropolis_distance",
+                                           filter_distance=FILTER_DISTANCE)
+    irun = make_incremental_run(step, SWEEP_SIZE, engine.n_sites, engine.n_codes)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    states = incremental_chain_states(engine, d2, N_CHAINS)
+    t0 = time.perf_counter()
+    fin, rec = irun(states, temps, _gen(0))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out["inc_dist"] = launch_counts()
+    L = len(states.caches.s)
+    want = dict(BANDED_LAUNCHES)
+    want["painn_message_subset"] = L * SWEEP_SIZE
+    want["painn_update_fused"] += L * SWEEP_SIZE
+    _expect("inc-dist", out["inc_dist"], want)
+    ok = bool(check2(rec.site_state.reshape(-1, engine.n_sites)).all())
+    fresh = engine.energy_full(fin.site_state)[0]
+    drift = float((fresh - fin.energy).abs().max())
+    print(f"[inc-dist] 2x2 delta engine, metropolis_distance chains={N_CHAINS} sweeps=1x"
+          f"{SWEEP_SIZE} steps/s={N_CHAINS * SWEEP_SIZE / dt:.1f} (one run) accept="
+          f"{float(rec.accept_rate.mean()):.4f}; every recorded state passes the filter: {ok}; "
+          f"cached vs fresh {drift:.3e} eV (tol 1e-3); launches={json.dumps(out['inc_dist'])}")
+    if not (ok and drift <= 1e-3):
+        raise AssertionError("[inc-dist] a state violates the filter or the caches drift")
+    return out
+
+
+def mtm_phase(sys1, dev) -> dict:
+    """37. Multiple-try Metropolis: semigrand, K = MTM_K, on the rigid 1x1
+    (N_CHAINS x 1 x MTM_STEPS; the K trials and K - 1 references of every
+    chain as two batched evaluations a step, so rows 1-3 launch twice a
+    step at C K and C (K-1) chains), steps/s and evaluations/s, a bitwise
+    repeat; canonical, K = MTM_CAN_K, on Au(110) through the EAM kernel
+    potential at AU_CANONICAL_CHAINS chains: n_ads 6 in every record, row
+    13 once per state evaluation, a bitwise repeat. Returns both runs'
+    launch counts."""
+    from surface_sampling_tpu_torch.core.engine import (
+        EngineConfig,
+        MCMCRun,
+        geometric_schedule,
+        make_run_fn,
+    )
+    from surface_sampling_tpu_torch.core.static_neighbors import build_static_neighbor_table
+    from surface_sampling_tpu_torch.ops.eam_kernels import make_eam_kernel_potential
+    from surface_sampling_tpu_torch.parallel.chains import chain_states
+    from surface_sampling_tpu_torch.potentials.eam import builtin_eam
+    from surface_sampling_tpu_torch.systems import au110_eam
+
+    out = {}
+    d, sef = sys1.run.d, sys1.run.state_energy_fn
+    run = make_run_fn(d, sef, EngineConfig(sweep_size=MTM_STEPS, record_positions=False,
+                                           mtm_trials=MTM_K))
+    temps = np.array([1.0])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    states = chain_states(d, N_CHAINS)
+    states = states._replace(energy=sef(states.site_state).surface_energy)
+    res_a = run(states, temps, _gen(0))
+    torch.cuda.synchronize()
+    out["mtm_mc"] = launch_counts()
+    _expect("mtm-mc", out["mtm_mc"], _rigid_launches(1 + 2 * MTM_STEPS))
+    res_b = run(states, temps, _gen(0))
+    same = _bitwise(res_a, res_b)
+    dt = _best_of(lambda seed: run(states, temps, _gen(seed)))
+    per_step = {k: (v - RIGID_LAUNCHES[k]) / MTM_STEPS for k, v in out["mtm_mc"].items()
+                if k in RIGID_LAUNCHES}
+    rec = res_a[1]
+    print(f"[mtm-mc] 1x1 semigrand MTM K={MTM_K} chains={N_CHAINS} steps={MTM_STEPS} "
+          f"steps/s={N_CHAINS * MTM_STEPS / dt:.1f} evals/s="
+          f"{N_CHAINS * MTM_STEPS * (2 * MTM_K - 1) / dt:.1f} (2K-1 = {2 * MTM_K - 1} a chain "
+          f"a step) step_ms={1e3 * dt / MTM_STEPS:.3f} accept={float(rec.accept_rate.mean()):.4f} "
+          f"best={float(rec.energy.min()):.6f} eV; launches a step of rows 1-3 "
+          f"{json.dumps(per_step)} (batches of {N_CHAINS * MTM_K} and "
+          f"{N_CHAINS * (MTM_K - 1)} states); bitwise repeat {same}; "
+          f"launches={json.dumps(out['mtm_mc'])}")
+    if not (same and torch.isfinite(rec.energy).all()):
+        raise AssertionError("[mtm-mc] the MTM run does not repeat bitwise")
+
+    au = au110_eam(device=dev)
+    tables = builtin_eam("Au_u3")
+    nbr = build_static_neighbor_table(au.spec, tables.cutoff, relax_slack=0.05)
+    krun = MCMCRun(au.spec, make_eam_kernel_potential(tables, nbr, device=dev), device=dev)
+    cfg = EngineConfig(sweep_size=SWEEP_SIZE, canonical=True, num_ads_atoms=6,
+                       mtm_trials=MTM_CAN_K, record_positions=False)
+    temps = geometric_schedule(1.0, MTM_CAN_SWEEPS, 0.8)
+    sef_k, calls = krun.state_energy_fn, [0]
+
+    def counted(ss):
+        calls[0] += 1
+        return sef_k(ss)
+
+    krun.state_energy_fn = counted
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res_a = krun.run(0, temps, cfg=cfg, n_chains=AU_CANONICAL_CHAINS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out["mtm_canonical"] = launch_counts()
+    krun.state_energy_fn = sef_k
+    res_b = krun.run(0, temps, cfg=cfg, n_chains=AU_CANONICAL_CHAINS)
+    same = _bitwise(res_a, res_b)
+    rec = res_a[1]
+    n_steps = MTM_CAN_SWEEPS * SWEEP_SIZE
+    n_prep = calls[0] - 2 - 2 * n_steps
+    best = float(rec.energy.min())
+    _expect("mtm-canonical", out["mtm_canonical"], {"eam_rho_ep": calls[0]})
+    print(f"[mtm-canonical] Au(110) kernel potential, canonical MTM K={MTM_CAN_K} chains="
+          f"{AU_CANONICAL_CHAINS} sweeps={MTM_CAN_SWEEPS}x{SWEEP_SIZE} prep steps {n_prep} "
+          f"n_ads={sorted(set(rec.n_ads.flatten().tolist()))} accept="
+          f"{float(rec.accept_rate.mean()):.4f} best={best:.6f} eV (ground state "
+          f"{AU_REFERENCE_MIN:.6f}); {AU_CANONICAL_CHAINS * n_steps * (2 * MTM_CAN_K - 1) / dt:.1f}"
+          f" evals/s (one run, the prefill included, {dt:.3f} s); bitwise repeat {same}; "
+          f"launches={json.dumps(out['mtm_canonical'])}")
+    if not ((rec.n_ads == 6).all() and same and n_prep >= 0):
+        raise AssertionError("[mtm-canonical] n_ads changed or the run does not repeat")
+    return out
+
+
+def _delta_vs_fresh(engine, ss, gen) -> str:
+    """One canonical draw from occupancies ``ss``: the one-site (site1 takes
+    site2's code) and the two-site (the exchange) delta against a fresh full
+    evaluation of the trial state, held to the JAX package's rule for delta
+    vs full evaluations (1e-4 eV + 1e-5 relative)."""
+    from surface_sampling_tpu_torch.core.events import canonical_draws, pick_exchange
+    from surface_sampling_tpu_torch.core.state import change_site, exchange_sites
+
+    st = engine.init_state(ss)
+    g_t, g1, g2, _ = canonical_draws(gen, ss.shape[0], engine.n_sites, engine.n_codes)
+    s1, s2, _ = pick_exchange(ss, engine.n_codes, g_t, g1, g2)
+    out = []
+    for tag, trial, sites in (
+            ("one-site", change_site(ss, s1, torch.gather(ss, 1, s2[:, None])[:, 0]), s1[:, None]),
+            ("two-site", exchange_sites(ss, s1, s2), torch.stack([s1, s2], 1))):
+        fresh = engine.energy_full(trial)[0]
+        diff = (engine.delta(st.caches, trial, sites)[0] - fresh).abs()
+        ok = bool((diff <= 1e-4 + 1e-5 * fresh.abs()).all())
+        out.append(f"{tag} max |delta - fresh| {float(diff.max()):.3e} eV (relative "
+                   f"{float((diff / fresh.abs()).max()):.2e}) within the rule: {ok}")
+        if not ok:
+            raise AssertionError(f"[inc-canonical] {tag} delta vs fresh: {float(diff.max())} eV")
+    return f"|E| up to {float(fresh.abs().max()):.1f} eV: " + "; ".join(out)
+
+
+def inc_canonical_phase(sys2, dev) -> dict:
+    """38. Delta-engine canonical MC at 2x2, N_CHAINS x INC_CAN_SWEEPS x
+    SWEEP_SIZE from random occupancies of INC_CAN_ADS adsorbates a chain:
+    n_ads constant, cached energies within 1e-3 eV of a fresh full
+    evaluation, a bitwise repeat; rows 6-8 and 3 launch (the initial full
+    evaluation, then per step the subset message and the update of every
+    layer). Besides, one move from crowded random occupancies (a quarter of
+    the sites occupied, energies up to the 1e4-eV clamp), one- and two-site
+    deltas against fresh evaluations at the JAX package's relative rule.
+    Returns the launch counts."""
+    from surface_sampling_tpu_torch.core.engine import geometric_schedule
+    from surface_sampling_tpu_torch.core.incremental import (
+        make_incremental_canonical_step,
+        make_incremental_painn_from_system,
+        make_incremental_run,
+    )
+    from surface_sampling_tpu_torch.parallel.chains import incremental_chain_states
+
+    engine = make_incremental_painn_from_system(sys2)
+    d = sys2.run.d
+    rng = np.random.default_rng(38)
+    crowded = _delta_vs_fresh(engine, _states(sys2.spec, N_CHAINS, rng, dev), _gen(0))
+    print(f"[inc-canonical] crowded 2x2 occupancies, one move: {crowded}")
+    irun = make_incremental_run(make_incremental_canonical_step(engine), SWEEP_SIZE,
+                                engine.n_sites, engine.n_codes, canonical=True)
+    ss0 = np.zeros((N_CHAINS, engine.n_sites), np.int64)
+    for c in range(N_CHAINS):
+        ss0[c, rng.choice(engine.n_sites, INC_CAN_ADS, replace=False)] = rng.integers(
+            1, engine.n_codes, INC_CAN_ADS)
+    ss0 = torch.as_tensor(ss0, device=dev)
+    temps = geometric_schedule(1.0, INC_CAN_SWEEPS, 0.99)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    states = incremental_chain_states(engine, d, N_CHAINS, ss0)
+    res_a = irun(states, temps, _gen(0))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    n_mc = INC_CAN_SWEEPS * SWEEP_SIZE
+    L = len(states.caches.s)
+    want = dict(BANDED_LAUNCHES)
+    want["painn_message_subset"] = L * n_mc
+    want["painn_update_fused"] += L * n_mc
+    _expect("inc-canonical", launches, want)
+    fin, rec = res_a
+    n0 = (ss0 > 0).sum(1)
+    kept = bool((rec.n_ads == n0[:, None]).all())
+    drift = float((engine.energy_full(fin.site_state)[0] - fin.energy).abs().max())
+    same = _bitwise(res_a, irun(states, temps, _gen(0)))
+    dt = _best_of(lambda seed: irun(states, temps, _gen(seed)))
+    print(f"[inc-canonical] 2x2 delta-engine canonical chains={N_CHAINS} ({INC_CAN_ADS} adsorbates "
+          f"a chain) sweeps={INC_CAN_SWEEPS}x{SWEEP_SIZE} steps/s={N_CHAINS * n_mc / dt:.1f} step_ms={1e3 * dt / n_mc:.3f} "
+          f"accept={float(rec.accept_rate.mean()):.4f}; n_ads constant: {kept}; cached vs fresh "
+          f"{drift:.3e} eV (tol 1e-3); bitwise repeat {same}; launches={json.dumps(launches)}")
+    if not (kept and drift <= 1e-3 and same):
+        raise AssertionError("[inc-canonical] n_ads changed, caches drift or no repeat")
+    return launches
+
+
+@contextlib.contextmanager
+def linesearch_steps():
+    """Record every L-BFGS line search's iterations per chain (only the
+    chains it ran for) while the block runs."""
+    from surface_sampling_tpu_torch.core import relax as core_relax
+
+    steps, zoom = [], core_relax.zoom_linesearch
+
+    def recorded(value_and_grad, params, updates, value, grad, running):
+        res = zoom(value_and_grad, params, updates, value, grad, running)
+        steps.append(res[3][running])
+        return res
+
+    core_relax.zoom_linesearch = recorded
+    try:
+        yield steps
+    finally:
+        core_relax.zoom_linesearch = zoom
+
+
+def _relaxed_from(sys_, ss, noise: float):
+    """The relaxation of occupancy ``ss`` from its ideal geometry with the
+    free atoms moved by ``noise`` A (seeded normal draws): (positions,
+    potential energy)."""
+    from surface_sampling_tpu_torch.core.energy import relax_and_score, relax_settings
+    from surface_sampling_tpu_torch.core.state import (
+        realize_alive,
+        realize_free_mask,
+        realize_positions,
+        realize_type_idx,
+    )
+
+    d, pot, relax = sys_.run.d, sys_.potential, sys_.run.relax
+    pos0, free = realize_positions(d, ss), realize_free_mask(d, ss)
+    gen = torch.Generator(device=pos0.device).manual_seed(14)
+    pos0 = pos0 + noise * torch.randn(pos0.shape, generator=gen, device=pos0.device) \
+        * free[..., None]
+    fire_cfg, fixed = relax_settings(relax, pot)
+    bound = torch.full((ss.shape[0],), 1e4, device=pos0.device)
+    pos, e, _ = relax_and_score(pot, relax.method, fire_cfg, fixed, pos0, free,
+                                realize_type_idx(d, ss), realize_alive(d, ss), bound)
+    return pos, e
+
+
+def lbfgs_phase(dev) -> dict:
+    """39. The flagship 1x1 with RelaxConfig(method="lbfgs"): the relaxed
+    pristine surface energy; one relaxed state card vs CPU (RELAXED_E_TOL;
+    positions within LBFGS_POS_TOL, beside the card's own response to a
+    1e-6 A perturbation of the start); relaxed MC, LBFGS_CHAINS x 1 x
+    LBFGS_STEPS: force calls and line-search steps a move, rows 2 / 4 once
+    per layer and force call, a bitwise repeat. Returns the launch counts."""
+    from surface_sampling_tpu_torch.core.energy import RelaxConfig
+    from surface_sampling_tpu_torch.core.engine import EngineConfig, make_run_fn
+    from surface_sampling_tpu_torch.parallel.chains import relaxed_chain_states
+    from surface_sampling_tpu_torch.systems import srtio3_001_painn
+
+    relax = RelaxConfig(method="lbfgs")
+    sys_l = srtio3_001_painn(relax=relax, device=dev)
+    run, pot, S = sys_l.run, sys_l.potential, sys_l.spec.n_sites
+    t0 = time.perf_counter()
+    e0 = run.state_energy_fn(torch.zeros((1, S), dtype=torch.int64, device=dev))
+    t_pristine = time.perf_counter() - t0
+    se = float(e0.surface_energy[0])
+    ss = torch.as_tensor(np.where(np.arange(S) == 3, 3, 0)[None], device=dev)
+    gpu = run.state_energy_fn(ss)
+    t0 = time.perf_counter()
+    cpu = srtio3_001_painn(relax=relax, device="cpu").run.state_energy_fn(ss.cpu())
+    t_cpu = time.perf_counter() - t0
+    de = float((gpu.surface_energy.cpu() - cpu.surface_energy).abs().max())
+    dp = float((gpu.positions.cpu() - cpu.positions).abs().max())
+    p_a, e_a = _relaxed_from(sys_l, ss, 0.0)
+    p_b, e_b = _relaxed_from(sys_l, ss, 1e-6)
+    print(f"[lbfgs-relax] pristine L-BFGS-relaxed surface {se:.6f} eV potential "
+          f"{float(e0.potential_energy[0]):.6f} eV ({t_pristine:.2f}s); one adsorbed state card "
+          f"vs cpu |dE| {de:.3e} eV (tol {RELAXED_E_TOL}) |dx| {dp:.3e} A (tol "
+          f"{LBFGS_POS_TOL}) (cpu {t_cpu:.1f}s); the card's own response to a 1e-6 A "
+          f"perturbation of the start: |dE| {float((e_a - e_b).abs().max()):.3e} eV |dx| "
+          f"{float((p_a - p_b).abs().max()):.3e} A")
+    if not (np.isfinite(se) and not bool(e0.oob[0]) and de <= RELAXED_E_TOL
+            and dp <= LBFGS_POS_TOL):
+        raise AssertionError("[lbfgs-relax] pristine or card-vs-cpu check failed")
+
+    mrun = make_run_fn(run.d, run.state_energy_fn, EngineConfig(sweep_size=LBFGS_STEPS))
+    states = relaxed_chain_states(run.d, run.state_energy_fn, LBFGS_CHAINS)
+    temps = np.array([1.0])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with counting(pot) as (calls, _), linesearch_steps() as ls:
+        t0 = time.perf_counter()
+        res_a = mrun(states, temps, _gen(0))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = launch_counts()
+        run_calls = dict(calls)
+        ls_steps = torch.cat(ls).float()
+    _expect_relaxed(launches, run_calls, "painn_message_fused", "painn_message_bwd",
+                    _n_layers(pot))
+    same = _bitwise(res_a, mrun(states, temps, _gen(0)))
+    rec = res_a[1]
+    print(f"[lbfgs-relax] relaxed MC chains={LBFGS_CHAINS} sweeps=1x{LBFGS_STEPS} evals/s="
+          f"{LBFGS_CHAINS * LBFGS_STEPS / dt:.2f} step_ms={1e3 * dt / LBFGS_STEPS:.3f} (one run) "
+          f"force calls a move {run_calls['force'] / LBFGS_STEPS:.1f} (batched over the chains), "
+          f"line-search steps an L-BFGS iteration mean {float(ls_steps.mean()):.3f} max "
+          f"{int(ls_steps.max())}, L-BFGS iterations a move "
+          f"{ls_steps.numel() / (LBFGS_CHAINS * LBFGS_STEPS):.2f} a chain; accept="
+          f"{float(rec.accept_rate.mean()):.4f} best={float(rec.energy.min()):.6f} eV; bitwise "
+          f"repeat {same}; launches={json.dumps(launches)}")
+    if not (same and torch.isfinite(rec.energy).all()):
+        raise AssertionError("[lbfgs-relax] the relaxed run does not repeat bitwise")
+    return launches
+
+
+def local_relax_canonical_phase(dev) -> dict:
+    """39b. The local-relax canonical step on the FIRE-relaxed 1x1, N_CHAINS
+    x LOCAL_CAN_STEPS from relaxed random occupancies of LOCAL_CAN_ADS
+    adsorbates (one-hop balls around both exchanged sites): n_ads constant,
+    carried energies vs a fresh evaluation (under the state energy's
+    out-of-bounds clamp), a bitwise repeat, moves/s. Returns the launch
+    counts."""
+    from surface_sampling_tpu_torch.core.energy import RelaxConfig
+    from surface_sampling_tpu_torch.core.local_relax import (
+        build_ball_masks,
+        make_local_relax_canonical_step,
+        make_local_relax_eval,
+        make_local_relax_run,
+    )
+    from surface_sampling_tpu_torch.core.state import (
+        element_counts,
+        realize_alive,
+        realize_type_idx,
+    )
+    from surface_sampling_tpu_torch.core.relax import energy_threshold
+    from surface_sampling_tpu_torch.parallel.chains import relaxed_chain_states
+    from surface_sampling_tpu_torch.systems import srtio3_001_painn
+
+    sys_r = srtio3_001_painn(relax=RelaxConfig(), device=dev)
+    run, pot, spec, d = sys_r.run, sys_r.potential, sys_r.spec, sys_r.run.d
+    balls = build_ball_masks(spec, sys_r.static_nbr, hops=1)
+    step = make_local_relax_canonical_step(
+        make_local_relax_eval(d, pot, run.surface_energy_fn, run.relax, balls))
+    lrun = make_local_relax_run(step, LOCAL_CAN_STEPS, spec.n_sites, spec.n_codes,
+                                canonical=True)
+    rng = np.random.default_rng(39)
+    ss0 = np.zeros((N_CHAINS, spec.n_sites), np.int64)
+    for c in range(N_CHAINS):
+        ss0[c, rng.choice(spec.n_sites, LOCAL_CAN_ADS, replace=False)] = rng.integers(
+            1, spec.n_codes, LOCAL_CAN_ADS)
+    ss0 = torch.as_tensor(ss0, device=dev)
+    states = relaxed_chain_states(d, run.state_energy_fn, N_CHAINS, ss0)
+    temps = np.array([1.0])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with counting(pot) as (calls, n_steps):
+        t0 = time.perf_counter()
+        res_a = lrun(states, temps, _gen(0))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = launch_counts()
+        run_calls = dict(calls)
+        iters = torch.stack(n_steps).float()
+    _expect_relaxed(launches, run_calls, "painn_message_fused", "painn_message_bwd",
+                    _n_layers(pot))
+    fin, rec = res_a
+    kept = bool((rec.n_ads == (ss0 > 0).sum(1)[:, None]).all())
+    ss = fin.site_state
+    e_fresh = pot.energy(fin.relaxed_positions, realize_type_idx(d, ss), realize_alive(d, ss))
+    # the state energy's out-of-bounds rule: a clamped chain carries the bound
+    bound = energy_threshold(spec.n_slots)
+    se_fresh = torch.where((e_fresh.abs() > bound) | torch.isnan(e_fresh),
+                           torch.full_like(e_fresh, bound),
+                           run.surface_energy_fn(e_fresh, element_counts(d, ss)))
+    drift = float((se_fresh - fin.energy).abs().max())
+    n_oob = int((fin.energy == bound).sum())
+    same = _bitwise(res_a, lrun(states, temps, _gen(0)))
+    print(f"[local-relax-canonical] 1x1 chains={N_CHAINS} ({LOCAL_CAN_ADS} adsorbates a chain, "
+          f"{n_oob} at the out-of-bounds clamp) steps={LOCAL_CAN_STEPS} moves/s="
+          f"{N_CHAINS * LOCAL_CAN_STEPS / dt:.2f} step_ms={1e3 * dt / LOCAL_CAN_STEPS:.3f} (one "
+          f"run) fire_iters_mean={float(iters.mean()):.3f} force_calls={run_calls['force']} "
+          f"accept={float(rec.accept_rate.mean()):.4f}; n_ads constant: {kept}; carried vs "
+          f"fresh {drift:.3e} eV (tol 1e-3); bitwise repeat {same}; "
+          f"launches={json.dumps(launches)}")
+    if not (kept and drift <= 1e-3 and same):
+        raise AssertionError("[local-relax-canonical] n_ads, drift or repeat failed")
+    return launches
+
+
+def _mb_card_vs_cpu(tag, sys_gpu, sys_cpu, ss) -> float:
+    e_gpu = sys_gpu.run.state_energy_fn(ss.to(sys_gpu.run.d.device)).potential_energy.cpu()
+    e_cpu = sys_cpu.run.state_energy_fn(ss.cpu()).potential_energy
+    diff = float((e_gpu - e_cpu).abs().max())
+    if not diff <= MB_CARD_CPU_TOL:
+        raise AssertionError(f"[{tag}] card and CPU energies differ by {diff} eV")
+    return diff
+
+
+def _mb_run(tag, sys_, n_chains, cfg, temps, site_state=None, repeat=True):
+    """A whole run through MCMCRun.run (seed 0), its rate, finite energies
+    and (``repeat``) a bitwise repeat. Returns the record."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_a = sys_.run.run(0, temps, site_state=site_state, cfg=cfg, n_chains=n_chains)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rec = res_a[1]
+    same = _bitwise(res_a, sys_.run.run(0, temps, site_state=site_state, cfg=cfg,
+                                        n_chains=n_chains)) if repeat else None
+    n_mc = len(temps) * cfg.sweep_size
+    print(f"[{tag}] chains={n_chains} sweeps={len(temps)}x{cfg.sweep_size} evals/s="
+          f"{n_chains * n_mc / dt:.1f} step_ms={1e3 * dt / n_mc:.3f} (one run) accept="
+          f"{float(rec.accept_rate.mean()):.4f} n_ads={sorted(set(rec.n_ads.flatten().tolist()))}"
+          f" best={float(rec.energy.min()):.6f} eV" + (f"; bitwise repeat {same}" if repeat
+                                                        else ""))
+    if not (torch.isfinite(rec.energy).all() and (same or not repeat)):
+        raise AssertionError(f"[{tag}] non-finite energies or no bitwise repeat")
+    return rec
+
+
+def gan_phase(dev) -> None:
+    """40. gan0001_tersoff() (3x3, 4 layers): the tutorial slab's pristine
+    energy (systems_data/GaN_0001_3x3.npz, -144.059 eV) within 1e-3 in f32;
+    card vs CPU on random states; canonical MC from an even prefill at
+    GAN_CHAINS (exact) and GAN_FAST_CHAINS (fast=True), n_ads constant and a
+    bitwise repeat; FIRE-relaxed canonical MC at GAN_RELAX_CHAINS."""
+    from pathlib import Path
+
+    from surface_sampling_tpu_torch.core.energy import RelaxConfig
+    from surface_sampling_tpu_torch.core.engine import (
+        EngineConfig,
+        even_site_prefill,
+        geometric_schedule,
+    )
+    from surface_sampling_tpu_torch.ops.neighbors import pair_shifts_for
+    from surface_sampling_tpu_torch.potentials.tersoff import builtin_tersoff, make_tersoff
+    from surface_sampling_tpu_torch.systems import SYSTEMS_DATA, gan0001_tersoff
+
+    t = builtin_tersoff("GaN_nord2003")
+    data = np.load(Path(SYSTEMS_DATA) / "GaN_0001_3x3.npz")
+    sym_of = {31: "Ga", 7: "N"}
+    ti = torch.as_tensor([[t.elements.index(sym_of[int(z)]) for z in data["numbers"]]],
+                         device=dev)
+    frac = np.linalg.solve(data["cell"].T, data["positions"].T).T
+    shifts = torch.as_tensor(pair_shifts_for(data["cell"], frac, t.cutoff), dtype=torch.float32,
+                             device=dev)
+    e_slab = float(make_tersoff(t, max_neighbors=24, device=dev).energy(
+        torch.as_tensor(data["positions"], dtype=torch.float32, device=dev)[None], ti,
+        torch.ones_like(ti, dtype=torch.bool), shifts)[0])
+    t0 = time.perf_counter()
+    exact, fast = gan0001_tersoff(device=dev), gan0001_tersoff(fast=True, device=dev)
+    cpu = gan0001_tersoff(device="cpu")
+    build_s = time.perf_counter() - t0
+    spec = exact.spec
+    ss = _states(spec, 16, np.random.default_rng(40), "cpu")
+    diff = _mb_card_vs_cpu("gan", exact, cpu, ss)
+    d_fast = float((fast.run.state_energy_fn(ss.to(dev)).potential_energy
+                    - exact.run.state_energy_fn(ss.to(dev)).potential_energy).abs().max())
+    print(f"[gan] tutorial slab (GaN_0001_3x3.npz, {len(data['numbers'])} atoms) {e_slab:.6f} eV "
+          f"(LAMMPS {GAN_TUTORIAL_E}, |d| {abs(e_slab - GAN_TUTORIAL_E):.2e}, tol 1e-3); "
+          f"gan0001_tersoff(): slots={spec.n_slots} sites={spec.n_sites} (host build of exact, "
+          f"fast and cpu {build_s:.1f}s); 16 random states card vs cpu {diff:.3e} eV (tol "
+          f"{MB_CARD_CPU_TOL}); fast vs exact {d_fast:.3e} eV")
+    if not (abs(e_slab - GAN_TUTORIAL_E) <= 1e-3 and d_fast <= 5e-3):
+        raise AssertionError("[gan] the tutorial anchor or fast vs exact failed")
+    ss0 = even_site_prefill(spec, GAN_ADS, rng=np.random.default_rng(0))
+    cfg = EngineConfig(sweep_size=SWEEP_SIZE, canonical=True, num_ads_atoms=GAN_ADS,
+                       record_positions=False)
+    temps = geometric_schedule(0.5, MB_SWEEPS, 0.9)
+    for tag, sys_, n in (("gan-mc", exact, GAN_CHAINS), ("gan-mc-fast", fast, GAN_FAST_CHAINS)):
+        rec = _mb_run(tag, sys_, n, cfg, temps, ss0)
+        if not (rec.n_ads == GAN_ADS).all():
+            raise AssertionError(f"[{tag}] n_ads changed")
+    relaxed = gan0001_tersoff(relax=RelaxConfig(), device=dev)
+    rcfg = EngineConfig(sweep_size=MB_RELAX_STEPS, canonical=True, num_ads_atoms=GAN_ADS)
+    rec = _mb_run("gan-relax-mc", relaxed, GAN_RELAX_CHAINS, rcfg, np.array([0.5]), ss0,
+                  repeat=False)
+    if not (rec.n_ads == GAN_ADS).all():
+        raise AssertionError("[gan-relax-mc] n_ads changed")
+
+
+def _modified_sw():
+    """tests/test_manybody_potentials.py's 'modified SW': SW85 with the
+    three-body term strengthened 30%."""
+    from surface_sampling_tpu_torch.potentials.sw import SW_SI_1985, sw_tables
+
+    entry = dict(SW_SI_1985["entries"][("Si", "Si", "Si")])
+    entry["lam"] *= 1.3
+    return sw_tables({"elements": ("Si",), "entries": {("Si", "Si", "Si"): entry}})
+
+
+def si_phase(dev) -> None:
+    """41. si111_sw() (5x5, 2 bilayers, 100 atoms): the pristine SW85 energy
+    (-379.42511 eV) by the exact and fast paths, fast vs exact and card vs
+    CPU on random states; semigrand MC at SI_CHAINS (exact) and
+    SI_FAST_CHAINS (fast=True); FIRE-relaxed MC at SI_RELAX_CHAINS under
+    SW85 and with relax_model= the modified SW; on the JAX test's 2x2
+    single-adsorbate states the split is live and relaxing under SW85
+    itself scores no higher (its variational inequality)."""
+    from surface_sampling_tpu_torch.core.energy import RelaxConfig
+    from surface_sampling_tpu_torch.core.engine import EngineConfig, geometric_schedule
+    from surface_sampling_tpu_torch.systems import si111_sw
+
+    t0 = time.perf_counter()
+    exact, fast, cpu = si111_sw(device=dev), si111_sw(fast=True, device=dev), si111_sw(
+        device="cpu")
+    build_s = time.perf_counter() - t0
+    spec = exact.spec
+    zero = torch.zeros((1, spec.n_sites), dtype=torch.int64, device=dev)
+    e_ex = float(exact.run.state_energy_fn(zero).potential_energy[0])
+    e_fa = float(fast.run.state_energy_fn(zero).potential_energy[0])
+    rng = np.random.default_rng(41)
+    ss = torch.as_tensor((rng.random((16, spec.n_sites)) < 0.05).astype(np.int64))
+    diff = _mb_card_vs_cpu("si", exact, cpu, ss)
+    d_fast = float((fast.run.state_energy_fn(ss.to(dev)).potential_energy
+                    - exact.run.state_energy_fn(ss.to(dev)).potential_energy).abs().max())
+    print(f"[si] si111_sw(): slots={spec.n_slots} sites={spec.n_sites} frozen="
+          f"{int(spec.frozen_pristine.sum())} (host build {build_s:.1f}s); pristine SW85 exact "
+          f"{e_ex:.6f} fast {e_fa:.6f} eV (pin {SI111_PRISTINE_E}, tol 5e-3); 16 random states "
+          f"card vs cpu {diff:.3e} eV (tol {MB_CARD_CPU_TOL}), fast vs exact {d_fast:.3e} eV")
+    if not (abs(e_ex - SI111_PRISTINE_E) <= 5e-3 and abs(e_fa - SI111_PRISTINE_E) <= 5e-3
+            and d_fast <= 5e-3):
+        raise AssertionError("[si] pristine pin or fast vs exact failed")
+    cfg = EngineConfig(sweep_size=SWEEP_SIZE, record_positions=False)
+    temps = geometric_schedule(1.0, MB_SWEEPS, 0.9)
+    _mb_run("si-mc", exact, SI_CHAINS, cfg, temps)
+    _mb_run("si-mc-fast", fast, SI_FAST_CHAINS, cfg, temps)
+    sys_a = si111_sw(relax=RelaxConfig(), device=dev)
+    sys_b = si111_sw(relax=RelaxConfig(), relax_model=_modified_sw(), device=dev)
+    rcfg = EngineConfig(sweep_size=MB_RELAX_STEPS)
+    _mb_run("si-relax-mc", sys_a, SI_RELAX_CHAINS, rcfg, np.array([1.0]), repeat=False)
+    _mb_run("si-relax-mc-dual", sys_b, SI_RELAX_CHAINS, rcfg, np.array([1.0]), repeat=False)
+    # the JAX test's check: the 2x2, 15 FIRE steps to fmax 0.02, one adsorbate
+    relax = RelaxConfig(steps=15, fmax=0.02)
+    sys_a = si111_sw(size=(2, 2), relax=relax, device=dev)
+    sys_b = si111_sw(size=(2, 2), relax=relax, relax_model=_modified_sw(), device=dev)
+    one = torch.zeros((2, sys_a.spec.n_sites), dtype=torch.int64, device=dev)
+    one[0, 0], one[1, 3] = 1, 1
+    out_a, out_b = sys_a.run.state_energy_fn(one), sys_b.run.state_energy_fn(one)
+    gap = float((out_b.potential_energy - out_a.potential_energy).min())
+    split = float((out_a.positions - out_b.positions).abs().max())
+    print(f"[si-dual] 2x2, one adsorbate at site 0 / 3 (tests/test_manybody_potentials.py's "
+          f"check): SW85 energy relaxed under the modified SW minus relaxed under SW85, least "
+          f"{gap:.3e} eV (>= -1e-4); max position difference {split:.4f} A (split live)")
+    if not (gap >= -1e-4 and split > 1e-5):
+        raise AssertionError("[si-dual] the variational inequality or the split failed")
+
+
+def symmetric_phase(dev) -> None:
+    """42. A symmetric slab (tests/test_extras.py's shape: Cu(100) 2x2x2, one
+    top site, the bottom layer the base) under make_eam(builtin_eam(
+    "Cu_u3")), rigid and FIRE-relaxed, SYM_CHAINS random occupancies: card
+    vs CPU (1e-4 eV rigid; RELAXED_E_TOL / RELAXED_POS_TOL relaxed, on
+    SYM_CPU_CHAINS of them), the mirror live (energies differ from the plain
+    slab's)."""
+    from surface_sampling_tpu_torch.core.energy import RelaxConfig, SymmetricSlabConfig
+    from surface_sampling_tpu_torch.core.engine import MCMCRun
+    from surface_sampling_tpu_torch.core.spec import make_spec
+    from surface_sampling_tpu_torch.potentials.eam import builtin_eam, make_eam
+    from surface_sampling_tpu_torch.structure import fcc100
+
+    tables = builtin_eam("Cu_u3")
+    slab = fcc100("Cu", size=(2, 2, 2), a=3.6, vacuum=20.0).sorted_by_z()
+    sites = np.array([[0.0, 0.0, slab.positions[:, 2].max() + 1.8]])
+    spec = make_spec(slab, sites, ["Cu"], potential_numbers=tables.numbers, cutoff=tables.cutoff)
+    sym = SymmetricSlabConfig(base_z=float(slab.positions[:4, 2].mean()), n_base=4)
+
+    def runs(device, relax=None):
+        pot = make_eam(tables, device=device)
+        return (MCMCRun(spec, pot, device=device, relax=relax, symmetric=sym),
+                MCMCRun(spec, pot, device=device))
+
+    ss = torch.as_tensor(np.random.default_rng(42).integers(0, 2, (SYM_CHAINS, 1)))
+    (g_sym, g_plain), (c_sym, _) = runs(dev), runs("cpu")
+    t0 = time.perf_counter()
+    e_g = g_sym.state_energy_fn(ss.to(dev))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    e_c = c_sym.state_energy_fn(ss)
+    d_rigid = float((e_g.surface_energy.cpu() - e_c.surface_energy).abs().max())
+    mirror = float((g_plain.state_energy_fn(ss.to(dev)).potential_energy
+                    - e_g.potential_energy).abs().min())
+    (gr, _), (cr, _) = runs(dev, RelaxConfig()), runs("cpu", RelaxConfig())
+    t0 = time.perf_counter()
+    r_g = gr.state_energy_fn(ss.to(dev))
+    torch.cuda.synchronize()
+    dt_r = time.perf_counter() - t0
+    r_c = cr.state_energy_fn(ss[:SYM_CPU_CHAINS])
+    de = float((r_g.surface_energy[:SYM_CPU_CHAINS].cpu() - r_c.surface_energy).abs().max())
+    dp = float((r_g.positions[:SYM_CPU_CHAINS].cpu() - r_c.positions).abs().max())
+    moved = float((r_g.positions - e_g.positions).abs().max())
+    print(f"[symmetric] Cu(100) 2x2x2 + 1 site mirrored (n_base 4, {spec.n_slots} + "
+          f"{spec.n_slots - 4} slots) chains={SYM_CHAINS}: rigid card vs cpu {d_rigid:.3e} eV "
+          f"(tol 1e-4), {SYM_CHAINS / dt:.1f} evals/s; mirror vs plain least |dE| {mirror:.3e} eV; "
+          f"FIRE-relaxed card vs cpu ({SYM_CPU_CHAINS} chains) |dE| {de:.3e} eV (tol "
+          f"{RELAXED_E_TOL}) |dx| {dp:.3e} A (tol {RELAXED_POS_TOL}), max relaxed displacement "
+          f"{moved:.4f} A, {SYM_CHAINS / dt_r:.1f} evals/s")
+    if not (d_rigid <= 1e-4 and mirror > 1e-3 and de <= RELAXED_E_TOL
+            and dp <= RELAXED_POS_TOL and moved > 1e-3):
+        raise AssertionError("[symmetric] card vs cpu or the mirror failed")
+
+
+def slice14_phases(dev) -> dict:
+    """Phases 36-42; returns the launch counts of the paths that run
+    kernels."""
+    from surface_sampling_tpu_torch.systems import srtio3_001_painn
+
+    t0 = time.perf_counter()
+    sys1 = srtio3_001_painn(device=dev)
+    sys2 = srtio3_001_painn(supercell=(2, 2), device=dev)
+    print(f"[engine-build] 1x1 and 2x2 rigid flagship systems {time.perf_counter() - t0:.1f}s")
+    paths = criteria_phase(sys1, sys2, dev)
+    paths.update(mtm_phase(sys1, dev))
+    torch.cuda.empty_cache()
+    paths["inc_canonical"] = inc_canonical_phase(sys2, dev)
+    del sys1, sys2
+    torch.cuda.empty_cache()
+    paths["lbfgs_relax_mc"] = lbfgs_phase(dev)
+    torch.cuda.empty_cache()
+    paths["local_relax_canonical"] = local_relax_canonical_phase(dev)
+    torch.cuda.empty_cache()
+    gan_phase(dev)
+    torch.cuda.empty_cache()
+    si_phase(dev)
+    torch.cuda.empty_cache()
+    symmetric_phase(dev)
+    return paths
+
+
 def entry_registers(log: str) -> dict:
     """ptxas -v's report per entry function: {short name: [registers, spill
     store bytes, spill load bytes]}, the name the mangled one's kernel
@@ -2778,6 +3558,10 @@ def main() -> int:
     # PaiNN force-loss training and fine-tuning, row 5
     train_rows, train_paths = training_phases(dev)
     rows += train_rows
+    torch.cuda.empty_cache()
+
+    # the rest of the MC engine and the many-body systems
+    engine_paths = slice14_phases(dev)
 
     main_path = {"painn_message_bwd": "relaxed_mc", "painn_message_l1_banded": "sc_mc",
                  "painn_message_fused_banded": "sc_mc", "painn_message_subset": "inc_mc",
@@ -2794,7 +3578,8 @@ def main() -> int:
                    "chgnet_relax_mc": chg_relax_launches[row["name"]],
                    "chgnet_3x3_mc": chg_3x3_launches[row["name"]],
                    **{k: v[row["name"]] for k, v in eam_paths.items()},
-                   **{k: v[row["name"]] for k, v in train_paths.items()}}
+                   **{k: v[row["name"]] for k, v in train_paths.items()},
+                   **{k: v[row["name"]] for k, v in engine_paths.items()}}
         row["launches"] = by_path[main_path.get(row["name"], "rigid_mc")]
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on its path: {by_path}")

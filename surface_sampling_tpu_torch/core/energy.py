@@ -5,8 +5,10 @@ The counterpart of ``surface_sampling_tpu/core/energy.py``: a
 surface-energy model (chemical potentials alone, or with bulk-reference
 offsets) maps (potential energy, per-element counts) to the acceptance
 energy, and ``make_state_energy_fn`` assembles the evaluation
-every MC step runs: realize the occupancy, relax it (FIRE) or take the
-rigid slot geometry, score it, clamp out-of-bounds energies.
+every MC step runs: realize the occupancy (mirrored for a symmetric
+slab), relax it (FIRE or L-BFGS, under a separate relax potential if
+given) or take the rigid slot geometry, score it, clamp out-of-bounds
+energies.
 """
 
 from __future__ import annotations
@@ -24,10 +26,16 @@ from surface_sampling_tpu_torch.core.state import (
     element_counts,
     realize_alive,
     realize_free_mask,
+    realize_numbers,
     realize_positions,
     realize_type_idx,
 )
-from surface_sampling_tpu_torch.core.relax import FireConfig, energy_threshold, fire_relax
+from surface_sampling_tpu_torch.core.relax import (
+    FireConfig,
+    energy_threshold,
+    fire_relax,
+    lbfgs_relax,
+)
 from surface_sampling_tpu_torch.device import resolve_device
 
 
@@ -103,17 +111,42 @@ class RelaxConfig:
     """Relaxation policy inside the acceptance energy (reference:
     calc_settings relax_atoms / relax_steps).
 
-    ``refresh_edges``: "once" selects the edge topology at the start
-    geometry of each relaxation and recomputes only the geometry per force
-    call (the reference's neighbor-list semantics), for potentials with
-    the topology hooks; "every_step" re-ranks the candidate pairs at every
-    force call. Only ``method="fire"`` is ported."""
+    ``method``: "fire" (``core.relax.fire_relax``) or "lbfgs"
+    (``core.relax.lbfgs_relax``). ``refresh_edges``: "once" selects the
+    edge topology at the start geometry of each relaxation and recomputes
+    only the geometry per force call (the reference's neighbor-list
+    semantics), for potentials with the topology hooks; "every_step"
+    re-ranks the candidate pairs at every force call."""
 
     steps: int = 20
     fmax: float = 0.01
     max_step: float = 0.2
     method: str = "fire"          # fire | lbfgs
     refresh_edges: str = "once"   # once | every_step
+
+
+@dataclass(frozen=True)
+class SymmetricSlabConfig:
+    """Symmetric-slab energy mode: the MC moves the top half; the energy is
+    that of the slab with every non-base slot mirrored through the plane
+    z = ``base_z`` (N + N - n_base slots, a static shape).
+
+    base_z: the z of the reflection plane (mean of the base atoms).
+    n_base: number of base atoms (not mirrored), the first slots.
+    """
+
+    base_z: float
+    n_base: int
+
+
+def symmetrize_arrays(sym: SymmetricSlabConfig, positions, numbers, alive):
+    """Append mirrored copies of all non-base slots to (C, N, ...) arrays:
+    positions reflected through z = base_z, numbers and alive copied."""
+    refl = positions.clone()
+    refl[..., 2] = 2.0 * sym.base_z - positions[..., 2]
+    n = sym.n_base
+    return (torch.cat([positions, refl[:, n:]], dim=1), torch.cat([numbers, numbers[:, n:]], dim=1),
+            torch.cat([alive, alive[:, n:]], dim=1))
 
 
 class StateEnergy(NamedTuple):
@@ -123,46 +156,58 @@ class StateEnergy(NamedTuple):
     oob: torch.Tensor               # (C,) bool
 
 
-def relax_settings(relax: RelaxConfig, potential) -> tuple[FireConfig, bool]:
-    """The FIRE configuration of a ``RelaxConfig`` and whether each
-    relaxation fixes its edge topology (``refresh_edges="once"`` with a
-    potential carrying the topology hooks). Raises on what is not ported."""
-    if relax.method != "fire":
-        raise NotImplementedError(f"relax method {relax.method!r} is not ported: only 'fire'")
+def relax_settings(relax: RelaxConfig, relax_pot,
+                   symmetric: SymmetricSlabConfig | None = None):
+    """The ``FireConfig`` of a ``RelaxConfig`` (steps, fmax, max_step) and
+    whether each relaxation fixes its edge topology (``refresh_edges="once"``
+    with a relaxing potential that carries the topology hooks, on a slab
+    that is not mirrored). Raises on an unknown method or policy."""
+    if relax.method not in ("fire", "lbfgs"):
+        raise ValueError(f"relax method must be 'fire' or 'lbfgs', got {relax.method!r}")
     if relax.refresh_edges not in ("once", "every_step"):
         raise ValueError(f"refresh_edges must be 'once' or 'every_step', "
                          f"got {relax.refresh_edges!r}")
     fire_cfg = FireConfig(steps=relax.steps, fmax=relax.fmax, max_step=relax.max_step)
-    return fire_cfg, relax.refresh_edges == "once" and hasattr(potential, "edge_topology")
+    fixed_topo = (relax.refresh_edges == "once" and symmetric is None
+                  and hasattr(relax_pot, "edge_topology"))
+    return fire_cfg, fixed_topo
 
 
-def relax_and_score(potential, fire_cfg: FireConfig, fixed_topo: bool, pos0, free, type_idx,
-                    alive, bound, shifts=None):
-    """FIRE-relax every chain from ``pos0`` with the atoms under ``free``
-    (C, N) moving, and score the result: ``(positions, e_pot, oob)``.
+def relax_and_score(potential, method: str, fire_cfg: FireConfig, fixed_topo: bool, pos0,
+                    free, type_idx, alive, bound, shifts=None, relax_potential=None,
+                    energy_of: Callable | None = None):
+    """Relax every chain from ``pos0`` with the atoms under ``free`` (C, N)
+    moving, by ``method`` ("fire": ``fire_relax``, "lbfgs":
+    ``lbfgs_relax``) under ``relax_potential`` (``potential`` when None),
+    and score the result under ``potential``: ``(positions, e_pot, oob)``.
 
-    With ``fixed_topo`` the edge topology is selected at ``pos0`` and each
-    force call recomputes only the geometry; the potential energy is then a
-    fresh-edge ``potential.energy`` at the relaxed positions, checked
-    against the bound (C,) again, so relaxed and unrelaxed states are
-    scored by one evaluator. Otherwise it is the relaxation's own final
-    energy. Out-of-bounds potential energies are clamped to the bound."""
+    ``energy_of(pot) -> (positions -> (C,) energies)`` is the evaluator
+    (default ``pot.energy(p, type_idx, alive, shifts)``; a symmetric slab
+    passes its mirror). With ``fixed_topo`` the edge topology is selected at
+    ``pos0`` and each force call recomputes only the geometry. With either,
+    or with a separate relax potential, the potential energy is a fresh
+    ``potential`` evaluation at the relaxed positions, checked against the
+    bound (C,) again, so relaxed and unrelaxed states are scored by one
+    evaluator; otherwise it is the relaxation's own final energy.
+    Out-of-bounds potential energies are clamped to the bound."""
+    if energy_of is None:
+        def energy_of(pot):
+            return lambda p: pot.energy(p, type_idx, alive, shifts)
 
-    def e_of(p):
-        return potential.energy(p, type_idx, alive, shifts)
-
+    relax_pot = potential if relax_potential is None else relax_potential
     if fixed_topo:
-        topo = potential.edge_topology(pos0, alive)
+        topo = relax_pot.edge_topology(pos0, alive)
 
         def relax_e_of(p):
-            return potential.energy_with_edges(p, type_idx, alive,
-                                               edges=potential.edges_of(p, topo))
+            return relax_pot.energy_with_edges(p, type_idx, alive,
+                                               edges=relax_pot.edges_of(p, topo))
     else:
-        relax_e_of = e_of
-    res = fire_relax(relax_e_of, pos0, free, fire_cfg)
-    if not fixed_topo:
+        relax_e_of = energy_of(relax_pot)
+    relaxer = fire_relax if method == "fire" else lbfgs_relax
+    res = relaxer(relax_e_of, pos0, free, fire_cfg)
+    if relax_potential is None and not fixed_topo:
         return res.positions, res.energy, res.oob
-    e_pot = e_of(res.positions)
+    e_pot = energy_of(potential)(res.positions)
     oob = res.oob | (e_pot.abs() > bound) | torch.isnan(e_pot)
     return res.positions, torch.where(oob, bound, e_pot), oob
 
@@ -172,7 +217,7 @@ def make_state_energy_fn(
     potential,
     surface_energy_fn: Callable = identity_surface_energy,
     relax: RelaxConfig | None = None,
-    symmetric=None,
+    symmetric: SymmetricSlabConfig | None = None,
     relax_potential=None,
 ) -> Callable:
     """Build ``fn(site_state (C, S)) -> StateEnergy``, the evaluation of
@@ -180,21 +225,25 @@ def make_state_energy_fn(
 
     Without ``relax`` the state is scored at its ideal slot geometry,
     through ``potential.rigid_energy(type_idx, alive)`` where the
-    potential has it, else ``potential.energy(positions, type_idx, alive,
-    d.shifts)``. With ``relax`` every
-    chain's trial state is FIRE-relaxed (frozen bulk and dead slots held)
-    and scored by :func:`relax_and_score`.
+    potential has it (and the slab is not mirrored), else
+    ``potential.energy(positions, type_idx, alive, d.shifts)``. With
+    ``relax`` every chain's trial state is relaxed (FIRE or L-BFGS; frozen
+    bulk and dead slots held) and scored by :func:`relax_and_score`.
+
+    ``symmetric``: the potential sees the mirrored double slab, whose
+    non-base alive atoms count twice in the element counts; a relaxation
+    moves the top half and re-derives the mirror at every force call.
+    ``relax_potential``: relax under this potential, score the relaxed
+    geometry under ``potential`` (only meaningful with ``relax``).
 
     A NaN or an energy beyond ``energy_threshold(N)`` is out of bounds:
     both the potential and the surface energy are clamped to the bound, so
-    the Metropolis test rejects the state. ``symmetric``, ``relax_potential``
-    and ``method="lbfgs"`` are not ported and raise."""
-    if symmetric is not None or relax_potential is not None:
-        raise NotImplementedError("symmetric slabs and a separate relax_potential "
-                                  "are not ported yet")
+    the Metropolis test rejects the state."""
     if relax is not None:
-        fire_cfg, fixed_topo = relax_settings(relax, potential)
-    rigid = getattr(potential, "rigid_energy", None) if relax is None else None
+        fire_cfg, fixed_topo = relax_settings(
+            relax, potential if relax_potential is None else relax_potential, symmetric)
+    rigid = (getattr(potential, "rigid_energy", None)
+             if relax is None and symmetric is None else None)
 
     def state_energy(site_state: torch.Tensor) -> StateEnergy:
         pos0 = realize_positions(d, site_state)
@@ -203,17 +252,40 @@ def make_state_energy_fn(
         counts = element_counts(d, site_state, dtype=pos0.dtype)
         e_bound = energy_threshold(pos0.shape[1])
         bound = torch.full((pos0.shape[0],), e_bound, dtype=pos0.dtype, device=pos0.device)
+        energy_of = None
+        if symmetric is not None:
+            n_base, base_z = symmetric.n_base, symmetric.base_z
+            numbers = realize_numbers(d, site_state)
+            elem = d.z_to_element[numbers[:, n_base:]]
+            mirrored = (elem[..., None] == torch.arange(d.n_elements, device=elem.device)) \
+                & alive[:, n_base:, None]
+            counts = counts + mirrored.sum(dim=1).to(pos0.dtype)
+            _, numbers_full, alive_full = symmetrize_arrays(symmetric, pos0, numbers, alive)
+            type_idx_full = d.type_of_z[numbers_full]
+
+            def energy_of(pot):
+                def e_of(p_top):
+                    refl = torch.cat([p_top[:, n_base:, :2],
+                                      2.0 * base_z - p_top[:, n_base:, 2:]], dim=2)
+                    return pot.energy(torch.cat([p_top, refl], dim=1), type_idx_full,
+                                      alive_full, d.shifts)
+
+                return e_of
 
         if relax is None:
-            e_pot = rigid(type_idx, alive) if rigid is not None else potential.energy(
-                pos0, type_idx, alive, d.shifts)
+            if rigid is not None:
+                e_pot = rigid(type_idx, alive)
+            elif energy_of is not None:
+                e_pot = energy_of(potential)(pos0)
+            else:
+                e_pot = potential.energy(pos0, type_idx, alive, d.shifts)
             oob = (e_pot.abs() > e_bound) | torch.isnan(e_pot)
             e_pot = torch.where(oob, bound, e_pot)
             pos = pos0
         else:
-            pos, e_pot, oob = relax_and_score(potential, fire_cfg, fixed_topo, pos0,
-                                              realize_free_mask(d, site_state), type_idx,
-                                              alive, bound, d.shifts)
+            pos, e_pot, oob = relax_and_score(potential, relax.method, fire_cfg, fixed_topo,
+                                              pos0, realize_free_mask(d, site_state), type_idx,
+                                              alive, bound, d.shifts, relax_potential, energy_of)
         se = torch.where(oob, bound, surface_energy_fn(e_pot, counts))
         return StateEnergy(surface_energy=se, potential_energy=e_pot, positions=pos, oob=oob)
 

@@ -22,13 +22,17 @@ from scipy.cluster.hierarchy import fcluster, linkage
 
 from surface_sampling_tpu_torch.core.energy import (
     RelaxConfig,
+    SymmetricSlabConfig,
     identity_surface_energy,
     make_state_energy_fn,
 )
 from surface_sampling_tpu_torch.core.events import (
     canonical_draws,
     make_canonical_step,
+    make_canonical_step_mtm,
     make_semigrand_step,
+    make_semigrand_step_mtm,
+    mtm_draws,
     semigrand_draws,
 )
 from surface_sampling_tpu_torch.core.spec import SurfaceSpec
@@ -50,22 +54,20 @@ class SweepRecord(NamedTuple):
 
 @dataclass(frozen=True)
 class EngineConfig:
-    """Static engine configuration (the JAX package's fields). The
-    distance criteria and multiple-try Metropolis (``mtm_trials`` > 1) are
-    not ported yet and raise."""
+    """Static engine configuration (the JAX package's fields)."""
 
     sweep_size: int = 20
     canonical: bool = False
     num_ads_atoms: int = 0
-    criterion: str = "metropolis"        # metropolis | testing | distance
-    filter_distance: float = 1.5         # for the distance criteria (not ported)
+    criterion: str = "metropolis"        # metropolis | testing | distance | metropolis_distance
+    filter_distance: float = 1.5         # for the distance criteria
     always_accept: bool = True           # for the testing criterion
     require_per_atom_energies: bool = False
     require_distance_decay: bool = False
     record_positions: bool = True
     prep_max_steps: int | None = None    # bound canonical prep (None = reference-faithful)
     prep_force_fill: bool = False        # deterministic fill if the bound is hit
-    mtm_trials: int = 0                  # >1: multiple-try Metropolis
+    mtm_trials: int = 0                  # >1: multiple-try Metropolis (semigrand + canonical)
 
 
 def geometric_schedule(start_temp: float, total_sweeps: int, alpha: float = 0.99) -> np.ndarray:
@@ -127,6 +129,7 @@ def make_sweep_record(record_positions: bool = True) -> Callable:
 
 def _semigrand_step(d, state_energy_fn, cfg: EngineConfig):
     return make_semigrand_step(d, state_energy_fn, criterion=cfg.criterion,
+                               filter_distance=cfg.filter_distance,
                                always_accept=cfg.always_accept)
 
 
@@ -141,12 +144,24 @@ def make_run_fn(d, state_energy_fn: Callable, cfg: EngineConfig, potential=None,
     come from ``generator`` (a ``torch.Generator`` on the state's device,
     see :func:`make_generator`), continued in place: pass the same one to
     the next chunk of a run.
+
+    ``cfg.mtm_trials`` > 1 runs multiple-try Metropolis steps of that many
+    trials (``core.events.make_semigrand_step_mtm`` /
+    ``make_canonical_step_mtm``), which need the Metropolis criterion and,
+    canonical, the unweighted (symmetric) exchange proposal.
     """
     if cfg.mtm_trials > 1:
-        raise NotImplementedError("multiple-try Metropolis (mtm_trials > 1) is not ported yet")
-    if cfg.canonical:
+        if cfg.criterion != "metropolis":
+            raise ValueError("mtm_trials requires the metropolis criterion")
+        if cfg.canonical and (cfg.require_per_atom_energies or cfg.require_distance_decay):
+            raise ValueError("mtm_trials needs the symmetric (unweighted) switch proposal")
+        make = make_canonical_step_mtm if cfg.canonical else make_semigrand_step_mtm
+        step_fn = make(d, state_energy_fn, k_trials=cfg.mtm_trials)
+        draws = mtm_draws(cfg.mtm_trials, canonical=cfg.canonical)
+    elif cfg.canonical:
         step_fn = make_canonical_step(
-            d, state_energy_fn, criterion=cfg.criterion, always_accept=cfg.always_accept,
+            d, state_energy_fn, criterion=cfg.criterion, filter_distance=cfg.filter_distance,
+            always_accept=cfg.always_accept,
             require_per_atom_energies=cfg.require_per_atom_energies,
             require_distance_decay=cfg.require_distance_decay, potential=potential,
             distance_weight_matrix=distance_weight_matrix)
@@ -273,20 +288,24 @@ def count_adsorption_sites(site_state, connectivity) -> dict:
 class MCMCRun:
     """Bundle of a spec and a potential staged on one device: the device
     spec ``d`` and the batched ``state_energy_fn`` that runs and steps use
-    (every trial state FIRE-relaxed when ``relax`` is given), and
-    :meth:`run`, the entry point of a whole run."""
+    (every trial state relaxed when ``relax`` is given, under
+    ``relax_potential`` when that is given; the mirrored double slab when
+    ``symmetric`` is a ``SymmetricSlabConfig``), and :meth:`run`, the entry
+    point of a whole run."""
 
     spec: SurfaceSpec
     potential: object
     surface_energy_fn: Callable | None = None
     device: torch.device | str = "cuda"
     relax: RelaxConfig | None = None
+    symmetric: SymmetricSlabConfig | None = None
+    relax_potential: object | None = None
 
     def __post_init__(self):
         self.d = device_spec(self.spec, resolve_device(self.device))
         self.state_energy_fn = make_state_energy_fn(
             self.d, self.potential, self.surface_energy_fn or identity_surface_energy,
-            relax=self.relax)
+            relax=self.relax, symmetric=self.symmetric, relax_potential=self.relax_potential)
 
     def init_state(self, site_state=None, n_chains: int = 1) -> MCState:
         """States of ``n_chains`` chains (all sites empty, or ``site_state``:

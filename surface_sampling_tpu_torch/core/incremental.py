@@ -23,9 +23,10 @@ cache every move, in a fixed order (no running sum, no drift), and a move
 is accepted per chain by a select over the caches.
 
 Ported: the static-geometry delta for one site (Change) and two sites
-(Exchange), the semigrand step and the run. Not ported (each raises): the
-dynamic-geometry delta (``static_geometry="off"``), the canonical step
-and the ``metropolis_distance`` criterion.
+(Exchange), the semigrand and canonical steps (Metropolis, or
+``metropolis_distance``: Metropolis under the distance filter of
+``core/events.py``) and the run. Not ported (raises): the dynamic-geometry
+delta (``static_geometry="off"``).
 """
 
 from __future__ import annotations
@@ -38,10 +39,19 @@ import torch.nn.functional as tnf
 
 from surface_sampling_tpu_torch.core.energy import identity_surface_energy
 from surface_sampling_tpu_torch.core.engine import run_sweeps
-from surface_sampling_tpu_torch.core.events import StepInfo, metropolis_accept, propose_change
+from surface_sampling_tpu_torch.core.events import (
+    StepInfo,
+    canonical_draws,
+    hard_wall_accept,
+    metropolis_accept,
+    pick_exchange,
+    propose_change,
+    semigrand_draws,
+)
 from surface_sampling_tpu_torch.core.relax import energy_threshold
 from surface_sampling_tpu_torch.core.state import (
     element_counts,
+    exchange_sites,
     num_occupied_sites,
     realize_alive,
     realize_type_idx,
@@ -324,39 +334,61 @@ def make_incremental_painn_from_system(system) -> IncEngine:
                                   system.routing_band, system.run.surface_energy_fn)
 
 
-def make_incremental_semigrand_step(engine: IncEngine, criterion: str = "metropolis") -> Callable:
+def _inc_step(engine: IncEngine, dist_accept, state: IncState, temp, trial_ss, sites, u_acc,
+              valid=None):
+    ss = state.site_state
+    se, new_caches, oob = engine.delta(state.caches, trial_ss, sites)
+    temp = torch.as_tensor(temp, dtype=state.energy.dtype, device=ss.device)
+    accept = metropolis_accept(u_acc, state.energy, se, temp)
+    if valid is not None:
+        accept = accept & valid
+    if dist_accept is not None:
+        accept = accept & dist_accept(trial_ss)
+    new_state = IncState(
+        site_state=torch.where(accept[:, None], trial_ss, ss),
+        energy=torch.where(accept, se, state.energy),
+        caches=select_caches(accept, new_caches, state.caches),
+    )
+    return new_state, StepInfo(accepted=accept, energy=new_state.energy,
+                               n_ads=num_occupied_sites(new_state.site_state), oob=oob)
+
+
+def make_incremental_semigrand_step(engine: IncEngine, d=None, criterion: str = "metropolis",
+                                    filter_distance: float = 1.5) -> Callable:
     """``step(state, temp, site, u_code, u_acc) -> (state, StepInfo)``: the
     semigrand Change step of ``core.events.make_semigrand_step`` with the
     full evaluation replaced by ``engine.delta`` of the moved site, batched
-    over chains.
-    ``criterion="metropolis_distance"`` is not ported and raises."""
-    if criterion == "metropolis_distance":
-        raise NotImplementedError("criterion='metropolis_distance' waits with the distance "
-                                  "criteria, which are not ported yet")
-    if criterion != "metropolis":
-        raise ValueError(f"incremental steps support criterion='metropolis' (got {criterion!r})")
+    over chains. ``criterion="metropolis_distance"`` (with the DeviceSpec
+    ``d``) adds the distance filter's hard wall, as the full-evaluation
+    step does."""
+    dist_accept = hard_wall_accept(d, criterion, filter_distance)
 
     def step(state: IncState, temp, site, u_code, u_acc):
-        ss = state.site_state
-        trial_ss = propose_change(ss, site, u_code)
-        se, new_caches, oob = engine.delta(state.caches, trial_ss, site[:, None])
-        temp = torch.as_tensor(temp, dtype=state.energy.dtype, device=ss.device)
-        accept = metropolis_accept(u_acc, state.energy, se, temp)
-        new_state = IncState(
-            site_state=torch.where(accept[:, None], trial_ss, ss),
-            energy=torch.where(accept, se, state.energy),
-            caches=select_caches(accept, new_caches, state.caches),
-        )
-        return new_state, StepInfo(accepted=accept, energy=new_state.energy,
-                                   n_ads=num_occupied_sites(new_state.site_state), oob=oob)
+        trial_ss = propose_change(state.site_state, site, u_code)
+        return _inc_step(engine, dist_accept, state, temp, trial_ss, site[:, None], u_acc)
 
     return step
 
 
-def make_incremental_canonical_step(engine: IncEngine) -> Callable:
-    """Not ported yet: the two-site delta exists (``delta`` takes (C, 2)
-    sites), the step around it does not."""
-    raise NotImplementedError("the incremental canonical step is not ported yet")
+def make_incremental_canonical_step(engine: IncEngine, d=None, criterion: str = "metropolis",
+                                    filter_distance: float = 1.5) -> Callable:
+    """``step(state, temp, g_types, g_site1, g_site2, u_acc) -> (state,
+    StepInfo)``: the unweighted canonical Exchange step of
+    ``core.events.make_canonical_step`` (the same draws) with the full
+    evaluation replaced by ``engine.delta`` of the two exchanged sites. A
+    chain with fewer than two codes present never accepts;
+    ``criterion="metropolis_distance"`` (with ``d``) adds the distance
+    filter's hard wall."""
+    dist_accept = hard_wall_accept(d, criterion, filter_distance)
+
+    def step(state: IncState, temp, g_types, g_site1, g_site2, u_acc):
+        ss = state.site_state
+        site1, site2, valid = pick_exchange(ss, engine.n_codes, g_types, g_site1, g_site2)
+        trial_ss = exchange_sites(ss, site1, site2)
+        return _inc_step(engine, dist_accept, state, temp, trial_ss,
+                         torch.stack([site1, site2], dim=1), u_acc, valid)
+
+    return step
 
 
 class IncSweepRecord(NamedTuple):
@@ -369,12 +401,13 @@ class IncSweepRecord(NamedTuple):
     oob_rate: torch.Tensor       # (C, sweeps) fraction of trial moves OOB-clamped
 
 
-def make_incremental_run(step_fn: Callable, sweep_size: int, n_sites: int,
-                         n_codes: int) -> Callable:
+def make_incremental_run(step_fn: Callable, sweep_size: int, n_sites: int, n_codes: int,
+                         canonical: bool = False) -> Callable:
     """``run(state, temps, generator) -> (state, IncSweepRecord)`` over
     incremental steps, with the draws of ``core.engine.make_run_fn`` (the
-    same generator state gives the same sites, codes and uniforms; the
-    generator is continued in place)."""
+    same generator state gives the same draws; ``canonical`` for an
+    exchange step's; the generator is continued in place)."""
+    draws = canonical_draws if canonical else semigrand_draws
 
     def record(state: IncState, accept_rate, oob_rate) -> IncSweepRecord:
         return IncSweepRecord(energy=state.energy, accept_rate=accept_rate,
@@ -382,6 +415,7 @@ def make_incremental_run(step_fn: Callable, sweep_size: int, n_sites: int,
                               site_state=state.site_state, oob_rate=oob_rate)
 
     def run(state: IncState, temps, generator: torch.Generator):
-        return run_sweeps(step_fn, state, temps, generator, sweep_size, n_sites, n_codes, record)
+        return run_sweeps(step_fn, state, temps, generator, sweep_size, n_sites, n_codes, record,
+                          draws)
 
     return run

@@ -19,10 +19,10 @@ feature caches, no drift); a rejected move keeps the chain's positions.
 With a ball that covers every free slot, a move from a lattice-positioned
 chain runs the FIRE trajectory of the full relaxed path.
 
-Only the Metropolis criterion and the semigrand step are ported: the
-canonical step (the ball-local evaluation of an exchange) is not yet, the
-distance criteria wait with those of ``core/events.py``, and L-BFGS with
-``core/relax.py``'s.
+The semigrand and canonical steps take the Metropolis criterion or
+``metropolis_distance`` (Metropolis under the distance filter of
+``core/events.py``); the relaxation is FIRE or L-BFGS, under the scoring
+potential or a separate ``relax_potential``.
 """
 
 from __future__ import annotations
@@ -40,13 +40,21 @@ from surface_sampling_tpu_torch.core.energy import (
     relax_settings,
 )
 from surface_sampling_tpu_torch.core.engine import make_sweep_record, run_sweeps
-from surface_sampling_tpu_torch.core.events import StepInfo, metropolis_accept, propose_change
+from surface_sampling_tpu_torch.core.events import (
+    canonical_draws,
+    hard_wall_accept,
+    metropolis_accept,
+    pick_exchange,
+    propose_change,
+    select_trial,
+    semigrand_draws,
+)
 from surface_sampling_tpu_torch.core.relax import energy_threshold
 from surface_sampling_tpu_torch.core.state import (
     DeviceSpec,
     MCState,
     element_counts,
-    num_occupied_sites,
+    exchange_sites,
     realize_alive,
     realize_free_mask,
     realize_positions,
@@ -88,15 +96,14 @@ def make_local_relax_eval(
     """Build ``evaluate(trial_ss (C, S), pos_prev (C, N, 3), sites2 (C, 2))
     -> StateEnergy``: the warm-started ball-local counterpart of the relaxed
     state energy of ``core/energy.py`` (the same topology policy, OOB
-    clamps and fresh-edge acceptance energy). ``sites2`` holds each chain's
-    moved sites (one site repeated for a single-site move); ``pos_prev`` is
-    each chain's current relaxed geometry. ``relax_potential`` and
-    ``method="lbfgs"`` are not ported and raise."""
+    clamps and fresh-edge acceptance energy, relaxing under
+    ``relax_potential`` when given). ``sites2`` holds each chain's moved
+    sites (one site repeated for a single-site move); ``pos_prev`` is each
+    chain's current relaxed geometry."""
     if ball_masks is None:
         raise ValueError("ball_masks required (build_ball_masks)")
-    if relax_potential is not None:
-        raise NotImplementedError("a separate relax_potential is not ported yet")
-    fire_cfg, fixed_topo = relax_settings(relax, potential)
+    fire_cfg, fixed_topo = relax_settings(
+        relax, potential if relax_potential is None else relax_potential)
     balls = torch.as_tensor(np.asarray(ball_masks, bool), device=d.device)
     P = d.pristine_positions.shape[0]
     G = d.code_offsets.shape[1]
@@ -116,56 +123,80 @@ def make_local_relax_eval(
         ball = balls[sites2[:, 0]] | balls[sites2[:, 1]]
         free = realize_free_mask(d, trial_ss) & ball
         bound = torch.full((C,), energy_threshold(N), dtype=lat.dtype, device=lat.device)
-        pos, e_pot, oob = relax_and_score(potential, fire_cfg, fixed_topo, pos0, free, type_idx,
-                                          alive, bound, d.shifts)
+        pos, e_pot, oob = relax_and_score(potential, relax.method, fire_cfg, fixed_topo, pos0,
+                                          free, type_idx, alive, bound, d.shifts,
+                                          relax_potential)
         se = torch.where(oob, bound, sfn(e_pot, counts))
         return StateEnergy(surface_energy=se, potential_energy=e_pot, positions=pos, oob=oob)
 
     return evaluate
 
 
-def make_local_relax_semigrand_step(evaluate: Callable, criterion: str = "metropolis") -> Callable:
+def _local_step(evaluate: Callable, dist_accept, state: MCState, temp, trial_ss, sites2,
+                u_acc, valid=None):
+    e = evaluate(trial_ss, state.relaxed_positions, sites2)
+    temp = torch.as_tensor(temp, dtype=state.energy.dtype, device=trial_ss.device)
+    accept = metropolis_accept(u_acc, state.energy, e.surface_energy, temp)
+    if valid is not None:
+        accept = accept & valid
+    if dist_accept is not None:
+        accept = accept & dist_accept(trial_ss)
+    return select_trial(accept, trial_ss, e, state)
+
+
+def make_local_relax_semigrand_step(evaluate: Callable, criterion: str = "metropolis",
+                                    d: DeviceSpec | None = None,
+                                    filter_distance: float = 1.5) -> Callable:
     """``step(state, temp, site, u_code, u_acc) -> (state, StepInfo)``: the
     semigrand Change step of ``core.events.make_semigrand_step`` (the same
     draws, as tensors) with the trial state evaluated by a warm-started
     ball-local relaxation of the moved site (``make_local_relax_eval``).
-    Only the Metropolis criterion is ported."""
-    if criterion != "metropolis":
-        raise NotImplementedError(f"criterion {criterion!r} is not ported: only 'metropolis'")
+    ``criterion="metropolis_distance"`` (with ``d``) adds the distance
+    filter's hard wall."""
+    dist_accept = hard_wall_accept(d, criterion, filter_distance)
 
     def step(state: MCState, temp, site, u_code, u_acc):
-        ss = state.site_state
-        trial_ss = propose_change(ss, site, u_code)
-        e = evaluate(trial_ss, state.relaxed_positions, torch.stack([site, site], dim=1))
-        temp = torch.as_tensor(temp, dtype=state.energy.dtype, device=ss.device)
-        accept = metropolis_accept(u_acc, state.energy, e.surface_energy, temp)
-        new_state = MCState(
-            site_state=torch.where(accept[:, None], trial_ss, ss),
-            energy=torch.where(accept, e.surface_energy, state.energy),
-            relaxed_positions=torch.where(accept[:, None, None], e.positions,
-                                          state.relaxed_positions),
-        )
-        return new_state, StepInfo(accepted=accept, energy=new_state.energy,
-                                   n_ads=num_occupied_sites(new_state.site_state), oob=e.oob)
+        trial_ss = propose_change(state.site_state, site, u_code)
+        return _local_step(evaluate, dist_accept, state, temp, trial_ss,
+                           torch.stack([site, site], dim=1), u_acc)
 
     return step
 
 
-def make_local_relax_canonical_step(evaluate: Callable, criterion: str = "metropolis") -> Callable:
-    """Not ported yet: the ball-local evaluation of a two-site exchange."""
-    raise NotImplementedError("the local-relax canonical step is not ported yet")
+def make_local_relax_canonical_step(evaluate: Callable, criterion: str = "metropolis",
+                                    d: DeviceSpec | None = None,
+                                    filter_distance: float = 1.5) -> Callable:
+    """``step(state, temp, g_types, g_site1, g_site2, u_acc) -> (state,
+    StepInfo)``: the unweighted canonical Exchange step of
+    ``core.events.make_canonical_step`` (the same draws) with the trial
+    state evaluated by a warm-started ball-local relaxation around both
+    exchanged sites. A chain with fewer than two codes present never
+    accepts; ``criterion="metropolis_distance"`` (with ``d``) adds the
+    distance filter's hard wall."""
+    dist_accept = hard_wall_accept(d, criterion, filter_distance)
+
+    def step(state: MCState, temp, g_types, g_site1, g_site2, u_acc):
+        ss = state.site_state
+        site1, site2, valid = pick_exchange(ss, g_types.shape[1], g_types, g_site1, g_site2)
+        trial_ss = exchange_sites(ss, site1, site2)
+        return _local_step(evaluate, dist_accept, state, temp, trial_ss,
+                           torch.stack([site1, site2], dim=1), u_acc, valid)
+
+    return step
 
 
-def make_local_relax_run(step_fn: Callable, sweep_size: int, n_sites: int,
-                         n_codes: int) -> Callable:
+def make_local_relax_run(step_fn: Callable, sweep_size: int, n_sites: int, n_codes: int,
+                         canonical: bool = False) -> Callable:
     """``run(state, temps, generator) -> (state, SweepRecord)`` over
     local-relax steps, with the draws and the record of
     ``core.engine.make_run_fn`` (the same generator state gives the same
-    sites, codes and uniforms; the relaxed positions, which are this
-    engine's state, are recorded)."""
+    draws; ``canonical`` for an exchange step's; the relaxed positions,
+    which are this engine's state, are recorded)."""
     record = make_sweep_record()
+    draws = canonical_draws if canonical else semigrand_draws
 
     def run(state: MCState, temps, generator: torch.Generator):
-        return run_sweeps(step_fn, state, temps, generator, sweep_size, n_sites, n_codes, record)
+        return run_sweeps(step_fn, state, temps, generator, sweep_size, n_sites, n_codes, record,
+                          draws)
 
     return run

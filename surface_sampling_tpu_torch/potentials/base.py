@@ -62,3 +62,17 @@ def summed(per_atom: Callable) -> Callable:
         return per_atom(positions, type_idx, alive, shifts).sum(dim=1)
 
     return energy
+
+
+@dataclass(frozen=True)
+class TopologyPotential(Potential):
+    """A potential whose edges rank a static candidate table, with the relax
+    loop's hooks (``core.energy.relax_and_score`` with
+    ``refresh_edges="once"``): ``edge_topology(positions, alive)`` selects
+    the edges once, ``edges_of(positions, topology)`` recomputes their
+    geometry, ``energy_with_edges(positions, type_idx, alive, edges=...)``
+    scores them."""
+
+    edge_topology: Callable | None = None
+    edges_of: Callable | None = None
+    energy_with_edges: Callable | None = None

@@ -2,6 +2,7 @@
 
 from surface_sampling_tpu_torch.structure.atoms import Structure
 from surface_sampling_tpu_torch.structure.sites import find_adsorption_sites
-from surface_sampling_tpu_torch.structure.slabs import fcc100
+from surface_sampling_tpu_torch.structure.slabs import bulk, diamond111, fcc100, surface_from_bulk
 
-__all__ = ["Structure", "fcc100", "find_adsorption_sites"]
+__all__ = ["Structure", "bulk", "diamond111", "fcc100", "find_adsorption_sites",
+           "surface_from_bulk"]

@@ -2,8 +2,8 @@
 
 The part of ``surface_sampling_tpu/structure/atoms.py`` that building the
 ported systems and loading training data use: construction, fractional
-coordinates, tiling, sorting by height, centring in vacuum, layer tagging
-and the formula.
+coordinates, wrapping, tiling, sorting by height, centring in vacuum, layer
+tagging and the formula.
 """
 
 from __future__ import annotations
@@ -12,7 +12,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from surface_sampling_tpu_torch.constants import Z_FROM_SYMBOL, formula_from_numbers
+from surface_sampling_tpu_torch.constants import (
+    CHEMICAL_SYMBOLS,
+    Z_FROM_SYMBOL,
+    formula_from_numbers,
+)
 
 
 @dataclass
@@ -49,6 +53,24 @@ class Structure:
 
     def set_scaled_positions(self, frac: np.ndarray) -> None:
         self.positions = np.asarray(frac) @ self.cell
+
+    @property
+    def volume(self) -> float:
+        return float(abs(np.linalg.det(self.cell)))
+
+    @property
+    def symbols(self) -> list[str]:
+        return [CHEMICAL_SYMBOLS[z] for z in self.numbers]
+
+    def copy(self) -> "Structure":
+        return Structure(self.numbers.copy(), self.positions.copy(), self.cell.copy())
+
+    def wrap(self) -> "Structure":
+        """A copy with every atom wrapped into the cell (all three axes
+        periodic)."""
+        out = self.copy()
+        out.set_scaled_positions(self.scaled_positions % 1.0)
+        return out
 
     def repeat(self, reps) -> "Structure":
         """Tile the structure (nx, ny, nz) times; images are ordered with

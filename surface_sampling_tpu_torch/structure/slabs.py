@@ -1,15 +1,211 @@
-"""Low-index slabs with exact geometries (host side, numpy).
+"""Bulk crystals and slabs (host side, numpy).
 
-The counterpart of ``fcc100`` in ``surface_sampling_tpu/structure/slabs.py``:
-the Cu(100) slab of the EAM systems.
+The counterparts of ``bulk``, ``surface_from_bulk`` (the general
+Miller-index cut), ``fcc100`` and ``diamond111`` in
+``surface_sampling_tpu/structure/slabs.py``: the slabs of the EAM, GaN
+Tersoff and Si(111) Stillinger-Weber systems.
 """
 
 from __future__ import annotations
+
+from math import gcd
 
 import numpy as np
 
 from surface_sampling_tpu_torch.constants import Z_FROM_SYMBOL
 from surface_sampling_tpu_torch.structure.atoms import Structure
+
+
+def bulk(symbol: str | list[str], crystal: str, a: float, c: float | None = None) -> Structure:
+    """Build a conventional-cell bulk crystal.
+
+    Supported prototypes: sc, fcc, bcc, diamond, rocksalt, zincblende,
+    cubic-perovskite (symbol = [A, B, O]).
+    """
+    if isinstance(symbol, str):
+        symbols = [symbol]
+    else:
+        symbols = list(symbol)
+    cell = np.eye(3) * a
+    if crystal == "sc":
+        frac = [[0, 0, 0]]
+        nums = [symbols[0]]
+    elif crystal == "fcc":
+        frac = [[0, 0, 0], [0, 0.5, 0.5], [0.5, 0, 0.5], [0.5, 0.5, 0]]
+        nums = [symbols[0]] * 4
+    elif crystal == "bcc":
+        frac = [[0, 0, 0], [0.5, 0.5, 0.5]]
+        nums = [symbols[0]] * 2
+    elif crystal == "diamond":
+        frac = [[0, 0, 0], [0, 0.5, 0.5], [0.5, 0, 0.5], [0.5, 0.5, 0],
+                [0.25, 0.25, 0.25], [0.25, 0.75, 0.75], [0.75, 0.25, 0.75], [0.75, 0.75, 0.25]]
+        nums = [symbols[0]] * 8
+    elif crystal == "rocksalt":
+        frac = [[0, 0, 0], [0, 0.5, 0.5], [0.5, 0, 0.5], [0.5, 0.5, 0],
+                [0.5, 0, 0], [0.5, 0.5, 0.5], [0, 0, 0.5], [0, 0.5, 0]]
+        nums = [symbols[0]] * 4 + [symbols[1]] * 4
+    elif crystal == "zincblende":
+        frac = [[0, 0, 0], [0, 0.5, 0.5], [0.5, 0, 0.5], [0.5, 0.5, 0],
+                [0.25, 0.25, 0.25], [0.25, 0.75, 0.75], [0.75, 0.25, 0.75], [0.75, 0.75, 0.25]]
+        nums = [symbols[0]] * 4 + [symbols[1]] * 4
+    elif crystal == "perovskite":
+        # A at corner, B at center, O at face centers (cubic ABO3)
+        frac = [[0, 0, 0], [0.5, 0.5, 0.5], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]]
+        nums = [symbols[0], symbols[1], symbols[2], symbols[2], symbols[2]]
+    elif crystal == "wurtzite":
+        if c is None:
+            c = a * np.sqrt(8.0 / 3.0)
+        cell = np.array([[a, 0, 0], [-a / 2, a * np.sqrt(3) / 2, 0], [0, 0, c]])
+        u = 3.0 / 8.0
+        frac = [[1 / 3, 2 / 3, 0], [2 / 3, 1 / 3, 0.5],
+                [1 / 3, 2 / 3, u], [2 / 3, 1 / 3, 0.5 + u]]
+        nums = [symbols[0]] * 2 + [symbols[1]] * 2
+    else:
+        raise ValueError(f"Unknown crystal prototype {crystal!r}")
+    numbers = np.array([Z_FROM_SYMBOL[s] for s in nums], dtype=np.int32)
+    st = Structure(numbers, np.array(frac, dtype=np.float64) @ cell, cell)
+    return st
+
+
+def _ext_gcd(a: int, b: int) -> tuple[int, int]:
+    """Extended Euclid: returns (x, y) with a*x + b*y = gcd(a, b)."""
+    if b == 0:
+        return 1, 0
+    x, y = _ext_gcd(b, a % b)
+    return y, x - (a // b) * y
+
+
+def _surface_basis(cell: np.ndarray, miller: tuple[int, int, int]) -> np.ndarray:
+    """Integer basis transformation [c1;c2;c3] so that c1,c2 span the (hkl)
+    plane and c3 completes a right-handed cell. Standard algorithm (see e.g.
+    Sun & Ceder, Surf. Sci. 2013 appendix)."""
+    h, k, l = miller  # noqa: E741
+    if (h, k, l) == (0, 0, 0):
+        raise ValueError("Miller index (0,0,0) is invalid")
+    if h == 0 and k == 0:  # (001)
+        basis = np.array([[1, 0, 0], [0, 1, 0], [0, 0, 1]])
+        if l < 0:
+            basis = np.array([[0, 1, 0], [1, 0, 0], [0, 0, -1]])
+        return basis
+    if h == 0 and l == 0:  # (010)
+        return np.array([[0, 0, 1], [1, 0, 0], [0, int(np.sign(k)), 0]])
+    if k == 0 and l == 0:  # (100)
+        return np.array([[0, 1, 0], [0, 0, 1], [int(np.sign(h)), 0, 0]])
+
+    p, q = _ext_gcd(k, l)
+    a1, a2, a3 = cell
+    # choose p, q to make c1 as short as possible in the k1/k2 sense
+    k1 = np.dot(p * (k * a1 - h * a2) + q * (l * a1 - h * a3), l * a2 - k * a3)
+    k2 = np.dot(l * (k * a1 - h * a2) - k * (l * a1 - h * a3), l * a2 - k * a3)
+    if abs(k2) > 1e-10:
+        i = -int(round(k1 / k2))
+        p, q = p + i * l, q - i * k
+    a, b = _ext_gcd(p * k + q * l, h)
+    c1 = np.array([p * k + q * l, -p * h, -q * h])
+    c2 = np.array([0, l, -k]) // abs(gcd(l, k))
+    c3 = np.array([b, a * p, a * q])
+    basis = np.array([c1, c2, c3])
+    if np.linalg.det(basis) < 0:
+        basis = np.array([c2, c1, c3])
+    return basis
+
+
+def cut_surface_cell(bulk_st: Structure, miller: tuple[int, int, int]) -> Structure:
+    """Re-express the bulk in a cell whose first two vectors span the (hkl) plane."""
+    basis = _surface_basis(bulk_st.cell, miller)
+    new_cell = basis @ bulk_st.cell
+    # collect atoms inside the new cell by scanning bulk images
+    n_img = int(np.ceil(np.abs(basis).max())) + 1
+    rng = range(-n_img, n_img + 1)
+    shifts = np.array([[i, j, k] for i in rng for j in rng for k in rng], dtype=np.float64)
+    cart = (bulk_st.positions[None, :, :] + (shifts @ bulk_st.cell)[:, None, :]).reshape(-1, 3)
+    nums = np.tile(bulk_st.numbers, len(shifts))
+    frac = np.linalg.solve(new_cell.T, cart.T).T
+    eps = 1e-9
+    frac_mod = frac - np.floor(frac + eps)
+    # deduplicate
+    key = np.round(frac_mod, 6)
+    _, uniq = np.unique(np.hstack([key, nums[:, None]]), axis=0, return_index=True)
+    inside = np.all((frac_mod > -eps) & (frac_mod < 1 - eps), axis=1)
+    idx = np.array([i for i in uniq if inside[i]])
+    out = Structure(nums[idx], frac_mod[idx] @ new_cell, new_cell)
+    # sanity: atom count must scale with the cell volume ratio
+    ratio = out.volume / bulk_st.volume
+    expect = int(round(len(bulk_st) * ratio))
+    if expect != len(out):
+        raise RuntimeError(f"surface cut lost atoms: expected {expect}, got {len(out)}")
+    return out
+
+
+def surface_from_bulk(
+    bulk_st: Structure,
+    miller: tuple[int, int, int],
+    size: tuple[int, int] = (1, 1),
+    layers: int = 2,
+    vacuum: float = 15.0,
+    orthogonalize_c: bool = True,
+) -> tuple[Structure, np.ndarray]:
+    """Cut a slab from a bulk structure.
+
+    The counterpart of the reference's CatKit wrapper
+    ``surface_from_bulk`` (mcmc/utils/slab.py:15-65). ``layers`` counts
+    repetitions of the surface-cell c-vector; surface atoms are those within
+    1.2 A of the top (same criterion as mcmc/utils/slab.py:62).
+
+    Returns (slab, surface_atom_mask).
+    """
+    surf_cell = cut_surface_cell(bulk_st, miller)
+    # choose the termination: shift the fractional origin along c so the
+    # cell boundary falls in the middle of the LARGEST interlayer gap —
+    # the cut then severs the fewest bonds (diamond (111): the single-bond
+    # plane, not the triple-bond plane; CatKit/pymatgen pick terminations
+    # the same way). For uniform layer spacings (fcc) this is a no-op
+    # gauge shift.
+    frac = surf_cell.scaled_positions
+    zf = np.sort(np.unique(np.round(frac[:, 2] - np.floor(frac[:, 2]), 8)))
+    if len(zf) > 1:
+        gaps = np.diff(np.concatenate([zf, [zf[0] + 1.0]]))
+        g = int(np.argmax(gaps))
+        boundary = (zf[g] + 0.5 * gaps[g]) % 1.0
+        frac[:, 2] = frac[:, 2] - boundary
+        surf_cell = surf_cell.copy()
+        surf_cell.set_scaled_positions(frac)
+    slab = surf_cell.repeat((size[0], size[1], layers))
+    # wrap FIRST, while the cell is still the true periodic cell of the
+    # crystal — wrapping after the c-shear below maps atoms through a
+    # non-lattice vector and overlaps them whenever the cut's c-vector has
+    # a large in-plane component (e.g. diamond (111))
+    slab = slab.wrap()
+    if orthogonalize_c:
+        # shear the c-vector so it is perpendicular to the surface plane:
+        # valid for a slab with vacuum (atoms keep cartesian positions)
+        a, b = slab.cell[0], slab.cell[1]
+        normal = np.cross(a, b)
+        normal /= np.linalg.norm(normal)
+        c = slab.cell[2]
+        slab.cell[2] = normal * abs(np.dot(c, normal))
+        if np.linalg.det(slab.cell) < 0:
+            slab.cell[2] = -slab.cell[2]
+        # rotate so the normal is +z
+        slab = _rotate_to_z(slab)
+    slab = slab.center_z(vacuum).sorted_by_z()
+    z = slab.positions[:, 2]
+    surface_mask = (z.max() - z) < 1.2
+    return slab, surface_mask
+
+
+def _rotate_to_z(st: Structure) -> Structure:
+    """Rotate the structure so cell[0],cell[1] lie in the xy-plane, cell[2] ∝ +z."""
+    a, b = st.cell[0], st.cell[1]
+    n = np.cross(a, b)
+    n /= np.linalg.norm(n)
+    ex = a / np.linalg.norm(a)
+    ey = np.cross(n, ex)
+    rot = np.array([ex, ey, n])  # rows: new basis in old coords
+    out = st.copy()
+    out.cell = st.cell @ rot.T
+    out.positions = st.positions @ rot.T
+    return out
 
 
 def fcc100(symbol: str, size: tuple[int, int, int], a: float, vacuum: float = 15.0) -> Structure:
@@ -25,3 +221,42 @@ def fcc100(symbol: str, size: tuple[int, int, int], a: float, vacuum: float = 15
                 nums.append(Z_FROM_SYMBOL[symbol])
     cell = np.diag([nx * d, ny * d, nz * a / 2.0])
     return Structure(np.array(nums), np.array(pos), cell).center_z(vacuum)
+
+
+def diamond111(
+    symbol: str, size: tuple[int, int], bilayers: int, a: float, vacuum: float = 12.0
+) -> Structure:
+    """Diamond-structure (111) slab in the PRIMITIVE hexagonal surface cell.
+
+    Reproduces the reference's Si(111) 5x5 tutorial slab
+    (tutorials/data/Si_111_5x5/Si_111_5x5_pristine_slab.pkl: 100 atoms =
+    5x5 x 2 bilayers, hexagonal cell |a1| = 5 * a/sqrt(2), planes at
+    z = b*a/sqrt(3) + m*a/(4*sqrt(3))). The generic ``surface_from_bulk``
+    cut yields a 2x2-primitive cell for diamond(111), so odd supercells
+    like 5x5 need this direct builder.
+
+    Stacking (verified against the reference pickle): plane p = 2b + m
+    (b = bilayer, m = 0 lower / 1 upper member) sits at in-plane site
+    (b + m + 1) mod 3 of the cycle [(0,0), (1/3,1/3), (2/3,2/3)] — bilayer
+    members occupy different sites; atoms across the wide gap (the [111]
+    vertical bond) are vertically aligned.
+    """
+    d = a / np.sqrt(2.0)                 # surface lattice constant
+    dz_bl = a / np.sqrt(3.0)             # bilayer repeat
+    dz_split = a / (4.0 * np.sqrt(3.0))  # intra-bilayer split
+    nx, ny = size
+    a1 = np.array([d, 0.0, 0.0])
+    a2 = np.array([d / 2.0, d * np.sqrt(3.0) / 2.0, 0.0])
+    site = [np.zeros(3), (a1 + a2) / 3.0, 2.0 * (a1 + a2) / 3.0]
+    pos, nums = [], []
+    for p in range(2 * bilayers):
+        b, m = divmod(p, 2)
+        base = site[(b + m + 1) % 3] + np.array([0.0, 0.0, b * dz_bl + m * dz_split])
+        for iy in range(ny):
+            for ix in range(nx):
+                pos.append(base + ix * a1 + iy * a2)
+                nums.append(Z_FROM_SYMBOL[symbol])
+    height = (bilayers - 1) * dz_bl + dz_split
+    cell = np.array([nx * a1, ny * a2, [0.0, 0.0, height + 2.0 * vacuum]])
+    st = Structure(np.array(nums), np.array(pos), cell)
+    return st.center_z(vacuum).sorted_by_z()

@@ -1,12 +1,14 @@
 """Prebuilt example systems: the SrTiO3(001) PaiNN-ensemble flagship and
-its supercells, the LaMnO3(001) CHGNet system, and the EAM systems Cu(100)
-(semigrand) and Au(110) (canonical).
+its supercells, the LaMnO3(001) CHGNet system, the EAM systems Cu(100)
+(semigrand) and Au(110) (canonical), and the many-body systems GaN(0001)
+(Tersoff, canonical) and Si(111) 5x5 (Stillinger-Weber).
 
 The counterparts of ``srtio3_001_painn``, ``lamno3_001_chgnet``,
-``cu100_eam`` and ``au110_eam`` in ``surface_sampling_tpu/systems.py``. The
-slab geometries, the offset table, the model weights and the EAM tables are
-the JAX package's data files, read by path from the repository checkout
-(data, not modules: nothing of the JAX package is imported).
+``cu100_eam``, ``au110_eam``, ``gan0001_tersoff`` and ``si111_sw`` in
+``surface_sampling_tpu/systems.py``. The slab geometries, the offset
+table, the model weights and the EAM and Tersoff tables are the JAX
+package's data files, read by path from the repository checkout (data, not
+modules: nothing of the JAX package is imported).
 """
 
 from __future__ import annotations
@@ -50,7 +52,17 @@ from surface_sampling_tpu_torch.potentials.eam import (
     make_eam_rigid,
     make_eam_static,
 )
-from surface_sampling_tpu_torch.structure import Structure, fcc100, find_adsorption_sites
+from surface_sampling_tpu_torch.potentials.rigid_manybody import make_sw_rigid, make_tersoff_rigid
+from surface_sampling_tpu_torch.potentials.sw import SWTables, load_sw_any, make_sw, sw_tables
+from surface_sampling_tpu_torch.potentials.tersoff import builtin_tersoff, make_tersoff
+from surface_sampling_tpu_torch.structure import (
+    Structure,
+    bulk,
+    diamond111,
+    fcc100,
+    find_adsorption_sites,
+    surface_from_bulk,
+)
 
 _REFERENCE_PKG = Path(__file__).resolve().parent.parent / "surface_sampling_tpu"
 SYSTEMS_DATA = _REFERENCE_PKG / "systems_data"
@@ -102,9 +114,8 @@ def srtio3_001_painn(
     trunk and its backward; the relaxed 2x2 cell has none and runs
     unbanded, by the JAX package's own rule.
 
-    Arguments and defaults are those of the JAX package's function. Relax
-    methods other than FIRE are not ported yet and raise. ``pallas_routing``
-    selects a TPU routing precision and is ignored: the port computes in
+    Arguments and defaults are those of the JAX package's function.
+    ``pallas_routing`` selects a TPU routing precision and is ignored: the port computes in
     float32. ``dtype`` must be None or
     ``torch.float32``. ``device`` defaults to "cuda" and raises without a
     card; pass "cpu" for the plain PyTorch path.
@@ -291,3 +302,111 @@ def au110_eam(relax: RelaxConfig | None = None, fast: bool = False, dtype=None,
     else:
         pot = make_eam(tables, device=dev)
     return ExampleSystem(spec, pot, MCMCRun(spec, pot, device=dev, relax=relax))
+
+
+def gan0001_tersoff(
+    size=(3, 3),
+    layers: int = 4,
+    vacuum: float = 12.0,
+    planar_distance: float = 1.2,
+    surface_depth: int = 2,
+    relax: RelaxConfig | None = None,
+    max_neighbors: int = 16,
+    fast: bool = False,
+    dtype=None,
+    device: str | torch.device = "cuda",
+) -> ExampleSystem:
+    """GaN(0001) wurtzite slab with the Nord-2003 Tersoff potential: the
+    reference's GaN tutorial system (canonical Ga / N sampling, bulk atoms
+    frozen). The default 3x3, 4-layer slab is the tutorial's (pristine
+    energy -144.059 eV).
+
+    ``fast=True`` (rigid runs only): the precomputed occupancy-algebra
+    Tersoff (``potentials.rigid_manybody.make_tersoff_rigid``); otherwise
+    the dynamic Tersoff over a static candidate table (0.1 A of slack, 0.6
+    when relaxing).
+
+    Arguments and defaults are those of the JAX package's function.
+    ``dtype`` must be None or ``torch.float32``. ``device`` defaults to
+    "cuda" and raises without a card; pass "cpu" for the plain path.
+    """
+    if dtype not in (None, torch.float32):
+        raise NotImplementedError("the port computes in float32 only")
+    dev = resolve_device(device)
+    gan = bulk(["Ga", "N"], "wurtzite", a=3.19, c=5.19)
+    slab, _ = surface_from_bulk(gan, (0, 0, 1), size=size, layers=layers, vacuum=vacuum)
+    sites = find_adsorption_sites(slab, planar_distance=planar_distance)["all"]
+    tables = builtin_tersoff("GaN_nord2003")
+    spec = make_spec(slab, sites, ["Ga", "N"],
+                     potential_numbers=[Z_FROM_SYMBOL[e] for e in tables.elements],
+                     cutoff=tables.cutoff, surface_depth=surface_depth, surface_name="GaN_0001")
+    nbr = None
+    if fast and relax is None:
+        pot = make_tersoff_rigid(tables, spec, device=dev)
+    else:
+        nbr = build_static_neighbor_table(spec, tables.cutoff,
+                                          relax_slack=0.6 if relax is not None else 0.1)
+        pot = make_tersoff(tables, max_neighbors=max_neighbors, static_nbr=nbr, device=dev)
+    return ExampleSystem(spec, pot, MCMCRun(spec, pot, device=dev, relax=relax), nbr)
+
+
+# Bulk lattice constant implied by the reference's Si(111) 5x5 pristine
+# slab (surface cell |a1| = 19.2463943 A for 5x1x1, so a = sqrt(2) |a1| / 5):
+# the tutorial slab was built at this constant, not at the experimental
+# 5.431 A.
+SI111_TUTORIAL_A = 19.2463943 / 5.0 * float(np.sqrt(2.0))
+
+
+def si111_sw(
+    size=(5, 5),
+    bilayers: int = 2,
+    a: float = SI111_TUTORIAL_A,
+    vacuum: float = 12.0,
+    planar_distance: float = 1.2,
+    surface_depth: int = 1,
+    relax: RelaxConfig | None = None,
+    relax_model: object = None,
+    max_neighbors: int = 16,
+    fast: bool = False,
+    dtype=None,
+    device: str | torch.device = "cuda",
+) -> ExampleSystem:
+    """Si(111) 5x5 slab with Stillinger-Weber: the reference's Si(111) 5x5
+    tutorial system, 100 atoms (5x5 x 2 bilayers in the primitive hexagonal
+    cell) with the bottom 75 frozen. Acceptance energies are SW85
+    (Stillinger & Weber 1985; pristine -379.42511 eV).
+
+    ``relax_model=`` (an ``SWTables``, or a path to a LAMMPS ``.sw`` or a KIM
+    ThreeBodyCluster parameter file, read by ``potentials.sw.load_sw_any``)
+    relaxes under that model while acceptance stays on SW85 energies of the
+    relaxed geometry, the tutorial's dual-potential split. ``fast=True``
+    (rigid runs only): the precomputed occupancy-algebra SW
+    (``potentials.rigid_manybody.make_sw_rigid``).
+
+    Arguments and defaults are those of the JAX package's function.
+    ``dtype`` must be None or ``torch.float32``. ``device`` defaults to
+    "cuda" and raises without a card; pass "cpu" for the plain path.
+    """
+    if dtype not in (None, torch.float32):
+        raise NotImplementedError("the port computes in float32 only")
+    dev = resolve_device(device)
+    slab = diamond111("Si", size=size, bilayers=bilayers, a=a, vacuum=vacuum)
+    sites = find_adsorption_sites(slab, planar_distance=planar_distance)["all"]
+    tables = sw_tables()
+    spec = make_spec(slab, sites, ["Si"],
+                     potential_numbers=[Z_FROM_SYMBOL[e] for e in tables.elements],
+                     cutoff=tables.cutoff, surface_depth=surface_depth, surface_name="Si_111")
+    nbr = None
+    if fast and relax is None:
+        pot = make_sw_rigid(tables, spec, device=dev)
+    else:
+        nbr = build_static_neighbor_table(spec, tables.cutoff,
+                                          relax_slack=0.6 if relax is not None else 0.1)
+        pot = make_sw(tables, max_neighbors=max_neighbors, static_nbr=nbr, device=dev)
+    relax_pot = None
+    if relax_model is not None:
+        rt = relax_model if isinstance(relax_model, SWTables) else load_sw_any(relax_model)
+        rnbr = build_static_neighbor_table(spec, rt.cutoff, relax_slack=0.6)
+        relax_pot = make_sw(rt, max_neighbors=max_neighbors, static_nbr=rnbr, device=dev)
+    run = MCMCRun(spec, pot, device=dev, relax=relax, relax_potential=relax_pot)
+    return ExampleSystem(spec, pot, run, nbr)

@@ -222,15 +222,21 @@ def test_criteria_and_unported_options(au):
         step = make_semigrand_step(d, sef, criterion="testing", always_accept=always)
         _, info = step(state, 1.0, site, u_code, torch.full((4,), 0.5))
         assert bool((info.accepted == always).all())
-    for bad in ("distance", "metropolis_distance"):
-        with pytest.raises(NotImplementedError):
-            make_semigrand_step(d, sef, criterion=bad)
-        with pytest.raises(NotImplementedError):
-            make_canonical_step(d, sef, criterion=bad)
+    # the distance criteria build (their replays are in
+    # tests/test_torch_criteria_mtm.py); an unknown one is refused
+    for crit in ("distance", "metropolis_distance"):
+        make_semigrand_step(d, sef, criterion=crit)
+        make_canonical_step(d, sef, criterion=crit)
     with pytest.raises(ValueError):
         make_canonical_step(d, sef, criterion="nope")
-    with pytest.raises(NotImplementedError):
-        make_run_fn(d, sef, EngineConfig(mtm_trials=4))
+    # multiple-try Metropolis needs the Metropolis criterion and, canonical,
+    # the unweighted proposal
+    make_run_fn(d, sef, EngineConfig(mtm_trials=4))
+    with pytest.raises(ValueError):
+        make_run_fn(d, sef, EngineConfig(mtm_trials=4, criterion="testing"))
+    with pytest.raises(ValueError):
+        make_run_fn(d, sef, EngineConfig(mtm_trials=4, canonical=True,
+                                          require_distance_decay=True))
     with pytest.raises(ValueError):
         make_canonical_step(d, sef, require_per_atom_energies=True)
 

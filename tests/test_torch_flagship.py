@@ -211,10 +211,13 @@ def test_short_run_energies_reevaluate_in_jax(tsys, jeval):
     np.testing.assert_array_equal(out.site_state.numpy(), recs.site_state[:, -1].numpy())
 
 
-@pytest.mark.parametrize("kwargs", [{"relax": RelaxConfig(method="lbfgs")},
-                                    {"supercell": (2, 2), "relax": RelaxConfig(method="lbfgs")},
+@pytest.mark.parametrize("kwargs", [{"relax": RelaxConfig(method="lbfgs"),
+                                     "dtype": torch.float64},
+                                    {"supercell": (2, 2), "dtype": torch.bfloat16},
                                     {"dtype": torch.float64}])
 def test_unported_options_raise(kwargs):
+    """The port computes in float32 only (L-BFGS, once refused here, is
+    ported: tests/test_torch_relax_modes.py)."""
     with pytest.raises(NotImplementedError):
         srtio3_001_painn(device="cpu", **kwargs)
 

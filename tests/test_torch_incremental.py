@@ -210,15 +210,17 @@ def test_incremental_run_equals_full_run(ttoy):
 
 
 def test_unported_options_raise(ttoy):
-    """(i) The dynamic-geometry delta, the canonical step and the
-    metropolis_distance criterion are not ported; a system without a band
-    has no delta engine."""
+    """(i) The dynamic-geometry delta is not ported; the steps take only the
+    Metropolis and metropolis_distance criteria, the latter with the
+    DeviceSpec; a system without a band has no delta engine."""
     spec, d, eng, pot, nbr, band = ttoy
     with pytest.raises(NotImplementedError):
         make_incremental_painn(spec, d, pot, nbr, band, static_geometry="off")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="DeviceSpec"):
         make_incremental_semigrand_step(eng, criterion="metropolis_distance")
-    with pytest.raises(NotImplementedError):
-        make_incremental_canonical_step(eng)
+    with pytest.raises(ValueError, match="support"):
+        make_incremental_canonical_step(eng, d, criterion="distance")
+    make_incremental_semigrand_step(eng, d, criterion="metropolis_distance")
+    make_incremental_canonical_step(eng, d, criterion="metropolis_distance")
     with pytest.raises(ValueError, match="no routing band"):
         make_incremental_painn_from_system(srtio3_001_painn(n_models=1, device="cpu"))

@@ -201,19 +201,23 @@ def test_locality_rollback_and_carried_energies(toy):
 
 
 def test_unported_options_raise(toy):
-    """The canonical step, the distance criteria, a separate relax
-    potential and L-BFGS are not ported; a ball table is required."""
+    """The steps take only the Metropolis and metropolis_distance criteria,
+    the latter with the DeviceSpec; the canonical step, a separate relax
+    potential and L-BFGS build (their parity is in
+    tests/test_torch_relax_modes.py); an unknown relax method is refused and
+    a ball table is required."""
     _, (spec, run, pot, nbr) = toy
     d, balls = run.d, build_ball_masks(spec, nbr, 1)
     evaluate = make_local_relax_eval(d, pot, ball_masks=balls)
-    with pytest.raises(NotImplementedError):
-        make_local_relax_canonical_step(evaluate)
-    for criterion in ("distance", "metropolis_distance"):
-        with pytest.raises(NotImplementedError):
-            make_local_relax_semigrand_step(evaluate, criterion=criterion)
-    with pytest.raises(NotImplementedError):
-        make_local_relax_eval(d, pot, ball_masks=balls, relax_potential=pot)
-    with pytest.raises(NotImplementedError):
-        make_local_relax_eval(d, pot, relax=RelaxConfig(method="lbfgs"), ball_masks=balls)
+    make_local_relax_canonical_step(evaluate)
+    with pytest.raises(ValueError):
+        make_local_relax_semigrand_step(evaluate, criterion="distance")
+    with pytest.raises(ValueError):
+        make_local_relax_semigrand_step(evaluate, criterion="metropolis_distance")
+    make_local_relax_semigrand_step(evaluate, criterion="metropolis_distance", d=d)
+    make_local_relax_eval(d, pot, ball_masks=balls, relax_potential=pot)
+    make_local_relax_eval(d, pot, relax=RelaxConfig(method="lbfgs"), ball_masks=balls)
+    with pytest.raises(ValueError):
+        make_local_relax_eval(d, pot, relax=RelaxConfig(method="bfgs"), ball_masks=balls)
     with pytest.raises(ValueError):
         make_local_relax_eval(d, pot)
