@@ -17,8 +17,10 @@ frames of the slab through the message block's second order (row 5), and
 the fine-tuning CLI; and the rest of the MC engine (distance criteria,
 multiple-try Metropolis, the delta and local-relax canonical steps, L-BFGS,
 symmetric slabs) and the many-body systems GaN(0001) Tersoff and Si(111)
-5x5 SW — through their entry points on the card, in forty-two phases, each
-printing one line or more:
+5x5 SW; and the frozen-far-field relaxed engine at campaign C's shape, the
+dynamic-geometry delta, parallel tempering and population annealing —
+through their entry points on the card, in forty-six phases, each printing
+one line or more:
 
   1. device     card name, count, and nvidia-smi's name and power limit
   2. build      compiles every kernel from csrc/ (nvcc -Xptxas -v, in parallel);
@@ -139,8 +141,9 @@ printing one line or more:
                 chains (mtm-canonical: n_ads 6, bitwise repeat)
  38. inc-canonical delta canonical MC at 2x2, 128 chains x 2 x 8 from 8
                 adsorbates a chain: n_ads constant, cached vs fresh, bitwise
-                repeat, rows 3 and 6-8; one move from crowded occupancies,
-                one- and two-site deltas vs fresh at the JAX delta rule
+                repeat, rows 3, 7 and 8; one move from crowded occupancies,
+                one- and two-site deltas bitwise a fresh evaluation (the JAX
+                delta rule printed beside)
  39. lbfgs-relax the 1x1 with RelaxConfig(method="lbfgs"): the relaxed
                 pristine energy, one state card vs CPU beside the card's own
                 response to a 1e-6 A perturbation, relaxed MC at 32 chains x
@@ -156,6 +159,24 @@ printing one line or more:
                 test's dual-potential check
  42. symmetric  a mirrored Cu(100) slab under exact EAM, rigid and
                 FIRE-relaxed, 1,024 chains, card vs CPU
+ 43. ff-relax   the frozen-far-field relaxed engine at campaign C's shape
+                (relaxed 2x2, 20 FIRE steps, one-hop balls, 16 chains): init
+                launches (rows 2, 4), outside-ball slots unchanged, 2 x 8
+                semigrand moves (moves/s, FIRE iterations of a ball, row 2
+                once per layer and move), bitwise repeat, carried vs fresh;
+                4 canonical moves; at 1x1 one move card vs CPU and the
+                full-ball move vs the full relaxed path
+ 44. inc-dynamic the 2x2 delta engine with static_geometry="off": crowded
+                deltas bitwise fresh, 128 chains x 2 x 8 (rows 3, 7, 8),
+                cached = fresh, bitwise repeat, steps/s beside the static
+                delta's
+ 45. temper     example 06: Au(110) through row 13, 16 replicas, 30 rounds of
+                8 steps: swap rates, energy multisets kept, bitwise repeat;
+                inc-temper: the 2x2 delta engine tempered, 16 x 6 rounds,
+                cached = fresh after the run
+ 46. pa         example 10: Cu(100) through row 13, 2,048 chains, 10 burn-in
+                sweeps, 16 temperatures 2.0 -> 0.35, threshold 0.9: ESS / C,
+                sum dlogZ, bitwise repeat
 
 Then it prints one JSON line {"kernels": [...]} (per kernel: source, the
 TPU kernel it replaces, launches on its main path — the rigid run for the
@@ -163,8 +184,8 @@ TPU kernel it replaces, launches on its main path — the rigid run for the
 evaluation run for the banded kernels, the delta run for the subset kernel,
 the relaxed 3x3 run for the banded backward, paths A, B and C for the CHGNet
 rows 10, 12 and 11, the Cu semigrand run for row 13, the training runs for
-row 5, every path's count under launches_by_path, phases 36-39's paths
-included — max abs error, ms, plain_ms,
+row 5, every path's count under launches_by_path, phases 36-39's and
+43-46's paths included — max abs error, ms, plain_ms,
 bound_ms, bound_by, library_ms), the nvidia-smi line again, and last the
 JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -242,6 +263,9 @@ CHG_PLAIN_CHUNK, CHG_PLAIN_CHUNK_3X3 = 16, 4
 RIGID_LAUNCHES = {"painn_message_l1": 1, "painn_message_fused": 2, "painn_update_fused": 3}
 BANDED_LAUNCHES = {"painn_message_l1_banded": 1, "painn_message_fused_banded": 2,
                    "painn_update_fused": 3}
+# the delta engine's full evaluation (its caches): layer 1 through the banded
+# general message too, the body of the subset kernel that recomputes its rows
+INC_INIT_LAUNCHES = {"painn_message_fused_banded": 3, "painn_update_fused": 3}
 
 
 def l1_flops_per_edge(F: int, R: int) -> int:
@@ -1224,7 +1248,7 @@ def inc_mc_phase(sys_sc, dev) -> dict:
     n_mc = INC_SWEEPS * SWEEP_SIZE
     L = len(states.caches.s)
     # the initial full evaluation is the banded rigid trunk, each step a delta
-    want = {name: BANDED_LAUNCHES.get(name, 0) for name in launches}
+    want = {name: INC_INIT_LAUNCHES.get(name, 0) for name in launches}
     want["painn_message_subset"] = L * n_mc
     want["painn_update_fused"] += L * n_mc
     if launches != want:
@@ -2781,7 +2805,7 @@ def criteria_phase(sys1, sys2, dev) -> dict:
     dt = time.perf_counter() - t0
     out["inc_dist"] = launch_counts()
     L = len(states.caches.s)
-    want = dict(BANDED_LAUNCHES)
+    want = dict(INC_INIT_LAUNCHES)
     want["painn_message_subset"] = L * SWEEP_SIZE
     want["painn_update_fused"] += L * SWEEP_SIZE
     _expect("inc-dist", out["inc_dist"], want)
@@ -2889,11 +2913,13 @@ def mtm_phase(sys1, dev) -> dict:
     return out
 
 
-def _delta_vs_fresh(engine, ss, gen) -> str:
+def _delta_vs_fresh(engine, ss, gen, tag: str = "inc-canonical") -> str:
     """One canonical draw from occupancies ``ss``: the one-site (site1 takes
     site2's code) and the two-site (the exchange) delta against a fresh full
-    evaluation of the trial state, held to the JAX package's rule for delta
-    vs full evaluations (1e-4 eV + 1e-5 relative)."""
+    evaluation of the trial state, which must agree bitwise (max |diff| 0:
+    the delta recomputes its rows through the full evaluation's functions);
+    the JAX package's rule for delta vs full evaluations (1e-4 eV + 1e-5
+    relative) is printed beside it."""
     from surface_sampling_tpu_torch.core.events import canonical_draws, pick_exchange
     from surface_sampling_tpu_torch.core.state import change_site, exchange_sites
 
@@ -2901,16 +2927,17 @@ def _delta_vs_fresh(engine, ss, gen) -> str:
     g_t, g1, g2, _ = canonical_draws(gen, ss.shape[0], engine.n_sites, engine.n_codes)
     s1, s2, _ = pick_exchange(ss, engine.n_codes, g_t, g1, g2)
     out = []
-    for tag, trial, sites in (
+    for kind, trial, sites in (
             ("one-site", change_site(ss, s1, torch.gather(ss, 1, s2[:, None])[:, 0]), s1[:, None]),
             ("two-site", exchange_sites(ss, s1, s2), torch.stack([s1, s2], 1))):
         fresh = engine.energy_full(trial)[0]
         diff = (engine.delta(st.caches, trial, sites)[0] - fresh).abs()
-        ok = bool((diff <= 1e-4 + 1e-5 * fresh.abs()).all())
-        out.append(f"{tag} max |delta - fresh| {float(diff.max()):.3e} eV (relative "
-                   f"{float((diff / fresh.abs()).max()):.2e}) within the rule: {ok}")
-        if not ok:
-            raise AssertionError(f"[inc-canonical] {tag} delta vs fresh: {float(diff.max())} eV")
+        rule = bool((diff <= 1e-4 + 1e-5 * fresh.abs()).all())
+        out.append(f"{kind} max |delta - fresh| {float(diff.max()):.3e} eV (bitwise: "
+                   f"{float(diff.max()) == 0.0}; relative {float((diff / fresh.abs()).max()):.2e}, "
+                   f"within the JAX rule: {rule})")
+        if float(diff.max()) != 0.0:
+            raise AssertionError(f"[{tag}] {kind} delta vs fresh: {float(diff.max())} eV")
     return f"|E| up to {float(fresh.abs().max()):.1f} eV: " + "; ".join(out)
 
 
@@ -2918,12 +2945,12 @@ def inc_canonical_phase(sys2, dev) -> dict:
     """38. Delta-engine canonical MC at 2x2, N_CHAINS x INC_CAN_SWEEPS x
     SWEEP_SIZE from random occupancies of INC_CAN_ADS adsorbates a chain:
     n_ads constant, cached energies within 1e-3 eV of a fresh full
-    evaluation, a bitwise repeat; rows 6-8 and 3 launch (the initial full
+    evaluation, a bitwise repeat; rows 7, 8 and 3 launch (the initial full
     evaluation, then per step the subset message and the update of every
     layer). Besides, one move from crowded random occupancies (a quarter of
     the sites occupied, energies up to the 1e4-eV clamp), one- and two-site
-    deltas against fresh evaluations at the JAX package's relative rule.
-    Returns the launch counts."""
+    deltas against fresh evaluations: bitwise equal (the JAX package's
+    relative rule printed beside). Returns the launch counts."""
     from surface_sampling_tpu_torch.core.engine import geometric_schedule
     from surface_sampling_tpu_torch.core.incremental import (
         make_incremental_canonical_step,
@@ -2953,7 +2980,7 @@ def inc_canonical_phase(sys2, dev) -> dict:
     launches = launch_counts()
     n_mc = INC_CAN_SWEEPS * SWEEP_SIZE
     L = len(states.caches.s)
-    want = dict(BANDED_LAUNCHES)
+    want = dict(INC_INIT_LAUNCHES)
     want["painn_message_subset"] = L * n_mc
     want["painn_update_fused"] += L * n_mc
     _expect("inc-canonical", launches, want)
@@ -3398,6 +3425,474 @@ def slice14_phases(dev) -> dict:
     return paths
 
 
+# ----------------------------------------------------------------------
+# Phases 43-46: the frozen-far-field relaxed engine, the dynamic-geometry delta,
+# parallel tempering and population annealing
+# ----------------------------------------------------------------------
+# campaign C (campaigns/srtio3_2x2/settings_relaxed_ff.json): the relaxed 2x2,
+# 20 FIRE steps to fmax 0.01, 16 chains, one-hop balls; chains start from
+# FF_ADS adsorbates on sites at least FF_SITE_GAP A apart
+FF_STEPS, FF_FMAX, FF_CHAINS, FF_SWEEPS, FF_CAN_STEPS = 20, 0.01, 16, 2, 4
+FF_ADS, FF_SITE_GAP = 4, 2.5
+FF_FULL_BALL_POS_TOL = 2e-3          # A, tests/test_ff_relax.py's full-ball rule
+INC_DYN_SWEEPS = 2
+# example 06 (Au(110), semigrand) and example 10 (Cu(100)), through row 13
+TEMPER_REPLICAS, TEMPER_ROUNDS, TEMPER_SWEEP = 16, 30, 8
+TEMPER_T_MIN, TEMPER_T_MAX = 0.02, 2.0
+INC_TEMPER_REPLICAS, INC_TEMPER_ROUNDS = 16, 6
+PA_CHAINS, PA_TEMPS, PA_BURN, PA_SWEEP, PA_THRESHOLD = 2048, 16, 10, 8, 0.9
+PA_T_HI, PA_T_LO = 2.0, 0.35
+
+
+def _spaced_states(spec, n_chains: int, n_ads: int, rng, device, gap: float = FF_SITE_GAP):
+    """(n_chains, S) occupancies of n_ads random codes on random sites at
+    least ``gap`` A apart (physical start states)."""
+    xyz = spec.site_coords
+    ss = np.zeros((n_chains, spec.n_sites), np.int64)
+    for c in range(n_chains):
+        picked = []
+        for site in rng.permutation(spec.n_sites):
+            if all(np.linalg.norm(xyz[site] - xyz[p]) >= gap for p in picked):
+                picked.append(site)
+            if len(picked) == n_ads:
+                break
+        ss[c, picked] = rng.integers(1, spec.n_codes, len(picked))
+    return torch.as_tensor(ss, device=device)
+
+
+@contextlib.contextmanager
+def ff_fire_iters():
+    """Record the per-chain FIRE iterations of every ball descent of the
+    frozen-far-field engine while the block runs."""
+    from surface_sampling_tpu_torch.core import ff_relax
+
+    iters, fire = [], ff_relax.fire_relax
+
+    def recorded(*a, **k):
+        res = fire(*a, **k)
+        iters.append(res.n_steps)
+        return res
+
+    ff_relax.fire_relax = recorded
+    try:
+        yield iters
+    finally:
+        ff_relax.fire_relax = fire
+
+
+def _ff_lattice_move(sys_, tables, ss, site, code):
+    """One FF evaluation from the lattice geometry of ``ss`` (caches from
+    the acceptance pass there): ``site`` takes ``code``. Returns the
+    StateEnergy and the trial occupancy."""
+    from surface_sampling_tpu_torch.core.ff_relax import make_ff_relax_eval
+    from surface_sampling_tpu_torch.core.state import change_site, realize_positions
+
+    run, d = sys_.run, sys_.run.d
+    ev = make_ff_relax_eval(d, sys_.potential, run.surface_energy_fn, run.relax, tables)
+    pos = realize_positions(d, ss)
+    _, caches = ev.finish(pos, ss)
+    trial = change_site(ss, site, code)
+    return ev.evaluate1(trial, pos, caches, site)[0], trial
+
+
+def ff_relax_phase(dev) -> dict:
+    """43. The frozen-far-field relaxed engine at campaign C's shape: the
+    relaxed 2x2 (no band), RelaxConfig(steps=FF_STEPS, fmax=FF_FMAX), the
+    candidate table of cutoff 5.0 with 0.6 A of slack, one-hop balls,
+    FF_CHAINS chains from FF_ADS spaced adsorbates each. The init (a full
+    relaxed evaluation, rows 2 and 4, then the acceptance pass, row 2);
+    one evaluation: slots outside each ball unchanged; the semigrand run,
+    FF_SWEEPS x SWEEP_SIZE, untimed then timed, bitwise equal, row 2 once per
+    layer and move (the descent is plain PyTorch); carried energies vs a
+    fresh acceptance pass; the canonical step, FF_CAN_STEPS (n_ads
+    constant). At the 1x1: one move card vs CPU (RELAXED_E_TOL /
+    RELAXED_POS_TOL) and the full-ball (hops 8) move against the full
+    relaxed path. Returns the launch counts of the init and of the run."""
+    from surface_sampling_tpu_torch.core.energy import RelaxConfig
+    from surface_sampling_tpu_torch.core.engine import geometric_schedule
+    from surface_sampling_tpu_torch.core.ff_relax import (
+        build_ff_tables,
+        make_ff_canonical_step,
+        make_ff_init,
+        make_ff_relax_eval,
+        make_ff_run,
+        make_ff_semigrand_step,
+    )
+    from surface_sampling_tpu_torch.core.state import change_site
+    from surface_sampling_tpu_torch.systems import srtio3_001_painn
+
+    relax = RelaxConfig(steps=FF_STEPS, fmax=FF_FMAX)
+    t0 = time.perf_counter()
+    sys2 = srtio3_001_painn(supercell=(2, 2), relax=relax, device=dev)
+    tables = build_ff_tables(sys2.spec, sys2.static_nbr, hops=1)
+    build_s = time.perf_counter() - t0
+    run, pot, spec, d = sys2.run, sys2.potential, sys2.spec, sys2.run.d
+    if sys2.potential.band is not None:
+        raise AssertionError("[ff-relax] the relaxed 2x2 is expected to run unbanded")
+    L = pot.cfg.n_layers
+    ev = make_ff_relax_eval(d, pot, run.surface_energy_fn, relax, tables)
+    rng = np.random.default_rng(43)
+    ss0 = _spaced_states(spec, FF_CHAINS, FF_ADS, rng, dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    states = make_ff_init(d, ev, run.state_energy_fn)(ss0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_launches = launch_counts()
+    if not (init_launches["painn_message_fused"] > 0 and init_launches["painn_message_bwd"] > 0):
+        raise AssertionError(f"[ff-relax] init launches {init_launches}")
+
+    site = torch.as_tensor(rng.integers(0, spec.n_sites, FF_CHAINS), device=dev)
+    trial = change_site(states.site_state, site, torch.ones_like(site))
+    e, _ = ev.evaluate1(trial, states.relaxed_positions, (states.cache_s, states.cache_v), site)
+    NB = tables.n_ball
+    inside = np.zeros((FF_CHAINS, spec.n_slots), bool)
+    for c, s_ in enumerate(site.tolist()):
+        inside[c, tables.rows[s_][:NB][tables.row_valid[s_][:NB]]] = True
+    outside = ~torch.as_tensor(inside, device=dev)
+    kept = torch.equal(e.positions[outside], states.relaxed_positions[outside])
+    moved = float((e.positions - states.relaxed_positions).abs().max())
+
+    temps = geometric_schedule(1.0, FF_SWEEPS, 0.99)
+    frun = make_ff_run(make_ff_semigrand_step(ev), SWEEP_SIZE, spec.n_sites, spec.n_codes,
+                       record_positions=False)
+    n_mc = FF_SWEEPS * SWEEP_SIZE
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with ff_fire_iters() as iters:
+        res_a = frun(states, temps, _gen(0))
+        torch.cuda.synchronize()
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    its = torch.stack(iters).float()                                     # (moves, C)
+    _expect("ff-relax", launches, {"painn_message_fused": L * n_mc})
+    t0 = time.perf_counter()
+    res_b = frun(states, temps, _gen(0))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    same = _bitwise(res_a, res_b)
+    fin, rec = res_a
+    fresh, _ = ev.finish(fin.relaxed_positions, fin.site_state)
+    drift = float((fresh.surface_energy - fin.energy).abs().max())
+    print(f"[ff-relax] 2x2 relaxed slots={spec.n_slots} sites={spec.n_sites} ball {NB} rows of "
+          f"a {tables.n_sub}-row subproblem (ball_frac {tables.ball_frac:.3f}) build_s="
+          f"{build_s:.1f} chains={FF_CHAINS} init {init_s:.2f}s launches="
+          f"{json.dumps(init_launches)}; one evaluation: outside-ball slots unchanged: {kept} "
+          f"(inside moved up to {moved:.4f} A)")
+    print(f"[ff-relax] semigrand sweeps={FF_SWEEPS}x{SWEEP_SIZE} moves/s={FF_CHAINS * n_mc / dt:.2f} "
+          f"step_ms={1e3 * dt / n_mc:.3f} (timed run after an untimed one) FIRE iterations of a "
+          f"ball mean {float(its.mean()):.2f} max {int(its.max())} (the batch waits on a move's "
+          f"slowest ball: mean of the per-move max {float(its.amax(dim=1).mean()):.2f}); accept="
+          f"{float(rec.accept_rate.mean()):.4f} best={float(rec.energy.min()):.6f} eV; carried "
+          f"vs a fresh acceptance pass max |diff| {drift:.3e} eV (tol 1e-3); bitwise repeat "
+          f"{same}; peak_mem={peak_gb:.3f} GB launches={json.dumps(launches)}")
+    if not (kept and moved > 0 and same and drift <= 1e-3 and torch.isfinite(rec.energy).all()):
+        raise AssertionError("[ff-relax] locality, repeat or carried-energy check failed")
+
+    crun = make_ff_run(make_ff_canonical_step(ev), FF_CAN_STEPS, spec.n_sites, spec.n_codes,
+                       canonical=True, record_positions=False)
+    t0 = time.perf_counter()
+    cfin, crec = crun(states, np.array([1.0]), _gen(1))
+    torch.cuda.synchronize()
+    dt_c = time.perf_counter() - t0
+    n0 = (ss0 > 0).sum(1)
+    n_kept = bool((crec.n_ads == n0[:, None]).all())
+    cfresh, _ = ev.finish(cfin.relaxed_positions, cfin.site_state)
+    cdrift = float((cfresh.surface_energy - cfin.energy).abs().max())
+    print(f"[ff-relax] canonical steps={FF_CAN_STEPS} (two ball descents a move) moves/s="
+          f"{FF_CHAINS * FF_CAN_STEPS / dt_c:.2f} (one run) accept="
+          f"{float(crec.accept_rate.mean()):.4f}; n_ads constant: {n_kept}; carried vs fresh "
+          f"{cdrift:.3e} eV")
+    if not (n_kept and cdrift <= 1e-3):
+        raise AssertionError("[ff-relax] the canonical run changed n_ads or drifts")
+    del sys2, ev, states, res_a, res_b
+    torch.cuda.empty_cache()
+
+    sys1 = srtio3_001_painn(relax=relax, device=dev)
+    sys1c = srtio3_001_painn(relax=relax, device="cpu")
+    S1 = sys1.spec.n_sites
+    ss = torch.zeros((1, S1), dtype=torch.int64)
+    ss[0, 3] = 3
+    site, code = torch.tensor([7]), torch.tensor([1])
+    t1 = build_ff_tables(sys1.spec, sys1.static_nbr, hops=1)
+    eg, _ = _ff_lattice_move(sys1, t1, ss.to(dev), site.to(dev), code.to(dev))
+    t0 = time.perf_counter()
+    ec, _ = _ff_lattice_move(sys1c, t1, ss, site, code)
+    t_cpu = time.perf_counter() - t0
+    de = float((eg.surface_energy.cpu() - ec.surface_energy).abs().max())
+    dx = float((eg.positions.cpu() - ec.positions).abs().max())
+    t8 = build_ff_tables(sys1.spec, sys1.static_nbr, hops=8)
+    pristine = torch.zeros((1, S1), dtype=torch.int64, device=dev)
+    ef, trial = _ff_lattice_move(sys1, t8, pristine, site.to(dev), code.to(dev))
+    full = sys1.run.state_energy_fn(trial)
+    fde = float((ef.surface_energy - full.surface_energy).abs().max())
+    fdx = float((ef.positions - full.positions).abs().max())
+    print(f"[ff-relax] 1x1 one-hop ball {t1.n_ball} of {sys1.spec.n_slots} rows: one move card vs "
+          f"cpu |dE| {de:.3e} eV (tol {RELAXED_E_TOL}) |dx| {dx:.3e} A (tol {RELAXED_POS_TOL}) "
+          f"(cpu {t_cpu:.1f}s); full ball (hops 8, ball_frac {t8.ball_frac:.3f}) vs the full "
+          f"relaxed path |dE| {fde:.3e} eV (tol {RELAXED_E_TOL}) |dx| {fdx:.3e} A (tol "
+          f"{FF_FULL_BALL_POS_TOL})")
+    if not (de <= RELAXED_E_TOL and dx <= RELAXED_POS_TOL and t8.ball_frac == 1.0
+            and fde <= RELAXED_E_TOL and fdx <= FF_FULL_BALL_POS_TOL):
+        raise AssertionError("[ff-relax] 1x1 card-vs-cpu or full-ball check failed")
+    return {"ff_init": init_launches, "ff_relax": launches}
+
+
+def inc_dynamic_phase(sys2, dev) -> dict:
+    """44. The 2x2 delta engine with static_geometry="off" (edges rebuilt over
+    the candidate table every step): crowded one- and two-site deltas
+    bitwise a fresh evaluation; N_CHAINS x INC_DYN_SWEEPS x SWEEP_SIZE, rows
+    7 / 3 for the initial evaluation and rows 8 / 3 per layer and step,
+    cached energies bitwise fresh ones, a bitwise repeat; steps/s beside the
+    static-geometry delta's from the same states and seeds. Returns the
+    launch counts."""
+    from surface_sampling_tpu_torch.core.engine import geometric_schedule
+    from surface_sampling_tpu_torch.core.incremental import (
+        make_incremental_painn,
+        make_incremental_painn_from_system,
+        make_incremental_run,
+        make_incremental_semigrand_step,
+    )
+    from surface_sampling_tpu_torch.parallel.chains import incremental_chain_states
+
+    run, spec, d = sys2.run, sys2.spec, sys2.run.d
+    engine = make_incremental_painn(spec, d, sys2.potential, sys2.static_nbr, sys2.routing_band,
+                                    run.surface_energy_fn, static_geometry="off")
+    crowded = _delta_vs_fresh(engine, _states(spec, N_CHAINS, np.random.default_rng(44), dev),
+                              _gen(0), "inc-dynamic")
+    print(f"[inc-dynamic] crowded 2x2 occupancies, one move: {crowded}")
+    temps = geometric_schedule(1.0, INC_DYN_SWEEPS, 0.99)
+    n_mc = INC_DYN_SWEEPS * SWEEP_SIZE
+    irun = make_incremental_run(make_incremental_semigrand_step(engine), SWEEP_SIZE,
+                                engine.n_sites, engine.n_codes)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    states = incremental_chain_states(engine, d, N_CHAINS)
+    res_a = irun(states, temps, _gen(0))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    L = len(states.caches.s)
+    want = dict(INC_INIT_LAUNCHES)
+    want["painn_message_subset"] = L * n_mc
+    want["painn_update_fused"] += L * n_mc
+    _expect("inc-dynamic", launches, want)
+    fin, rec = res_a
+    drift = float((engine.energy_full(fin.site_state)[0] - fin.energy).abs().max())
+    same = _bitwise(res_a, irun(states, temps, _gen(0)))
+    dt = _best_of(lambda seed: irun(states, temps, _gen(seed)))
+    static = make_incremental_painn_from_system(sys2)
+    srun = make_incremental_run(make_incremental_semigrand_step(static), SWEEP_SIZE,
+                                static.n_sites, static.n_codes)
+    sstates = incremental_chain_states(static, d, N_CHAINS)
+    s_out = srun(sstates, temps, _gen(0))[0]
+    dt_s = _best_of(lambda seed: srun(sstates, temps, _gen(seed)))
+    print(f"[inc-dynamic] 2x2 dynamic-geometry delta chains={N_CHAINS} sweeps={INC_DYN_SWEEPS}x"
+          f"{SWEEP_SIZE} steps/s={N_CHAINS * n_mc / dt:.1f} step_ms={1e3 * dt / n_mc:.3f} vs the "
+          f"static-geometry delta steps/s={N_CHAINS * n_mc / dt_s:.1f} step_ms="
+          f"{1e3 * dt_s / n_mc:.3f} (best of 3 each); same site states as the static run: "
+          f"{torch.equal(fin.site_state, s_out.site_state)}; accept="
+          f"{float(rec.accept_rate.mean()):.4f}; cached vs fresh max |diff| {drift:.3e} eV "
+          f"(bitwise: {drift == 0.0}); bitwise repeat {same}; launches={json.dumps(launches)}")
+    if not (drift == 0.0 and same and torch.isfinite(rec.energy).all()):
+        raise AssertionError("[inc-dynamic] caches drift or the run does not repeat")
+    return launches
+
+
+@contextlib.contextmanager
+def swap_multisets():
+    """Record, for every swap phase of a tempered run while the block runs,
+    whether it kept the multiset of energies (bitwise)."""
+    from surface_sampling_tpu_torch.parallel import tempering
+
+    kept, swap = [], tempering.swap_phase
+
+    def checked(states, *a, **k):
+        out, rate = swap(states, *a, **k)
+        kept.append(torch.equal(torch.sort(out.energy).values, torch.sort(states.energy).values))
+        return out, rate
+
+    tempering.swap_phase = checked
+    try:
+        yield kept
+    finally:
+        tempering.swap_phase = swap
+
+
+def _eam_kernel_run(system: str, dev):
+    """MCMCRun of Cu(100) or Au(110) through the EAM kernel potential (row
+    13; static tables at 0.05 A of slack)."""
+    from surface_sampling_tpu_torch.core.engine import MCMCRun
+    from surface_sampling_tpu_torch.core.static_neighbors import build_static_neighbor_table
+    from surface_sampling_tpu_torch.ops.eam_kernels import make_eam_kernel_potential
+    from surface_sampling_tpu_torch.potentials.eam import builtin_eam
+    from surface_sampling_tpu_torch.systems import au110_eam, cu100_eam
+
+    tables = builtin_eam("Au_u3" if system == "au" else "Cu_u3")
+    spec = (au110_eam if system == "au" else cu100_eam)(device=dev).spec
+    nbr = build_static_neighbor_table(spec, tables.cutoff, relax_slack=0.05)
+    return MCMCRun(spec, make_eam_kernel_potential(tables, nbr, device=dev), device=dev)
+
+
+def temper_phase(dev) -> dict:
+    """45. Example 06's shape: semigrand Au(110) through row 13,
+    TEMPER_REPLICAS replicas on the ladder TEMPER_T_MIN-TEMPER_T_MAX,
+    TEMPER_ROUNDS rounds of one TEMPER_SWEEP-step sweep: swap rates in [0, 1],
+    every swap phase keeping the energy multiset, row 13 once per state
+    evaluation, a bitwise repeat. Returns the launch counts."""
+    from surface_sampling_tpu_torch.core.engine import EngineConfig, make_run_fn
+    from surface_sampling_tpu_torch.parallel import (
+        chain_states,
+        make_tempered_run,
+        temperature_ladder,
+    )
+
+    krun = _eam_kernel_run("au", dev)
+    d, sef = krun.d, krun.state_energy_fn
+    run_fn = make_run_fn(d, sef, EngineConfig(sweep_size=TEMPER_SWEEP, record_positions=False))
+    temps = temperature_ladder(TEMPER_T_MIN, TEMPER_T_MAX, TEMPER_REPLICAS)
+    trun = make_tempered_run(run_fn, TEMPER_ROUNDS)
+    st = chain_states(d, TEMPER_REPLICAS)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    st = st._replace(energy=sef(st.site_state).surface_energy)
+    with swap_multisets() as kept:
+        t0 = time.perf_counter()
+        res_a = trun(st, temps, _gen(0))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = launch_counts()
+    n_evals = 1 + TEMPER_ROUNDS * TEMPER_SWEEP
+    _expect("temper", launches, {"eam_rho_ep": n_evals})
+    same = _bitwise(res_a, trun(st, temps, _gen(0)))
+    rec = res_a[1]
+    rates = rec.swap_rate
+    ok_rates = bool(((rates >= 0) & (rates <= 1)).all())
+    print(f"[temper] Au(110) kernel potential, {TEMPER_REPLICAS} replicas ladder {TEMPER_T_MAX}-"
+          f"{TEMPER_T_MIN}, {TEMPER_ROUNDS} rounds x {TEMPER_SWEEP} steps: "
+          f"{TEMPER_REPLICAS * (n_evals - 1) / dt:.1f} evals/s (one run, {dt:.3f} s); swap rate "
+          f"mean {float(rates.mean()):.4f} min {float(rates.min()):.4f} max "
+          f"{float(rates.max()):.4f} (in [0, 1]: {ok_rates}); every swap phase kept the energy "
+          f"multiset: {all(kept)} ({len(kept)} phases); cold replica best "
+          f"{float(rec.energy[:, -1].min()):.6f} eV, global best {float(rec.energy.min()):.6f} "
+          f"eV; bitwise repeat {same}; launches={json.dumps(launches)}")
+    if not (ok_rates and all(kept) and len(kept) == TEMPER_ROUNDS and same
+            and torch.isfinite(rec.energy).all()):
+        raise AssertionError("[temper] swap rates, multisets or the repeat failed")
+    return launches
+
+
+def inc_temper_phase(sys2, dev) -> dict:
+    """45b. The 2x2 delta engine under tempering, INC_TEMPER_REPLICAS
+    replicas x INC_TEMPER_ROUNDS rounds of one SWEEP_SIZE sweep: the caches
+    travel with their states (cached energies bitwise a fresh evaluation
+    after the run), rows 7 / 3 for the initial evaluation, rows 8 / 3 per
+    layer and step. Returns the launch counts."""
+    from surface_sampling_tpu_torch.core.incremental import (
+        make_incremental_painn_from_system,
+        make_incremental_run,
+        make_incremental_semigrand_step,
+    )
+    from surface_sampling_tpu_torch.parallel import (
+        incremental_chain_states,
+        make_tempered_run,
+        temperature_ladder,
+    )
+
+    engine = make_incremental_painn_from_system(sys2)
+    irun = make_incremental_run(make_incremental_semigrand_step(engine), SWEEP_SIZE,
+                                engine.n_sites, engine.n_codes)
+    temps = temperature_ladder(TEMPER_T_MIN, TEMPER_T_MAX, INC_TEMPER_REPLICAS)
+    trun = make_tempered_run(irun, INC_TEMPER_ROUNDS)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    st = incremental_chain_states(engine, sys2.run.d, INC_TEMPER_REPLICAS)
+    t0 = time.perf_counter()
+    fin, rec = trun(st, temps, _gen(0))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    n_mc = INC_TEMPER_ROUNDS * SWEEP_SIZE
+    L = len(st.caches.s)
+    want = dict(INC_INIT_LAUNCHES)
+    want["painn_message_subset"] = L * n_mc
+    want["painn_update_fused"] += L * n_mc
+    _expect("inc-temper", launches, want)
+    drift = float((engine.energy_full(fin.site_state)[0] - fin.energy).abs().max())
+    print(f"[inc-temper] 2x2 delta engine, {INC_TEMPER_REPLICAS} replicas x {INC_TEMPER_ROUNDS} "
+          f"rounds x {SWEEP_SIZE} steps: {INC_TEMPER_REPLICAS * n_mc / dt:.1f} steps/s (one run); "
+          f"swap rate mean {float(rec.swap_rate.mean()):.4f}; cached vs fresh after the run max "
+          f"|diff| {drift:.3e} eV (bitwise: {drift == 0.0}); launches={json.dumps(launches)}")
+    if not (drift == 0.0 and bool(((rec.swap_rate >= 0) & (rec.swap_rate <= 1)).all())
+            and float(rec.swap_rate.max()) > 0):
+        raise AssertionError("[inc-temper] the caches did not travel with their states")
+    return launches
+
+
+def pa_phase(dev) -> dict:
+    """46. Example 10's shape: Cu(100) through row 13, PA_CHAINS chains,
+    PA_BURN burn-in sweeps at PA_T_HI, then PA_TEMPS temperatures from PA_T_HI
+    to PA_T_LO (sweeps of PA_SWEEP), resampling below ESS / C = PA_THRESHOLD:
+    ESS / C, the resampled steps, sum dlogZ, row 13 once per state
+    evaluation, a bitwise repeat. Returns the launch counts."""
+    from surface_sampling_tpu_torch.core.engine import EngineConfig, make_run_fn
+    from surface_sampling_tpu_torch.parallel import chain_states, make_population_annealing_run
+
+    krun = _eam_kernel_run("cu", dev)
+    d, sef = krun.d, krun.state_energy_fn
+    run_fn = make_run_fn(d, sef, EngineConfig(sweep_size=PA_SWEEP, record_positions=False))
+    temps = np.geomspace(PA_T_HI, PA_T_LO, PA_TEMPS)
+    parun = make_population_annealing_run(run_fn, resample_threshold=PA_THRESHOLD)
+
+    def once(seed):
+        gen = _gen(seed)
+        st = chain_states(d, PA_CHAINS)
+        st = st._replace(energy=sef(st.site_state).surface_energy)
+        st, _ = run_fn(st, np.full(PA_BURN, PA_T_HI), gen)
+        return parun(st, temps, gen)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res_a = once(0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    n_evals = 1 + (PA_BURN + PA_TEMPS) * PA_SWEEP
+    _expect("pa", launches, {"eam_rho_ep": n_evals})
+    same = _bitwise(res_a, once(0))
+    rec = res_a[1]
+    print(f"[pa] Cu(100) kernel potential, {PA_CHAINS} chains, {PA_BURN} burn-in sweeps at "
+          f"{PA_T_HI}, {PA_TEMPS} temperatures {PA_T_HI} -> {PA_T_LO} x {PA_SWEEP} steps, "
+          f"threshold {PA_THRESHOLD}: {PA_CHAINS * (n_evals - 1) / dt:.1f} evals/s (one run, "
+          f"{dt:.3f} s, the burn-in included); min ESS/C {float(rec.ess.min()) / PA_CHAINS:.4f}; "
+          f"{int(rec.resampled.sum())}/{PA_TEMPS} steps resampled; sum dlogZ "
+          f"{float(rec.dlogz.sum()):.6f}; best {float(rec.energy.min()):.6f} eV (final mean "
+          f"{float(rec.energy[-1].mean()):.6f}); bitwise repeat {same}; "
+          f"launches={json.dumps(launches)}")
+    if not (same and torch.isfinite(rec.energy).all() and torch.isfinite(rec.dlogz).all()):
+        raise AssertionError("[pa] non-finite results or the run does not repeat")
+    return launches
+
+
+def slice15_phases(dev) -> dict:
+    """Phases 43-46; returns the launch counts of their paths."""
+    from surface_sampling_tpu_torch.systems import srtio3_001_painn
+
+    paths = ff_relax_phase(dev)
+    torch.cuda.empty_cache()
+    sys2 = srtio3_001_painn(supercell=(2, 2), device=dev)
+    paths["inc_dynamic"] = inc_dynamic_phase(sys2, dev)
+    torch.cuda.empty_cache()
+    paths["temper"] = temper_phase(dev)
+    paths["inc_temper"] = inc_temper_phase(sys2, dev)
+    del sys2
+    torch.cuda.empty_cache()
+    paths["pa"] = pa_phase(dev)
+    return paths
+
+
 def entry_registers(log: str) -> dict:
     """ptxas -v's report per entry function: {short name: [registers, spill
     store bytes, spill load bytes]}, the name the mangled one's kernel
@@ -3562,6 +4057,10 @@ def main() -> int:
 
     # the rest of the MC engine and the many-body systems
     engine_paths = slice14_phases(dev)
+    torch.cuda.empty_cache()
+
+    # the frozen-far-field engine, the dynamic delta, tempering and PA
+    engine_paths.update(slice15_phases(dev))
 
     main_path = {"painn_message_bwd": "relaxed_mc", "painn_message_l1_banded": "sc_mc",
                  "painn_message_fused_banded": "sc_mc", "painn_message_subset": "inc_mc",

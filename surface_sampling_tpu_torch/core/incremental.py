@@ -22,11 +22,12 @@ index is written. The acceptance energy is re-summed from the per-atom
 cache every move, in a fixed order (no running sum, no drift), and a move
 is accepted per chain by a select over the caches.
 
-Ported: the static-geometry delta for one site (Change) and two sites
+Ported: the static-geometry delta and the dynamic-geometry delta (code-
+dependent slot geometry, or ``static_geometry="off"``: the edges rebuilt
+over the candidate table at every step) for one site (Change) and two sites
 (Exchange), the semigrand and canonical steps (Metropolis, or
 ``metropolis_distance``: Metropolis under the distance filter of
-``core/events.py``) and the run. Not ported (raises): the dynamic-geometry
-delta (``static_geometry="off"``).
+``core/events.py``) and the run.
 """
 
 from __future__ import annotations
@@ -54,18 +55,22 @@ from surface_sampling_tpu_torch.core.state import (
     exchange_sites,
     num_occupied_sites,
     realize_alive,
+    realize_positions,
     realize_type_idx,
 )
 from surface_sampling_tpu_torch.models.painn import (
     atom_energies,
     excluded_volume,
     filter_features,
+    message_weights,
     painn_features_rigid,
+    prepare_message_geometry,
+    rigid_member_weights,
     update_weights,
     with_halo,
 )
 from surface_sampling_tpu_torch.ops.painn_kernels import painn_message_subset, painn_update_fused
-from surface_sampling_tpu_torch.ops.static_edges import static_edge_geometry
+from surface_sampling_tpu_torch.ops.static_edges import build_static_edge_pack, static_edge_geometry
 
 
 class IncTables(NamedTuple):
@@ -193,36 +198,65 @@ def make_incremental_painn(
     surface_energy_fn: Callable | None = None,
     static_geometry: str = "auto",
 ) -> IncEngine:
-    """The delta-evaluation engine of a rigid PaiNN ensemble system.
+    """The delta-evaluation engine of a PaiNN ensemble system on a lattice.
 
     Args:
         spec, d: the SurfaceSpec and its DeviceSpec (the engine runs on
             ``d.device``).
         potential: a ``models.nn_calculator.PaiNNPotential`` built with
-            ``spec`` and ``routing_band=band``: the engine runs its banded
-            static edges, its rigid trunk weights (K members; K = 1 for one
-            network), its units and its composition offset.
+            ``routing_band=band``: the engine runs its weights (K members; K
+            = 1 for one network), its units and its composition offset, and
+            its banded static edges (with ``spec=``) or its edges over the
+            candidate table.
         static_nbr: the spec's StaticNeighborTable; band: its host
             RoutingBand (required: a cell too small to band is too small
             for delta locality).
         surface_energy_fn: as for ``make_state_energy_fn``.
-        static_geometry: "auto" (the static-geometry delta); "off", the
-            dynamic-geometry delta, is not ported and raises.
+        static_geometry: "auto" (the JAX package's rule: the static-geometry
+            delta where the slot geometry is code-independent, else the
+            dynamic one) or "off" (the dynamic-geometry delta).
+
+    The static-geometry delta reads the edge payload of the static pack
+    (``ops/static_edges.py``) and caches s, phi and vcat of every layer. The
+    dynamic one rebuilds the edges over the candidate table at every step
+    (``ops/neighbors.neighbor_list_from_table``) and their banded message
+    geometry, caches s and vcat (phi is recomputed on every row, as JAX
+    does; ``caches.phi`` is empty), and recomputes the same hop-ball blocks
+    through the same kernels. Both keep their caches in the band's sorted
+    row order (the JAX package's dynamic path keeps slot order: the same
+    rows, permuted).
     """
-    pack = getattr(potential, "static_edge_pack", None)
-    if band is None or pack is None or pack.band is None:
-        raise ValueError("incremental evaluation needs a routing band (ops/banding.py) and a "
-                         "potential built with it and the spec (banded static edges); cells "
-                         "too small to band are too small for delta locality too")
-    if static_geometry == "off":
-        raise NotImplementedError("the dynamic-geometry delta (static_geometry='off') is not "
-                                  "ported yet")
-    if static_geometry != "auto":
+    if static_geometry not in ("auto", "off"):
         raise ValueError("static_geometry must be 'auto' or 'off'")
+    if band is None:
+        raise ValueError("incremental evaluation needs a routing band (ops/banding.py); cells "
+                         "too small to band are too small for delta locality too")
     dev = d.device
-    params, cfg, rw = potential.params, potential.cfg, potential.rw
-    dband = pack.band
-    L, N, n_pad, n_blk = cfg.n_layers, pack.N, pack.n_pad, dband.n_blk
+    params, cfg = potential.params, potential.cfg
+    pack, rw = getattr(potential, "static_edge_pack", None), getattr(potential, "rw", None)
+    if static_geometry == "auto" and pack is None:
+        pack = build_static_edge_pack(spec, static_nbr, cfg, dev, band=band)
+        if pack is not None:
+            rw = rigid_member_weights(params, cfg, tuple(sorted({int(z) for z in
+                                                                 potential.znums.tolist()})),
+                                      pack.r_pad)
+    dynamic = static_geometry == "off" or pack is None
+    if dynamic:
+        dband = potential.band
+        if dband is None:
+            raise ValueError("the dynamic-geometry delta needs a potential built with "
+                             "routing_band=band (its banded edges)")
+        r_pad = ((cfg.n_rbf + 7) // 8) * 8
+        dw, db = zip(*(message_weights(mp, cfg, r_pad) for mp in params["message"]))
+        rw = {"dw": dw, "db": db}
+        N, n_pad = spec.n_slots, dband.n_pad
+    else:
+        if pack.band is None:
+            raise ValueError("the static-geometry delta needs a static edge pack built with "
+                             "the routing band")
+        dband = pack.band
+        N, n_pad = pack.N, pack.n_pad
+    L, n_blk = cfg.n_layers, dband.n_blk
     n_blocks = n_pad // n_blk
     blocks_tbl = [torch.as_tensor(b, dtype=torch.int64, device=dev)
                   for b in build_inc_tables(spec, static_nbr, band, L).blocks]
@@ -240,12 +274,17 @@ def make_incremental_painn(
 
     def _occupancy(site_state):
         """Types, alive mask, atomic numbers and element counts of (C, S)
-        occupancies, their static edge geometry and overflow flags, and
-        the alive mask and the excluded-volume energies of live atoms in
-        sorted rows."""
+        occupancies, their edge geometry (static, or rebuilt over the
+        candidate table) and overflow flags, and the alive mask and the
+        excluded-volume energies of live atoms in sorted rows."""
         type_idx, alive = realize_type_idx(d, site_state), realize_alive(d, site_state)
         numbers = potential.znums[type_idx] * alive.to(torch.int64)
-        msg_geom, (r, mask, overflow) = static_edge_geometry(pack, alive)
+        if dynamic:
+            edges = potential.edge_fn(realize_positions(d, site_state), alive)
+            msg_geom = prepare_message_geometry(cfg, edges, dband)[:5]
+            r, mask, overflow = edges.r, edges.mask, edges.overflow
+        else:
+            msg_geom, (r, mask, overflow) = static_edge_geometry(pack, alive)
         pad = n_pad - N
         alive_s = tnf.pad(alive.to(torch.float32), (0, pad))[:, perm]
         excl_s = tnf.pad(excluded_volume(cfg, r, mask) * alive, (0, pad))[:, perm]
@@ -263,8 +302,8 @@ def make_incremental_painn(
             _occupancy(site_state)
         s, (s_l, phi_l, vcat_l) = painn_features_rigid(params, rw, cfg, numbers, alive, msg_geom,
                                                        band=dband, collect_layers=True)
-        caches = IncCaches(s=tuple(s_l), phi=tuple(phi_l), vcat=tuple(vcat_l),
-                           e_atom=_energies(s, alive_s, excl_s))
+        caches = IncCaches(s=tuple(s_l), phi=() if dynamic else tuple(phi_l),
+                           vcat=tuple(vcat_l), e_atom=_energies(s, alive_s, excl_s))
         se, oob = _finish(caches.e_atom.sum(dim=-1), overflow, type_idx, alive, counts)
         return se, caches, oob
 
@@ -279,6 +318,11 @@ def make_incremental_painn(
         numbers_s = tnf.pad(numbers, (0, n_pad - N))[:, perm]
         s_t, phi_t, vcat_t = list(caches.s), list(caches.phi), list(caches.vcat)
         e_atom = caches.e_atom
+        if dynamic:
+            # every row's embedding: the geometry, and with it every row's
+            # messages, may have changed
+            z = torch.clamp(numbers_s, 0, cfg.max_z - 1)
+            s_t[0] = params["atom_embed"][:, z].transpose(0, 1) * alive_s[:, None, :, None]
         for li, (mp, up) in enumerate(zip(params["message"], params["update"])):
             blocks = blocks_tbl[li][sites].reshape(C, -1)            # (C, NB)
             first = first_occurrence(blocks)
@@ -287,17 +331,22 @@ def make_incremental_painn(
                 return take_blocks(x, blocks, dim, n_blocks)
 
             alive_rows = take(alive_s, 1)                            # (C, rows)
-            if li == 0:
-                z = torch.clamp(take(numbers_s, 1), 0, cfg.max_z - 1)
-                s_rows = params["atom_embed"][:, z].transpose(0, 1) * alive_rows[:, None, :, None]
-                s_t[0] = _put_blocks(s_t[0], blocks, first, s_rows, n_blocks)
-            else:
+            if dynamic:
+                phi = filter_features(mp, s_t[li])
                 s_rows = take(s_t[li], 2)
-            phi_t[li] = _put_blocks(phi_t[li], blocks, first, filter_features(mp, s_rows),
-                                    n_blocks)
+            else:
+                if li == 0:
+                    z = torch.clamp(take(numbers_s, 1), 0, cfg.max_z - 1)
+                    s_rows = (params["atom_embed"][:, z].transpose(0, 1)
+                              * alive_rows[:, None, :, None])
+                    s_t[0] = _put_blocks(s_t[0], blocks, first, s_rows, n_blocks)
+                else:
+                    s_rows = take(s_t[li], 2)
+                phi = phi_t[li] = _put_blocks(phi_t[li], blocks, first,
+                                              filter_features(mp, s_rows), n_blocks)
             vc_rows = take(vcat_t[li], 2)
             ds, dv = painn_message_subset(
-                with_halo(phi_t[li], dband.halo, 2), with_halo(vcat_t[li], dband.halo, 2),
+                with_halo(phi, dband.halo, 2), with_halo(vcat_t[li], dband.halo, 2),
                 take(rbf, 1), take(envm, 1), take(nbr, 1), take(unit, 2), rw["dw"][li],
                 rw["db"][li], dband.win_start[blocks], dband)
             s_out, v_out = painn_update_fused((s_rows + ds).contiguous(),

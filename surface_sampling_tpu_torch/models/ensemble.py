@@ -21,12 +21,16 @@ from surface_sampling_tpu_torch.ops.neighbors import Edges
 
 def _stats(out: dict) -> dict:
     energies = out["energy"]
-    return {
+    stats = {
         "member_energy": energies,
         "energy": energies.mean(dim=1),
         "energy_std": energies.std(dim=1, unbiased=False),
         "per_atom_energy": out["per_atom_energy"].mean(dim=1),
     }
+    for key in ("layer_s", "layer_v"):
+        if key in out:
+            stats[key] = out[key]
+    return stats
 
 
 def ensemble_apply_rigid(params: dict, rw: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
@@ -42,14 +46,18 @@ def ensemble_apply_rigid(params: dict, rw: dict, cfg: PaiNNConfig, numbers: torc
 
 
 def ensemble_apply(params: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
-                   alive: torch.Tensor, edges: Edges, msg_geom=None, band=None) -> dict:
+                   alive: torch.Tensor, edges: Edges, msg_geom=None, band=None,
+                   collect_layers: bool = False) -> dict:
     """General forward of all members on a (C, N) batch of structures,
     differentiable in the positions ``edges`` were built from
     (``ops.neighbors``; for a supercell with its routing ``band``, a
     ``DeviceBand``, which runs the banded trunk). The padded message
     geometry is member-invariant: it is built once (or passed as
     ``msg_geom``) and shared by the K members. Returns the same fields as
-    :func:`ensemble_apply_rigid`."""
+    :func:`ensemble_apply_rigid`; ``collect_layers`` adds the member-stacked
+    inputs of every message block, ``layer_s`` (C, K, L, N, F) and
+    ``layer_v`` (C, K, L, N, 3F) x-major, in slot order."""
     if msg_geom is None:
         msg_geom = prepare_message_geometry(cfg, edges, band)
-    return _stats(painn_apply(params, cfg, numbers, alive, msg_geom, edges, band))
+    return _stats(painn_apply(params, cfg, numbers, alive, msg_geom, edges, band,
+                              collect_layers))

@@ -105,14 +105,16 @@ class PaiNNPotential(TablePotential):
     def _numbers(self, type_idx, alive):
         return self.znums[type_idx] * alive.to(torch.int64)
 
-    def outputs(self, positions, type_idx, alive, shifts=None, edges: Edges | None = None):
+    def outputs(self, positions, type_idx, alive, shifts=None, edges: Edges | None = None,
+                collect_layers: bool = False):
         """Ensemble outputs (training units). ``shifts`` is accepted for
         the JAX signature and unused: the candidate table holds the image
-        shifts."""
+        shifts. ``collect_layers`` adds ``layer_s`` / ``layer_v``, the inputs
+        of every message block (``models.ensemble.ensemble_apply``)."""
         if edges is None:
             edges = self.edge_fn(positions, alive)
         return ensemble_apply(self.params, self.cfg, self._numbers(type_idx, alive), alive,
-                              edges, band=self.band)
+                              edges, band=self.band, collect_layers=collect_layers)
 
     def energy(self, positions, type_idx, alive, shifts=None, edges: Edges | None = None):
         """(C,) potential energies in eV of positions (C, N, 3)."""

@@ -271,7 +271,11 @@ def painn_features_rigid(params: dict, rw: dict, cfg: PaiNNConfig,
     ``collect_layers`` returns instead ``(s, (s_l, phi_l, vcat_l))``: the
     final s and the inputs of every message block (L tensors (C, K, n_pad,
     .) each, layer 1's phi included), all padded and in the band's sorted
-    row order where there is a band: the caches of ``core/incremental.py``."""
+    row order where there is a band: the caches of ``core/incremental.py``.
+    Layer 1's message then runs the general message kernel on phi and v = 0
+    (not the species table), the body of the subset kernel with which the
+    delta engine recomputes those rows, so that they come out bitwise the
+    same; of ``rw`` it reads only ``dw`` and ``db``."""
     rbf, envm, nbr, unit, n_pad = msg_geom
     C, N = numbers.shape
     K = params["atom_embed"].shape[0]
@@ -279,12 +283,14 @@ def painn_features_rigid(params: dict, rw: dict, cfg: PaiNNConfig,
     pad_n = n_pad - N
 
     z = torch.clamp(numbers, 0, cfg.max_z - 1)
-    species = species_rows(rw, cfg, numbers, n_pad)
+    # the layer-1 species rows (collect_layers runs layer 1 without them)
+    species = None if collect_layers else species_rows(rw, cfg, numbers, n_pad)
     alive_f = tnf.pad(alive.to(torch.float32), (0, pad_n))           # (C, n_pad)
     s = params["atom_embed"][:, z].transpose(0, 1)                   # (C, K, N, F)
     s = tnf.pad(s * alive_f[:, None, :N, None], (0, 0, 0, pad_n))
     if band is not None:
-        species, alive_f, s = species[:, band.perm], alive_f[:, band.perm], s[:, :, band.perm]
+        alive_f, s = alive_f[:, band.perm], s[:, :, band.perm]
+        species = None if species is None else species[:, band.perm]
     s = s.contiguous()
     vcat = torch.zeros((C, K, n_pad, 3 * F), dtype=s.dtype, device=s.device)
 
@@ -295,10 +301,10 @@ def painn_features_rigid(params: dict, rw: dict, cfg: PaiNNConfig,
         if collect_layers:
             for store, x in zip(layers, (s, phi, vcat)):
                 store.append(x)
-        if li == 0 and band is None:
+        if li == 0 and band is None and not collect_layers:
             ds, dv = painn_message_l1(species, rw["philt"], rbf, envm, nbr, unit,
                                       rw["dw2"], rw["db2"])
-        elif li == 0:
+        elif li == 0 and not collect_layers:
             ds, dv = painn_message_l1_banded(with_halo(species, band.halo, 1), rw["philt"],
                                              rbf, envm, nbr, unit, rw["dw2"], rw["db2"], band)
         elif band is None:
@@ -359,10 +365,17 @@ def prepare_message_geometry(cfg: PaiNNConfig, edges: Edges, band: DeviceBand | 
 
 
 def painn_features(params: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
-                   alive: torch.Tensor, msg_geom, band: DeviceBand | None = None) -> torch.Tensor:
+                   alive: torch.Tensor, msg_geom, band: DeviceBand | None = None,
+                   collect_layers: bool = False):
     """General trunk over padded rows, differentiable in the edge
     geometry; returns s (C, K, N, F). ``msg_geom`` comes from
     :func:`prepare_message_geometry` (with the same ``band``).
+
+    ``collect_layers`` returns instead ``(s, (layer_s, layer_v))``: the
+    inputs of every message block, layer_s (C, K, L, N, F) and layer_v
+    (C, K, L, N, 3F) x-major, in slot order (the JAX package's layer_s and
+    layer_v, whose v is (L, N, F, 3)): the frozen far field of
+    ``core/ff_relax.py``.
 
     With the routing ``band`` of a supercell every layer runs on the
     band's sorted rows: the message is the banded kernel over the tables
@@ -387,7 +400,11 @@ def painn_features(params: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
         s, alive_f = s[:, :, band.perm], alive_f[:, band.perm]
     vcat = torch.zeros((C, K, n_pad, 3 * F), dtype=s.dtype, device=s.device)
 
+    layers = ([], [])
     for mp, up in zip(params["message"], params["update"]):
+        if collect_layers:
+            layers[0].append(s)
+            layers[1].append(vcat)
         dw, db = message_weights(mp, cfg, rbf.shape[-1])
         phi = filter_features(mp, s)
         if band is None:
@@ -400,7 +417,10 @@ def painn_features(params: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
         s, vcat = painn_update(s + ds, vcat + dv, *update_weights(up), alive_f)
     if band is not None:
         s = s[:, :, band.inv_perm]
-    return s[:, :, :N]
+    if not collect_layers:
+        return s[:, :, :N]
+    order = band.inv_perm[:N] if band is not None else slice(0, N)
+    return s[:, :, :N], tuple(torch.stack(x, dim=2)[:, :, :, order] for x in layers)
 
 
 def atom_energies(params: dict, s: torch.Tensor) -> torch.Tensor:
@@ -449,15 +469,21 @@ def painn_apply_rigid(params: dict, rw: dict, cfg: PaiNNConfig,
 
 def painn_apply(params: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
                 alive: torch.Tensor, msg_geom, edges: Edges,
-                band: DeviceBand | None = None) -> dict:
+                band: DeviceBand | None = None, collect_layers: bool = False) -> dict:
     """Full general forward of every member, differentiable in the
     positions the edges were built from: ``energy`` (C, K) and
     ``per_atom_energy`` (C, K, N) in training units, and ``embedding``
     (C, K, N, F), the final scalar features; banded under ``band``
-    (``msg_geom`` then built with it)."""
-    s = painn_features(params, cfg, numbers, alive, msg_geom, band)
+    (``msg_geom`` then built with it). ``collect_layers`` adds
+    ``layer_s`` / ``layer_v``, the inputs of every message block
+    (:func:`painn_features`)."""
+    s = painn_features(params, cfg, numbers, alive, msg_geom, band, collect_layers)
+    if collect_layers:
+        s, (layer_s, layer_v) = s
     out = _readout(params, cfg, s, alive, edges.r, edges.mask, edges.overflow)
     out["embedding"] = s
+    if collect_layers:
+        out["layer_s"], out["layer_v"] = layer_s, layer_v
     return out
 
 

@@ -1,5 +1,7 @@
 """The multiple-try and distance-criterion steps on the card against the
-same steps on the CPU plain path, fed the same draws.
+same steps on the CPU plain path, fed the same draws; the delta engine
+bitwise a fresh evaluation on the card, and bitwise repeats of the
+frozen-far-field and tempered runs.
 
 Marked ``cuda``: each test takes the ``cuda_device`` fixture, which skips
 with a reason when no CUDA device is visible. Run them on an NVIDIA GPU:
@@ -111,3 +113,103 @@ def test_metropolis_distance_step_card_matches_cpu(cuda_device, canonical):
         canonical_draws if canonical else semigrand_draws)
     ok = make_distance_accept(cpu.run.d, 1.5)(states.site_state)
     assert ok[acc.any(0)].all()
+
+
+def _leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for v in x for t in _leaves(v)] if isinstance(x, tuple) else []
+
+
+def _bitwise(a, b) -> bool:
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("static_geometry", ["auto", "off"])
+def test_delta_equals_fresh_bitwise_on_card(cuda_device, static_geometry):
+    """The 2x2 delta engine, static and dynamic geometry, on crowded random
+    occupancies (a quarter of the sites occupied; energies up to the 1e4-eV
+    clamp) at 16 chains: the one- and two-site deltas of one canonical draw
+    equal a fresh energy_full of the trial state bit for bit, energies and
+    every cache."""
+    from surface_sampling_tpu_torch.core.events import pick_exchange
+    from surface_sampling_tpu_torch.core.incremental import make_incremental_painn
+    from surface_sampling_tpu_torch.core.state import change_site, exchange_sites
+
+    sys2 = srtio3_001_painn(supercell=(2, 2), device=cuda_device)
+    eng = make_incremental_painn(sys2.spec, sys2.run.d, sys2.potential, sys2.static_nbr,
+                                 sys2.routing_band, sys2.run.surface_energy_fn,
+                                 static_geometry=static_geometry)
+    rng = np.random.default_rng(38)
+    ss = rng.integers(0, eng.n_codes, (N_CHAINS, eng.n_sites))
+    ss = torch.as_tensor(np.where(rng.random(ss.shape) < 0.75, 0, ss), device=cuda_device)
+    st = eng.init_state(ss)
+    g_t, g1, g2, _ = canonical_draws(make_generator(0, cuda_device), N_CHAINS, eng.n_sites,
+                                     eng.n_codes)
+    s1, s2, _ = pick_exchange(ss, eng.n_codes, g_t, g1, g2)
+    for trial, sites in ((change_site(ss, s1, torch.gather(ss, 1, s2[:, None])[:, 0]),
+                          s1[:, None]),
+                         (exchange_sites(ss, s1, s2), torch.stack([s1, s2], 1))):
+        fresh, fc, _ = eng.energy_full(trial)
+        se, c, _ = eng.delta(st.caches, trial, sites)
+        assert float(fresh.abs().max()) > 1e3          # crowded: large last-layer features
+        assert torch.equal(se, fresh)
+        assert _bitwise(c, fc)
+
+
+def test_ff_run_repeats_bitwise_on_card(cuda_device):
+    """The frozen-far-field semigrand run on the relaxed 1x1 (one-hop balls,
+    6 FIRE steps, 4 chains x 2 steps) twice from one seed: bitwise the same
+    states, caches and records (the descent's gathers sum their cotangents
+    in a fixed order)."""
+    from surface_sampling_tpu_torch.core.energy import RelaxConfig
+    from surface_sampling_tpu_torch.core.ff_relax import (
+        build_ff_tables,
+        make_ff_init,
+        make_ff_relax_eval,
+        make_ff_run,
+        make_ff_semigrand_step,
+    )
+
+    relax = RelaxConfig(steps=6)
+    sys1 = srtio3_001_painn(relax=relax, device=cuda_device)
+    run, spec = sys1.run, sys1.spec
+    ev = make_ff_relax_eval(run.d, sys1.potential, run.surface_energy_fn, relax,
+                            build_ff_tables(spec, sys1.static_nbr, 1))
+    ss = torch.zeros((4, spec.n_sites), dtype=torch.int64, device=cuda_device)
+    ss[:, 3] = torch.arange(1, 5, device=cuda_device) % spec.n_codes
+    st = make_ff_init(run.d, ev, run.state_energy_fn)(ss)
+    frun = make_ff_run(make_ff_semigrand_step(ev), 2, spec.n_sites, spec.n_codes)
+    a = frun(st, np.array([1.0]), make_generator(5, cuda_device))
+    b = frun(st, np.array([1.0]), make_generator(5, cuda_device))
+    assert _bitwise(a, b)
+    assert (a[0].relaxed_positions != st.relaxed_positions).any() or not a[1].accept_rate.any()
+
+
+def test_tempered_run_repeats_bitwise_on_card(cuda_device):
+    """Tempering over Au(110) through the EAM kernel (row 13), 8 replicas x
+    4 rounds of a 4-step sweep, twice from one seed: bitwise the same states
+    and records; swap rates in [0, 1]."""
+    from surface_sampling_tpu_torch.core.engine import EngineConfig, MCMCRun, make_run_fn
+    from surface_sampling_tpu_torch.core.static_neighbors import build_static_neighbor_table
+    from surface_sampling_tpu_torch.ops.eam_kernels import make_eam_kernel_potential
+    from surface_sampling_tpu_torch.parallel import make_tempered_run, temperature_ladder
+    from surface_sampling_tpu_torch.potentials.eam import builtin_eam
+    from surface_sampling_tpu_torch.systems import au110_eam
+
+    tables = builtin_eam("Au_u3")
+    spec = au110_eam(device=cuda_device).spec
+    nbr = build_static_neighbor_table(spec, tables.cutoff, relax_slack=0.05)
+    krun = MCMCRun(spec, make_eam_kernel_potential(tables, nbr, device=cuda_device),
+                   device=cuda_device)
+    run_fn = make_run_fn(krun.d, krun.state_energy_fn,
+                         EngineConfig(sweep_size=4, record_positions=False))
+    st = chain_states(krun.d, 8)
+    st = st._replace(energy=krun.state_energy_fn(st.site_state).surface_energy)
+    trun = make_tempered_run(run_fn, n_rounds=4)
+    temps = temperature_ladder(0.02, 2.0, 8)
+    a = trun(st, temps, make_generator(3, cuda_device))
+    b = trun(st, temps, make_generator(3, cuda_device))
+    assert _bitwise(a, b)
+    assert ((a[1].swap_rate >= 0) & (a[1].swap_rate <= 1)).all()

@@ -210,12 +210,13 @@ def test_incremental_run_equals_full_run(ttoy):
 
 
 def test_unported_options_raise(ttoy):
-    """(i) The dynamic-geometry delta is not ported; the steps take only the
-    Metropolis and metropolis_distance criteria, the latter with the
-    DeviceSpec; a system without a band has no delta engine."""
+    """(i) An unknown static_geometry mode is refused (the dynamic delta of
+    "off" is pinned in tests/test_torch_incremental_dynamic.py); the steps
+    take only the Metropolis and metropolis_distance criteria, the latter
+    with the DeviceSpec; a system without a band has no delta engine."""
     spec, d, eng, pot, nbr, band = ttoy
-    with pytest.raises(NotImplementedError):
-        make_incremental_painn(spec, d, pot, nbr, band, static_geometry="off")
+    with pytest.raises(ValueError, match="static_geometry"):
+        make_incremental_painn(spec, d, pot, nbr, band, static_geometry="on")
     with pytest.raises(ValueError, match="DeviceSpec"):
         make_incremental_semigrand_step(eng, criterion="metropolis_distance")
     with pytest.raises(ValueError, match="support"):
