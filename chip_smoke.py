@@ -18,9 +18,11 @@ the fine-tuning CLI; and the rest of the MC engine (distance criteria,
 multiple-try Metropolis, the delta and local-relax canonical steps, L-BFGS,
 symmetric slabs) and the many-body systems GaN(0001) Tersoff and Si(111)
 5x5 SW; and the frozen-far-field relaxed engine at campaign C's shape, the
-dynamic-geometry delta, parallel tempering and population annealing —
-through their entry points on the card, in forty-six phases, each printing
-one line or more:
+dynamic-geometry delta, parallel tempering and population annealing; and
+the chain runs and training sharded over an NCCL world of every card of
+the machine, the PaiNN and CHGNet potentials that find their edges by image
+search, and the MACE family — through their entry points on the card, in
+forty-nine phases, each printing one line or more:
 
   1. device     card name, count, and nvidia-smi's name and power limit
   2. build      compiles every kernel from csrc/ (nvcc -Xptxas -v, in parallel);
@@ -177,6 +179,33 @@ one line or more:
  46. pa         example 10: Cu(100) through row 13, 2,048 chains, 10 burn-in
                 sweeps, 16 temperatures 2.0 -> 0.35, threshold 0.9: ESS / C,
                 sum dlogZ, bitwise repeat
+ 47. shard      an NCCL world of one spawned rank per card (at most 4; a
+                FileStore in a temporary directory): the flagship rigid 1x1
+                (128 chains x 2 x 8) sharded over chain_mesh and over
+                pod_mesh(1, world), Cu(100) through row 13 (16,384 chains)
+                sharded, each against the unsharded run with the same
+                generator (bitwise at world 1, else occupancies equal and
+                energies within 1e-5 relative); the sharded ensemble energy
+                against ensemble_apply; one data-parallel and one
+                ensemble-sharded train step on [train]'s 16 frames against
+                Trainer.step (bitwise at world 1; beyond, the clipped mean
+                gradients and the loss within 1e-5 of each leaf's max and
+                relative); evals/s and structures/s beside the card's
+                name and power limit (no multi-GPU rate at world 1); then
+                finetune --mesh 1 on the card (a world of one made and ended
+                by the CLI)
+ 48. image-edges the PaiNN and CHGNet potentials without a static table
+                (edges by image search every call): the flagship pristine
+                anchor, random states vs the static-table path (5e-3 eV) and
+                card vs CPU (1e-3 eV), relaxed MC at 128 chains x 1 x 4
+                (rows 2 and 4) bitwise on repeat; ensemble_forces_std card vs
+                CPU; CHGNet LaMnO3 pristine -405.206 eV, rigid (64 chains) and
+                10-step relaxed (8 chains) runs (rows 10 and 12)
+ 49. mace       init_mace at the default width for l_max 2 and 3, layer-local
+                and equivariant messages, on the flagship 1x1: card vs CPU
+                energies and forces, a random rotation, static table vs image
+                search, rigid MC at 128 chains x 2 x 8 (evals/s), relaxed MC
+                at 16 chains bitwise on repeat (evals/s, peak memory)
 
 Then it prints one JSON line {"kernels": [...]} (per kernel: source, the
 TPU kernel it replaces, launches on its main path — the rigid run for the
@@ -184,8 +213,8 @@ TPU kernel it replaces, launches on its main path — the rigid run for the
 evaluation run for the banded kernels, the delta run for the subset kernel,
 the relaxed 3x3 run for the banded backward, paths A, B and C for the CHGNet
 rows 10, 12 and 11, the Cu semigrand run for row 13, the training runs for
-row 5, every path's count under launches_by_path, phases 36-39's and
-43-46's paths included — max abs error, ms, plain_ms,
+row 5, every path's count under launches_by_path, phases 36-39's,
+43-46's and 47-49's paths included — max abs error, ms, plain_ms,
 bound_ms, bound_by, library_ms), the nvidia-smi line again, and last the
 JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -3893,6 +3922,507 @@ def slice15_phases(dev) -> dict:
     return paths
 
 
+# ----------------------------------------------------------------------
+# Sharding on torch.distributed, the image-search edge path of PaiNN and
+# CHGNet, and MACE
+# ----------------------------------------------------------------------
+# [shard]: one rank a card, at most 4 (NCCL refuses two ranks on one card);
+# the flagship rigid 1x1 at N_CHAINS x SWEEPS x SWEEP_SIZE, Cu(100) through
+# row 13 at [cu-mc]'s 16,384 chains (2 x 8 steps), one data-parallel and one
+# ensemble-sharded train step on [train]'s 16 frames. Sharded results are
+# bitwise the unsharded ones at world 1; beyond, the blocks' batched sums
+# may round otherwise: occupancies equal, energies, losses and gradients
+# within 1e-5 relative
+SHARD_MAX_WORLD = 4
+SHARD_CU_CHAINS = 16_384
+SHARD_RTOL = 1e-5
+# [image-edges]: relaxed MC at the flagship's chain count, 1 x 4 steps; the
+# JAX package's rule for its two edge modes; CHGNet rigid at path A's chain
+# count, relaxed at path B's with its 10 FIRE steps
+MODE_TOL = 5e-3
+IMAGE_CPU_STATES = 4
+# [mace]: the default width (F 64, 8 RBFs, cutoff 5, 2 layers, M 64) on
+# the flagship 1x1; l_max 2 and 3, each with the layer-local and the
+# equivariant messages, the JAX package's two routing modes alternating
+# (both compute the gather); rigid MC at N_CHAINS x SWEEPS x SWEEP_SIZE,
+# relaxed at 16 chains x 1 x 4 steps of 20 FIRE steps over the relax table
+MACE_CONFIGS = ((2, False, "gather"), (2, True, "dense"), (3, False, "dense"), (3, True, "gather"))
+MACE_RELAX_CHAINS = 16
+MACE_ROT_TOL = 1e-4
+# the random model's forces are ~0.01-0.02 eV/A, under FIRE's default fmax
+# of 0.01: a tighter fmax makes every relaxation run its 20 steps
+MACE_FMAX = 1e-4
+
+
+def _shard_compare(tag: str, ref, got, world: int) -> str:
+    """Occupancies equal and energies (states and records) bitwise at world
+    1, within SHARD_RTOL beyond; a description of the agreement."""
+    pairs = [(ref[0].site_state, got[0].site_state, True), (ref[0].energy, got[0].energy, False),
+             (ref[1].energy, got[1].energy, False), (ref[1].site_state, got[1].site_state, True)]
+    worst = 0.0
+    for a, b, exact in pairs:
+        if exact or world == 1:
+            if not torch.equal(a, b):
+                raise AssertionError(f"[shard] {tag}: the sharded run differs from the unsharded "
+                                     f"one at world {world}")
+        else:
+            worst = max(worst, float(((a - b).abs() / b.abs().clamp(min=1e-30)).max()))
+    if worst > SHARD_RTOL:
+        raise AssertionError(f"[shard] {tag}: energies off by {worst:.3e} relative")
+    return "bitwise" if world == 1 else f"occupancies equal, energies within {worst:.2e} rel"
+
+
+def _timed_world(fn, reps: int = 3) -> float:
+    """Least wall seconds of ``fn(seed)`` over the ranks, every rank starting
+    together (barriers) and ending in a synchronize."""
+    import torch.distributed as dist
+
+    dt = float("inf")
+    for rep in range(reps):
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn(rep + 1)
+        torch.cuda.synchronize()
+        dist.barrier()
+        dt = min(dt, time.perf_counter() - t0)
+    return dt
+
+
+def _shard_rank(rank: int, workdir: str, smi: str) -> None:
+    """47. One rank of the [shard] world (one card each): the sharded and
+    hierarchical flagship runs, the sharded Cu(100) run, the sharded
+    ensemble energy and the two sharded train steps, each against its
+    unsharded counterpart; rank 0 writes its lines, rates and launch
+    counts to ``workdir/shard.json``."""
+    from pathlib import Path
+
+    from surface_sampling_tpu_torch.core.engine import (
+        EngineConfig,
+        geometric_schedule,
+        make_generator,
+        make_run_fn,
+    )
+    from surface_sampling_tpu_torch.models.ensemble import ensemble_apply
+    from surface_sampling_tpu_torch.models.painn import tree_leaves
+    from surface_sampling_tpu_torch.models.train import TrainConfig, Trainer, batch_to_device
+    from surface_sampling_tpu_torch.parallel import (
+        chain_mesh,
+        chain_states,
+        gather_chain_states,
+        make_ensemble_sharded_energy,
+        make_ensemble_sharded_train_step,
+        make_hierarchical_chain_run,
+        make_sharded_chain_run,
+        make_sharded_train_step,
+        pod_mesh,
+        shard_chain_states,
+    )
+    from surface_sampling_tpu_torch.systems import srtio3_001_painn
+
+    mesh = chain_mesh()
+    dev, world = mesh.device, mesh.axis_size("chains")
+    pods = pod_mesh(1, world)
+    # the 3 members split over the ranks of a mesh whose size divides 3
+    ens_mesh = chain_mesh(3 if world >= 3 else 1, axis="ensemble")
+    lines, rates, paths = [], {}, {}
+
+    def runs(tag, run_fn, states, sweeps, n_chains):
+        temps = geometric_schedule(1.0, sweeps, 0.99)
+        ref = run_fn(states, temps, make_generator(0, dev))
+        srun = make_sharded_chain_run(run_fn, mesh)
+        local = shard_chain_states(states, mesh)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = srun(local, temps, make_generator(0, dev))
+        torch.cuda.synchronize()
+        paths[tag] = launch_counts()
+        flat = _shard_compare(tag, ref, gather_chain_states(got, mesh), world)
+        hrun = make_hierarchical_chain_run(run_fn, pods)
+        axes = ("pod", "chains")
+        hier = gather_chain_states(hrun(shard_chain_states(states, pods, axes), temps,
+                                        make_generator(0, dev)), pods, axes)
+        deep = _shard_compare(f"{tag} hierarchical", ref, hier, world)
+        dt = _timed_world(lambda seed: srun(local, temps, make_generator(seed, dev)))
+        rates[tag] = n_chains * sweeps * SWEEP_SIZE / dt
+        lines.append(f"[shard] {tag}: {n_chains} chains x {sweeps}x{SWEEP_SIZE} over "
+                     f"{world} rank(s): sharded vs unsharded {flat}; pod_mesh(1, {world}) "
+                     f"hierarchical {deep}; {rates[tag]:.1f} evals/s ({smi})")
+
+    sys1 = srtio3_001_painn(device=dev)
+    d, sef = sys1.run.d, sys1.run.state_energy_fn
+    cfg = EngineConfig(sweep_size=SWEEP_SIZE, record_positions=False)
+    states = chain_states(d, N_CHAINS)
+    states = states._replace(energy=sef(states.site_state).surface_energy)
+    runs("shard_mc", make_run_fn(d, sef, cfg), states, SWEEPS, N_CHAINS)
+
+    # the sharded ensemble energy over the members, against one ensemble_apply
+    pot = sys1.potential
+    ss = _states(sys1.spec, 8, np.random.default_rng(3), dev)
+    from surface_sampling_tpu_torch.core.state import (
+        realize_alive,
+        realize_positions,
+        realize_type_idx,
+    )
+
+    alive = realize_alive(d, ss)
+    numbers = pot.znums[realize_type_idx(d, ss)] * alive
+    edges = pot.edges(realize_positions(d, ss), alive)
+    want = ensemble_apply(pot.params, pot.cfg, numbers, alive, edges)["member_energy"].T
+    if ens_mesh.coords is not None:
+        mean, members = make_ensemble_sharded_energy(
+            lambda p, n, a, e: ensemble_apply(p, pot.cfg, n, a, e)["member_energy"].T,
+            ens_mesh)(pot.params, numbers, alive, edges)
+        err = float(((members - want).abs() / want.abs()).max())
+        lines.append(f"[shard] ensemble energy over {ens_mesh.axis_size('ensemble')} rank(s), "
+                     f"3 members x 8 states: max rel diff from ensemble_apply {err:.3e} "
+                     f"(tol {SHARD_RTOL})")
+        if not (err <= SHARD_RTOL and torch.allclose(mean, want.mean(0), rtol=SHARD_RTOL)):
+            raise AssertionError(f"[shard] ensemble energy off by {err}")
+    del sys1
+    torch.cuda.empty_cache()
+
+    cu = _eam_kernel_run("cu", dev)
+    cu_states = chain_states(cu.d, SHARD_CU_CHAINS)
+    cu_states = cu_states._replace(energy=cu.state_energy_fn(cu_states.site_state).surface_energy)
+    runs("shard_cu_mc", make_run_fn(cu.d, cu.state_energy_fn, cfg), cu_states, 2,
+         SHARD_CU_CHAINS)
+    del cu, cu_states
+    torch.cuda.empty_cache()
+
+    # one data-parallel and one ensemble-sharded step against Trainer.step
+    params, tcfg_model, _, _, batch = train_setup(dev)
+    b = batch_to_device(batch, dev)
+    tcfg = TrainConfig(learning_rate=TRAIN_LR)
+    ref = Trainer(params, tcfg_model, tcfg, ensemble=True)
+    ref_loss = ref.step(b)
+    ref_leaves = tree_leaves(ref.params())
+
+    def agree(tag, leaves, mu, loss):
+        """Bitwise the reference step at world 1. Beyond, Adam's first step
+        moves each parameter by ~lr x sign(g), which turns last-bit
+        differences of near-zero gradients into lr-sized ones: there the
+        clipped mean gradients (Adam's first moment / (1 - b1)) and the loss
+        are held to SHARD_RTOL instead."""
+        def rel(xs, ys):
+            return max(float(((x - y).abs() / y.abs().max().clamp(min=1e-30)).max())
+                       for x, y in zip(xs, ys))
+
+        same = all(torch.equal(a, r) for a, r in zip(leaves, ref_leaves)) and loss == ref_loss
+        worst, d_params = rel(mu, ref.state.mu), rel(leaves, ref_leaves)
+        d_loss = abs(loss - ref_loss) / abs(ref_loss)
+        if (world == 1 and not same) or worst > SHARD_RTOL or d_loss > SHARD_RTOL:
+            raise AssertionError(f"[shard] {tag} step differs from Trainer.step: gradients "
+                                 f"{worst:.3e}, loss {d_loss:.3e}, bitwise {same}")
+        return ("bitwise" if same else
+                f"clipped mean gradients within {worst:.2e} of each leaf's max, loss within "
+                f"{d_loss:.2e}, parameters after Adam's first step within {d_params:.2e}")
+
+    dp = Trainer(params, tcfg_model, tcfg, ensemble=True)
+    step = make_sharded_train_step(dp, mesh)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    loss = float(step(b).mean())
+    torch.cuda.synchronize()
+    paths["shard_train"] = launch_counts()
+    dp_same = agree("data-parallel", tree_leaves(dp.params()), dp.state.mu, loss)
+    dt = _timed_world(lambda seed: step(b))
+    rates["shard_train"] = TRAIN_FRAMES / dt
+    lines.append(f"[shard] data-parallel train step, 3 members x {TRAIN_FRAMES} frames over "
+                 f"{world} rank(s): vs Trainer.step {dp_same}; "
+                 f"{rates['shard_train']:.2f} structures/s ({smi})")
+    if ens_mesh.coords is not None:
+        es = Trainer(shard_chain_states(params, ens_mesh, "ensemble"), tcfg_model, tcfg,
+                     ensemble=True)
+        losses = make_ensemble_sharded_train_step(es, ens_mesh, "ensemble")(b)
+        es_same = agree("ensemble-sharded",
+                        tree_leaves(gather_chain_states(es.params(), ens_mesh, "ensemble")),
+                        gather_chain_states(es.state.mu, ens_mesh, "ensemble"),
+                        float(losses.mean()))
+        lines.append(f"[shard] ensemble-sharded train step over "
+                     f"{ens_mesh.axis_size('ensemble')} rank(s): vs Trainer.step {es_same}")
+    if rank == 0:
+        (Path(workdir) / "shard.json").write_text(json.dumps(
+            {"world": world, "lines": lines, "rates": rates, "paths": paths}))
+
+
+def shard_phase(dev, smi: str) -> dict:
+    """47. [shard]: NCCL over every card of the machine (at most
+    SHARD_MAX_WORLD), one spawned rank a card meeting through a FileStore
+    in a temporary directory (_shard_rank); then the fine-tuning CLI with
+    --mesh 1, which makes its own world of one on this process's card.
+    Returns the launch counts of the sharded paths (rank 0's)."""
+    import tempfile
+    from pathlib import Path
+
+    from surface_sampling_tpu_torch.cli import finetune
+    from surface_sampling_tpu_torch.parallel import spawn_ranks
+
+    world = min(torch.cuda.device_count(), SHARD_MAX_WORLD)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn_ranks(_shard_rank, world, "cuda", args=(tmp, smi))
+        res = json.loads((Path(tmp) / "shard.json").read_text())
+        for line in res["lines"]:
+            print(line)
+        claim = ("" if world > 1 else
+                 "; world 1: sharding correctness only, no multi-GPU rate is claimed")
+        print(f"[shard] world={world} ({time.perf_counter() - t0:.1f}s with start-up){claim}")
+
+        _, _, frames, labels, _ = train_setup(dev)
+        recs = [{"numbers": s.numbers.tolist(), "positions": s.positions.tolist(),
+                 "cell": s.cell.tolist(), "energy": float(e), "forces": f.tolist()}
+                for s, e, f in zip(frames, labels[0], labels[1])]
+        (Path(tmp) / "frames.json").write_text(json.dumps(recs))
+        from surface_sampling_tpu_torch.systems import MODEL_DATA
+
+        finetune.main(["--data", str(Path(tmp) / "frames.json"), "--init",
+                       str(MODEL_DATA / "srtio3_painn_01.npz"), "--out", str(Path(tmp) / "out"),
+                       "--epochs", "2", "--batch-size", "4", "--mesh", "1"])
+        metrics = json.loads((Path(tmp) / "out" / "metrics.json").read_text())
+        import torch.distributed as dist
+
+        if dist.is_initialized() or not np.isfinite(metrics["final_train_loss"]):
+            raise AssertionError(f"finetune --mesh 1: {metrics}, world left open: "
+                                 f"{dist.is_initialized()}")
+        print(f"[shard] finetune --mesh 1 (NCCL world of one, made and ended by the CLI): "
+              f"final train loss {metrics['final_train_loss']:.6e} on {metrics['device']}")
+    return res["paths"]
+
+
+def _image_painn(sys_, relax=None):
+    """The flagship ensemble of ``sys_`` with its edges found by image
+    search on every call (make_painn_potential without a static table),
+    wrapped in an MCMCRun with the system's surface energy."""
+    from surface_sampling_tpu_torch.core.engine import MCMCRun
+    from surface_sampling_tpu_torch.models.nn_calculator import make_painn_potential
+    from surface_sampling_tpu_torch.systems import SYSTEMS_DATA
+
+    pot = sys_.potential
+    stoidict = json.loads((SYSTEMS_DATA / "srtio3_offset_data.json").read_text())["stoidict"]
+    image = make_painn_potential(pot.params, pot.cfg, pot.znums.tolist(), units="kcal/mol",
+                                 stoidict=stoidict)
+    return MCMCRun(sys_.spec, image, surface_energy_fn=sys_.run.surface_energy_fn,
+                   device=pot.params["atom_embed"].device, relax=relax)
+
+
+def _image_mc(tag: str, run, n_chains: int, sweeps: int, sweep_size: int, repeat: bool) -> dict:
+    """An MC run of ``run`` (an MCMCRun) from empty chains: launch counts,
+    finite energies, a bitwise repeat when ``repeat``, evals/s (best of the
+    runs) and peak memory. Returns the launch counts of the first run."""
+    from surface_sampling_tpu_torch.core.engine import EngineConfig, geometric_schedule, make_run_fn
+
+    run_fn = make_run_fn(run.d, run.state_energy_fn,
+                         EngineConfig(sweep_size=sweep_size, record_positions=repeat))
+    temps = geometric_schedule(1.0, sweeps, 0.99)
+    states = run.init_state(n_chains=n_chains)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out_a, rec_a = run_fn(states, temps, _gen(0))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not (torch.isfinite(rec_a.energy).all() and torch.isfinite(out_a.energy).all()):
+        raise AssertionError(f"[{tag}] non-finite energies")
+    same = "not checked"
+    if repeat:
+        t0 = time.perf_counter()
+        out_b, rec_b = run_fn(states, temps, _gen(0))
+        torch.cuda.synchronize()
+        dt = min(dt, time.perf_counter() - t0)
+        same = all(torch.equal(a, b) for a, b in zip(
+            (out_a.site_state, out_a.energy, out_a.relaxed_positions, rec_a.energy,
+             rec_a.positions),
+            (out_b.site_state, out_b.energy, out_b.relaxed_positions, rec_b.energy,
+             rec_b.positions)))
+        if not same:
+            raise AssertionError(f"[{tag}] the run does not repeat bitwise")
+    else:
+        dt = min(dt, _best_of(lambda seed: run_fn(states, temps, _gen(seed))))
+    n_mc = sweeps * sweep_size
+    print(f"[{tag}] chains={n_chains} sweeps={sweeps}x{sweep_size} "
+          f"evals/s={n_chains * n_mc / dt:.2f} step_ms={1e3 * dt / n_mc:.3f} bitwise repeat: "
+          f"{same} accept={float(rec_a.accept_rate.mean()):.4f} "
+          f"best={float(rec_a.energy.min()):.6f} eV peak_mem={peak_gb:.3f} GB "
+          f"launches={json.dumps({k: v for k, v in launches.items() if v})}")
+    return launches
+
+
+def image_edges_phase(dev) -> dict:
+    """48. [image-edges]: the PaiNN and CHGNet potentials built without a
+    static table find their edges by image search on every call. PaiNN
+    SrTiO3 1x1: the pristine anchor, random states against the static-table
+    path (MODE_TOL) and the card against the CPU (1e-3 eV), relaxed MC
+    (rows 2 and 4) bitwise on repeat; CHGNet LaMnO3: the pristine anchor,
+    rigid and 10-step relaxed runs (rows 10 and 12); ensemble_forces_std
+    card vs CPU. Returns the launch counts of the runs."""
+    from surface_sampling_tpu_torch.core.energy import RelaxConfig
+    from surface_sampling_tpu_torch.core.engine import MCMCRun
+    from surface_sampling_tpu_torch.models.ensemble import ensemble_forces_std
+    from surface_sampling_tpu_torch.models.nn_calculator import make_chgnet_potential
+    from surface_sampling_tpu_torch.models.painn import tree_map
+    from surface_sampling_tpu_torch.ops.neighbors import pair_shifts_for
+    from surface_sampling_tpu_torch.systems import lamno3_001_chgnet, srtio3_001_painn
+
+    paths = {}
+    sys1, cpu1 = srtio3_001_painn(device=dev), srtio3_001_painn(device="cpu")
+    image, image_cpu = _image_painn(sys1), _image_painn(cpu1)
+    S = sys1.spec.n_sites
+    e0 = image.state_energy_fn(torch.zeros((1, S), dtype=torch.int64, device=dev))
+    pe, se = float(e0.potential_energy[0]), float(e0.surface_energy[0])
+    ss = _states(sys1.spec, IMAGE_CPU_STATES, np.random.default_rng(1), "cpu")
+    e_img = image.state_energy_fn(ss.to(dev)).surface_energy.cpu()
+    e_tab = sys1.run.state_energy_fn(ss.to(dev)).surface_energy.cpu()
+    e_cpu = image_cpu.state_energy_fn(ss).surface_energy
+    d_tab, d_cpu = float((e_img - e_tab).abs().max()), float((e_img - e_cpu).abs().max())
+    print(f"[image-edges] PaiNN 1x1 by image search: pristine potential {pe:.6f} eV surface "
+          f"{se:.6f} eV; {IMAGE_CPU_STATES} random states vs the static table max "
+          f"{d_tab:.3e} eV (tol {MODE_TOL}), card vs CPU max {d_cpu:.3e} eV (tol 1e-3)")
+    if not (abs(pe + 467.52) < 0.05 and abs(se - 12.49) < 0.02 and d_tab <= MODE_TOL
+            and d_cpu <= 1e-3):
+        raise AssertionError(f"[image-edges] PaiNN off: {pe}, {se}, {d_tab}, {d_cpu}")
+    del image, image_cpu
+    relaxed = _image_painn(sys1, RelaxConfig())
+    paths["image_relax_mc"] = _image_mc("image-relax-mc", relaxed, N_CHAINS, RELAX_SWEEPS,
+                                        RELAX_SWEEP_SIZE, repeat=True)
+    if not (paths["image_relax_mc"]["painn_message_fused"]
+            and paths["image_relax_mc"]["painn_message_bwd"]):
+        raise AssertionError("[image-relax-mc] rows 2 and 4 were not launched")
+    del relaxed
+    torch.cuda.empty_cache()
+
+    # ensemble_forces_std: jittered frames of the slab, card vs CPU
+    frames = train_frames(4)
+    cutoff, pot = sys1.potential.cfg.cutoff, sys1.potential
+    sh = [pair_shifts_for(f.cell, f.scaled_positions, cutoff) for f in frames]
+    k = max(len(x) for x in sh)
+    shifts = np.full((len(frames), k, 3), 1e6, np.float32)
+    for i, x in enumerate(sh):
+        shifts[i, :len(x)] = x
+    pos = np.stack([f.positions for f in frames]).astype(np.float32)
+    nums = np.stack([f.numbers for f in frames]).astype(np.int64)
+    args = [torch.as_tensor(x) for x in (pos, nums, nums > 0, shifts)]
+    std = ensemble_forces_std(pot.params, pot.cfg, *(a.to(dev) for a in args)).cpu()
+    std_cpu = ensemble_forces_std(tree_map(lambda x: x.cpu(), pot.params), pot.cfg, *args)
+    d_std = float((std - std_cpu).abs().max())
+    print(f"[image-edges] ensemble_forces_std on {len(frames)} jittered frames: max "
+          f"{float(std.max()):.4f} eV/A, card vs CPU max {d_std:.3e} eV/A (tol 1e-3)")
+    if not d_std <= 1e-3:
+        raise AssertionError(f"[image-edges] ensemble_forces_std card vs CPU {d_std}")
+    del sys1, cpu1
+    torch.cuda.empty_cache()
+
+    # CHGNet on LaMnO3 by image search
+    sys_a = lamno3_001_chgnet(device=dev)
+    cp = sys_a.potential
+    chg = make_chgnet_potential(cp.params, cp.cfg, cp.znums.tolist())
+    run = MCMCRun(sys_a.spec, chg, surface_energy_fn=sys_a.run.surface_energy_fn, device=dev)
+    e0 = run.state_energy_fn(torch.zeros((1, sys_a.spec.n_sites), dtype=torch.int64,
+                                         device=dev))
+    pe = float(e0.potential_energy[0])
+    print(f"[image-edges] CHGNet LaMnO3 by image search: pristine potential {pe:.6f} eV "
+          f"(-405.206 +- 1e-3)")
+    if not abs(pe + 405.206) < 1e-3:
+        raise AssertionError(f"[image-edges] CHGNet pristine off: {pe}")
+    paths["image_chgnet_mc"] = _image_mc("image-chgnet-mc", run, CHG_CHAINS, SWEEPS, SWEEP_SIZE,
+                                         repeat=False)
+    relaxed = MCMCRun(sys_a.spec, chg, surface_energy_fn=sys_a.run.surface_energy_fn,
+                      device=dev, relax=RelaxConfig(steps=CHG_RELAX_STEPS))
+    paths["image_chgnet_relax_mc"] = _image_mc("image-chgnet-relax-mc", relaxed,
+                                               CHG_RELAX_CHAINS, RELAX_SWEEPS,
+                                               RELAX_SWEEP_SIZE, repeat=True)
+    if not (paths["image_chgnet_mc"]["chgnet_conv"]
+            and paths["image_chgnet_relax_mc"]["chgnet_conv_bwd"]):
+        raise AssertionError("[image-edges] rows 10 and 12 were not launched")
+    rows = ("painn_message_fused", "painn_message_bwd", "chgnet_conv", "chgnet_conv_bwd")
+    print(f"[image-edges] launches of rows 2 / 4 / 10 / 12 by path: "
+          f"{json.dumps({p: [c[r] for r in rows] for p, c in paths.items()})}")
+    return paths
+
+
+def _random_rotation(rng) -> np.ndarray:
+    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+    q = q * np.sign(np.diag(r))
+    return q if np.linalg.det(q) > 0 else -q
+
+
+def mace_phase(dev) -> dict:
+    """49. [mace]: init_mace at the default width, seeded, for each of
+    MACE_CONFIGS on the flagship 1x1 (Sr, Ti, O): card vs CPU energies and
+    forces (1e-3 eV, 1e-3 eV/A), the energy under a random rotation of
+    positions and image shifts (MACE_ROT_TOL), the static table vs image
+    search (MODE_TOL), rigid MC over the table, relaxed MC over the relax
+    table bitwise on repeat with peak memory. Returns the launch counts of
+    the rigid runs (MACE runs no kernel of the port)."""
+    from surface_sampling_tpu_torch.core.energy import RelaxConfig
+    from surface_sampling_tpu_torch.core.engine import MCMCRun
+    from surface_sampling_tpu_torch.core.state import (
+        realize_alive,
+        realize_positions,
+        realize_type_idx,
+    )
+    from surface_sampling_tpu_torch.core.static_neighbors import build_static_neighbor_table
+    from surface_sampling_tpu_torch.models.mace import MACEConfig, init_mace, make_mace_potential
+    from surface_sampling_tpu_torch.models.painn import tree_map
+    from surface_sampling_tpu_torch.systems import srtio3_001_painn
+
+    sys1 = srtio3_001_painn(device=dev)
+    spec, d = sys1.spec, sys1.run.d
+    types = sys1.potential.znums.tolist()
+    relax_nbr = build_static_neighbor_table(spec, 5.0, relax_slack=0.6)
+    ss = _states(spec, IMAGE_CPU_STATES, np.random.default_rng(1), dev)
+    pos, ti, alive = realize_positions(d, ss), realize_type_idx(d, ss), realize_alive(d, ss)
+    rot = torch.as_tensor(_random_rotation(np.random.default_rng(7)), dtype=torch.float32,
+                          device=dev)
+    paths = {}
+    for i, (l_max, eq, mode) in enumerate(MACE_CONFIGS):
+        tag = f"mace-l{l_max}-{'eq' if eq else 'inv'}-{mode}"
+        cfg = MACEConfig(l_max=l_max, equivariant_messages=eq, message_mode=mode)
+        params = init_mace(torch.Generator(device=dev).manual_seed(i), cfg)
+        image = make_mace_potential(params, cfg, types)
+        image_cpu = make_mace_potential(tree_map(lambda x: x.cpu(), params), cfg, types)
+        table = make_mace_potential(params, cfg, types, static_nbr=sys1.static_nbr)
+        e, f = image.energy_and_forces(pos, ti, alive, d.shifts)
+        e_c, f_c = image_cpu.energy_and_forces(pos.cpu(), ti.cpu(), alive.cpu(),
+                                               d.shifts.cpu())
+        d_e, d_f = float((e.cpu() - e_c).abs().max()), float((f.cpu() - f_c).abs().max())
+        e_rot = image.energy(pos @ rot.T, ti, alive, d.shifts @ rot.T)
+        d_rot = float((e_rot - e).abs().max())
+        d_tab = float((table.energy(pos, ti, alive) - e).abs().max())
+        print(f"[{tag}] F={cfg.feat_dim} R={cfg.n_rbf} cutoff={cfg.cutoff} layers="
+              f"{cfg.n_layers} M={cfg.max_neighbors}: energies {e.tolist()} eV; card vs CPU "
+              f"{d_e:.3e} eV / {d_f:.3e} eV/A (tol 1e-3, max|F| {float(f.abs().max()):.3f}); "
+              f"random rotation {d_rot:.3e} eV (tol {MACE_ROT_TOL}); static table vs image "
+              f"search {d_tab:.3e} eV (tol {MODE_TOL})")
+        if not (d_e <= 1e-3 and d_f <= 1e-3 and d_rot <= MACE_ROT_TOL and d_tab <= MODE_TOL):
+            raise AssertionError(f"[{tag}] off: {d_e}, {d_f}, {d_rot}, {d_tab}")
+        del image, image_cpu
+        paths[f"mace_mc_{i}"] = _image_mc(f"{tag}-mc", MCMCRun(spec, table, device=dev),
+                                          N_CHAINS, SWEEPS, SWEEP_SIZE, repeat=False)
+        torch.cuda.empty_cache()
+        relax_pot = make_mace_potential(params, cfg, types, static_nbr=relax_nbr)
+        _image_mc(f"{tag}-relax-mc", MCMCRun(spec, relax_pot, device=dev,
+                                             relax=RelaxConfig(fmax=MACE_FMAX)),
+                  MACE_RELAX_CHAINS, RELAX_SWEEPS, RELAX_SWEEP_SIZE, repeat=True)
+        del table, relax_pot
+        torch.cuda.empty_cache()
+    return {"mace_mc": {k: sum(p[k] for p in paths.values()) for k in launch_counts()}}
+
+
+def slice16_phases(dev, smi: str) -> dict:
+    """Phases 47-49; returns the launch counts of their paths."""
+    paths = shard_phase(dev, smi)
+    torch.cuda.empty_cache()
+    paths.update(image_edges_phase(dev))
+    torch.cuda.empty_cache()
+    paths.update(mace_phase(dev))
+    return paths
+
+
 def entry_registers(log: str) -> dict:
     """ptxas -v's report per entry function: {short name: [registers, spill
     store bytes, spill load bytes]}, the name the mangled one's kernel
@@ -4061,6 +4591,10 @@ def main() -> int:
 
     # the frozen-far-field engine, the dynamic delta, tempering and PA
     engine_paths.update(slice15_phases(dev))
+    torch.cuda.empty_cache()
+
+    # sharding, the image-search edge path, MACE
+    engine_paths.update(slice16_phases(dev, smi))
 
     main_path = {"painn_message_bwd": "relaxed_mc", "painn_message_l1_banded": "sc_mc",
                  "painn_message_fused_banded": "sc_mc", "painn_message_subset": "inc_mc",

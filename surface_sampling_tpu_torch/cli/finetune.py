@@ -6,13 +6,21 @@ family:
 
     python -m surface_sampling_tpu_torch.cli.finetune --data labelled.json \\
         --out run_ft [--init model.npz | --config cfg.json] [--epochs 100] \\
-        [--lr 1e-3] [--ensemble 3] [--device cuda|cpu]
+        [--lr 1e-3] [--ensemble 3] [--mesh N] [--device cuda|cpu]
 
 Outputs in --out: ``model.npz`` (or ``model_01..K.npz`` with --ensemble K;
 the checkpoint layout both packages load), ``history.csv`` (per-epoch
 train loss), ``metrics.json`` (final train / val / test losses and the
 training time) and ``settings.json`` (the arguments). ``--device``
 defaults to the card; ``cpu`` runs the plain PyTorch path.
+
+``--mesh N`` runs the data-parallel sharded train step
+(``parallel/training.py``) over a world of N ranks, one card each: launch
+it under ``torchrun --nproc-per-node N`` (N must equal the world size;
+rank 0 writes the outputs). ``--mesh 1`` without a launcher makes a world
+of one itself (NCCL on the card, gloo with ``--device cpu``) and ends it
+at the close. Every batch's frame count must divide N: a ragged tail batch
+is dropped, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,10 +28,14 @@ from __future__ import annotations
 import argparse
 import csv
 import json
+import os
+import shutil
+import tempfile
 import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from surface_sampling_tpu_torch.device import resolve_device
 from surface_sampling_tpu_torch.models.dataset import get_train_val_test_loader
@@ -45,11 +57,13 @@ from surface_sampling_tpu_torch.models.weights import (
     save_painn_npz,
 )
 
+from surface_sampling_tpu_torch.parallel.mesh import chain_mesh
+from surface_sampling_tpu_torch.parallel.training import train_sharded
+
 # where the families the JAX CLI also trains wait in ROADMAP.md
 NOT_PORTED = {
-    "chgnet": "CHGNet training waits on the full image-search edge path of the port's "
-              "CHGNet (ROADMAP.md, Queue 1 item 6)",
-    "mace": "MACE is not ported (ROADMAP.md, Queue 1 item 6)",
+    "chgnet": "CHGNet training comes with the next slice of the port (ROADMAP.md, Queue 1)",
+    "mace": "MACE training comes with the next slice of the port (ROADMAP.md, Queue 1)",
 }
 
 
@@ -83,20 +97,60 @@ def main(argv=None) -> None:
     ap.add_argument("--ensemble", type=int, default=1,
                     help="train K independently initialised members")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="data-parallel devices (not ported: must stay 0)")
+                    help="data-parallel ranks (one card each; N > 1 under torchrun)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     if args.family != "painn":
         raise SystemExit(f"--family {args.family}: {NOT_PORTED[args.family]}")
-    if args.mesh > 0:
-        raise SystemExit("--mesh: data-parallel training waits on the port of "
-                         "parallel/training.py (ROADMAP.md, Queue 1 item 5)")
     if args.epochs < 1:
         raise SystemExit("--epochs must be >= 1")
-    device = resolve_device(args.device)
     ensemble = args.ensemble > 1
+    if args.mesh > 0 and ensemble:
+        raise SystemExit("--mesh currently shards the data axis; drop --ensemble or --mesh")
+    device = resolve_device(args.device)
+    made = _join_world(args.mesh, device) if args.mesh > 0 else None
+    try:
+        _run(args, device, ensemble)
+    finally:
+        if made is not None:
+            dist.destroy_process_group()
+        if made:
+            shutil.rmtree(made, ignore_errors=True)
+
+
+def _join_world(n: int, device: torch.device) -> str | None:
+    """The world of ``--mesh n``: the caller's, if one is initialised; else
+    the launcher's (torchrun's environment) or, for n = 1 without a
+    launcher, a world of one over a FileStore in a temporary directory,
+    both initialised here (NCCL on the card, gloo on the CPU). Returns the
+    directory to remove ("" for the launcher's world) when the world was
+    made here and must be ended, else None."""
+    if dist.is_initialized():
+        world, made = dist.get_world_size(), None
+    elif "WORLD_SIZE" in os.environ:
+        world, made = int(os.environ["WORLD_SIZE"]), ""
+    elif n == 1:
+        world, made = 1, tempfile.mkdtemp(prefix="finetune_world_")
+    else:
+        raise SystemExit(f"--mesh {n} needs a world of {n} ranks: launch with "
+                         f"torchrun --nproc-per-node {n}")
+    if world != n:
+        raise SystemExit(f"--mesh {n} but the launcher started {world} ranks")
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if made == "":
+        dist.init_process_group(backend)
+    elif made is not None:
+        dist.init_process_group(backend, store=dist.FileStore(os.path.join(made, "store"), 1),
+                                rank=0, world_size=1)
+    return made
+
+
+def _run(args, device: torch.device, ensemble: bool) -> None:
+    mesh = chain_mesh(args.mesh, device=device) if args.mesh > 0 else None
+    if mesh is not None:
+        device = mesh.device
     if args.init:
         if ensemble:
             raise SystemExit("--ensemble trains fresh members; it cannot combine with "
@@ -121,15 +175,30 @@ def main(argv=None) -> None:
     if not train:
         raise SystemExit(f"no training frames found in {args.data}")
 
+    writer = mesh is None or dist.get_rank() == 0
     out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "settings.json").write_text(json.dumps(vars(args), indent=2, default=str))
+    if writer:
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "settings.json").write_text(json.dumps(vars(args), indent=2, default=str))
 
     t0 = time.perf_counter()
-    params, history = train_painn(params, cfg, train, tcfg, ensemble=ensemble)
+    if mesh is not None:
+        full = [b for b in train if len(b.positions) % args.mesh == 0]
+        if len(full) < len(train) and writer:
+            dropped = sum(len(b.positions) for b in train) - sum(len(b.positions) for b in full)
+            print(f"--mesh {args.mesh}: dropping the ragged tail batch ({dropped} frames; "
+                  f"sizes must divide the mesh: pick --batch-size as a multiple of {args.mesh})")
+        if not full:
+            raise SystemExit(f"--mesh {args.mesh} left no full batches; lower --mesh or "
+                             f"raise the frame count / --batch-size")
+        params, history = train_sharded(params, cfg, full, tcfg, mesh)
+    else:
+        params, history = train_painn(params, cfg, train, tcfg, ensemble=ensemble)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
+    if not writer:
+        return
 
     loss_fn = make_loss_fn(cfg, tcfg)
     stacked = params if ensemble else stack_members([params])

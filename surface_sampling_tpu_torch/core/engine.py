@@ -27,6 +27,8 @@ from surface_sampling_tpu_torch.core.energy import (
     make_state_energy_fn,
 )
 from surface_sampling_tpu_torch.core.events import (
+    ChainBlock,
+    block_draws,
     canonical_draws,
     make_canonical_step,
     make_canonical_step_mtm,
@@ -83,17 +85,21 @@ def make_generator(seed: int, device) -> torch.Generator:
 
 
 def run_sweeps(step_fn: Callable, state, temps, generator: torch.Generator, sweep_size: int,
-               n_sites: int, n_codes: int, record: Callable, draws: Callable = semigrand_draws):
+               n_sites: int, n_codes: int, record: Callable, draws: Callable = semigrand_draws,
+               chain_block: ChainBlock | None = None):
     """The sweep loop of a run: ``temps`` (sweeps,) or (C, sweeps); every
     step takes ``draws(gen, C, n_sites, n_codes)`` (per chain: a site, a
     code and an acceptance uniform by default) and calls ``step_fn(state,
     temp, *draws) -> (state, StepInfo)``. The draws come from ``generator``
-    (on the state's device), which advances in place. After each sweep ``record(state,
-    accept_rate, oob_rate)`` gives that sweep's record, a tuple of (C, ...)
-    tensors. Returns the final state and the records stacked along a sweep
-    axis 1."""
+    (on the state's device), which advances in place. With ``chain_block``
+    the state holds rows ``lo:hi`` of a global batch, and each step takes
+    those rows of the global batch's draws (:func:`block_draws`). After each
+    sweep ``record(state, accept_rate, oob_rate)`` gives that sweep's
+    record, a tuple of (C, ...) tensors. Returns the final state and the
+    records stacked along a sweep axis 1."""
     dev = state.site_state.device
     C = state.site_state.shape[0]
+    draws = block_draws(draws, chain_block)
     temps = torch.as_tensor(temps, dtype=torch.float32, device=dev)
     recs = []
     for t in range(temps.shape[-1]):
@@ -143,7 +149,9 @@ def make_run_fn(d, state_energy_fn: Callable, cfg: EngineConfig, potential=None,
     schedule all chains share or (C, sweeps) for one per chain. The draws
     come from ``generator`` (a ``torch.Generator`` on the state's device,
     see :func:`make_generator`), continued in place: pass the same one to
-    the next chunk of a run.
+    the next chunk of a run. ``chain_block`` (a :class:`ChainBlock`) runs
+    the chains of one block of a global batch on the global batch's draws
+    (:func:`run_sweeps`).
 
     ``cfg.mtm_trials`` > 1 runs multiple-try Metropolis steps of that many
     trials (``core.events.make_semigrand_step_mtm`` /
@@ -172,9 +180,10 @@ def make_run_fn(d, state_energy_fn: Callable, cfg: EngineConfig, potential=None,
     n_sites = d.site_coords.shape[0]
     record = make_sweep_record(cfg.record_positions)
 
-    def run(state: MCState, temps, generator: torch.Generator):
+    def run(state: MCState, temps, generator: torch.Generator,
+            chain_block: ChainBlock | None = None):
         return run_sweeps(step_fn, state, temps, generator, cfg.sweep_size, n_sites, d.n_codes,
-                          record, draws)
+                          record, draws, chain_block)
 
     return run
 
@@ -200,19 +209,32 @@ def prepare_canonical_fn(d, state_energy_fn: Callable, num_ads_atoms: int, cfg: 
     codes). Canonical exchanges conserve the code multiset, so in a
     multi-species vocabulary a force-filled start fixes the composition
     for the whole run.
+
+    ``prepare(..., chain_block, group)`` prepares rows ``lo:hi`` of a global
+    batch on the global batch's draws (:func:`block_draws`). The loop runs
+    until every chain of the global batch is full, which a block learns
+    from ``group``, the process group of the blocks (one all-reduce a
+    step); without it a block stops when its own chains are full, and its
+    generator then falls behind the unsharded run's.
     """
     step_fn = _semigrand_step(d, state_energy_fn, cfg)
     n_sites = d.site_coords.shape[0]
     n_codes = d.n_codes
 
-    def prepare(state: MCState, temp, generator: torch.Generator) -> MCState:
+    def prepare(state: MCState, temp, generator: torch.Generator,
+                chain_block: ChainBlock | None = None, group=None) -> MCState:
         C = state.site_state.shape[0]
+        draws = block_draws(semigrand_draws, chain_block)
         it = 0
         while True:
             active = num_occupied_sites(state.site_state) < num_ads_atoms
-            if not bool(active.any()) or (max_steps is not None and it >= max_steps):
+            any_active = active.any().to(torch.int32)
+            if group is not None:
+                torch.distributed.all_reduce(any_active, torch.distributed.ReduceOp.MAX,
+                                             group=group)
+            if not bool(any_active) or (max_steps is not None and it >= max_steps):
                 break
-            new, _ = step_fn(state, temp, *semigrand_draws(generator, C, n_sites, n_codes))
+            new, _ = step_fn(state, temp, *draws(generator, C, n_sites, n_codes))
             state = _select_chains(active, new, state)
             it += 1
         if not force_fill:
@@ -223,8 +245,11 @@ def prepare_canonical_fn(d, state_energy_fn: Callable, num_ads_atoms: int, cfg: 
         # rank empty sites first (stable by index), occupy the first `missing`
         order = torch.argsort(torch.where(ss == 0, ar, n_sites + ar), dim=1)
         take = ar < missing[:, None]
-        codes = torch.randint(1, n_codes, (C, n_sites), generator=generator,
+        n_global = C if chain_block is None else chain_block.n_global
+        codes = torch.randint(1, n_codes, (n_global, n_sites), generator=generator,
                               device=generator.device)
+        if chain_block is not None:
+            codes = codes[chain_block.lo:chain_block.hi]
         filled = torch.where(take, codes, torch.gather(ss, 1, order))
         return state._replace(site_state=ss.scatter(1, order, filled))
 

@@ -183,6 +183,36 @@ def propose_change(site_state: torch.Tensor, site: torch.Tensor,
     return change_site(site_state, site, end)
 
 
+class ChainBlock(NamedTuple):
+    """Rows ``lo:hi`` of a global batch of ``n_global`` chains: the chains
+    one rank of a sharded run holds (``parallel/chains.py``)."""
+
+    lo: int
+    hi: int
+    n_global: int
+
+
+def block_draws(draws: Callable, block: ChainBlock | None) -> Callable:
+    """``draws`` for the chains of ``block``: the draws of the whole global
+    batch, of which the block's rows are kept (nested tuples, as the
+    multiple-try draws, row by row). A sharded run then takes, chain for
+    chain, the draws of the unsharded run on the same generator, whatever
+    the number of blocks; the draws are a few numbers per chain a step, so
+    drawing the global batch on every rank costs little."""
+    if block is None:
+        return draws
+
+    def take(x):
+        return tuple(take(y) for y in x) if isinstance(x, tuple) else x[block.lo:block.hi]
+
+    def blocked(gen: torch.Generator, C: int, n_sites: int, n_codes: int):
+        if C != block.hi - block.lo:
+            raise ValueError(f"the state holds {C} chains, the block {block.lo}:{block.hi}")
+        return take(draws(gen, block.n_global, n_sites, n_codes))
+
+    return blocked
+
+
 def semigrand_draws(gen: torch.Generator, C: int, n_sites: int, n_codes: int):
     """One semigrand step's draws per chain: a site, a code and an
     acceptance uniform."""

@@ -517,16 +517,16 @@ def make_ff_canonical_step(evaluate: Callable, criterion: str = "metropolis",
 
 def make_ff_run(step_fn: Callable, sweep_size: int, n_sites: int, n_codes: int,
                 canonical: bool = False, record_positions: bool = True) -> Callable:
-    """``run(state, temps, generator) -> (state, SweepRecord)`` over FF
-    steps, with the draws and record schema of ``core.engine.make_run_fn``
+    """``run(state, temps, generator, chain_block=None) -> (state,
+    SweepRecord)`` over FF steps, with the draws and record schema of ``core.engine.make_run_fn``
     (``canonical`` for an exchange step's draws; the generator is
     continued in place; the caches ride the state)."""
     record = make_sweep_record(record_positions)
     draws = canonical_draws if canonical else semigrand_draws
 
-    def run(state: FFState, temps, generator: torch.Generator):
+    def run(state: FFState, temps, generator: torch.Generator, chain_block=None):
         return run_sweeps(step_fn, state, temps, generator, sweep_size, n_sites, n_codes, record,
-                          draws)
+                          draws, chain_block)
 
     return run
 
@@ -542,11 +542,11 @@ def make_ff_run_mcstate(evaluate: Callable, step_fn: Callable, sweep_size: int, 
     bitwise."""
     inner = make_ff_run(step_fn, sweep_size, n_sites, n_codes, canonical, record_positions)
 
-    def run(state: MCState, temps, generator: torch.Generator):
+    def run(state: MCState, temps, generator: torch.Generator, chain_block=None):
         _, (cs, cv) = evaluate.finish(state.relaxed_positions, state.site_state)
         ff = FFState(site_state=state.site_state, energy=state.energy,
                      relaxed_positions=state.relaxed_positions, cache_s=cs, cache_v=cv)
-        out, rec = inner(ff, temps, generator)
+        out, rec = inner(ff, temps, generator, chain_block)
         return MCState(site_state=out.site_state, energy=out.energy,
                        relaxed_positions=out.relaxed_positions), rec
 

@@ -452,8 +452,8 @@ class IncSweepRecord(NamedTuple):
 
 def make_incremental_run(step_fn: Callable, sweep_size: int, n_sites: int, n_codes: int,
                          canonical: bool = False) -> Callable:
-    """``run(state, temps, generator) -> (state, IncSweepRecord)`` over
-    incremental steps, with the draws of ``core.engine.make_run_fn`` (the
+    """``run(state, temps, generator, chain_block=None) -> (state,
+    IncSweepRecord)`` over incremental steps, with the draws of ``core.engine.make_run_fn`` (the
     same generator state gives the same draws; ``canonical`` for an
     exchange step's; the generator is continued in place)."""
     draws = canonical_draws if canonical else semigrand_draws
@@ -463,8 +463,8 @@ def make_incremental_run(step_fn: Callable, sweep_size: int, n_sites: int, n_cod
                               n_ads=num_occupied_sites(state.site_state),
                               site_state=state.site_state, oob_rate=oob_rate)
 
-    def run(state: IncState, temps, generator: torch.Generator):
+    def run(state: IncState, temps, generator: torch.Generator, chain_block=None):
         return run_sweeps(step_fn, state, temps, generator, sweep_size, n_sites, n_codes, record,
-                          draws)
+                          draws, chain_block)
 
     return run

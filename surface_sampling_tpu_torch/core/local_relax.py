@@ -187,16 +187,16 @@ def make_local_relax_canonical_step(evaluate: Callable, criterion: str = "metrop
 
 def make_local_relax_run(step_fn: Callable, sweep_size: int, n_sites: int, n_codes: int,
                          canonical: bool = False) -> Callable:
-    """``run(state, temps, generator) -> (state, SweepRecord)`` over
-    local-relax steps, with the draws and the record of
+    """``run(state, temps, generator, chain_block=None) -> (state,
+    SweepRecord)`` over local-relax steps, with the draws and the record of
     ``core.engine.make_run_fn`` (the same generator state gives the same
     draws; ``canonical`` for an exchange step's; the relaxed positions,
     which are this engine's state, are recorded)."""
     record = make_sweep_record()
     draws = canonical_draws if canonical else semigrand_draws
 
-    def run(state: MCState, temps, generator: torch.Generator):
+    def run(state: MCState, temps, generator: torch.Generator, chain_block=None):
         return run_sweeps(step_fn, state, temps, generator, sweep_size, n_sites, n_codes, record,
-                          draws)
+                          draws, chain_block)
 
     return run

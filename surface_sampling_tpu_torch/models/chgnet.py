@@ -153,6 +153,68 @@ def _bond_angle_preactivations(bc: dict, al: dict, atom, bond_feat, angle_feat, 
 
 
 # ----------------------------------------------------------------------
+# parameter initialisation (training from scratch and tests; checkpoints
+# override it)
+# ----------------------------------------------------------------------
+def _init_linear(gen: torch.Generator, n_in: int, n_out: int, bias: bool = True) -> dict:
+    s = 1.0 / math.sqrt(n_in)
+    p = {"w": (torch.rand((n_in, n_out), generator=gen, device=gen.device) * 2.0 - 1.0) * s}
+    if bias:
+        p["b"] = torch.zeros(n_out, device=gen.device)
+    return p
+
+
+def _init_norm(dim: int, device) -> dict:
+    return {"g": torch.ones(dim, device=device), "b": torch.zeros(dim, device=device)}
+
+
+def _init_gated(gen: torch.Generator, n_in: int, dim: int, single: bool = False) -> dict:
+    p = {"core0": _init_linear(gen, n_in, dim)}
+    if not single:
+        p["core1"] = _init_linear(gen, dim, dim)
+    p["gate0"] = _init_linear(gen, n_in, dim)
+    if not single:
+        p["gate1"] = _init_linear(gen, dim, dim)
+    p["ln_core"] = _init_norm(dim, gen.device)
+    p["ln_gate"] = _init_norm(dim, gen.device)
+    return p
+
+
+def init_chgnet(generator: torch.Generator, cfg: CHGNetConfig) -> dict:
+    """One model's parameters drawn from ``generator`` on its device with
+    the JAX package's tree, shapes and laws (``init_chgnet``): atom
+    embeddings N(0, 0.1^2), linear weights U(-1/sqrt(n_in), 1/sqrt(n_in)),
+    zero biases and composition, unit LayerNorm gains, radial frequencies
+    n pi and angle frequencies n. The values differ from JAX's (another
+    generator)."""
+    gen, dev = generator, generator.device
+    F, R = cfg.atom_fea_dim, cfg.num_radial
+    order = (cfg.num_angular - 1) // 2
+    hid = cfg.mlp_hidden_dims
+    params = {
+        "composition": torch.zeros(cfg.max_z, device=dev),
+        "atom_embedding": torch.randn((cfg.max_z, F), generator=gen, device=dev) * 0.1,
+        "rbf_freq_ag": torch.arange(1, R + 1, dtype=torch.float32, device=dev) * math.pi,
+        "rbf_freq_bg": torch.arange(1, R + 1, dtype=torch.float32, device=dev) * math.pi,
+        "angle_freq": torch.arange(1, order + 1, dtype=torch.float32, device=dev),
+        "bond_embedding": _init_linear(gen, R, F, bias=False),
+        "bond_weights_ag": _init_linear(gen, R, F, bias=False),
+        "bond_weights_bg": _init_linear(gen, R, F, bias=False),
+        "angle_embedding": _init_linear(gen, cfg.num_angular, F, bias=False),
+        "atom_convs": [{"gmlp": _init_gated(gen, 3 * F, F), "out": _init_linear(gen, F, F, False)}
+                       for _ in range(cfg.n_conv)],
+        "bond_convs": [{"gmlp": _init_gated(gen, 4 * F, F), "out": _init_linear(gen, F, F, False)}
+                       for _ in range(cfg.n_conv - 1)],
+        "angle_layers": [_init_gated(gen, 4 * F, F, single=True) for _ in range(cfg.n_conv - 1)],
+        "site_wise": _init_linear(gen, F, 1),
+        "readout_norm": _init_norm(F, dev),
+        "mlp": [_init_linear(gen, F, hid[0]), _init_linear(gen, hid[0], hid[1]),
+                _init_linear(gen, hid[1], hid[2]), _init_linear(gen, hid[2], 1)],
+    }
+    return params
+
+
+# ----------------------------------------------------------------------
 # forward
 # ----------------------------------------------------------------------
 def bond_graph(cfg: CHGNetConfig, disp, r, mask):

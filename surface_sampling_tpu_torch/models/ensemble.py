@@ -15,8 +15,16 @@ from surface_sampling_tpu_torch.models.painn import (
     painn_apply,
     painn_apply_rigid,
     prepare_message_geometry,
+    stack_members,
+    tree_map,
 )
-from surface_sampling_tpu_torch.ops.neighbors import Edges
+from surface_sampling_tpu_torch.ops.neighbors import Edges, image_search_edges
+
+
+def stack_params(params_list) -> dict:
+    """Stack per-member parameter trees along a new leading ensemble axis
+    (the JAX package's ``stack_params``)."""
+    return stack_members(list(params_list))
 
 
 def _stats(out: dict) -> dict:
@@ -61,3 +69,30 @@ def ensemble_apply(params: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
         msg_geom = prepare_message_geometry(cfg, edges, band)
     return _stats(painn_apply(params, cfg, numbers, alive, msg_geom, edges, band,
                               collect_layers))
+
+
+def ensemble_forces_std(stacked_params: dict, cfg: PaiNNConfig, positions: torch.Tensor,
+                        numbers: torch.Tensor, alive: torch.Tensor,
+                        shifts: torch.Tensor) -> torch.Tensor:
+    """Per-atom std over the members of their forces (the uncertainty of
+    the reference's clustering ``force_std``): (C, N, 3), zero on dead
+    atoms, for a (C, N) batch of structures with image shifts (K, 3) or
+    (C, K, 3). The edges come from one image search; each member's forces
+    come from its own backward pass (the message kernels sum the edge
+    cotangents over members, so one pass cannot separate them), through the
+    message backward kernel. The std is the population std, as
+    ``jnp.std``."""
+    K = stacked_params["atom_embed"].shape[0]
+    forces = []
+    with torch.enable_grad():
+        pos = positions.detach().requires_grad_(True)
+        edges = image_search_edges(pos, alive, shifts, cfg.cutoff, cfg.max_neighbors)
+        msg_geom = prepare_message_geometry(cfg, edges)
+        for k in range(K):
+            p_k = tree_map(lambda x, k=k: x[k:k + 1], stacked_params)
+            e = painn_apply(p_k, cfg, numbers, alive, msg_geom, edges)["energy"]
+            # the edge geometry's graph serves every member's pass
+            (g,) = torch.autograd.grad(e.sum(), pos, retain_graph=k < K - 1)
+            forces.append(-g)
+    std = torch.stack(forces).std(dim=0, unbiased=False)
+    return torch.where(alive[..., None], std, torch.zeros_like(std))

@@ -27,6 +27,7 @@ import torch
 
 from surface_sampling_tpu_torch.models.painn import (
     PaiNNConfig,
+    init_ensemble,
     painn_apply,
     stack_members,
     structure_edges,
@@ -191,14 +192,25 @@ class Trainer:
         self.state = _AdamState(0, [torch.zeros_like(p) for p in self.leaves],
                                 [torch.zeros_like(p) for p in self.leaves])
 
+    def gradients(self, batch: PaddedBatch) -> tuple[torch.Tensor, list]:
+        """The (K,) member losses on a device batch and the gradient of each
+        parameter leaf (in ``self.leaves``' order), before any update."""
+        losses = self.loss_fn(self.stacked, batch)
+        grads = torch.autograd.grad(losses.sum(), self.leaves)
+        return losses.detach(), list(grads)
+
+    def apply(self, grads) -> None:
+        """One clipped Adam step from gradients of :meth:`gradients`' form
+        (a data-parallel step averages them over ranks first)."""
+        self.state = _clip_adam_update(self.leaves, grads, self.state, self.tcfg,
+                                       self.leaves[0].shape[0])
+
     def step(self, batch: PaddedBatch) -> float:
         """One clipped Adam step on a device batch; returns the member-mean
         loss before the step."""
-        losses = self.loss_fn(self.stacked, batch)
-        grads = torch.autograd.grad(losses.sum(), self.leaves)
-        self.state = _clip_adam_update(self.leaves, grads, self.state, self.tcfg,
-                                       len(losses))
-        return float(losses.detach().mean())
+        losses, grads = self.gradients(batch)
+        self.apply(grads)
+        return float(losses.mean())
 
     def params(self) -> dict:
         """A copy of the current parameters, in the form they were given."""
@@ -219,5 +231,10 @@ def train_painn(params: dict, cfg: PaiNNConfig, batches, tcfg: TrainConfig = Tra
     return trainer.params(), history
 
 
-# family-agnostic alias, as in the JAX package (PaiNN is the only family here)
+# family-agnostic alias, as in the JAX package (PaiNN is the only family
+# trained here); ``init_ensemble`` (models/painn.py) is the JAX package's
+# ``models.train.init_ensemble``
 train_model = train_painn
+
+__all__ = ["PaddedBatch", "TrainConfig", "Trainer", "batch_to_device", "init_ensemble",
+           "make_loss_fn", "pad_structures", "train_model", "train_painn"]

@@ -1,6 +1,6 @@
 """Model weights: the npz checkpoints and the JAX package's parameter trees
 as trees of torch tensors (PaiNN ensembles with a leading member axis, the
-CHGNet model without one).
+CHGNet and MACE models without one).
 
 A checkpoint npz holds flat keys
 ``message.{l}.{dist_embed,inv_dense0,inv_dense1}.{w,b}``,
@@ -124,7 +124,17 @@ def load_chgnet_npz(path) -> tuple[dict, CHGNetConfig]:
 
 def from_jax_params(tree, device) -> dict:
     """A JAX parameter tree (leaves converted to numpy arrays: a stacked
-    PaiNN ensemble with its leading member axis, or one CHGNet model) as f32
-    tensors on ``device``."""
+    PaiNN ensemble with its leading member axis, or one CHGNet or MACE
+    model, whose trees hold dicts and lists of layers) as f32 tensors on
+    ``device``, in the same structure."""
     return tree_map(
         lambda x: torch.as_tensor(np.array(x, np.float32), device=device), tree)
+
+
+def load_mace_npz(path):
+    """A MACE checkpoint in the JAX package's flat npz scheme (written by
+    either package's ``save_mace_npz``) as a tree of numpy arrays plus its
+    ``MACEConfig`` (``models.mace.load_mace_npz``)."""
+    from surface_sampling_tpu_torch.models.mace import load_mace_npz as load
+
+    return load(path)

@@ -269,20 +269,23 @@ def select_edge_topology(positions, alive, table: CandidateTable,
 
 
 class _GatherRows(torch.autograd.Function):
-    """positions[c, nbr_j[c]] whose backward sums each slot's incoming
-    edges through the reverse table: a gather and a sum over a fixed axis,
-    with no float atomics. Unselected edges are left out, which is exact
-    as long as their cotangent is 0 (the edge builders mask them). Twice
-    differentiable: the backward is ``_SumIncoming``, whose own backward is
-    this gather again (the two are adjoint linear maps)."""
+    """rows[c, nbr_j[c]] of (C, n_rows, D) rows (positions, D = 3, or any
+    per-atom features) whose backward sums each slot's incoming edges
+    through the reverse table: a gather and a sum over a fixed axis, with
+    no float atomics. Unselected edges are left out, which is exact as long
+    as their cotangent is 0 (the edge builders mask them; a model masks
+    them before it sums over neighbours). Twice differentiable: the
+    backward is ``_SumIncoming``, whose own backward is this gather again
+    (the two are adjoint linear maps)."""
 
     @staticmethod
     def forward(ctx, positions, nbr_j, rev_edges):
         ctx.save_for_backward(nbr_j, rev_edges)
         ctx.n_rows = positions.shape[1]
         C, N, M = nbr_j.shape
-        flat = nbr_j.reshape(C, N * M, 1).expand(C, N * M, 3)
-        return torch.gather(positions, 1, flat).reshape(C, N, M, 3)
+        D = positions.shape[-1]
+        flat = nbr_j.reshape(C, N * M, 1).expand(C, N * M, D)
+        return torch.gather(positions, 1, flat).reshape(C, N, M, D)
 
     @staticmethod
     def backward(ctx, g):
@@ -291,19 +294,19 @@ class _GatherRows(torch.autograd.Function):
 
 
 class _SumIncoming(torch.autograd.Function):
-    """Per-edge rows g (C, N, M, 3) summed onto their neighbour slots
-    (C, n_rows, 3) through the reverse table, in its fixed order; the
+    """Per-edge rows g (C, N, M, W) summed onto their neighbour slots
+    (C, n_rows, W) through the reverse table, in its fixed order; the
     adjoint of ``_GatherRows`` (edges the table leaves out get zeros)."""
 
     @staticmethod
     def forward(ctx, g, nbr_j, rev_edges, n_rows):
         ctx.save_for_backward(nbr_j, rev_edges)
-        C = g.shape[0]
+        C, W = g.shape[0], g.shape[-1]
         D = rev_edges.shape[-1]
-        gz = torch.cat([g.reshape(C, -1, 3), g.new_zeros((C, 1, 3))], dim=1)
+        gz = torch.cat([g.reshape(C, -1, W), g.new_zeros((C, 1, W))], dim=1)
         idx = rev_edges[:, :n_rows].long()
         idx = torch.where(idx < 0, gz.shape[1] - 1, idx).reshape(C, n_rows * D, 1)
-        return torch.gather(gz, 1, idx.expand(-1, -1, 3)).reshape(C, n_rows, D, 3).sum(2)
+        return torch.gather(gz, 1, idx.expand(-1, -1, W)).reshape(C, n_rows, D, W).sum(2)
 
     @staticmethod
     def backward(ctx, gg):
@@ -391,6 +394,18 @@ def neighbor_list(positions, shifts, alive, cutoff: float, max_neighbors: int) -
     disp, r = _edge_geometry(positions, nbr_j, shift.reshape(C, N, M, 3).to(positions.dtype),
                              mask, rev, cutoff)
     return Edges(disp, r, nbr_j, mask, overflow, rev)
+
+
+def image_search_edges(positions, alive, shifts, cutoff: float, max_neighbors: int) -> Edges:
+    """:func:`neighbor_list` of a (C, N) batch of structures over image
+    ``shifts``: one (K, 3) set for every structure, or (C, K, 3). The edge
+    path of the potentials built without a static candidate table."""
+    if shifts is None:
+        raise ValueError("edges by image search need the image shifts")
+    sh = torch.as_tensor(shifts, dtype=positions.dtype, device=positions.device)
+    if sh.ndim == 2:
+        sh = sh.expand(positions.shape[0], *sh.shape)
+    return neighbor_list(positions, sh, alive, cutoff, max_neighbors)
 
 
 def neighbor_list_from_table(positions, alive, table: CandidateTable,

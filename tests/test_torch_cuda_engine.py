@@ -213,3 +213,66 @@ def test_tempered_run_repeats_bitwise_on_card(cuda_device):
     b = trun(st, temps, make_generator(3, cuda_device))
     assert _bitwise(a, b)
     assert ((a[1].swap_rate >= 0) & (a[1].swap_rate <= 1)).all()
+
+
+def test_mace_forces_repeat_bitwise_on_card(cuda_device):
+    """MACE at the default width (l_max 2, equivariant messages) on four
+    random 40-atom frames: two force evaluations give the same bits (the
+    neighbour gather's backward is a fixed-order sum, not atomics)."""
+    from surface_sampling_tpu_torch.models.mace import MACEConfig, init_mace, mace_apply
+
+    cfg = MACEConfig(equivariant_messages=True)
+    params = init_mace(torch.Generator(device=cuda_device).manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    pos = torch.as_tensor(rng.uniform(0, 9.0, (4, 40, 3)), dtype=torch.float32,
+                          device=cuda_device)
+    nums = torch.as_tensor(rng.integers(1, 30, (4, 40)), device=cuda_device)
+    alive = torch.ones((4, 40), dtype=torch.bool, device=cuda_device)
+    shifts = torch.as_tensor(np.diag([9.0, 9.0, 0.0])[[2, 0, 1]], dtype=torch.float32,
+                             device=cuda_device)
+
+    def forces():
+        p = pos.clone().requires_grad_(True)
+        e = mace_apply(params, cfg, p, nums, alive, shifts)["energy"]
+        return torch.autograd.grad(e.sum(), p)[0]
+
+    f1, f2 = forces(), forces()
+    assert torch.equal(f1, f2) and float(f1.abs().max()) > 0
+
+
+def test_image_search_relaxed_run_repeats_bitwise_on_card(cuda_device):
+    """The flagship ensemble with its edges found by image search
+    (make_painn_potential without a static table): a FIRE-relaxed
+    semigrand run of 8 chains x 2 steps, twice from one seed, bitwise the
+    same."""
+    import json
+
+    from surface_sampling_tpu_torch.core.energy import RelaxConfig
+    from surface_sampling_tpu_torch.core.engine import EngineConfig, MCMCRun
+    from surface_sampling_tpu_torch.models.nn_calculator import make_painn_potential
+    from surface_sampling_tpu_torch.systems import SYSTEMS_DATA
+
+    sys1 = srtio3_001_painn(relax=RelaxConfig(steps=5), device=cuda_device)
+    pot = sys1.potential
+    stoidict = json.loads((SYSTEMS_DATA / "srtio3_offset_data.json").read_text())["stoidict"]
+    image = make_painn_potential(pot.params, pot.cfg, pot.znums.tolist(), units="kcal/mol",
+                                 stoidict=stoidict)
+    run = MCMCRun(sys1.spec, image, surface_energy_fn=sys1.run.surface_energy_fn,
+                  device=cuda_device, relax=RelaxConfig(steps=5))
+    cfg = EngineConfig(sweep_size=2, record_positions=True)
+    a = run.run(make_generator(4, cuda_device), np.array([1.0]), cfg=cfg, n_chains=8)
+    b = run.run(make_generator(4, cuda_device), np.array([1.0]), cfg=cfg, n_chains=8)
+    assert _bitwise(a, b)
+    assert torch.isfinite(a[1].energy).all()
+
+
+def test_world_one_nccl_sharded_run_equals_unsharded(cuda_device, tmp_path):
+    """A world of one rank over NCCL: the sharded Cu(100) run (chain_mesh,
+    shard, run, gather) equals the unsharded run with the same generator,
+    bitwise."""
+    from torch_sharding_ranks import run_nccl_world_one
+
+    from surface_sampling_tpu_torch.parallel import spawn_ranks
+
+    spawn_ranks(run_nccl_world_one, 1, "cuda", args=(str(tmp_path),))
+    assert (tmp_path / "nccl_world_one.ok").read_text() == "bitwise"

@@ -198,7 +198,8 @@ def test_checkpoints_round_trip_both_ways(tmp_path):
 def test_finetune_cli_on_cpu(tmp_path, capsys):
     """The CLI on the CPU: two epochs from a fresh 2-member ensemble and
     from a checkpoint; the four output files, a model that loads back, and
-    the families and options that wait on other ports exit with a message."""
+    the families that wait on the next slice, and --mesh 2 without a world
+    of two ranks, exit with a message."""
     data = _write_datasets(tmp_path)["flat"]
     (tmp_path / "cfg.json").write_text(json.dumps(
         {"feat_dim": 8, "n_rbf": 4, "n_layers": 1, "readout_hidden": 4, "cutoff": 4.0,
@@ -222,9 +223,9 @@ def test_finetune_cli_on_cpu(tmp_path, capsys):
     tree, cfg = load_painn_npz(out1 / "model.npz")
     assert cfg.feat_dim == 8 and set(tree) == {"atom_embed", "message", "update", "readout"}
     assert "Output folder" in capsys.readouterr().out
-    for extra, match in ((["--family", "chgnet"], "Queue 1 item 6"),
-                         (["--family", "mace"], "Queue 1 item 6"),
-                         (["--mesh", "2"], "Queue 1 item 5")):
+    for extra, match in ((["--family", "chgnet"], "next slice"),
+                         (["--family", "mace"], "next slice"),
+                         (["--mesh", "2"], "torchrun --nproc-per-node 2")):
         with pytest.raises(SystemExit, match=match):
             finetune.main(["--data", str(data), "--out", str(tmp_path / "x"), "--device",
                            "cpu", *extra])

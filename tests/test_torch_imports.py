@@ -22,7 +22,8 @@ def test_every_module_imports_with_jax_blocked():
         "import surface_sampling_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "new = {'core.ff_relax', 'parallel.tempering', 'parallel.population'}\n"
+        "new = {'core.ff_relax', 'parallel.tempering', 'parallel.population',"
+        " 'parallel.mesh', 'parallel.training', 'models.mace'}\n"
         "assert new <= {n.split('.', 1)[1] for n in names}, names\n"
         "import chip_smoke\n"
         "leaked = [m for m in sys.modules if m == 'surface_sampling_tpu'"
@@ -45,12 +46,13 @@ def _imports(path: Path):
 
 
 def test_no_import_of_the_jax_package_or_jax():
-    """Neither the port nor the scripts that drive it on the card import the
-    JAX package or JAX."""
+    """Neither the port nor the scripts that drive it on the card (nor the
+    ranks of the sharding tests) import the JAX package or JAX."""
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                            REPO / "tools" / "port_profile.py",
                                            REPO / "tools" / "port_compare.py",
-                                           REPO / "tools" / "delta_bits.py"]
+                                           REPO / "tools" / "delta_bits.py",
+                                           REPO / "tests" / "torch_sharding_ranks.py"]
     assert len(files) >= 20
     for path in files:
         for name in _imports(path):
