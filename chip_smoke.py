@@ -21,8 +21,10 @@ symmetric slabs) and the many-body systems GaN(0001) Tersoff and Si(111)
 dynamic-geometry delta, parallel tempering and population annealing; and
 the chain runs and training sharded over an NCCL world of every card of
 the machine, the PaiNN and CHGNet potentials that find their edges by image
-search, and the MACE family — through their entry points on the card, in
-forty-nine phases, each printing one line or more:
+search, and the MACE family; and force-loss training of CHGNet (with the
+magmom term) and MACE, the fine-tuning CLI for both, and the Pourbaix
+campaign on SrIrO3(001) with surface-atom sampling — through their entry
+points on the card, in fifty-four phases, each printing one line or more:
 
   1. device     card name, count, and nvidia-smi's name and power limit
   2. build      compiles every kernel from csrc/ (nvcc -Xptxas -v, in parallel);
@@ -206,6 +208,26 @@ forty-nine phases, each printing one line or more:
                 energies and forces, a random rotation, static table vs image
                 search, rigid MC at 128 chains x 2 x 8 (evals/s), relaxed MC
                 at 16 chains bitwise on repeat (evals/s, peak memory)
+ 50. chgnet-bwd2 grad-of-grad through the CHGNet atom conv (row 10 forward,
+                row 12 first order, the fixed-order double VJP) on the
+                training frames' atom graph (F = 64, M = 96) against the same
+                with the plain versions on the card, bitwise on repeat
+ 51. chgnet-train the LaMnO3 checkpoint at full width on 16 jittered frames
+                labelled by itself, from its perturbed parameters, magmom
+                term on: card vs CPU on 2 frames, 1 + 3 x 4 Adam steps
+                (structures/s, peak memory, rows 10 / 12 a step), the loss
+                falling
+ 52. mace-train a random MACE at the default width on [train]'s frames: card
+                vs CPU, structures/s, peak memory
+ 53. finetune-families the CLI with --family chgnet (--init the checkpoint,
+                --magmom-weight 0.5) and --family mace: each saved model
+                gives the energies of the same training in-process
+ 54. pourbaix-mc campaign pourbaix_sriro through the library: the CIF, the
+                Pourbaix atoms, surface-atom sampling (55 sites, 222 slots),
+                the CHGNet checkpoint over the static table; the prefilled and
+                4 random states card vs CPU, 32 chains x 4 x 48 annealed
+                metropolis_distance steps (evals/s, row 10 four times an
+                evaluation, bitwise repeat)
 
 Then it prints one JSON line {"kernels": [...]} (per kernel: source, the
 TPU kernel it replaces, launches on its main path — the rigid run for the
@@ -214,7 +236,7 @@ evaluation run for the banded kernels, the delta run for the subset kernel,
 the relaxed 3x3 run for the banded backward, paths A, B and C for the CHGNet
 rows 10, 12 and 11, the Cu semigrand run for row 13, the training runs for
 row 5, every path's count under launches_by_path, phases 36-39's,
-43-46's and 47-49's paths included — max abs error, ms, plain_ms,
+43-46's, 47-49's and 50-54's paths included — max abs error, ms, plain_ms,
 bound_ms, bound_by, library_ms), the nvidia-smi line again, and last the
 JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -4423,6 +4445,443 @@ def slice16_phases(dev, smi: str) -> dict:
     return paths
 
 
+# ----------------------------------------------------------------------
+# CHGNet and MACE training, and the Pourbaix path (slice 17)
+# ----------------------------------------------------------------------
+# [chgnet-train]: the LaMnO3 checkpoint at full width on 16 frames of its
+# slab jittered by N(0, 0.05 A); the frames are labelled by the checkpoint
+# itself (energy, forces, magmoms of its head), and training starts from the
+# checkpoint with every leaf perturbed by CHG_TRAIN_PERTURB x its own std
+# (seeded), so the loss starts above zero and falls as the steps undo it
+CHG_TRAIN_FRAMES, CHG_TRAIN_JITTER, CHG_TRAIN_PERTURB = 16, 0.05, 0.01
+CHG_MAGMOM_WEIGHT = 0.5
+# frames of the card-vs-CPU gradient checks (the CPU plain path differentiates
+# the full-width models twice)
+TRAIN_CPU_FRAMES = 2
+# [pourbaix-mc]: campaign pourbaix_sriro's run cut from 300 sweeps to 4
+POURBAIX_SWEEPS, POURBAIX_CPU_STATES = 4, 4
+POURBAIX_CAMPAIGN_BEST = 194.048          # eV, the campaign's logged best (mc.log)
+POURBAIX_E_TOL = 1e-3
+
+
+def _perturbed(tree, seed: int, scale: float):
+    """Every leaf of a parameter tree plus seeded N(0, (scale x its std)^2)
+    noise (leaves of one element or zero spread unchanged)."""
+    from surface_sampling_tpu_torch.models.painn import tree_map
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def one(x):
+        if x.numel() < 2:
+            return x.clone()
+        noise = torch.randn(x.shape, generator=gen).to(x.device)
+        return x + scale * float(x.std()) * noise
+
+    return tree_map(one, tree)
+
+
+def _train_on(trainer, batch, tag: str, frames: int) -> tuple[list, list, dict]:
+    """[train]'s timing loop for any Trainer: one untimed step, then
+    TRAIN_RUNS timed runs of TRAIN_STEPS steps of one optimizer trajectory.
+    Returns the losses before each step, the runs' step seconds and the
+    launch counts of the timed steps; prints structures/s and peak memory."""
+    history = [trainer.step(batch)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times = []
+    for _ in range(TRAIN_RUNS):
+        t0 = time.perf_counter()
+        history += [trainer.step(batch) for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / TRAIN_STEPS)
+    counts = launch_counts()
+    step = min(times)
+    print(f"[{tag}] {frames} frames, 1 + {TRAIN_RUNS} x {TRAIN_STEPS} Adam steps: "
+          f"{frames / step:.2f} structures/s, step {1e3 * step:.3f} ms (best run; runs "
+          f"{[round(1e3 * t, 3) for t in times]} ms), peak_mem="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; loss before each step "
+          f"{[float(f'{h:.6e}') for h in history]}")
+    return history, times, counts
+
+
+def _card_vs_cpu_step(tag: str, params, cfg, tcfg, batch, apply_fn, dev) -> None:
+    """One training step's loss and every parameter gradient on the first
+    TRAIN_CPU_FRAMES frames: the card against the CPU plain path, the loss
+    within TRAIN_LOSS_RTOL relative, each leaf within TRAIN_GRAD_RTOL x
+    max|cpu|."""
+    from surface_sampling_tpu_torch.models.painn import tree_map
+    from surface_sampling_tpu_torch.models.train import Trainer, batch_to_device
+
+    few = batch._replace(**{k: None if getattr(batch, k) is None
+                            else getattr(batch, k)[:TRAIN_CPU_FRAMES] for k in batch._fields})
+    out = []
+    for d in (dev, torch.device("cpu")):
+        trainer = Trainer(tree_map(lambda x: x.to(d), params), cfg, tcfg, apply_fn=apply_fn)
+        loss, grads = trainer.gradients(batch_to_device(few, d))
+        out.append((float(loss[0]), [g.cpu() for g in grads]))
+    (lg, gg), (lc, gc) = out
+    dl = abs(lg - lc) / abs(lc)
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(gg, gc))
+    print(f"[{tag}] {TRAIN_CPU_FRAMES} frames: loss card {lg:.8e} cpu {lc:.8e} rel diff "
+          f"{dl:.3e} (tol {TRAIN_LOSS_RTOL}); {len(gg)} gradient leaves, worst max|card - cpu| / "
+          f"max|cpu| {worst:.3e} (tol {TRAIN_GRAD_RTOL})")
+    if not (dl <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"[{tag}] card and CPU training gradients differ")
+
+
+def chgnet_train_setup(dev):
+    """The LaMnO3 checkpoint on ``dev``, CHG_TRAIN_FRAMES jittered frames of
+    its slab (np.random.default_rng(1)) and their labels from the
+    checkpoint itself: a host PaddedBatch with magmoms."""
+    from surface_sampling_tpu_torch.models.chgnet import chgnet_apply_structures
+    from surface_sampling_tpu_torch.models.train import batch_to_device, pad_structures
+    from surface_sampling_tpu_torch.models.weights import from_jax_params, load_chgnet_npz
+    from surface_sampling_tpu_torch.structure.atoms import Structure
+    from surface_sampling_tpu_torch.systems import MODEL_DATA, SYSTEMS_DATA
+
+    tree, cfg = load_chgnet_npz(MODEL_DATA / "lamno3_chgnet.npz")
+    params = from_jax_params(tree, dev)
+    data = np.load(SYSTEMS_DATA / "LaMnO3_001_2x2x3.npz")
+    rng = np.random.default_rng(1)
+    frames = [Structure(data["numbers"], data["positions"] + rng.normal(
+        0, CHG_TRAIN_JITTER, data["positions"].shape), data["cell"])
+        for _ in range(CHG_TRAIN_FRAMES)]
+    n = [len(f) for f in frames]
+    zeros = pad_structures(frames, np.zeros(len(frames)), [np.zeros((k, 3)) for k in n],
+                           cfg.atom_graph_cutoff, magmoms=[np.zeros(k) for k in n])
+    b = batch_to_device(zeros, dev)
+    pos = b.positions.clone().requires_grad_(True)
+    out = chgnet_apply_structures(params, cfg, pos, b.numbers, b.numbers > 0, b.shifts)
+    (g,) = torch.autograd.grad(out["energy"].sum(), pos)
+    batch = zeros._replace(energy=out["energy"].detach().cpu().numpy().astype(np.float64),
+                           forces=(-g).cpu().numpy(), magmoms=out["magmom"].detach().cpu().numpy())
+    return params, cfg, frames, batch
+
+
+def chgnet_bwd2_phase(params, cfg, batch, dev) -> None:
+    """[chgnet-bwd2] grad-of-grad through chgnet_conv on the training
+    frames' own atom graph (F = 64, M = 96, their neighbour lists and
+    reverse table; seeded features, outer cotangents and weights): row 10
+    forward, row 12 first order, the fixed-order double VJP, against the
+    same computation with the plain versions on the card, within
+    KERNEL_RTOL x max|plain| per output; bitwise on repeat; the time of
+    both."""
+    from surface_sampling_tpu_torch.models.train import batch_to_device
+    from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
+    from surface_sampling_tpu_torch.ops.neighbors import neighbor_list, padded_rows
+
+    b = batch_to_device(batch, dev)
+    edges = neighbor_list(b.positions, b.shifts, b.numbers > 0, cfg.atom_graph_cutoff,
+                          cfg.max_neighbors)
+    C, N, M = edges.mask.shape
+    n_pad, F = padded_rows(N), cfg.atom_fea_dim
+    pad = (0, 0, 0, n_pad - N)
+    maskf = torch.nn.functional.pad(edges.mask, pad).reshape(C, -1).float().contiguous()
+    nbr = torch.nn.functional.pad(edges.nbr_j, pad).reshape(C, -1).to(torch.int32).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(17)
+    E = n_pad * M
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    args = [rn(C, n_pad, 2 * F), rn(C, n_pad, 2 * F), rn(C, E, F), rn(C, E, F), maskf, nbr,
+            rn(F, 2 * F, scale=0.1), rn(F, F, scale=0.1), rn(F, F, scale=0.1), rn(F), rn(F),
+            torch.stack([1.0 + rn(F, scale=0.1), rn(F, scale=0.1)]),
+            torch.stack([1.0 + rn(F, scale=0.1), rn(F, scale=0.1)])]
+    diff = [0, 1, 2, 3, 6, 7, 8, 9, 10, 11, 12]
+    wout, cg = rn(C, n_pad, F), [rn(*args[i].shape) for i in diff]
+
+    def second_order(kernel: bool):
+        xs = [a.clone() for a in args]
+        for i in diff:
+            xs[i].requires_grad_(True)
+        agg = (ck.chgnet_conv(*xs, edges.rev) if kernel
+               else ck.chgnet_conv_plain(*xs))
+        g = torch.autograd.grad((agg * wout).sum(), [xs[i] for i in diff], create_graph=True)
+        outer = sum((gi * ci).sum() for gi, ci in zip(g, cg))
+        return torch.autograd.grad(outer, [xs[i] for i in diff])
+
+    got, again, want = second_order(True), second_order(True), second_order(False)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, a, p in zip(ck.GRAD_NAMES, got, again, want):
+        if not torch.equal(g, a):
+            raise AssertionError(f"[chgnet-bwd2] {name}: two grad-of-grad passes differ")
+        errs[name] = (float((g - p).abs().max()), float(p.abs().max()))
+        if not errs[name][0] <= KERNEL_RTOL * errs[name][1]:
+            raise AssertionError(f"[chgnet-bwd2] {name}: max abs error {errs[name][0]} exceeds "
+                                 f"{KERNEL_RTOL} x max|plain| {errs[name][1]}")
+    ms = _cuda_ms(lambda: second_order(True), reps=3)
+    plain_ms = _cuda_ms(lambda: second_order(False), reps=3, warm=1)
+    print(f"[chgnet-bwd2] grad-of-grad of chgnet_conv (row 10 forward, row 12 first order, "
+          f"the fixed-order double VJP) vs the plain versions on the card: frames={C} "
+          f"n_pad={n_pad} M={M} F={F} live_edges={int(maskf.sum())}; worst error / max|plain| "
+          f"{max(e / s for e, s in errs.values()):.3e} (tol {KERNEL_RTOL}) "
+          f"{json.dumps({k: f'{e:.2e}' for k, (e, s) in errs.items()})}; bitwise repeat ok; "
+          f"ms={ms:.3f} plain_ms={plain_ms:.3f} (forward, first and second order)")
+
+
+def chgnet_train_phase(params, cfg, batch, dev) -> dict:
+    """[chgnet-train] A Trainer on the perturbed checkpoint with the magmom
+    term (CHG_MAGMOM_WEIGHT), lr TRAIN_LR: card vs CPU on two frames, then
+    [train]'s timing loop on every frame. Per step one forward (row 10 once
+    a layer) and two first-order passes a layer (the force pass and the
+    outer backward's energy and magmom terms: row 12 with the weight
+    cotangents, both); the loss falls over the timed steps. Returns the
+    launch counts of the timed steps."""
+    from surface_sampling_tpu_torch.models.chgnet import chgnet_apply_structures
+    from surface_sampling_tpu_torch.models.train import TrainConfig, Trainer, batch_to_device
+
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, magmom_weight=CHG_MAGMOM_WEIGHT)
+    start = _perturbed(params, 3, CHG_TRAIN_PERTURB)
+    _card_vs_cpu_step("chgnet-train", start, cfg, tcfg, batch, chgnet_apply_structures, dev)
+    trainer = Trainer(start, cfg, tcfg, apply_fn=chgnet_apply_structures)
+    history, _, counts = _train_on(trainer, batch_to_device(batch, dev), "chgnet-train",
+                                   CHG_TRAIN_FRAMES)
+    steps = TRAIN_RUNS * TRAIN_STEPS
+    L = cfg.n_conv
+    _expect("chgnet-train", counts, {"chgnet_conv": L * steps, "chgnet_conv_bwd": 2 * L * steps,
+                                     "chgnet_conv_bwd.weights": 2 * L * steps})
+    per_step = {k: v / steps for k, v in counts.items() if v}
+    print(f"[chgnet-train] launches per step {json.dumps(per_step)} (rows 10 / 12)")
+    if not all(np.isfinite(history)) or not history[-1] < min(history[0], history[1]):
+        raise AssertionError(f"[chgnet-train] the loss did not fall over the timed steps: "
+                             f"{history}")
+    return counts
+
+
+def mace_train_phase(dev) -> dict:
+    """[mace-train] The MACE force loss: a random MACE at the JAX default
+    width (MACEConfig(): F 64, 8 RBFs, cutoff 5, 2 layers, M 64, l_max 2
+    layer-local), seeded, on [train]'s frames and labels; card vs CPU on
+    two frames, then [train]'s timing loop. Returns the launch counts of
+    the timed steps (MACE runs no kernel of the port)."""
+    from surface_sampling_tpu_torch.models.mace import MACEConfig, init_mace, mace_apply
+    from surface_sampling_tpu_torch.models.train import TrainConfig, Trainer, batch_to_device
+
+    _, _, frames, _, batch = train_setup(dev)
+    cfg = MACEConfig()
+    params = init_mace(torch.Generator(device=dev).manual_seed(0), cfg)
+    tcfg = TrainConfig(learning_rate=1e-3)
+    _card_vs_cpu_step("mace-train", params, cfg, tcfg, batch, mace_apply, dev)
+    trainer = Trainer(params, cfg, tcfg, apply_fn=mace_apply)
+    history, _, counts = _train_on(trainer, batch_to_device(batch, dev), "mace-train",
+                                   len(frames))
+    _expect("mace-train", counts, {})
+    if not all(np.isfinite(history)):
+        raise AssertionError(f"[mace-train] non-finite losses: {history}")
+    return counts
+
+
+def finetune_families_phase(chg_frames, chg_batch, dev) -> None:
+    """[finetune-families] The CLI on the card for the other two families:
+    --family chgnet --init lamno3_chgnet.npz --magmom-weight 0.5 on the
+    [chgnet-train] frames and labels, and --family mace (a fresh default
+    model, seed 0) on the same frames, 2 epochs each. Each saved model.npz
+    reloads with the port's loader and gives the energies of the same
+    training in this process within 1e-6 relative."""
+    import tempfile
+    from pathlib import Path
+
+    from surface_sampling_tpu_torch.cli import finetune
+    from surface_sampling_tpu_torch.models.dataset import get_train_val_test_loader
+    from surface_sampling_tpu_torch.models.train import TrainConfig, batch_to_device, train_painn
+    from surface_sampling_tpu_torch.models.weights import from_jax_params
+    from surface_sampling_tpu_torch.systems import MODEL_DATA
+
+    init = MODEL_DATA / "lamno3_chgnet.npz"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        recs = [{"numbers": s.numbers.tolist(), "positions": s.positions.tolist(),
+                 "cell": s.cell.tolist(), "energy": float(e), "forces": f[:len(s)].tolist(),
+                 "magmom": m[:len(s)].tolist()}
+                for s, e, f, m in zip(chg_frames, chg_batch.energy, chg_batch.forces,
+                                      chg_batch.magmoms)]
+        (tmp / "frames.json").write_text(json.dumps(recs))
+        runs = {"chgnet": (["--init", str(init), "--magmom-weight", str(CHG_MAGMOM_WEIGHT)],
+                           TrainConfig(epochs=2, magmom_weight=CHG_MAGMOM_WEIGHT)),
+                "mace": ([], TrainConfig(epochs=2))}
+        for family, (extra, tcfg) in runs.items():
+            fam = finetune.FAMILIES[family]
+            out = tmp / family
+            t0 = time.perf_counter()
+            finetune.main(["--data", str(tmp / "frames.json"), "--family", family, "--out",
+                           str(out), "--epochs", "2", *extra])
+            dt = time.perf_counter() - t0
+            missing = [n for n in ("model.npz", "history.csv", "metrics.json", "settings.json")
+                       if not (out / n).exists()]
+            if missing:
+                raise AssertionError(f"[finetune-families] {family}: no {missing}")
+            metrics = json.loads((out / "metrics.json").read_text())
+            saved, cfg = fam.load(out / "model.npz")
+            if family == "chgnet":
+                start = from_jax_params(fam.load(init)[0], dev)
+            else:
+                start = fam.init(torch.Generator(device=dev).manual_seed(0), cfg)
+            train, _, _ = get_train_val_test_loader(tmp / "frames.json", fam.cutoff(cfg))
+            trained, _ = train_painn(start, cfg, train, tcfg, apply_fn=fam.apply_fn)
+            b = batch_to_device(train[0], dev)
+            e_saved, e_here = (fam.apply_fn(p, cfg, b.positions, b.numbers, b.numbers > 0,
+                                            b.shifts)["energy"]
+                               for p in (from_jax_params(saved, dev), trained))
+            diff = float(((e_saved - e_here).abs() / e_here.abs()).max())
+            print(f"[finetune-families] --family {family} {' '.join(extra)}, 2 epochs on "
+                  f"{len(chg_frames)} frames: {dt:.1f}s wall, final train loss "
+                  f"{metrics['final_train_loss']:.6e} on {metrics['device']}; four files; saved "
+                  f"model vs the same training in-process: max rel energy diff {diff:.3e} "
+                  f"(tol 1e-6)")
+            if not diff <= 1e-6:
+                raise AssertionError(f"[finetune-families] {family}: saved energies differ by "
+                                     f"{diff}")
+
+
+def pourbaix_setup(dev):
+    """Campaign pourbaix_sriro through the library, as
+    cli/sample_pourbaix_surface.py builds it: the slab from its CIF, the
+    Pourbaix atoms at its (pH, phi), its sites, the surface-atom spec and
+    start state, the CHGNet potential built without a table and rebuilt
+    over the spec's static candidate table through its rebuild hook (the
+    CLI's "fast" upgrade), the Pourbaix energy. Returns (run, site_state0,
+    settings)."""
+    from pathlib import Path
+
+    from surface_sampling_tpu_torch.constants import Z_FROM_SYMBOL
+    from surface_sampling_tpu_torch.core.engine import MCMCRun
+    from surface_sampling_tpu_torch.core.spec import make_spec_sampling_surface_atoms
+    from surface_sampling_tpu_torch.core.static_neighbors import build_static_neighbor_table
+    from surface_sampling_tpu_torch.models.nn_calculator import make_chgnet_potential
+    from surface_sampling_tpu_torch.models.weights import from_jax_params, load_chgnet_npz
+    from surface_sampling_tpu_torch.pourbaix import (
+        generate_pourbaix_atoms,
+        make_pourbaix_surface_energy,
+    )
+    from surface_sampling_tpu_torch.structure import find_adsorption_sites
+    from surface_sampling_tpu_torch.structure.io import read_cif
+
+    root = Path(__file__).resolve().parent
+    camp = root / "campaigns" / "pourbaix_sriro"
+    settings = json.loads((camp / "settings.json").read_text())
+    sys_s, samp, calc = (settings[k] for k in ("system_settings", "sampling_settings",
+                                               "calc_settings"))
+    slab = read_cif(camp / "SrIrO3_001_2x2.cif")
+    atoms = generate_pourbaix_atoms(camp / calc["phase_diagram"], camp / calc["pourbaix_diagram"],
+                                    calc["phi"], calc["pH"], calc["elements"])
+    sites = find_adsorption_sites(slab, planar_distance=sys_s["planar_distance"],
+                                  near_reduce=sys_s["near_reduce"],
+                                  no_obtuse_hollow=sys_s["no_obtuse_hollow"])[
+        sys_s["ads_site_type"]]
+    tree, cfg = load_chgnet_npz(camp / calc["model_path"])
+    numbers = [Z_FROM_SYMBOL[e] for e in calc["elements"]]
+    pot = make_chgnet_potential(from_jax_params(tree, dev), cfg, numbers,
+                                units=calc["model_units"])
+    z = slab.positions[:, 2]
+    spec, ss0 = make_spec_sampling_surface_atoms(
+        slab, (z.max() - z) < sys_s["surface_atom_tol"], samp["adsorbates"],
+        potential_numbers=numbers, cutoff=sys_s["cutoff"], extra_site_coords=sites,
+        surface_depth=sys_s["surface_depth"], surface_name=sys_s["surface_name"])
+    nbr = build_static_neighbor_table(spec, cfg.atom_graph_cutoff, relax_slack=0.1)
+    pot = make_chgnet_potential(static_nbr=nbr, **pot.chgnet_args)
+    se = make_pourbaix_surface_energy(spec, atoms, phi=calc["phi"], pH=calc["pH"],
+                                      temp=calc["temperature"],
+                                      adsorbate_corrections=calc["adsorbate_corrections"],
+                                      device=dev)
+    return MCMCRun(spec, pot, surface_energy_fn=se, device=dev), ss0, settings
+
+
+def pourbaix_mc_phase(dev) -> dict:
+    """[pourbaix-mc] Campaign pourbaix_sriro on the card at its full width
+    (55 sites, 222 slots, the CHGNet checkpoint: row 10 four times an
+    evaluation): the prefilled state and POURBAIX_CPU_STATES random states
+    card vs the CPU port (POURBAIX_E_TOL); its run, metropolis_distance at
+    its filter, its chain count and annealing schedule, cut to
+    POURBAIX_SWEEPS sweeps of its sweep size, from the prefilled start
+    state: launch counts, evals/s (best of 3 after one untimed run), finite
+    energies, a bitwise repeat. Returns the launch counts of the untimed
+    run."""
+    from surface_sampling_tpu_torch.core.engine import EngineConfig, make_run_fn
+    from surface_sampling_tpu_torch.utils import create_anneal_schedule
+
+    t0 = time.perf_counter()
+    run, ss0, settings = pourbaix_setup(dev)
+    run_cpu, _, _ = pourbaix_setup(torch.device("cpu"))
+    samp = settings["sampling_settings"]
+    spec = run.spec
+    rng = np.random.default_rng(4)
+    ss = np.tile(ss0, (1 + POURBAIX_CPU_STATES, 1)).astype(np.int64)
+    extra = rng.integers(1, spec.n_codes, ss.shape)
+    ss[1:] = np.where(rng.random(ss[1:].shape) < 0.1, extra[1:], ss[1:])
+    e_card = run.state_energy_fn(torch.as_tensor(ss, device=dev))
+    e_cpu = run_cpu.state_energy_fn(torch.as_tensor(ss))
+    d_e = float((e_card.surface_energy.cpu() - e_cpu.surface_energy).abs().max())
+    e0 = float(e_card.surface_energy[0])
+    print(f"[pourbaix-mc] campaign {spec.surface_name}: {spec.n_sites} sites, {spec.n_slots} "
+          f"slots, vocabulary {[v.name for v in spec.vocab]}, {int((ss0 > 0).sum())} prefilled "
+          f"(setup {time.perf_counter() - t0:.1f}s, two devices); prefilled state's Pourbaix "
+          f"energy {e0:.6f} eV (the campaign's logged best after 300 sweeps: "
+          f"{POURBAIX_CAMPAIGN_BEST} eV); the prefilled and {POURBAIX_CPU_STATES} random states "
+          f"card vs CPU max {d_e:.3e} eV (tol {POURBAIX_E_TOL})")
+    if not (d_e <= POURBAIX_E_TOL and torch.isfinite(e_card.surface_energy).all()):
+        raise AssertionError(f"[pourbaix-mc] card and CPU Pourbaix energies differ by {d_e}")
+    del run_cpu
+
+    cfg = EngineConfig(sweep_size=samp["sweep_size"], criterion=samp["criterion"],
+                       filter_distance=samp["filter_distance"])
+    run_fn = make_run_fn(run.d, run.state_energy_fn, cfg)
+    temps = create_anneal_schedule(samp["start_temp"], POURBAIX_SWEEPS, samp["alpha"])
+    n_chains = samp["n_chains"]
+    states = run.init_state(site_state=ss0, n_chains=n_chains)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out_a, rec_a = run_fn(states, temps, _gen(0))
+    torch.cuda.synchronize()
+    dt_first = time.perf_counter() - t0
+    launches = launch_counts()
+    n_mc = POURBAIX_SWEEPS * samp["sweep_size"]
+    _expect("pourbaix-mc", launches, {"chgnet_conv": 4 * n_mc})
+    if not (torch.isfinite(rec_a.energy).all() and torch.isfinite(out_a.energy).all()):
+        raise AssertionError("[pourbaix-mc] non-finite energies")
+    t0 = time.perf_counter()
+    out_b, rec_b = run_fn(states, temps, _gen(0))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not _bitwise((out_a, rec_a), (out_b, rec_b)):
+        raise AssertionError("[pourbaix-mc] the run does not repeat bitwise")
+    dt = min(dt, _best_of(lambda seed: run_fn(states, temps, _gen(seed)), reps=2))
+    print(f"[pourbaix-mc] chains={n_chains} sweeps={POURBAIX_SWEEPS}x{samp['sweep_size']} "
+          f"({samp['criterion']}, filter {samp['filter_distance']} A, T {temps[0]} -> "
+          f"{temps[-1]:.4f}): evals/s={n_chains * n_mc / dt:.2f} step_ms={1e3 * dt / n_mc:.3f} "
+          f"(untimed first run {dt_first:.1f}s) bitwise repeat ok accept="
+          f"{float(rec_a.accept_rate.mean()):.4f} oob={float(rec_a.oob_rate.mean()):.4f} "
+          f"best={float(rec_a.energy.min()):.6f} eV peak_mem="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB launches="
+          f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    return launches
+
+
+def slice17_phases(dev) -> dict:
+    """Phases 50-54; returns the launch counts of their paths."""
+    t0 = time.perf_counter()
+    params, cfg, frames, batch = chgnet_train_setup(dev)
+    print(f"[chgnet-train-build] {len(frames)} frames of {len(frames[0])} atoms, labels from "
+          f"the checkpoint ({time.perf_counter() - t0:.1f}s); label energies "
+          f"{batch.energy[:4].tolist()} ...")
+    chgnet_bwd2_phase(params, cfg, batch, dev)
+    torch.cuda.empty_cache()
+    paths = {"chgnet_train": chgnet_train_phase(params, cfg, batch, dev)}
+    torch.cuda.empty_cache()
+    paths["mace_train"] = mace_train_phase(dev)
+    torch.cuda.empty_cache()
+    finetune_families_phase(frames, batch, dev)
+    del params
+    torch.cuda.empty_cache()
+    paths["pourbaix_mc"] = pourbaix_mc_phase(dev)
+    return paths
+
+
 def entry_registers(log: str) -> dict:
     """ptxas -v's report per entry function: {short name: [registers, spill
     store bytes, spill load bytes]}, the name the mangled one's kernel
@@ -4595,6 +5054,10 @@ def main() -> int:
 
     # sharding, the image-search edge path, MACE
     engine_paths.update(slice16_phases(dev, smi))
+    torch.cuda.empty_cache()
+
+    # CHGNet and MACE training, the Pourbaix campaign
+    engine_paths.update(slice17_phases(dev))
 
     main_path = {"painn_message_bwd": "relaxed_mc", "painn_message_l1_banded": "sc_mc",
                  "painn_message_fused_banded": "sc_mc", "painn_message_subset": "inc_mc",

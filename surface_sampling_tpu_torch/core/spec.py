@@ -172,3 +172,39 @@ def make_spec(
         shifts=shifts,
         surface_name=surface_name or slab.formula,
     )
+
+
+def make_spec_sampling_surface_atoms(
+    slab: Structure,
+    surface_atom_mask: np.ndarray,
+    adsorbates: list[str],
+    potential_numbers,
+    cutoff: float,
+    extra_site_coords: np.ndarray | None = None,
+    **kwargs,
+):
+    """A spec whose masked surface atoms are exchangeable adsorbates: they
+    leave the pristine slab and their positions become the first sites,
+    pre-occupied by their own element (a vocabulary entry is added for each
+    element not named in ``adsorbates``), followed by the empty
+    ``extra_site_coords``. ``kwargs`` go to :func:`make_spec`.
+
+    Returns (spec, site_state0), the (S,) int32 codes of the pre-occupied
+    start state."""
+    surface_atom_mask = np.asarray(surface_atom_mask, dtype=bool)
+    kept = slab.select(~surface_atom_mask)
+    movers = slab.select(surface_atom_mask)
+    sites = movers.positions
+    if extra_site_coords is not None and len(extra_site_coords):
+        sites = np.concatenate([sites, np.asarray(extra_site_coords).reshape(-1, 3)])
+
+    ads_names = list(dict.fromkeys(adsorbates))     # keep order, drop repeats
+    for sym in movers.symbols:
+        if sym not in ads_names:
+            ads_names.append(sym)
+    spec = make_spec(kept, sites, ads_names, potential_numbers, cutoff, **kwargs)
+
+    code_of = {v.name: c for c, v in enumerate(spec.vocab, start=1)}
+    site_state0 = np.zeros(len(sites), dtype=np.int32)
+    site_state0[:len(movers)] = [code_of[sym] for sym in movers.symbols]
+    return spec, site_state0

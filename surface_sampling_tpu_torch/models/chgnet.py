@@ -19,6 +19,8 @@ version on the CPU), whose backward is a kernel too. With a routing band
 (rigid supercells) the conv runs in the band's sorted row order through
 ``chgnet_conv_banded``. The bond graph, the bond and angle convolutions
 and the readout are plain PyTorch, as the JAX package leaves them to XLA.
+``chgnet_apply_structures`` is the JAX package's ``chgnet_apply`` entry
+from positions, which training differentiates twice.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from surface_sampling_tpu_torch.ops.chgnet_kernels import (
     chgnet_conv_banded,
     layer_norm,
 )
-from surface_sampling_tpu_torch.ops.neighbors import Edges, padded_rows
+from surface_sampling_tpu_torch.ops.neighbors import Edges, neighbor_list, padded_rows
 
 
 @dataclass(frozen=True)
@@ -349,3 +351,24 @@ def chgnet_apply(params: dict, cfg: CHGNetConfig, numbers: torch.Tensor, alive: 
         "magmom": torch.where(alive, site_val, torch.zeros_like(site_val)),
         "embedding": atom,
     }
+
+
+def chgnet_apply_structures(params: dict, cfg: CHGNetConfig, positions: torch.Tensor,
+                            numbers: torch.Tensor, alive: torch.Tensor,
+                            shifts: torch.Tensor) -> dict:
+    """The JAX package's ``chgnet_apply(params, cfg, positions, numbers,
+    alive, shifts)`` batched over structures C: the edges of each structure
+    by image search over its own shifts (``ops.neighbors.neighbor_list``,
+    the ``cfg.max_neighbors`` nearest pairs within the atom-graph cutoff),
+    then :func:`chgnet_apply`. Twice differentiable in the positions, the
+    path of force-loss training.
+
+    Args:
+        positions: (C, N, 3) f32; numbers: (C, N) int, 0 = padding; alive:
+            (C, N) bool; shifts: (C, K, 3) image shifts, unused slots far
+            away (``models.train.pad_structures``).
+    Returns:
+        :func:`chgnet_apply`'s outputs, ``energy`` and ``magmom`` among them.
+    """
+    edges = neighbor_list(positions, shifts, alive, cfg.atom_graph_cutoff, cfg.max_neighbors)
+    return chgnet_apply(params, cfg, numbers, alive, edges)

@@ -122,6 +122,14 @@ def load_chgnet_npz(path) -> tuple[dict, CHGNetConfig]:
     return _unflatten(flat), CHGNetConfig(**cfg_kw)
 
 
+def save_chgnet_npz(path, params: dict, cfg: CHGNetConfig) -> None:
+    """Write a CHGNet model (a tree of tensors or arrays, no member axis) in
+    the JAX package's flat npz scheme (dotted keys, ``__cfg__<field>``),
+    which its ``load_chgnet_npz`` and :func:`load_chgnet_npz` read."""
+    meta = {f"__cfg__{k}": np.asarray(v) for k, v in cfg.__dict__.items()}
+    np.savez_compressed(path, **_flatten(params), **meta)
+
+
 def from_jax_params(tree, device) -> dict:
     """A JAX parameter tree (leaves converted to numpy arrays: a stacked
     PaiNN ensemble with its leading member axis, or one CHGNet or MACE

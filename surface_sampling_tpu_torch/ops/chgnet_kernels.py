@@ -7,7 +7,9 @@ Each op replaces a Pallas TPU kernel of
     chgnet_conv          the fused atom conv of every layer (replaces
                          ``chgnet_conv_fused`` / ``_conv_kernel``), a
                          ``torch.autograd.Function`` whose backward launches
-                         ``chgnet_conv_bwd``
+                         ``chgnet_conv_bwd``, differentiable twice (the
+                         second order in plain PyTorch, as the JAX
+                         package's is XLA)
     chgnet_conv_banded   the same with neighbour rows read through a
                          supercell's routing band (replaces
                          ``chgnet_conv_fused_banded`` /
@@ -60,6 +62,8 @@ from surface_sampling_tpu_torch.ops.banding import (
     window_rows,
 )
 from surface_sampling_tpu_torch.ops.cuda_build import check_inputs, launch
+from surface_sampling_tpu_torch.ops.neighbors import _GatherRows
+from surface_sampling_tpu_torch.ops.painn_kernels import _first_order_only
 
 # the kernels' width: one checkpoint's atom features (F = 64)
 KERNEL_F = 64
@@ -168,14 +172,74 @@ class _Conv(torch.autograd.Function):
         return _conv_forward(ai2, aj2, be, bw, maskf, nbr, w2, wc1, wg1, bc1, bg1, lnc, lng)
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, gagg):
         need = ctx.needs_input_grad
-        g = chgnet_conv_bwd(*ctx.saved_tensors, gagg.contiguous(), rev=ctx.rev,
-                            want_weights=any(need[6:13]))
+        g = _ConvBwd.apply(*ctx.saved_tensors, gagg.contiguous(), ctx.rev, any(need[6:13]))
         g_in = (*need[:4], *need[6:13])
         g = [x if n else None for x, n in zip(g, g_in)]
         return (*g[:4], None, None, *g[4:], None)
+
+
+def _conv_routed(ai2, aj2, be, bw, maskf, nbr, rev, *weights):
+    """:func:`chgnet_conv_plain` with the neighbour rows gathered through
+    the reverse table ``rev`` (``ops.neighbors._GatherRows``), whose
+    backward sums each row's incoming edges in the table's fixed order
+    instead of a float scatter-add with atomics; a plain gather when
+    ``rev`` is None (the CPU, where the scatter is sequential)."""
+    if rev is None:
+        ajr = _gather_rows(aj2, nbr)
+    else:
+        C, n_pad = ai2.shape[:2]
+        nbr_j = nbr.long().reshape(C, n_pad, -1)
+        ajr = _GatherRows.apply(aj2, nbr_j, rev).reshape(C, -1, aj2.shape[-1])
+    return _conv_of_rows(ai2, ajr, be, bw, maskf, *weights)
+
+
+class _ConvBwd(torch.autograd.Function):
+    """:func:`chgnet_conv_bwd` as a differentiable op: the backward of
+    ``_Conv``, and under ``create_graph`` a node of the outer graph whose
+    backward is the double VJP of the plain conv (the JAX package's
+    ``_conv_bwd_op``: its first order is the fused kernel, its second order
+    XLA's double VJP of ``_conv_ref``), in plain PyTorch. The neighbour
+    gather of that double VJP sums its cotangents through ``rev`` in a
+    fixed order (:func:`_conv_routed`), so that a force-loss gradient
+    repeats bitwise on the card. ``maskf`` and ``nbr`` get no gradient; the
+    weight cotangents are outputs only when ``want_weights``. Differentiable
+    twice in all: a third order raises."""
+
+    @staticmethod
+    def forward(ctx, ai2, aj2, be, bw, maskf, nbr, w2, wc1, wg1, bc1, bg1, lnc, lng, gagg, rev,
+                want_weights):
+        ctx.save_for_backward(ai2, aj2, be, bw, maskf, nbr, w2, wc1, wg1, bc1, bg1, lnc, lng,
+                              gagg)
+        ctx.rev = rev
+        ctx.set_materialize_grads(False)
+        return chgnet_conv_bwd(ai2, aj2, be, bw, maskf, nbr, w2, wc1, wg1, bc1, bg1, lnc, lng,
+                               gagg, rev=rev, want_weights=want_weights)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        saved = ctx.saved_tensors
+        maskf, nbr = saved[4], saved[5]
+        diff = (*saved[:4], *saved[6:])                  # the 11 inputs of the conv, gagg
+        need = ctx.needs_input_grad
+        need_in = (*need[:4], *need[6:14])
+        outs = [k for k, ct in enumerate(cts) if ct is not None]
+        wrt = [k for k, n in enumerate(need_in) if n]
+        res = [None] * len(diff)
+        if outs and wrt:
+            with torch.enable_grad():
+                xs = [t.detach().requires_grad_(True) for t in diff]
+                agg = _conv_routed(*xs[:4], maskf, nbr, ctx.rev, *xs[4:11])
+                g = torch.autograd.grad(agg, [xs[k] for k in outs], xs[11], create_graph=True)
+                got = torch.autograd.grad(g, [xs[k] for k in wrt], [cts[k] for k in outs],
+                                          allow_unused=True)
+            for k, x in zip(wrt, got):
+                res[k] = None if x is None else x.detach()
+        res = _first_order_only(
+            res, (*saved, *cts),
+            "chgnet_conv is differentiable twice: the double VJP of its backward has no VJP")
+        return (*res[:4], None, None, *res[4:], None, None)
 
 
 def chgnet_conv(ai2, aj2, be, bw, maskf, nbr, w2, wc1, wg1, bc1, bg1, lnc, lng, rev=None):
@@ -196,8 +260,9 @@ def chgnet_conv(ai2, aj2, be, bw, maskf, nbr, w2, wc1, wg1, bc1, bg1, lnc, lng, 
         agg (C, n_pad, F).
 
     The backward launches :func:`chgnet_conv_bwd` (the plain version on
-    the CPU). Once-differentiable: the JAX package's second order (force-
-    loss training) is not ported, and grad-of-grad raises.
+    the CPU), and is differentiable in turn (``_ConvBwd``): force-loss
+    training differentiates the forces, whose second order is the double
+    VJP of the plain conv, as in the JAX package.
     """
     return _Conv.apply(ai2, aj2, be, bw, maskf, nbr, w2, wc1, wg1, bc1, bg1, lnc, lng, rev)
 

@@ -1,7 +1,8 @@
 """Sharded fine-tuning: data-parallel and ensemble-parallel train steps.
 
 The counterpart of ``surface_sampling_tpu/parallel/training.py`` over a
-rank mesh (``parallel/mesh.py``), for the PaiNN family:
+rank mesh (``parallel/mesh.py``), for every model family (``apply_fn``, as
+in ``models.train.make_loss_fn``):
 
 * **data parallelism** shards the structure axis of a batch over a mesh
   axis. Each rank differentiates its block, and one all-reduce averages
@@ -18,21 +19,20 @@ update are separate calls so that the all-reduce sits between them.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
-from surface_sampling_tpu_torch.models.painn import PaiNNConfig, tree_map
+from surface_sampling_tpu_torch.models.painn import tree_leaves, tree_map
 from surface_sampling_tpu_torch.models.train import (
     PaddedBatch,
     TrainConfig,
     Trainer,
     batch_to_device,
+    check_family,
 )
 from surface_sampling_tpu_torch.parallel.chains import gather_chain_states, shard_chain_states
 from surface_sampling_tpu_torch.parallel.mesh import RankMesh, all_gather_blocks, all_reduce_mean
-
-NOT_PAINN = ("sharded training covers the PaiNN family; CHGNet and MACE training come with "
-             "the next slice of the port (ROADMAP.md, Queue 1)")
-
 
 def make_sharded_train_step(trainer: Trainer, mesh: RankMesh, axis: str = "chains"):
     """Data-parallel train step: ``step(batch) -> (K,) losses``.
@@ -72,17 +72,18 @@ def make_ensemble_sharded_train_step(trainer: Trainer, mesh: RankMesh, axis: str
     return step
 
 
-def train_sharded(params: dict, cfg: PaiNNConfig, batches, tcfg: TrainConfig,
-                  mesh: RankMesh, axis: str = "chains", ensemble: bool = False):
-    """The mesh-parallel ``models.train.train_painn``: the same loss,
-    optimizer and epoch loop over the host batches ``batches``, with the
-    step data-parallel over the structure axis, or member-parallel with
-    ``ensemble=True`` (``params`` then stacked). Every rank calls it with
-    the same arguments. Returns (params, history) on every rank: the
-    trained parameters in the form given, on the mesh's device, and per
-    epoch the mean over batches of the member-mean loss."""
-    if not isinstance(cfg, PaiNNConfig):
-        raise NotImplementedError(NOT_PAINN)
+def train_sharded(params: dict, cfg, batches, tcfg: TrainConfig, mesh: RankMesh,
+                  axis: str = "chains", ensemble: bool = False,
+                  apply_fn: Callable | None = None):
+    """The mesh-parallel ``models.train.train_painn``: the same loss (of the
+    family ``apply_fn``; None for PaiNN), optimizer and epoch loop over the
+    host batches ``batches``, with the step data-parallel over the
+    structure axis, or member-parallel with ``ensemble=True`` (``params``
+    then stacked). Every rank calls it with the same arguments. Returns
+    (params, history) on every rank: the trained parameters in the form
+    given, on the mesh's device, and per epoch the mean over batches of the
+    member-mean loss."""
+    check_family(cfg, apply_fn)
     batches = list(batches)
     n_dev = mesh.axis_size(axis)
     ragged = [len(b.positions) for b in batches if len(b.positions) % n_dev != 0]
@@ -93,15 +94,16 @@ def train_sharded(params: dict, cfg: PaiNNConfig, batches, tcfg: TrainConfig,
             f"sizes {ragged} (pad or drop the ragged tail batch)")
     params = tree_map(lambda x: x.to(mesh.device), params)
     if ensemble:
-        n_members = params["atom_embed"].shape[0]
+        n_members = tree_leaves(params)[0].shape[0]
         if n_members % n_dev != 0:
             raise ValueError(
                 f"ensemble sharding needs the member count ({n_members}) "
                 f"divisible by the {n_dev}-device '{axis}' mesh axis")
-        trainer = Trainer(shard_chain_states(params, mesh, axis), cfg, tcfg, ensemble=True)
+        trainer = Trainer(shard_chain_states(params, mesh, axis), cfg, tcfg, ensemble=True,
+                          apply_fn=apply_fn)
         step = make_ensemble_sharded_train_step(trainer, mesh, axis)
     else:
-        trainer = Trainer(params, cfg, tcfg)
+        trainer = Trainer(params, cfg, tcfg, apply_fn=apply_fn)
         step = make_sharded_train_step(trainer, mesh, axis)
     dev_batches = [batch_to_device(b, mesh.device) for b in batches]
     history = []

@@ -1,9 +1,12 @@
 """Minimal periodic structure container (host side, numpy).
 
 The part of ``surface_sampling_tpu/structure/atoms.py`` that building the
-ported systems and loading training data use: construction, fractional
-coordinates, wrapping, tiling, sorting by height, centring in vacuum, layer
-tagging and the formula.
+ported systems, loading training data, structure files and the Pourbaix
+path use: construction, fractional coordinates, wrapping, tiling, selection,
+translation, concatenation, sorting by height, centring in vacuum, layer
+tagging, masses, minimum-image distances and the formula. Every axis is
+periodic (the JAX class's default ``pbc``); the class keeps no per-atom
+``arrays`` or ``info``.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from surface_sampling_tpu_torch.constants import (
+    ATOMIC_MASSES,
     CHEMICAL_SYMBOLS,
     Z_FROM_SYMBOL,
     formula_from_numbers,
@@ -81,9 +85,24 @@ class Structure:
         pos = (self.positions[None, :, :] + (shifts @ self.cell)[:, None, :]).reshape(-1, 3)
         return Structure(np.tile(self.numbers, len(shifts)), pos, self.cell * reps[:, None])
 
+    def select(self, mask_or_idx) -> "Structure":
+        """The atoms under a boolean mask or at the given indices, in that
+        order, in a copy of the cell."""
+        idx = np.asarray(mask_or_idx)
+        if idx.dtype == bool:
+            idx = np.where(idx)[0]
+        return Structure(self.numbers[idx], self.positions[idx], self.cell.copy())
+
+    def translated(self, vec) -> "Structure":
+        return Structure(self.numbers.copy(), self.positions + np.asarray(vec), self.cell.copy())
+
+    def __add__(self, other: "Structure") -> "Structure":
+        """The atoms of both, in this structure's cell."""
+        return Structure(np.concatenate([self.numbers, other.numbers]),
+                         np.concatenate([self.positions, other.positions]), self.cell.copy())
+
     def sorted_by_z(self) -> "Structure":
-        order = np.argsort(self.positions[:, 2], kind="stable")
-        return Structure(self.numbers[order], self.positions[order], self.cell.copy())
+        return self.select(np.argsort(self.positions[:, 2], kind="stable"))
 
     def center_z(self, vacuum: float) -> "Structure":
         """Centre the slab along z with ``vacuum`` Angstrom of padding on
@@ -98,6 +117,21 @@ class Structure:
     @property
     def formula(self) -> str:
         return formula_from_numbers(self.numbers)
+
+    @property
+    def masses(self) -> np.ndarray:
+        return ATOMIC_MASSES[self.numbers]
+
+    def all_distances(self, mic: bool = True) -> np.ndarray:
+        """(N, N) pairwise distances; with ``mic`` the least over the 27
+        nearest periodic images, exact where the cutoff of interest is
+        below half the smallest cell height."""
+        diff = self.positions[:, None, :] - self.positions[None, :, :]
+        if not mic:
+            return np.linalg.norm(diff, axis=-1)
+        r = (-1, 0, 1)
+        shifts = np.array([[i, j, k] for i in r for j in r for k in r], np.float64) @ self.cell
+        return np.min(np.linalg.norm(diff[None] + shifts[:, None, None, :], axis=-1), axis=0)
 
     def get_layers(self, tol: float = 0.1) -> np.ndarray:
         """Tag atoms by unique z-layers: 1 = topmost, increasing downward."""

@@ -155,7 +155,9 @@ def test_backward_plain_matches_pallas(bwd_case, want_weights):
 
 def test_autograd_op_matches_jax_vjp_and_is_once_differentiable():
     """The port's autograd op (plain on the CPU) gives jax.vjp of the JAX
-    reference ``_conv_ref`` for every float input; grad of grad raises."""
+    reference ``_conv_ref`` for every float input; it is differentiable
+    twice (the second order is held to JAX's in
+    ``tests/test_torch_chgnet_training.py``), and a third order raises."""
     rng = np.random.default_rng(21)
     x = _inputs(rng, 1, 16)
     gagg = rng.normal(size=(1, 16, F)).astype(np.float32)
@@ -174,8 +176,9 @@ def test_autograd_op_matches_jax_vjp_and_is_once_differentiable():
     for k, name in enumerate(ck.GRAD_NAMES):
         np.testing.assert_allclose(got[k].detach().numpy().reshape(want[k].shape), want[k],
                                    err_msg=name, **TOL)
-    with pytest.raises(RuntimeError):
-        torch.autograd.grad(got[0].sum(), args[0])
+    (g2,) = torch.autograd.grad(got[0].sum(), args[1], create_graph=True)
+    with pytest.raises(RuntimeError, match="differentiable twice"):
+        torch.autograd.grad(g2.sum(), args[0])
 
 
 def test_banded_conv_is_forward_only():

@@ -276,3 +276,95 @@ def test_world_one_nccl_sharded_run_equals_unsharded(cuda_device, tmp_path):
 
     spawn_ranks(run_nccl_world_one, 1, "cuda", args=(str(tmp_path),))
     assert (tmp_path / "nccl_world_one.ok").read_text() == "bitwise"
+
+
+def _conv_second_order(ops, args, rev, wout, cg, diff):
+    """grad-of-grad of ``ops(*args)`` summed against ``wout``, contracted
+    with the outer cotangents ``cg`` (the force loss's structure): the
+    second-order cotangent of every input in ``diff``."""
+    args = [a.clone() for a in args]
+    for i in diff:
+        args[i].requires_grad_(True)
+    agg = ops(*args, rev)
+    g = torch.autograd.grad((agg * wout).sum(), [args[i] for i in diff], create_graph=True)
+    outer = sum((gi * ci).sum() for gi, ci in zip(g, cg))
+    return torch.autograd.grad(outer, [args[i] for i in diff])
+
+
+def test_chgnet_conv_second_order_card_matches_plain(cuda_device):
+    """grad-of-grad through chgnet_conv at the checkpoint's shape (F = 64,
+    M = 96, 4 chains of 64 centres, a fifth of the slots masked): row 10
+    forward, row 12 first order, the fixed-order double VJP, against the
+    same computation with the plain versions on the card, within 1e-4 x
+    max|plain| per output; and the kernel path bitwise on repeat."""
+    from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
+    from surface_sampling_tpu_torch.ops.neighbors import reverse_table
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    C, n_pad, F, M = 4, 64, 64, 96
+    E = n_pad * M
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=cuda_device) * scale
+
+    maskf = (torch.rand((C, E), generator=gen, device=cuda_device) > 0.2).float()
+    nbr = torch.randint(0, n_pad, (C, E), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    args = [rn(C, n_pad, 2 * F), rn(C, n_pad, 2 * F), rn(C, E, F), rn(C, E, F), maskf, nbr,
+            rn(F, 2 * F, scale=0.1), rn(F, F, scale=0.1), rn(F, F, scale=0.1), rn(F), rn(F),
+            torch.stack([1.0 + rn(F, scale=0.1), rn(F, scale=0.1)]),
+            torch.stack([1.0 + rn(F, scale=0.1), rn(F, scale=0.1)])]
+    diff = [0, 1, 2, 3, 6, 7, 8, 9, 10, 11, 12]
+    wout, cg = rn(C, n_pad, F), [rn(*args[i].shape) for i in diff]
+    rev = reverse_table(nbr, maskf != 0, n_pad)
+    ck.reset_launch_counts()
+    got = _conv_second_order(ck.chgnet_conv, args, rev, wout, cg, diff)
+    counts = ck.launch_counts()
+    assert counts["chgnet_conv"] == 1 and counts["chgnet_conv_bwd"] == 1
+    again = _conv_second_order(ck.chgnet_conv, args, rev, wout, cg, diff)
+    want = _conv_second_order(lambda *a: ck.chgnet_conv_plain(*a[:-1]), args, None, wout, cg,
+                              diff)
+    for name, g, a, w in zip(ck.GRAD_NAMES, got, again, want):
+        assert torch.equal(g, a), name
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        assert err <= 1e-4 * scale, (name, err, scale)
+
+
+def test_chgnet_train_step_card_matches_cpu(cuda_device):
+    """One CHGNet training step (the LaMnO3 checkpoint at full width, two
+    jittered frames of its slab, the magmom term on) on the card against
+    the CPU plain path: the loss within 1e-5 relative, every gradient leaf
+    within 1e-3 x max|cpu|; rows 10 and 12 launched on the card."""
+    from surface_sampling_tpu_torch.models.chgnet import chgnet_apply_structures
+    from surface_sampling_tpu_torch.models.train import (
+        TrainConfig,
+        Trainer,
+        batch_to_device,
+        pad_structures,
+    )
+    from surface_sampling_tpu_torch.models.weights import from_jax_params, load_chgnet_npz
+    from surface_sampling_tpu_torch.ops import chgnet_kernels as ck
+    from surface_sampling_tpu_torch.structure.atoms import Structure
+    from surface_sampling_tpu_torch.systems import MODEL_DATA, SYSTEMS_DATA
+
+    tree, cfg = load_chgnet_npz(MODEL_DATA / "lamno3_chgnet.npz")
+    data = np.load(SYSTEMS_DATA / "LaMnO3_001_2x2x3.npz")
+    rng = np.random.default_rng(0)
+    frames = [Structure(data["numbers"], data["positions"] + rng.normal(0, 0.05, (60, 3)),
+                        data["cell"]) for _ in range(2)]
+    batch = pad_structures(frames, rng.normal(size=2) - 400.0,
+                           [rng.normal(size=(60, 3)) for _ in frames], cfg.atom_graph_cutoff,
+                           magmoms=[rng.normal(size=60) for _ in frames])
+    tcfg = TrainConfig(magmom_weight=0.5)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        trainer = Trainer(from_jax_params(tree, dev), cfg, tcfg,
+                          apply_fn=chgnet_apply_structures)
+        ck.reset_launch_counts()
+        loss, grads = trainer.gradients(batch_to_device(batch, dev))
+        out.append((float(loss[0]), [g.cpu() for g in grads], ck.launch_counts()))
+    (lg, gg, counts), (lc, gc, _) = out
+    assert counts["chgnet_conv"] >= cfg.n_conv and counts["chgnet_conv_bwd"] >= 2 * cfg.n_conv
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(gg, gc):
+        assert float((a - b).abs().max()) <= 1e-3 * max(float(b.abs().max()), 1e-12)

@@ -198,8 +198,8 @@ def test_checkpoints_round_trip_both_ways(tmp_path):
 def test_finetune_cli_on_cpu(tmp_path, capsys):
     """The CLI on the CPU: two epochs from a fresh 2-member ensemble and
     from a checkpoint; the four output files, a model that loads back, and
-    the families that wait on the next slice, and --mesh 2 without a world
-    of two ranks, exit with a message."""
+    a fresh CHGNet or MACE ensemble (the PaiNN path only, as in the JAX
+    CLI), and --mesh 2 without a world of two ranks, exit with a message."""
     data = _write_datasets(tmp_path)["flat"]
     (tmp_path / "cfg.json").write_text(json.dumps(
         {"feat_dim": 8, "n_rbf": 4, "n_layers": 1, "readout_hidden": 4, "cutoff": 4.0,
@@ -223,8 +223,8 @@ def test_finetune_cli_on_cpu(tmp_path, capsys):
     tree, cfg = load_painn_npz(out1 / "model.npz")
     assert cfg.feat_dim == 8 and set(tree) == {"atom_embed", "message", "update", "readout"}
     assert "Output folder" in capsys.readouterr().out
-    for extra, match in ((["--family", "chgnet"], "next slice"),
-                         (["--family", "mace"], "next slice"),
+    for extra, match in ((["--family", "chgnet", "--ensemble", "2"], "PaiNN-ensemble path"),
+                         (["--family", "mace", "--ensemble", "2"], "PaiNN-ensemble path"),
                          (["--mesh", "2"], "torchrun --nproc-per-node 2")):
         with pytest.raises(SystemExit, match=match):
             finetune.main(["--data", str(data), "--out", str(tmp_path / "x"), "--device",

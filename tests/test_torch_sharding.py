@@ -27,7 +27,13 @@ import numpy as np
 import optax
 import pytest
 from jax.sharding import Mesh
-from torch_sharding_ranks import ENSEMBLE_PAINN, LOOP_PAINN, PAINN, run_checks
+from torch_sharding_ranks import (
+    ENSEMBLE_PAINN,
+    LOOP_PAINN,
+    PAINN,
+    run_checks,
+    run_chgnet_training,
+)
 
 from surface_sampling_tpu.models.painn import PaiNNConfig as JPaiNNConfig
 from surface_sampling_tpu.models.painn import init_painn as j_init_painn
@@ -237,6 +243,27 @@ def test_train_sharded_matches_jax(refs, worlds, world):
         w["errors.members"])
 
 
+def test_train_sharded_chgnet_matches_unsharded(tmp_path):
+    """A gloo world of 2: two epochs of a tiny CHGNet with the magmom term,
+    data-parallel through train_sharded(apply_fn=chgnet_apply_structures),
+    against the unsharded train_painn on the same 4 frames: loss history
+    rtol 1e-4 (the per-rank block means average to the batch mean in
+    another f32 order, which Adam's steps carry), every trained leaf within
+    1e-3 x its max, as the JAX package's sharded steps are held to its
+    unsharded ones."""
+    spawn_ranks(run_chgnet_training, 2, "cpu", args=(str(tmp_path),))
+    with np.load(tmp_path / "chgnet_world2.npz") as f:
+        w = {k: f[k] for k in f.files}
+    np.testing.assert_allclose(w["sharded.history"], w["unsharded.history"], rtol=1e-4)
+    assert w["sharded.history"][-1] < w["sharded.history"][0]
+    keys = [k[len("unsharded.params."):] for k in w if k.startswith("unsharded.params.")]
+    assert keys
+    for k in keys:
+        want = w[f"unsharded.params.{k}"]
+        np.testing.assert_allclose(w[f"sharded.params.{k}"], want, rtol=0,
+                                   atol=1e-3 * max(float(np.abs(want).max()), 1e-6), err_msg=k)
+
+
 def test_finetune_mesh_one_on_cpu(tmp_path, capsys):
     """finetune --mesh 1 --device cpu makes a world of one, trains through
     the data-parallel step, writes its files and ends the world."""
@@ -264,12 +291,14 @@ def test_finetune_mesh_one_on_cpu(tmp_path, capsys):
 
 
 def test_train_sharded_refuses_other_families():
-    """Sharded training covers PaiNN; CHGNet and MACE name the next slice."""
+    """A CHGNet or MACE configuration trains through its family's apply_fn:
+    without one (the PaiNN path) sharded training refuses it before it
+    touches the mesh."""
     from surface_sampling_tpu_torch.models.chgnet import CHGNetConfig
     from surface_sampling_tpu_torch.models.mace import MACEConfig
     from surface_sampling_tpu_torch.models.train import TrainConfig
     from surface_sampling_tpu_torch.parallel import train_sharded
 
     for cfg in (CHGNetConfig(), MACEConfig()):
-        with pytest.raises(NotImplementedError, match="next slice"):
+        with pytest.raises(ValueError, match="apply_fn=None is PaiNN"):
             train_sharded({}, cfg, [], TrainConfig(), mesh=None)

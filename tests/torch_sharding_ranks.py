@@ -24,6 +24,11 @@ from surface_sampling_tpu_torch.core.engine import (
     make_run_fn,
     prepare_canonical_fn,
 )
+from surface_sampling_tpu_torch.models.chgnet import (
+    CHGNetConfig,
+    chgnet_apply_structures,
+    init_chgnet,
+)
 from surface_sampling_tpu_torch.models.painn import (
     PaiNNConfig,
     painn_apply_structures,
@@ -34,6 +39,8 @@ from surface_sampling_tpu_torch.models.train import (
     TrainConfig,
     Trainer,
     batch_to_device,
+    pad_structures,
+    train_painn,
 )
 from surface_sampling_tpu_torch.models.weights import _flatten, _unflatten, from_jax_params
 from surface_sampling_tpu_torch.parallel import (
@@ -50,6 +57,7 @@ from surface_sampling_tpu_torch.parallel import (
     shard_chain_states,
     train_sharded,
 )
+from surface_sampling_tpu_torch.structure.atoms import Structure
 from surface_sampling_tpu_torch.systems import cu100_eam
 
 CPU = torch.device("cpu")
@@ -58,6 +66,9 @@ LOOP_PAINN = dict(PAINN, n_layers=1)     # the epoch loops: one layer keeps JAX'
 ENSEMBLE_PAINN = dict(feat_dim=8, n_rbf=6, cutoff=4.0, n_layers=1, readout_hidden=8,
                       max_neighbors=4)
 N_CHAINS = 16
+CHGNET = CHGNetConfig(atom_fea_dim=16, bond_fea_dim=16, angle_fea_dim=16, num_radial=7,
+                      num_angular=7, n_conv=2, max_neighbors=48, max_bond_neighbors=8,
+                      mlp_hidden_dims=(16, 16, 16))
 
 
 def _tree(refs, prefix):
@@ -225,6 +236,44 @@ def run_checks(rank: int, workdir: str) -> None:
     if rank == 0:
         np.savez(Path(workdir) / f"world{world}.npz", **out)
         (Path(workdir) / f"world{world}_meshes.json").write_text(json.dumps(meshes))
+
+
+def chgnet_batch(n_frames: int = 4) -> PaddedBatch:
+    """Random MnO frames (5 or 6 atoms in a 7 A cube) with random energy,
+    force and magmom labels from ``np.random.default_rng(9)``."""
+    rng = np.random.default_rng(9)
+    structures, energies, forces, magmoms = [], [], [], []
+    for b in range(n_frames):
+        n = 5 + b % 2
+        structures.append(Structure(np.asarray(([25, 8] * n)[:n]), rng.uniform(0, 7.0, (n, 3)),
+                                    np.eye(3) * 7.0))
+        energies.append(float(rng.normal()))
+        forces.append(rng.normal(size=(n, 3)))
+        magmoms.append(rng.normal(size=n))
+    return pad_structures(structures, energies, forces, CHGNET.atom_graph_cutoff,
+                          magmoms=magmoms)
+
+
+def run_chgnet_training(rank: int, workdir: str) -> None:
+    """Two epochs of a tiny CHGNet with the magmom term on 4 frames, by
+    ``train_sharded(apply_fn=chgnet_apply_structures)`` (data-parallel over
+    the world) and by the unsharded ``train_painn``; rank 0 writes both
+    histories and both trained trees to ``workdir/chgnet_world{W}.npz``."""
+    torch.set_num_threads(1)
+    tcfg = TrainConfig(epochs=2, learning_rate=3e-3, magmom_weight=0.5)
+    batch = chgnet_batch()
+
+    def fresh():
+        return init_chgnet(torch.Generator().manual_seed(0), CHGNET)
+
+    p_sh, h_sh = train_sharded(fresh(), CHGNET, [batch], tcfg, chain_mesh(device=CPU),
+                               apply_fn=chgnet_apply_structures)
+    p_un, h_un = train_painn(fresh(), CHGNET, [batch], tcfg, apply_fn=chgnet_apply_structures)
+    if rank == 0:
+        out = {"sharded.history": np.asarray(h_sh), "unsharded.history": np.asarray(h_un)}
+        out.update({f"sharded.params.{k}": v for k, v in _flatten(p_sh).items()})
+        out.update({f"unsharded.params.{k}": v for k, v in _flatten(p_un).items()})
+        np.savez(Path(workdir) / f"chgnet_world{dist.get_world_size()}.npz", **out)
 
 
 def run_nccl_world_one(rank: int, workdir: str) -> None:
