@@ -23,8 +23,10 @@ the chain runs and training sharded over an NCCL world of every card of
 the machine, the PaiNN and CHGNet potentials that find their edges by image
 search, and the MACE family; and force-loss training of CHGNet (with the
 magmom term) and MACE, the fine-tuning CLI for both, and the Pourbaix
-campaign on SrIrO3(001) with surface-atom sampling — through their entry
-points on the card, in fifty-four phases, each printing one line or more:
+campaign on SrIrO3(001) with surface-atom sampling; and the sampling CLI
+on the campaigns' own settings files, checkpoints and a bitwise resume
+included — through their entry points on the card, in fifty-nine phases,
+each printing one line or more:
 
   1. device     card name, count, and nvidia-smi's name and power limit
   2. build      compiles every kernel from csrc/ (nvcc -Xptxas -v, in parallel);
@@ -228,6 +230,23 @@ points on the card, in fifty-four phases, each printing one line or more:
                 4 random states card vs CPU, 32 chains x 4 x 48 annealed
                 metropolis_distance steps (evals/s, row 10 four times an
                 evaluation, bitwise repeat)
+ 55. cli-campaign-a campaign A's settings file (campaigns/srtio3_2x2: 2x2,
+                32 chains, incremental, metropolis_distance, t_min) through
+                cli.sample_surface, cut to 6 sweeps in chunks of 2: exact
+                launches of rows 3 / 6 / 7 / 8, steps/s and the PhaseTimer
+                split; 4 sweeps resumed to 6 bitwise the uninterrupted tail;
+                checkpointed vs fresh energies and card vs CPU (1e-3 eV)
+ 56. cli-pourbaix campaign pourbaix_sriro's settings through
+                cli.sample_pourbaix_surface, cut to 2 sweeps in chunks of 1:
+                row 10 launches, a bitwise repeat, the prefilled state and
+                the first sweep card vs CPU (1e-3 eV)
+ 57. cli-predict cli.predict on phase 55's best CIF with the flagship
+                ensemble, card vs CPU (1e-3 eV, 1e-3 eV/A)
+ 58. cli-native runtime.native's g++ library on the card machine: the XYZ
+                writer byte for byte the Python one, cell-list counts
+ 59. cli-ff     campaign C's settings (frozen-far-field relax) cut to 1 x 4:
+                moves/s, carried energies vs a fresh full-cell evaluation of
+                the carried geometry (5e-3 eV)
 
 Then it prints one JSON line {"kernels": [...]} (per kernel: source, the
 TPU kernel it replaces, launches on its main path — the rigid run for the
@@ -236,7 +255,7 @@ evaluation run for the banded kernels, the delta run for the subset kernel,
 the relaxed 3x3 run for the banded backward, paths A, B and C for the CHGNet
 rows 10, 12 and 11, the Cu semigrand run for row 13, the training runs for
 row 5, every path's count under launches_by_path, phases 36-39's,
-43-46's, 47-49's and 50-54's paths included — max abs error, ms, plain_ms,
+43-46's, 47-49's, 50-54's and 55-59's paths included — max abs error, ms, plain_ms,
 bound_ms, bound_by, library_ms), the nvidia-smi line again, and last the
 JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -4882,6 +4901,443 @@ def slice17_phases(dev) -> dict:
     return paths
 
 
+# ----------------------------------------------------------------------
+# The sampling CLI on the card (slice 18)
+# ----------------------------------------------------------------------
+# the campaigns' own settings files, cut only in total_sweeps,
+# checkpoint_interval and run_folder (and sweep_size for [cli-ff])
+CLI_A_SWEEPS, CLI_A_PART, CLI_A_INTERVAL = 6, 4, 2
+CLI_POURBAIX_SWEEPS, CLI_POURBAIX_INTERVAL = 2, 1
+CLI_FF_SWEEPS, CLI_FF_SWEEP_SIZE = 1, 4
+CLI_CPU_CHAINS = 2
+CLI_FF_CPU_CHAINS = 1                      # the CPU descent of a 168-row ball takes seconds a chain
+CLI_E_TOL, CLI_F_TOL, CLI_FF_TOL = 1e-3, 1e-3, 5e-3
+POURBAIX_PREFILLED_E = 263.436584          # eV, [pourbaix-mc]'s library path (PR 17)
+
+
+def _campaign_settings(camp, name: str, out, tag: str, **samp):
+    """A copy ``<tag>.json`` under ``out`` of campaign ``camp``'s settings
+    file ``name`` as ``load_settings`` reads it (file references absolute),
+    its sampling settings updated by ``samp``. Returns the copy's path."""
+    from surface_sampling_tpu_torch.cli.common import load_settings
+
+    s = load_settings(camp / name)
+    s["sampling_settings"].update(samp)
+    path = out / f"{tag}.json"
+    path.write_text(json.dumps(s))
+    return path
+
+
+def _history(folder) -> dict:
+    with np.load(folder / "history.npz") as h:
+        return {k: h[k] for k in h.files}
+
+
+def _run_timing(folder) -> dict:
+    """The PhaseTimer split of a run, from the last Timing line of its
+    mc.log: {phase: seconds}."""
+    import re
+
+    line = [ln for ln in (folder / "mc.log").read_text().splitlines() if "Timing:" in ln][-1]
+    return {k: float(v) for k, v in re.findall(r"(\w+): ([\d.]+)s \(", line)}
+
+
+@contextlib.contextmanager
+def _timed_calls(module, names):
+    """Time, while the block runs, every call of the functions ``names`` of
+    ``module`` (the card synchronised at each call's end); yields {name:
+    seconds}, summed over the calls."""
+    spent, saved = dict.fromkeys(names, 0.0), {n: getattr(module, n) for n in names}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return call
+
+    for n in names:
+        setattr(module, n, timed(n, saved[n]))
+    try:
+        yield spent
+    finally:
+        for n in names:
+            setattr(module, n, saved[n])
+
+
+def _timed_cli(main, argv) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        main(argv)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def cli_campaign_a_phase(dev, tmp) -> tuple[dict, object, object]:
+    """55. Campaign A (campaigns/srtio3_2x2: the 3-member PaiNN, 2x2 slab
+    of 496 slots, 32 chains, incremental, metropolis_distance, t_min)
+    through ``python -m surface_sampling_tpu_torch.cli.sample_surface`` on
+    the card: CLI_A_SWEEPS sweeps in chunks of CLI_A_INTERVAL (launch counts
+    of rows 3 / 6 / 7 / 8: the initial energies through the banded trunk,
+    the delta engine's caches at each chunk, three subset and update
+    launches a step), then CLI_A_PART sweeps resumed to CLI_A_SWEEPS
+    (bitwise the uninterrupted run's tail), the checkpoint's energies
+    against a fresh full evaluation, the first sweep's energies of
+    CLI_CPU_CHAINS chains against the CPU port. Returns the launch counts,
+    the best CIF and the settings file."""
+    from pathlib import Path
+
+    from surface_sampling_tpu_torch.cli import common
+    from surface_sampling_tpu_torch.cli.common import assemble_system, load_settings, load_slab
+    from surface_sampling_tpu_torch.cli.sample_surface import main
+    from surface_sampling_tpu_torch.io import load_checkpoint
+
+    camp = Path(__file__).resolve().parent / "campaigns" / "srtio3_2x2"
+    cif = camp / "SrTiO3_001_2x2super.cif"
+    sp_full = _campaign_settings(camp, "settings.json", tmp, "a_full",
+                                 total_sweeps=CLI_A_SWEEPS, checkpoint_interval=CLI_A_INTERVAL,
+                                 run_folder=str(tmp / "a_full"))
+    samp = json.loads(sp_full.read_text())["sampling_settings"]
+    reset_launch_counts()
+    with _timed_calls(common, ("load_settings", "load_slab", "build_potential",
+                               "assemble_system", "run_sampling")) as host:
+        wall = _timed_cli(main, ["--settings", str(sp_full), "--slab", str(cif)])
+    launches = launch_counts()
+    n_steps, n_chunks = CLI_A_SWEEPS * samp["sweep_size"], CLI_A_SWEEPS // CLI_A_INTERVAL
+    L = 3
+    # the initial energies through the banded trunk, the delta engine's
+    # caches at each chunk start, then L subset and update launches a step
+    want = {k: v + n_chunks * INC_INIT_LAUNCHES.get(k, 0) for k, v in BANDED_LAUNCHES.items()}
+    want["painn_message_subset"] = L * n_steps
+    want["painn_update_fused"] += L * n_steps
+    _expect("cli-campaign-a", launches, want)
+    full = _history(tmp / "a_full")
+    timing = _run_timing(tmp / "a_full")
+    # the CLI wall by host call (build_potential runs inside
+    # assemble_system); "rest" is argparse, the run folder and its settings
+    cli_split = dict(host, rest=wall - sum(v for k, v in host.items() if k != "build_potential"))
+    mc_s = timing.get("first_chunk", 0.0) + timing.get("mc_chunks", 0.0)
+    if not np.isfinite(full["energy"]).all():
+        raise AssertionError("[cli-campaign-a] non-finite energies")
+
+    sp_part = _campaign_settings(camp, "settings.json", tmp, "a_part", total_sweeps=CLI_A_PART,
+                                 checkpoint_interval=CLI_A_INTERVAL,
+                                 run_folder=str(tmp / "a_part"))
+    sp_res = _campaign_settings(camp, "settings.json", tmp, "a_resume",
+                                total_sweeps=CLI_A_SWEEPS, checkpoint_interval=CLI_A_INTERVAL,
+                                run_folder=str(tmp / "a_part"))
+    wall_part = _timed_cli(main, ["--settings", str(sp_part), "--slab", str(cif)])
+    wall_res = _timed_cli(main, ["--settings", str(sp_res), "--slab", str(cif), "--resume",
+                                 str(tmp / "a_part")])
+    res = _history(tmp / "a_part")
+    same = (int(res["start_sweep"]) == CLI_A_PART
+            and all(np.array_equal(res[k], full[k][:, CLI_A_PART:])
+                    for k in ("energy", "site_state", "accept_rate")))
+    if not same:
+        raise AssertionError("[cli-campaign-a] the resumed run is not bitwise the tail of the "
+                             "uninterrupted one")
+
+    settings = load_settings(sp_full)
+    slab = load_slab(cif)
+    asys = assemble_system(settings, slab, device=dev)
+    st, idx, _, extra, gen = load_checkpoint(tmp / "a_full" / "checkpoint.npz", dev)
+    fresh = asys.run.state_energy_fn(st.site_state).surface_energy
+    drift = float((fresh - st.energy).abs().max())
+    del asys
+    asys_cpu = assemble_system(load_settings(sp_full), slab, device="cpu")
+    ss2 = torch.as_tensor(full["site_state"][:CLI_CPU_CHAINS, 0], dtype=torch.int64)
+    e_cpu = asys_cpu.run.state_energy_fn(ss2).surface_energy.numpy()
+    d_cpu = float(np.abs(e_cpu - full["energy"][:CLI_CPU_CHAINS, 0]).max())
+    del asys_cpu
+    artifacts = sorted(p.name for p in (tmp / "a_full").iterdir())
+    best_cif = next((tmp / "a_full").glob("best_energy_*.cif"))
+    n_chains = samp["n_chains"]
+    print(f"[cli-campaign-a] {samp['run_folder']}: {n_chains} chains x {CLI_A_SWEEPS} sweeps x "
+          f"{samp['sweep_size']} steps (incremental, {samp['criterion']}, t_min "
+          f"{samp['t_min']}), chunks of {CLI_A_INTERVAL}: steps/s={n_chains * n_steps / mc_s:.1f} "
+          f"(MC chunks {mc_s:.3f}s; CLI wall {wall:.2f}s) timing={json.dumps(timing)} "
+          f"cli_split={json.dumps({k: round(v, 3) for k, v in cli_split.items()})} "
+          f"accept={float(full['accept_rate'].mean()):.4f} n_ads={float(full['n_ads'].mean()):.3f} "
+          f"best={float(full['energy'].min()):.6f} eV launches={json.dumps(launches)}")
+    print(f"[cli-campaign-a] resume: {CLI_A_PART} sweeps ({wall_part:.2f}s) + --resume to "
+          f"{CLI_A_SWEEPS} ({wall_res:.2f}s) bitwise the uninterrupted run's tail: {same}; "
+          f"checkpoint sweep {idx} mode {str(extra['mode'])} generator on "
+          f"{gen.device.type}: carried vs fresh full evaluation max |diff| {drift:.3e} eV (tol "
+          f"{CLI_E_TOL}); first sweep of {CLI_CPU_CHAINS} chains card vs CPU max |diff| "
+          f"{d_cpu:.3e} eV (tol {CLI_E_TOL}); artifacts {artifacts}")
+    if not (drift <= CLI_E_TOL and d_cpu <= CLI_E_TOL):
+        raise AssertionError(f"[cli-campaign-a] energies off: carried vs fresh {drift}, card vs "
+                             f"CPU {d_cpu}")
+    for name in ("stats.csv", "checkpoint.npz", "history.npz", "anneal_schedule.csv", "mc.log",
+                 "settings.json"):
+        if name not in artifacts:
+            raise AssertionError(f"[cli-campaign-a] {name} not written")
+    return launches, best_cif, sp_full
+
+
+def cli_pourbaix_phase(dev, tmp) -> dict:
+    """56. Campaign pourbaix_sriro (CHGNet, 222 slots, surface atoms
+    sampled, 32 chains) through ``cli.sample_pourbaix_surface`` on the card,
+    cut to CLI_POURBAIX_SWEEPS sweeps in chunks of CLI_POURBAIX_INTERVAL:
+    row 10 four times an evaluation, a bitwise repeat of the whole run, the
+    prefilled state's energy and the first sweep's energies of
+    CLI_CPU_CHAINS chains card vs CPU. Returns the launch counts."""
+    from pathlib import Path
+
+    from surface_sampling_tpu_torch.cli.common import load_settings, load_slab
+    from surface_sampling_tpu_torch.cli.sample_pourbaix_surface import (
+        build_pourbaix_system,
+        main,
+    )
+
+    camp = Path(__file__).resolve().parent / "campaigns" / "pourbaix_sriro"
+    cif = camp / "SrIrO3_001_2x2.cif"
+    paths = [_campaign_settings(camp, "settings.json", tmp, f"p{i}",
+                                total_sweeps=CLI_POURBAIX_SWEEPS,
+                                checkpoint_interval=CLI_POURBAIX_INTERVAL,
+                                run_folder=str(tmp / f"p{i}")) for i in (1, 2)]
+    samp = json.loads(paths[0].read_text())["sampling_settings"]
+    reset_launch_counts()
+    wall = _timed_cli(main, ["--settings", str(paths[0]), "--slab", str(cif)])
+    launches = launch_counts()
+    n_steps = CLI_POURBAIX_SWEEPS * samp["sweep_size"]
+    _expect("cli-pourbaix", launches, {"chgnet_conv": 4 * (1 + n_steps)})
+    wall2 = _timed_cli(main, ["--settings", str(paths[1]), "--slab", str(cif)])
+    a, b = _history(tmp / "p1"), _history(tmp / "p2")
+    same = all(np.array_equal(a[k], b[k]) for k in a)
+    if not same:
+        raise AssertionError("[cli-pourbaix] the CLI run does not repeat bitwise")
+    timing = _run_timing(tmp / "p1")
+    mc_s = timing.get("first_chunk", 0.0) + timing.get("mc_chunks", 0.0)
+    slab = load_slab(cif)
+    asys, ss0, _ = build_pourbaix_system(load_settings(paths[0]), slab, dev)
+    asys_cpu, _, _ = build_pourbaix_system(load_settings(paths[0]), slab, "cpu")
+    e0 = float(asys.run.state_energy_fn(torch.as_tensor(ss0[None], device=dev))
+               .surface_energy[0])
+    e0_cpu = float(asys_cpu.run.state_energy_fn(torch.as_tensor(ss0[None])).surface_energy[0])
+    ss2 = torch.as_tensor(a["site_state"][:CLI_CPU_CHAINS, 0], dtype=torch.int64)
+    e_cpu = asys_cpu.run.state_energy_fn(ss2).surface_energy.numpy()
+    d_cpu = float(np.abs(e_cpu - a["energy"][:CLI_CPU_CHAINS, 0]).max())
+    del asys, asys_cpu
+    n_chains = samp["n_chains"]
+    print(f"[cli-pourbaix] {n_chains} chains x {CLI_POURBAIX_SWEEPS} sweeps x "
+          f"{samp['sweep_size']} steps ({samp['criterion']}, chunks of "
+          f"{CLI_POURBAIX_INTERVAL}): evals/s={n_chains * n_steps / mc_s:.2f} (MC chunks "
+          f"{mc_s:.3f}s; CLI wall {wall:.2f}s / {wall2:.2f}s) bitwise repeat {same} "
+          f"timing={json.dumps(timing)}; prefilled state card {e0:.6f} eV vs CPU {e0_cpu:.6f} eV "
+          f"([pourbaix-mc]'s library path, static table: {POURBAIX_PREFILLED_E}); first sweep "
+          f"of {CLI_CPU_CHAINS} chains card vs CPU max |diff| {d_cpu:.3e} eV (tol {CLI_E_TOL}) "
+          f"best={float(a['energy'].min()):.6f} eV launches="
+          f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    if not (abs(e0 - e0_cpu) <= CLI_E_TOL and d_cpu <= CLI_E_TOL):
+        raise AssertionError(f"[cli-pourbaix] card vs CPU off: prefilled {e0} / {e0_cpu}, "
+                             f"first sweep {d_cpu}")
+    return launches
+
+
+def cli_predict_phase(dev, tmp, best_cif, settings_path) -> dict:
+    """57. ``cli.predict`` on [cli-campaign-a]'s best CIF with the flagship
+    ensemble (edges by image search), on the card and with --device cpu:
+    energies within CLI_E_TOL, forces within CLI_F_TOL. Returns the card
+    run's launch counts."""
+    from surface_sampling_tpu_torch.cli.predict import main
+
+    argv = ["--structures", str(best_cif), "--settings", str(settings_path)]
+    reset_launch_counts()
+    wall = _timed_cli(main, argv + ["--out", str(tmp / "pred_card.npz")])
+    launches = launch_counts()
+    wall_cpu = _timed_cli(main, argv + ["--out", str(tmp / "pred_cpu.npz"), "--device", "cpu"])
+    card, cpu = np.load(tmp / "pred_card.npz"), np.load(tmp / "pred_cpu.npz")
+    d_e = float(np.abs(card["energies"] - cpu["energies"]).max())
+    d_f = float(np.abs(card["forces"] - cpu["forces"]).max())
+    print(f"[cli-predict] {best_cif.name} ({int(card['n_atoms'][0])} atoms): card "
+          f"{float(card['energies'][0]):.6f} eV std {float(card['energy_std'][0]):.6f} "
+          f"({wall:.2f}s) vs CPU {float(cpu['energies'][0]):.6f} eV ({wall_cpu:.2f}s): |dE| "
+          f"{d_e:.3e} eV (tol {CLI_E_TOL}), max |dF| {d_f:.3e} eV/A (tol {CLI_F_TOL}) "
+          f"launches={json.dumps({k: v for k, v in launches.items() if v})}")
+    if not (d_e <= CLI_E_TOL and d_f <= CLI_F_TOL):
+        raise AssertionError(f"[cli-predict] card vs CPU: dE {d_e}, dF {d_f}")
+    return launches
+
+
+def cli_native_phase(tmp, best_cif) -> None:
+    """58. ``runtime.native`` on the card machine: its g++ build loads from
+    _build/, writes [cli-campaign-a]'s best structure in three frames byte
+    for byte as the Python writer does, and its cell list counts what the
+    numpy one counts."""
+    from surface_sampling_tpu_torch.runtime import native
+    from surface_sampling_tpu_torch.structure.io import read_cif
+
+    t0 = time.perf_counter()
+    lib = native.load_library()
+    dt_build = time.perf_counter() - t0
+    if lib is None:
+        raise AssertionError("[cli-native] the surfkit library did not build or load")
+    st = read_cif(best_cif)
+    frames = np.stack([st.positions, st.positions + 0.125, st.positions - 1.0 / 3.0])
+    native.write_xyz_frames(tmp / "n.xyz", st.numbers, frames, st.cell)
+    native.write_xyz_frames_python(tmp / "p.xyz", st.numbers, frames, st.cell)
+    same = (tmp / "n.xyz").read_bytes() == (tmp / "p.xyz").read_bytes()
+    got = native.cell_list_neighbors(st.positions, st.cell, 5.0, 64)
+    ref = native.cell_list_neighbors_numpy(st.positions, st.cell, 5.0, 64)
+    counts = got[3] == ref[3] and np.array_equal(got[2], ref[2])
+    print(f"[cli-native] {native.lib_path().name} built and loaded in {dt_build:.2f}s; "
+          f"write_xyz_frames native == Python writer byte for byte "
+          f"({(tmp / 'n.xyz').stat().st_size} bytes): {same}; cell list counts == numpy's "
+          f"(max {got[3]}): {counts}")
+    if not (same and counts):
+        raise AssertionError("[cli-native] the native helpers disagree with the numpy ones")
+
+
+def cli_ff_phase(dev, tmp) -> dict:
+    """59. Campaign C's settings (settings_relaxed_ff.json: every move
+    FIRE-relaxed by the frozen-far-field ball descent, 16 chains) through
+    ``cli.sample_surface``, cut to CLI_FF_SWEEPS sweep of CLI_FF_SWEEP_SIZE
+    steps. Campaign C accepts no move at these temperatures, so the carried
+    state alone would only show the first evaluation: the phase records
+    every trial the engine scores inside the CLI run (its relaxed geometry
+    and the energy the acceptance test used) and holds each trial energy
+    against a fresh full-cell evaluation of that geometry, and the first
+    step's trials of CLI_FF_CPU_CHAINS chains against the CPU port's descent
+    from the same inputs (CLI_FF_TOL); the checkpoint's energies against a
+    fresh evaluation of the carried geometry too. Returns the launch
+    counts."""
+    from pathlib import Path
+
+    from surface_sampling_tpu_torch.cli.common import assemble_system, load_settings, load_slab
+    from surface_sampling_tpu_torch.cli.sample_surface import main
+    from surface_sampling_tpu_torch.core import ff_relax
+    from surface_sampling_tpu_torch.core.energy import identity_surface_energy
+    from surface_sampling_tpu_torch.core.state import (
+        element_counts,
+        realize_alive,
+        realize_type_idx,
+    )
+    from surface_sampling_tpu_torch.io import load_checkpoint
+
+    camp = Path(__file__).resolve().parent / "campaigns" / "srtio3_2x2"
+    cif = camp / "SrTiO3_001_2x2super.cif"
+    sp = _campaign_settings(camp, "settings_relaxed_ff.json", tmp, "ff",
+                            total_sweeps=CLI_FF_SWEEPS,
+                            sweep_size=CLI_FF_SWEEP_SIZE, run_folder=str(tmp / "ff"))
+    samp, calc = (json.loads(sp.read_text())[k] for k in ("sampling_settings", "calc_settings"))
+
+    # record the trials of the engine run_sampling builds (semigrand: one
+    # ball descent a move, evaluate.evaluate1); recording happens outside
+    # the kernels' wrappers and adds no launch
+    trials, built = [], {}
+    make_eval = ff_relax.make_ff_relax_eval
+
+    def recording_eval(*args, **kw):
+        evaluate = make_eval(*args, **kw)
+        built.update(kw)
+        inner = evaluate.evaluate1
+
+        def evaluate1(trial_ss, pos_prev, caches, site):
+            st, new_caches = inner(trial_ss, pos_prev, caches, site)
+            rec = {"ss": trial_ss.clone(), "pos": st.positions.clone(),
+                   "se": st.surface_energy.clone(), "oob": st.oob.clone()}
+            if not trials:
+                k = CLI_FF_CPU_CHAINS
+                rec["inputs"] = (trial_ss[:k].cpu(), pos_prev[:k].cpu(),
+                                 tuple(c[:k].cpu() for c in caches), site[:k].cpu())
+            trials.append(rec)
+            return st, new_caches
+
+        evaluate.evaluate1 = evaluate1
+        return evaluate
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ff_relax.make_ff_relax_eval = recording_eval
+    try:
+        wall = _timed_cli(main, ["--settings", str(sp), "--slab", str(cif)])
+    finally:
+        ff_relax.make_ff_relax_eval = make_eval
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    timing = _run_timing(tmp / "ff")
+    mc_s = timing.get("first_chunk", 0.0) + timing.get("mc_chunks", 0.0)
+    hist = _history(tmp / "ff")
+    n_moves = samp["n_chains"] * CLI_FF_SWEEPS * samp["sweep_size"]
+    if len(trials) != CLI_FF_SWEEPS * samp["sweep_size"]:
+        raise AssertionError(f"[cli-ff] the FF engine scored {len(trials)} steps, expected "
+                             f"{CLI_FF_SWEEPS * samp['sweep_size']}")
+
+    t_check = time.perf_counter()
+    asys = assemble_system(load_settings(sp), load_slab(cif), device=dev)
+    d = asys.run.d
+    sfn = asys.run.surface_energy_fn or identity_surface_energy
+
+    def fresh(ss, pos):
+        with torch.no_grad():
+            e_pot = asys.potential.energy(pos, realize_type_idx(d, ss), realize_alive(d, ss),
+                                          d.shifts)
+            return sfn(e_pot, element_counts(d, ss))
+
+    # a trial out of bounds carries the bound, not its energy
+    d_trial = max(float(torch.where(t["oob"], 0.0, fresh(t["ss"], t["pos"]) - t["se"])
+                        .abs().max()) for t in trials)
+    n_oob = sum(int(t["oob"].sum()) for t in trials)
+    st, idx, _, _, _ = load_checkpoint(tmp / "ff" / "checkpoint.npz", dev)
+    drift = float((fresh(st.site_state, st.relaxed_positions) - st.energy).abs().max())
+    moved = float((trials[0]["pos"][:CLI_FF_CPU_CHAINS].cpu()
+                   - trials[0]["inputs"][1]).abs().max())
+    del asys
+
+    t_cpu = time.perf_counter()
+    asys_cpu = assemble_system(load_settings(sp), load_slab(cif), device="cpu")
+    ev_cpu = make_eval(asys_cpu.run.d, asys_cpu.potential,
+                       surface_energy_fn=asys_cpu.run.surface_energy_fn, relax=built["relax"],
+                       tables=built["tables"], seat_tables=built["seat_tables"])
+    st_cpu, _ = ev_cpu.evaluate1(*trials[0]["inputs"])
+    d_cpu = float((st_cpu.surface_energy - trials[0]["se"][:CLI_FF_CPU_CHAINS].cpu())
+                  .abs().max())
+    del asys_cpu, ev_cpu
+    t_end = time.perf_counter()
+    print(f"[cli-ff] {samp['n_chains']} chains x {CLI_FF_SWEEPS} x {samp['sweep_size']} FF moves "
+          f"(relax_steps {calc['relax_steps']}, hops {calc['relax_ball_hops']}): moves/s="
+          f"{n_moves / mc_s:.2f} (MC {mc_s:.3f}s; CLI wall {wall:.2f}s) timing={json.dumps(timing)} peak_mem={peak:.3f} GB accept="
+          f"{float(hist['accept_rate'].mean()):.4f}; {n_moves} trial energies ({n_oob} out of "
+          f"bounds) vs a fresh full-cell evaluation of their relaxed geometry max |diff| "
+          f"{d_trial:.3e} eV; first step's trials of {CLI_FF_CPU_CHAINS} chains card vs CPU "
+          f"descent max |diff| {d_cpu:.3e} eV (ball moved up to {moved:.3e} A); checkpoint sweep {idx}: "
+          f"carried energies vs a fresh evaluation max |diff| {drift:.3e} eV (tol {CLI_FF_TOL}); "
+          f"checks {t_end - t_check:.2f}s (CPU {t_end - t_cpu:.2f}s) "
+          f"launches={json.dumps({k: v for k, v in launches.items() if v})}")
+    if not (d_trial <= CLI_FF_TOL and d_cpu <= CLI_FF_TOL and drift <= CLI_FF_TOL
+            and moved > 0.0 and np.isfinite(hist["energy"]).all()):
+        raise AssertionError(f"[cli-ff] energies off: trials vs fresh {d_trial} eV, card vs CPU "
+                             f"{d_cpu} eV, carried vs fresh {drift} eV, ball moved {moved} A")
+    return launches
+
+
+def slice18_phases(dev) -> dict:
+    """Phases 55-59 in a temporary folder; returns the launch counts of
+    their paths."""
+    import tempfile
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cli_smoke_") as tmp_name:
+        tmp = Path(tmp_name)
+        paths = {}
+        paths["cli_campaign_a"], best_cif, sp_a = cli_campaign_a_phase(dev, tmp)
+        torch.cuda.empty_cache()
+        paths["cli_pourbaix"] = cli_pourbaix_phase(dev, tmp)
+        torch.cuda.empty_cache()
+        paths["cli_predict"] = cli_predict_phase(dev, tmp, best_cif, sp_a)
+        cli_native_phase(tmp, best_cif)
+        torch.cuda.empty_cache()
+        paths["cli_ff"] = cli_ff_phase(dev, tmp)
+        torch.cuda.empty_cache()
+    print(f"[cli-time] phases 55-59 {time.perf_counter() - t0:.1f}s")
+    return paths
+
+
 def entry_registers(log: str) -> dict:
     """ptxas -v's report per entry function: {short name: [registers, spill
     store bytes, spill load bytes]}, the name the mangled one's kernel
@@ -5058,6 +5514,10 @@ def main() -> int:
 
     # CHGNet and MACE training, the Pourbaix campaign
     engine_paths.update(slice17_phases(dev))
+    torch.cuda.empty_cache()
+
+    # the sampling CLI on the campaigns' settings files
+    engine_paths.update(slice18_phases(dev))
 
     main_path = {"painn_message_bwd": "relaxed_mc", "painn_message_l1_banded": "sc_mc",
                  "painn_message_fused_banded": "sc_mc", "painn_message_subset": "inc_mc",

@@ -1,8 +1,12 @@
 """Host-side structure layer: the slab container, slabs and adsorption sites."""
 
 from surface_sampling_tpu_torch.structure.atoms import Structure
-from surface_sampling_tpu_torch.structure.sites import find_adsorption_sites
+from surface_sampling_tpu_torch.structure.sites import (
+    find_adsorption_sites,
+    find_surface_symmetry_ops,
+    symmetry_reduce_sites,
+)
 from surface_sampling_tpu_torch.structure.slabs import bulk, diamond111, fcc100, surface_from_bulk
 
 __all__ = ["Structure", "bulk", "diamond111", "fcc100", "find_adsorption_sites",
-           "surface_from_bulk"]
+           "find_surface_symmetry_ops", "surface_from_bulk", "symmetry_reduce_sites"]

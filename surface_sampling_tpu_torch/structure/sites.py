@@ -3,9 +3,11 @@
 Ontop sites on surface atoms, bridge sites on Delaunay edge midpoints and
 hollow sites at triangle centroids, all ``planar_distance`` above the mean
 surface plane, with near-duplicate reduction; periodicity comes from
-triangulating a 3x3 tiling and keeping home-cell simplices. A copy of
-``find_adsorption_sites`` in ``surface_sampling_tpu/structure/sites.py``
-without the symmetry reduction, which the flagship does not use.
+triangulating a 3x3 tiling and keeping home-cell simplices; with
+``symm_reduce`` one representative of each symmetry orbit of sites is kept,
+under the slab's in-plane space-group operations found numerically
+(:func:`find_surface_symmetry_ops`). A copy of
+``surface_sampling_tpu/structure/sites.py``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,83 @@ from scipy.spatial import Delaunay
 from surface_sampling_tpu_torch.structure.atoms import Structure
 
 
+def find_surface_symmetry_ops(slab: Structure, tol: float = 1e-3
+                              ) -> list[tuple[np.ndarray, np.ndarray]]:
+    """The slab's in-plane space-group operations, found numerically.
+
+    Enumerates the integer 2x2 rotation / mirror parts W (entries -2..2,
+    |det| = 1) that preserve the in-plane metric (W^T G W = G) and, for
+    each, the fractional translations t that map the atoms onto themselves
+    (species and z preserved). Returns the list of (W, t), t a fractional
+    2-vector."""
+    cell2d = slab.cell[:2, :2]
+    G = cell2d @ cell2d.T
+    frac = slab.scaled_positions[:, :2] % 1.0
+    z = slab.positions[:, 2]
+    species = slab.numbers
+
+    ops: list[np.ndarray] = []
+    rng = (-2, -1, 0, 1, 2)
+    for a in rng:
+        for b in rng:
+            for c in rng:
+                for d in rng:
+                    W = np.array([[a, b], [c, d]], dtype=np.int64)
+                    if abs(round(np.linalg.det(W))) != 1:
+                        continue
+                    if np.allclose(W.T @ G @ W, G, atol=tol * np.abs(G).max()):
+                        ops.append(W)
+
+    def maps_structure(W, t) -> bool:
+        img = (frac @ W.T + t) % 1.0
+        for i in range(len(frac)):
+            d2 = img[i] - frac
+            d2 -= np.round(d2)
+            cart = d2 @ cell2d
+            match = ((np.einsum("ij,ij->i", cart, cart) < tol**2)
+                     & (np.abs(z - z[i]) < 1e-3) & (species == species[i]))
+            if not match.any():
+                return False
+        return True
+
+    found: list[tuple[np.ndarray, np.ndarray]] = []
+    anchor = int(np.argmin(species))  # any deterministic anchor atom
+    same = np.where((species == species[anchor]) & (np.abs(z - z[anchor]) < 1e-3))[0]
+    for W in ops:
+        for j in same:
+            t = (frac[j] - frac[anchor] @ W.T) % 1.0
+            if maps_structure(W, t) and not any(
+                    np.array_equal(W, W2) and np.allclose(t, t2, atol=1e-4) for W2, t2 in found):
+                found.append((W, t))
+    return found
+
+
+def symmetry_reduce_sites(slab: Structure, sites: np.ndarray, tol: float = 0.05) -> np.ndarray:
+    """One representative (the first in order) of each symmetry orbit of
+    adsorption sites under :func:`find_surface_symmetry_ops`."""
+    if len(sites) == 0:
+        return sites
+    ops = find_surface_symmetry_ops(slab)
+    cell2d = slab.cell[:2, :2]
+    frac = np.linalg.solve(slab.cell.T, sites.T).T[:, :2] % 1.0
+    kept: list[int] = []
+    for i in range(len(sites)):
+        dup = False
+        for W, t in ops:
+            img = (frac[i] @ W.T + t) % 1.0
+            for j in kept:
+                d = img - frac[j]
+                d -= np.round(d)
+                if np.linalg.norm(d @ cell2d) < tol and abs(sites[i, 2] - sites[j, 2]) < 1e-3:
+                    dup = True
+                    break
+            if dup:
+                break
+        if not dup:
+            kept.append(i)
+    return sites[np.array(kept, dtype=int)]
+
+
 def find_adsorption_sites(
     slab: Structure,
     site_types: tuple[str, ...] = ("ontop", "bridge", "hollow"),
@@ -24,6 +103,7 @@ def find_adsorption_sites(
     near_reduce: float = 0.01,
     no_obtuse_hollow: bool = True,
     put_inside: bool = True,
+    symm_reduce: bool = False,
 ) -> dict[str, np.ndarray]:
     """Find adsorption sites above the top surface of a slab.
 
@@ -36,6 +116,8 @@ def find_adsorption_sites(
         near_reduce: fractional-coordinate duplicate threshold.
         no_obtuse_hollow: drop hollows of obtuse triangles.
         put_inside: wrap sites into the cell.
+        symm_reduce: keep one site of each symmetry orbit in each family
+            (:func:`symmetry_reduce_sites`).
 
     Returns:
         dict with per-family (n, 3) arrays plus "all" (their concatenation,
@@ -90,6 +172,8 @@ def find_adsorption_sites(
             if put_inside:
                 arr = _wrap_xy(arr, slab.cell)
             arr = _near_reduce(arr, slab.cell, near_reduce)
+            if symm_reduce:
+                arr = symmetry_reduce_sites(slab, arr)
         out[fam] = arr
         all_sites.append(arr)
     allarr = np.concatenate(all_sites) if all_sites else np.zeros((0, 3))

@@ -25,12 +25,9 @@ def create_anneal_schedule(
     """(total_sweeps,) temperatures: geometric (T <- T * alpha each sweep)
     or the multi-stage recipe (down to 0.10 over 100 sweeps, to 0.08 over
     200, hold 200, back up in 10, repeated). With ``save_folder`` the
-    schedule is written to ``anneal_schedule.csv`` there (``save_csv``);
-    its figure (``save_fig``) needs the plotting module, which the port
-    does not have yet, and raises."""
-    if save_folder is not None and save_fig:
-        raise NotImplementedError("save_fig: the plotting module (utils/plot.py) is not "
-                                  "ported yet")
+    schedule is written to ``anneal_schedule.csv`` there (``save_csv``)
+    and, with ``save_fig``, drawn to ``anneal_schedule.png`` when
+    matplotlib is installed (one logged line names the figure otherwise)."""
     if not multiple_anneal:
         temps = [start_temp]
         t = start_temp
@@ -47,6 +44,10 @@ def create_anneal_schedule(
     temps = np.asarray(temps[:total_sweeps])
     if save_folder is not None and save_csv:
         (Path(save_folder) / "anneal_schedule.csv").write_text(",".join(str(t) for t in temps))
+    if save_folder is not None and save_fig:
+        from surface_sampling_tpu_torch.utils.plot import plot_anneal_schedule
+
+        plot_anneal_schedule(temps, save_folder=save_folder)
     return temps
 
 

@@ -368,3 +368,44 @@ def test_chgnet_train_step_card_matches_cpu(cuda_device):
     assert abs(lg - lc) <= 1e-5 * abs(lc)
     for a, b in zip(gg, gc):
         assert float((a - b).abs().max()) <= 1e-3 * max(float(b.abs().max()), 1e-12)
+
+
+def test_cli_resume_bitwise_on_card(cuda_device, tmp_path):
+    """The sampling CLI on the card (Cu(100) EAM, the cu_setup shape of
+    tests/test_cli.py, chunked): 2 sweeps resumed in place to 6 are bitwise
+    the uninterrupted 6-sweep run, and the checkpoint holds a CUDA
+    generator, which the CPU refuses."""
+    import json
+
+    from surface_sampling_tpu_torch.cli.sample_surface import main
+    from surface_sampling_tpu_torch.io import load_checkpoint
+    from surface_sampling_tpu_torch.potentials.eam import builtin_eam, save_tables_npz
+    from surface_sampling_tpu_torch.structure.io import write_cif
+    from surface_sampling_tpu_torch.structure.slabs import fcc100
+
+    write_cif(tmp_path / "slab.cif", fcc100("Cu", size=(2, 2, 2), a=3.6147, vacuum=15.0))
+    save_tables_npz(tmp_path / "cu.npz", builtin_eam("Cu_u3"))
+
+    def run(total, folder, resume=None):
+        s = {"system_settings": {"surface_name": "Cu_100", "planar_distance": 1.5},
+             "sampling_settings": {"total_sweeps": total, "sweep_size": 4, "start_temp": 1.0,
+                                   "adsorbates": ["Cu"], "n_chains": 64,
+                                   "checkpoint_interval": 2,
+                                   "run_folder": str(tmp_path / folder)},
+             "calc_settings": {"calc_name": "eam", "potential_file": str(tmp_path / "cu.npz")}}
+        sp = tmp_path / f"{folder}_{total}.json"
+        sp.write_text(json.dumps(s))
+        argv = ["--settings", str(sp), "--slab", str(tmp_path / "slab.cif")]
+        main(argv + (["--resume", str(tmp_path / resume)] if resume else []))
+        with np.load(tmp_path / folder / "history.npz") as h:
+            return {k: h[k] for k in h.files}
+
+    full = run(6, "full")
+    run(2, "part")
+    res = run(6, "part", resume="part")
+    for k in ("energy", "site_state", "accept_rate"):
+        np.testing.assert_array_equal(res[k], full[k][:, 2:])
+    _, idx, _, _, gen = load_checkpoint(tmp_path / "part" / "checkpoint.npz", "cuda")
+    assert idx == 6 and gen.device.type == "cuda"
+    with pytest.raises(ValueError, match="--device cuda"):
+        load_checkpoint(tmp_path / "part" / "checkpoint.npz", "cpu")

@@ -25,9 +25,14 @@ def test_every_module_imports_with_jax_blocked():
         "new = {'core.ff_relax', 'parallel.tempering', 'parallel.population',"
         " 'parallel.mesh', 'parallel.training', 'models.mace', 'pourbaix', 'pourbaix.atoms',"
         " 'pourbaix.compatibility', 'pourbaix.entries', 'pourbaix.potential',"
-        " 'pourbaix.utils', 'structure.io', 'utils', 'utils.sampling'}\n"
+        " 'pourbaix.utils', 'structure.io', 'utils', 'utils.sampling',"
+        " 'cli.common', 'cli.default_settings', 'cli.sample_surface',"
+        " 'cli.sample_pourbaix_surface', 'cli.sample_bulk', 'cli.predict', 'io',"
+        " 'io.checkpoint', 'utils.logging', 'utils.misc', 'utils.plot', 'utils.setup',"
+        " 'utils.tracing', 'analysis', 'analysis.statistics', 'runtime', 'runtime.native'}\n"
         "assert new <= {n.split('.', 1)[1] for n in names}, names\n"
         "import chip_smoke\n"
+        "assert 'matplotlib' not in sys.modules, 'matplotlib is imported at module import'\n"
         "leaked = [m for m in sys.modules if m == 'surface_sampling_tpu'"
         " or m.startswith('surface_sampling_tpu.')]\n"
         "assert not leaked, leaked\n"

@@ -17,6 +17,7 @@ port's CHGNet tests' tolerance). Every JAX reference runs under one jit.
 
 import dataclasses
 import json
+import sys
 from pathlib import Path
 
 import jax
@@ -284,8 +285,18 @@ def test_anneal_schedules_match_jax(tmp_path):
     for stagger in (0.0, 0.5):
         np.testing.assert_array_equal(tutils.per_chain_schedules(8, 30, 1.0, 0.95, stagger),
                                       j_per_chain(8, 30, 1.0, 0.95, stagger))
-    with pytest.raises(NotImplementedError, match="plotting"):
-        tutils.create_anneal_schedule(1.0, 5, save_folder=tmp_path, save_fig=True)
+    # the figure is drawn where matplotlib is installed, as JAX's; without it
+    # the schedule and its CSV are the same and no figure is written
+    (tmp_path / "f").mkdir()
+    (tmp_path / "n").mkdir()
+    np.testing.assert_array_equal(
+        tutils.create_anneal_schedule(1.0, 5, save_folder=tmp_path / "f", save_fig=True),
+        j_anneal(1.0, 5))
+    assert (tmp_path / "f/anneal_schedule.png").exists()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "matplotlib", None)
+        tutils.create_anneal_schedule(1.0, 5, save_folder=tmp_path / "n", save_fig=True)
+    assert sorted(p.name for p in (tmp_path / "n").iterdir()) == ["anneal_schedule.csv"]
 
 
 # ----------------------------------------------------------------------
