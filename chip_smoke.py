@@ -25,8 +25,10 @@ search, and the MACE family; and force-loss training of CHGNet (with the
 magmom term) and MACE, the fine-tuning CLI for both, and the Pourbaix
 campaign on SrIrO3(001) with surface-atom sampling; and the sampling CLI
 on the campaigns' own settings files, checkpoints and a bitwise resume
-included — through their entry points on the card, in fifty-nine phases,
-each printing one line or more:
+included; and the post-processing of a sampled campaign (latent-space
+clustering, GMM and ensemble uncertainty, the structure tools) and the
+workflows of examples 04, 05, 07 and 08 — through their entry points on
+the card, in sixty-six phases, each printing one line or more:
 
   1. device     card name, count, and nvidia-smi's name and power limit
   2. build      compiles every kernel from csrc/ (nvcc -Xptxas -v, in parallel);
@@ -247,6 +249,27 @@ each printing one line or more:
  59. cli-ff     campaign C's settings (frozen-far-field relax) cut to 1 x 4:
                 moves/s, carried energies vs a fresh full-cell evaluation of
                 the carried geometry (5e-3 eV)
+ 60. cluster-cli cli.clustering on campaign A's history (every 100th sweep,
+                576 states) with the flagship ensemble, --metric energy then
+                gmm, maxclust 8: structures/s, row-2 launches, clusters and
+                selections, the EM's iterations and log-likelihood; a bitwise
+                repeat, one representative a cluster, 4 structures card vs
+                CPU (embeddings 1e-4 x max, energies 1e-3 eV)
+ 61. uncertainty the torch EM on every per-atom embedding of those states
+                (~2e5 x 128, chunk 4096, 8 components): time, iterations,
+                peak memory, a bitwise refit, card vs CPU on 20,000 rows
+                (1e-4 relative), system_mean NLL; ensemble_forces_std on 32
+                states (rows 2, 4), card vs CPU (1e-3 eV/A)
+ 62. structure-tools cut_surfaces, filter_stoichiometries, perturb_structures
+                --settings (flagship) and create_surface_formation_entries
+                (the Pourbaix campaign's CHGNet, plain and --relax --mp2020
+                --aqueous --oh-correction): card vs CPU, corrections equal
+ 63. ex04       example 04: flagship rigid MC, embed, cluster, select; bitwise
+ 64. ex05       example 05: slab, sites, supercell slab (host); repeat equal
+ 65. ex07       example 07: Pourbaix atoms, toy IrO2 with LJ, 10 sweeps;
+                prefilled states card vs CPU, bitwise repeat
+ 66. ex08       example 08: 2 active-learning rounds at its widths; the loss
+                falls, the dataset grows by the clusters, bitwise repeat
 
 Then it prints one JSON line {"kernels": [...]} (per kernel: source, the
 TPU kernel it replaces, launches on its main path — the rigid run for the
@@ -255,7 +278,7 @@ evaluation run for the banded kernels, the delta run for the subset kernel,
 the relaxed 3x3 run for the banded backward, paths A, B and C for the CHGNet
 rows 10, 12 and 11, the Cu semigrand run for row 13, the training runs for
 row 5, every path's count under launches_by_path, phases 36-39's,
-43-46's, 47-49's, 50-54's and 55-59's paths included — max abs error, ms, plain_ms,
+43-46's, 47-49's, 50-54's, 55-59's and 60-66's paths included — max abs error, ms, plain_ms,
 bound_ms, bound_by, library_ms), the nvidia-smi line again, and last the
 JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -5338,6 +5361,637 @@ def slice18_phases(dev) -> dict:
     return paths
 
 
+# ----------------------------------------------------------------------
+# Post-processing on the card: clustering, uncertainty, the structure
+# tools, examples 04 / 05 / 07 / 08 (slice 19)
+# ----------------------------------------------------------------------
+CLUSTER_EVERY = 100                        # campaign A's history, every 100th sweep
+CLUSTER_MAXCLUST = 8
+CLUSTER_CPU_STRUCTS = 4
+EMB_RTOL = 1e-4                            # embeddings card vs CPU, x max|cpu|
+UNC_COMPONENTS, UNC_CHUNK = 8, 4096
+UNC_SUBSET = 20_000                        # rows of the card vs CPU EM fit
+EM_LL_RTOL = 1e-4
+UNC_FORCE_STATES, UNC_FORCE_CPU_STATES = 32, 1   # a state's CPU forces take seconds
+PERTURB_N, PERTURB_AMPLITUDE = 4, 0.05
+FORM_RELAX_STEPS = 5                       # the CPU port relaxes the CHGNet slab too
+FORM_RELAX_TOL = 5e-3
+EX04_SWEEPS, EX04_SWEEP_SIZE = 8, 4
+EX07_SWEEPS, EX07_SWEEP_SIZE = 10, 10
+EX08_ROUNDS, EX08_EPOCHS, EX08_SEED_FRAMES = 2, 40, 16
+
+
+@contextlib.contextmanager
+def _recording(cls, name: str, keep):
+    """While the block runs, ``keep(result)`` is called on the result of every
+    call of method / function ``name`` of ``cls`` (a class or a module);
+    yields the list of what ``keep`` returned."""
+    saved, kept = getattr(cls, name), []
+
+    def call(*args, **kw):
+        out = saved(*args, **kw)
+        kept.append(keep(out))
+        return out
+
+    setattr(cls, name, call)
+    try:
+        yield kept
+    finally:
+        setattr(cls, name, saved)
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def campaign_a_structures(dev, tmp):
+    """Campaign A's recorded site states (history.npz: 32 chains x 1800
+    sweeps on the 2x2 super-slab), every CLUSTER_EVERY-th sweep, realized
+    through ``cli.common.assemble_system`` on the campaign's settings file
+    and written with ``save_structures_npz`` (their atom counts differ: the
+    ragged layout). Returns (the structures as read back, their site states,
+    the file, the assembled system)."""
+    from pathlib import Path
+
+    from surface_sampling_tpu_torch.cli.common import assemble_system, load_settings, load_slab
+    from surface_sampling_tpu_torch.core.state import realize_numbers, realize_positions
+    from surface_sampling_tpu_torch.structure import Structure
+    from surface_sampling_tpu_torch.structure.io import load_structures_npz, save_structures_npz
+
+    camp = Path(__file__).resolve().parent / "campaigns" / "srtio3_2x2"
+    with np.load(camp / "srtio3_2x2_campaign" / "history.npz") as h:
+        ss = h["site_state"][:, ::CLUSTER_EVERY]
+    ss = ss.reshape(-1, ss.shape[-1])
+    asys = assemble_system(load_settings(camp / "settings.json"),
+                           load_slab(camp / "SrTiO3_001_2x2super.cif"), device=dev)
+    if asys.spec.n_sites != ss.shape[1]:
+        raise AssertionError(f"[cluster-cli] the assembled spec has {asys.spec.n_sites} sites, "
+                             f"the history {ss.shape[1]}")
+    d = asys.run.d
+    sst = torch.as_tensor(ss, dtype=torch.int64, device=d.device)
+    numbers = realize_numbers(d, sst).cpu().numpy()
+    pos = realize_positions(d, sst).cpu().numpy()
+    path = tmp / "campaign_a_states.npz"
+    save_structures_npz(path, [Structure(z[z > 0], p[z > 0], asys.spec.cell)
+                               for z, p in zip(numbers, pos)])
+    return load_structures_npz(path)[0], ss, path, asys
+
+
+def cluster_cli_phase(dev, tmp) -> tuple[dict, dict]:
+    """60. ``cli.clustering`` on campaign A's sampled states with the
+    flagship ensemble (image search, one structure a call): --metric energy
+    then --metric gmm, maxclust CLUSTER_MAXCLUST. The two runs' embeddings
+    and labels bitwise equal (a repeat), one representative a cluster, the
+    EM fit refit bitwise, CLUSTER_CPU_STRUCTS structures' embeddings and
+    energies card vs the CPU port. Returns the first run's launch counts and
+    what [uncertainty] reuses (per-atom embeddings, states, the system)."""
+    from pathlib import Path
+
+    from surface_sampling_tpu_torch.analysis import uncertainty
+    from surface_sampling_tpu_torch.cli import clustering
+    from surface_sampling_tpu_torch.cli.common import load_calc_settings
+    from surface_sampling_tpu_torch.models import nn_calculator
+    from surface_sampling_tpu_torch.models.nn_calculator import UNIT_FACTORS
+
+    t0 = time.perf_counter()
+    structures, states, path, asys = campaign_a_structures(dev, tmp)
+    t_build = time.perf_counter() - t0
+    camp = Path(__file__).resolve().parent / "campaigns" / "srtio3_2x2"
+    sp = camp / "settings.json"
+    argv = ["--structures", str(path), "--settings", str(sp), "--criterion", "maxclust",
+            "--cutoff", str(CLUSTER_MAXCLUST), "--device", dev.type]
+    n = len(structures)
+    reset_launch_counts()
+    with _recording(nn_calculator.PaiNNPotential, "outputs",
+                    lambda out: out["embedding"][0].detach()) as per_atom, \
+            _timed_calls(clustering, ("compute_embeddings_and_metric",)) as t_e:
+        wall_e = _timed_cli(clustering.main, argv + ["--metric", "energy", "--out",
+                                                     str(tmp / "clust_energy")])
+    launches = launch_counts()
+    with _recording(uncertainty, "fit_gmm_em", lambda out: out) as fits, \
+            _timed_calls(clustering, ("compute_embeddings_and_metric",)) as t_g:
+        wall_g = _timed_cli(clustering.main, argv + ["--metric", "gmm", "--out",
+                                                     str(tmp / "clust_gmm")])
+    de, dg = np.load(tmp / "clust_energy" / "clustering.npz"), \
+        np.load(tmp / "clust_gmm" / "clustering.npz")
+    same = (np.array_equal(de["embeddings"], dg["embeddings"])
+            and np.array_equal(de["labels"], dg["labels"]))
+    labels = de["labels"]
+    one_each = all(len(d["selected"]) == len(np.unique(labels))
+                   and np.array_equal(np.sort(labels[d["selected"]]), np.unique(labels))
+                   for d in (de, dg))
+    params, info = uncertainty.fit_gmm_em(torch.as_tensor(dg["embeddings"], device=dev),
+                                          min(8, n), return_info=True)
+    em_same = len(fits) == 1 and all(np.array_equal(params[k], fits[0][k]) for k in params)
+
+    calc = load_calc_settings(sp)
+    emb_cpu, e_cpu = clustering.compute_embeddings_and_metric(
+        structures[:CLUSTER_CPU_STRUCTS], calc, "energy", "cpu")
+    d_emb = float(np.abs(de["embeddings"][:CLUSTER_CPU_STRUCTS] - emb_cpu).max())
+    scale = float(np.abs(emb_cpu).max())
+    d_e = float(np.abs(de["metrics"][:CLUSTER_CPU_STRUCTS] - e_cpu).max()) \
+        * UNIT_FACTORS[calc.get("model_units", "kcal/mol")]
+    n_atoms = sum(len(s) for s in structures)
+    print(f"[cluster-cli] campaign A history every {CLUSTER_EVERY}th sweep: {n} states "
+          f"({n_atoms} atoms, sizes {min(map(len, structures))}-{max(map(len, structures))}; "
+          f"assemble + realize + write "
+          f"{t_build:.2f}s); embedding pass {n / t_e['compute_embeddings_and_metric']:.1f} "
+          f"structures/s (energy run, {t_e['compute_embeddings_and_metric']:.2f}s of a "
+          f"{wall_e:.2f}s CLI) / {n / t_g['compute_embeddings_and_metric']:.1f} (gmm run, "
+          f"{wall_g:.2f}s CLI); row-2 launches {launches.get('painn_message_fused', 0)} "
+          f"launches={json.dumps({k: v for k, v in launches.items() if v})}")
+    print(f"[cluster-cli] {len(np.unique(labels))} clusters (sizes "
+          f"{np.bincount(labels)[1:].tolist()}); selected by energy {de['selected'].tolist()}, "
+          f"by gmm {dg['selected'].tolist()}; EM {info['n_iter']} iterations, final mean "
+          f"log-likelihood {info['mean_log_likelihood']:.6f}; repeat bitwise (embeddings, "
+          f"labels) {same}, EM refit bitwise {em_same}; one representative a cluster "
+          f"{one_each}; {CLUSTER_CPU_STRUCTS} structures card vs CPU: embeddings max |diff| "
+          f"{d_emb:.3e} (tol {EMB_RTOL} x {scale:.3f}), energies {d_e:.3e} eV (tol "
+          f"{CLI_E_TOL})")
+    if not (same and one_each and em_same and d_emb <= EMB_RTOL * scale and d_e <= CLI_E_TOL
+            and np.isfinite(dg["metrics"]).all() and len(per_atom) == n):
+        raise AssertionError("[cluster-cli] a check failed")
+    return launches, {"per_atom": per_atom, "states": states, "asys": asys}
+
+
+def uncertainty_phase(dev, reuse) -> dict:
+    """61. ``fit_gmm_em`` on every per-atom embedding of [cluster-cli]'s
+    states (~2e5 rows x 128, chunk UNC_CHUNK, UNC_COMPONENTS components):
+    time, iterations, peak memory, a bitwise refit, the card vs the CPU
+    port's fit on UNC_SUBSET rows (mean log-likelihood, EM_LL_RTOL
+    relative), the system_mean NLL of every structure through
+    ``GMMUncertainty.log_prob``; ``ensemble_forces_std`` on UNC_FORCE_STATES
+    states (rows 2, 4) scored by ``EnsembleUncertainty``, the first
+    UNC_FORCE_CPU_STATES of them card vs CPU (1e-3 eV/A). Returns the
+    forces pass's launch counts."""
+    from surface_sampling_tpu_torch.analysis import (
+        EnsembleUncertainty,
+        GMMUncertainty,
+        fit_gmm_em,
+        reduce_order,
+    )
+    from surface_sampling_tpu_torch.core.state import realize_numbers, realize_positions
+    from surface_sampling_tpu_torch.models.ensemble import ensemble_forces_std
+    from surface_sampling_tpu_torch.models.painn import tree_map
+
+    X = torch.cat(reuse["per_atom"])
+    counts = [len(x) for x in reuse["per_atom"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    t0 = time.perf_counter()
+    params, info = fit_gmm_em(X, UNC_COMPONENTS, chunk=UNC_CHUNK, return_info=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9 if dev.type == "cuda" else 0.0
+    t0 = time.perf_counter()
+    again = fit_gmm_em(X, UNC_COMPONENTS, chunk=UNC_CHUNK)
+    torch.cuda.synchronize()
+    dt_again = time.perf_counter() - t0
+    same = all(np.array_equal(params[k], again[k]) for k in params)
+    gu = GMMUncertainty(n_components=UNC_COMPONENTS, order="system_mean", gmm_params=params)
+    t0 = time.perf_counter()
+    nll = -gu.log_prob(X)
+    per_struct = torch.stack([reduce_order(s, "system_mean") for s in nll.split(counts)])
+    torch.cuda.synchronize()
+    dt_score = time.perf_counter() - t0
+
+    rows = np.sort(np.random.default_rng(0).choice(len(X), UNC_SUBSET, replace=False))
+    sub = X[torch.as_tensor(rows, device=X.device)]
+    p_card = fit_gmm_em(sub, UNC_COMPONENTS, chunk=UNC_CHUNK)
+    t0 = time.perf_counter()
+    p_cpu = fit_gmm_em(sub.cpu(), UNC_COMPONENTS, chunk=UNC_CHUNK)
+    dt_cpu = time.perf_counter() - t0
+    ll = [float(GMMUncertainty(n_components=UNC_COMPONENTS, gmm_params=p).log_prob(sub.cpu())
+                .mean()) for p in (p_card, p_cpu)]
+    d_ll = abs(ll[0] - ll[1]) / abs(ll[1])
+
+    asys = reuse["asys"]
+    pot, d = asys.potential, asys.run.d
+    ss = torch.as_tensor(reuse["states"][:UNC_FORCE_STATES], dtype=torch.int64, device=dev)
+    numbers, pos = realize_numbers(d, ss), realize_positions(d, ss)
+    shifts = torch.as_tensor(asys.spec.shifts, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    fstd = ensemble_forces_std(pot.params, pot.cfg, pos, numbers, numbers > 0, shifts) * pot.factor
+    torch.cuda.synchronize()
+    dt_f = time.perf_counter() - t0
+    launches = launch_counts()
+    u = EnsembleUncertainty(order="system_mean", quantity="forces")
+    u_f = torch.stack([u.get_uncertainty(forces_std=fstd[i][numbers[i] > 0])
+                       for i in range(len(ss))])
+    k = UNC_FORCE_CPU_STATES
+    fstd_cpu = ensemble_forces_std(tree_map(lambda x: x.cpu(), pot.params), pot.cfg,
+                                   pos[:k].cpu(), numbers[:k].cpu(), numbers[:k].cpu() > 0,
+                                   shifts.cpu()) * pot.factor
+    d_f = float((fstd[:k].cpu() - fstd_cpu).abs().max())
+    print(f"[uncertainty] EM on {len(X)} per-atom embeddings x {X.shape[1]} (float64 pass, chunk "
+          f"{UNC_CHUNK}, {UNC_COMPONENTS} components): {dt:.3f}s, {info['n_iter']} iterations, "
+          f"final mean log-likelihood {info['mean_log_likelihood']:.6f}, peak "
+          f"{peak:.3f} GB above the embeddings; refit ({dt_again:.3f}s) bitwise {same}; "
+          f"system_mean NLL of "
+          f"{len(counts)} structures in {dt_score:.3f}s: min {float(per_struct.min()):.4f} mean "
+          f"{float(per_struct.mean()):.4f} max {float(per_struct.max()):.4f}; {UNC_SUBSET} rows "
+          f"card vs CPU port fit (CPU {dt_cpu:.2f}s): mean log-likelihood {ll[0]:.6f} / "
+          f"{ll[1]:.6f}, rel diff {d_ll:.3e} (tol {EM_LL_RTOL})")
+    print(f"[uncertainty] ensemble_forces_std of {len(ss)} states ({dt_f:.3f}s): forces "
+          f"EnsembleUncertainty(system_mean) min {float(u_f.min()):.4f} max "
+          f"{float(u_f.max()):.4f} eV/A; first {k} card vs CPU max |diff| {d_f:.3e} eV/A (tol "
+          f"{CLI_F_TOL}) launches={json.dumps({k: v for k, v in launches.items() if v})}")
+    if not (same and d_ll <= EM_LL_RTOL and d_f <= CLI_F_TOL
+            and torch.isfinite(per_struct).all() and torch.isfinite(u_f).all()):
+        raise AssertionError("[uncertainty] a check failed")
+    return launches
+
+
+def structure_tools_phase(dev, tmp) -> dict:
+    """62. The structure tools: cut_surfaces on the SrTiO3 bulk,
+    filter_stoichiometries and perturb_structures --settings (the flagship,
+    on the card and the CPU: positions equal, energies 1e-3 eV) on campaign
+    A's best CIF; create_surface_formation_entries on the Pourbaix campaign's
+    slab with its CHGNet settings, plain and with --relax (FORM_RELAX_STEPS
+    steps) --mp2020 --aqueous --oh-correction: energies card vs CPU 1e-3 eV
+    (relaxed 5e-3), corrections equal. Returns the card runs' launch
+    counts."""
+    from pathlib import Path
+
+    from surface_sampling_tpu_torch.cli import (
+        create_surface_formation_entries,
+        cut_surfaces,
+        filter_stoichiometries,
+        perturb_structures,
+    )
+    from surface_sampling_tpu_torch.structure import bulk, surface_from_bulk
+    from surface_sampling_tpu_torch.structure.io import load_structures_npz, read_cif, write_cif
+
+    repo = Path(__file__).resolve().parent
+    camp_a = repo / "campaigns" / "srtio3_2x2"
+    best = sorted((camp_a / "srtio3_2x2_campaign").glob("best_energy_*.cif"))[0]
+    sto = bulk(["Sr", "Ti", "O"], "perovskite", a=3.905)
+    write_cif(tmp / "sto_bulk.cif", sto)
+    _timed_cli(cut_surfaces.main, ["--bulk", str(tmp / "sto_bulk.cif"), "--miller", "0", "0", "1",
+                                   "--size", "2", "2", "--layers", "4", "--out",
+                                   str(tmp / "slabs")])
+    cut = [read_cif(p) for p in sorted((tmp / "slabs").glob("*.cif"))]
+    slab, _ = surface_from_bulk(sto, (0, 0, 1), size=(2, 2), layers=4, vacuum=15.0)
+    cut_ok = len(cut) == 1 and len(cut[0]) == len(slab)
+
+    st = read_cif(best)
+    n_o = st.symbols.count("O")
+    kept = []
+    for lo, hi in ((n_o, n_o), (0, n_o - 1)):
+        _timed_cli(filter_stoichiometries.main, ["--structures", str(best), "--ranges",
+                                                 json.dumps({"O": [lo, hi]}), "--out",
+                                                 str(tmp / "filtered.npz")])
+        kept.append(len(load_structures_npz(tmp / "filtered.npz")[0]))
+
+    argv = ["--structures", str(best), "--settings", str(camp_a / "settings.json"),
+            "--n-perturb", str(PERTURB_N), "--amplitude", str(PERTURB_AMPLITUDE)]
+    reset_launch_counts()
+    wall_p = _timed_cli(perturb_structures.main,
+                        argv + ["--out", str(tmp / "pert_card"), "--device", dev.type])
+    launches_p = launch_counts()
+    _timed_cli(perturb_structures.main, argv + ["--out", str(tmp / "pert_cpu"), "--device", "cpu"])
+    (pc, ec), (pp, ep) = (load_structures_npz(tmp / f"pert_{w}" / "perturbed.npz")
+                          for w in ("card", "cpu"))
+    pos_same = all(np.array_equal(a.positions, b.positions) for a, b in zip(pc, pp))
+    d_pert = float(np.abs(ec - ep).max())
+
+    camp_p = repo / "campaigns" / "pourbaix_sriro"
+    base = ["--structures", str(camp_p / "SrIrO3_001_2x2.cif"), "--settings",
+            str(camp_p / "settings.json"), "--phase-diagram",
+            str(repo / "tests" / "data" / "pourbaix" / "pd_dict.json")]
+    relax = ["--relax", "--relax-steps", str(FORM_RELAX_STEPS), "--mp2020", "--aqueous",
+             "--oh-correction"]
+    entries, launches_f, walls = {}, {}, {}
+    for tag, flags in (("plain", []), ("relax", relax)):
+        for where in (dev.type, "cpu"):
+            out = tmp / f"entries_{tag}_{where}.json"
+            reset_launch_counts()
+            walls[tag, where] = _timed_cli(create_surface_formation_entries.main,
+                                           base + flags + ["--out", str(out), "--device", where])
+            if where == dev.type:
+                for k, v in launch_counts().items():
+                    launches_f[k] = launches_f.get(k, 0) + v
+            entries[tag, where] = json.loads(out.read_text())[0]
+    d_plain = abs(entries["plain", dev.type]["energy"] - entries["plain", "cpu"]["energy"])
+    d_relax = abs(entries["relax", dev.type]["energy"] - entries["relax", "cpu"]["energy"])
+    corr_same = all(entries[t, dev.type]["corrections"] == entries[t, "cpu"]["corrections"]
+                    and entries[t, dev.type]["parameters"] == entries[t, "cpu"]["parameters"]
+                    for t in ("plain", "relax"))
+    rel = entries["relax", dev.type]
+    launches = {k: launches_p.get(k, 0) + launches_f.get(k, 0)
+                for k in set(launches_p) | set(launches_f)}
+    print(f"[structure-tools] cut_surfaces SrTiO3 (001) 2x2x4: {len(cut)} CIF of "
+          f"{len(cut[0]) if cut else 0} atoms (direct cut {len(slab)}); filter_stoichiometries "
+          f"on {best.name} ({len(st)} atoms, {n_o} O): kept {kept} of [1, 0] expected; "
+          f"perturb_structures x {PERTURB_N} with the flagship ({wall_p:.2f}s on the card): "
+          f"positions card == CPU {pos_same}, energies max |diff| {d_pert:.3e} eV (tol "
+          f"{CLI_E_TOL}), launches={json.dumps({k: v for k, v in launches_p.items() if v})}")
+    print(f"[structure-tools] formation entries of SrIrO3_001_2x2 (CHGNet, "
+          f"{rel['composition']}): plain card {entries['plain', dev.type]['energy']:.6f} vs CPU "
+          f"{entries['plain', 'cpu']['energy']:.6f} eV (|diff| {d_plain:.3e}, tol {CLI_E_TOL}; "
+          f"{walls['plain', dev.type]:.2f}s / {walls['plain', 'cpu']:.2f}s); --relax "
+          f"{FORM_RELAX_STEPS} steps --mp2020 --aqueous --oh-correction card "
+          f"{rel['energy']:.6f} vs CPU {entries['relax', 'cpu']['energy']:.6f} eV (|diff| "
+          f"{d_relax:.3e}, tol {FORM_RELAX_TOL}; {walls['relax', dev.type]:.2f}s / "
+          f"{walls['relax', 'cpu']:.2f}s), formation energy {rel['formation_energy']:.6f} eV, "
+          f"corrections {[(c['label'], round(c['value'], 6)) for c in rel['corrections']]} "
+          f"equal on both: {corr_same}; launches="
+          f"{json.dumps({k: v for k, v in launches_f.items() if v})}")
+    if not (cut_ok and kept == [1, 0] and pos_same and d_pert <= CLI_E_TOL
+            and d_plain <= CLI_E_TOL and d_relax <= FORM_RELAX_TOL and corr_same):
+        raise AssertionError("[structure-tools] a check failed")
+    return launches
+
+
+def ex04_phase(dev) -> dict:
+    """63. Example 04: the flagship 1x1, rigid, 8 sweeps of 4 steps at T = 1,
+    one chain; every recorded state embedded over its alive atoms (the
+    general trunk over the static table), PCA + Ward maxclust 3, the
+    lowest-energy member of each cluster; a bitwise repeat. Returns the
+    launch counts of one run and its embedding."""
+    from surface_sampling_tpu_torch.analysis import perform_clustering, select_representatives
+    from surface_sampling_tpu_torch.core.engine import EngineConfig
+    from surface_sampling_tpu_torch.core.state import (
+        realize_alive,
+        realize_positions,
+        realize_type_idx,
+    )
+    from surface_sampling_tpu_torch.systems import srtio3_001_painn
+
+    sys_ = srtio3_001_painn(device=dev)
+    d = sys_.run.d
+
+    def once():
+        _, rec = sys_.run.run(0, np.repeat(1.0, EX04_SWEEPS),
+                              cfg=EngineConfig(sweep_size=EX04_SWEEP_SIZE,
+                                               record_positions=False))
+        ss = rec.site_state[0]
+        alive = realize_alive(d, ss)
+        with torch.no_grad():
+            out = sys_.potential.outputs(realize_positions(d, ss), realize_type_idx(d, ss), alive)
+        embs = torch.stack([out["embedding"][i][alive[i]].mean(dim=0) for i in range(len(ss))])
+        labels = perform_clustering(embs, clustering_cutoff=3, cutoff_criterion="maxclust")
+        picks = select_representatives(labels, -out["energy"], metric="energy")
+        return ss, embs, out["energy"], labels, picks
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    a = once()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    b = once()
+    same = all(np.array_equal(_host(x), _host(y)) for x, y in zip(a, b))
+    ss, embs, energies, labels, picks = a
+    print(f"[ex04] flagship 1x1 rigid, {EX04_SWEEPS} sweeps x {EX04_SWEEP_SIZE} steps at T = 1: "
+          f"{len(ss)} states -> {len(np.unique(labels))} clusters, selected sweeps "
+          f"{picks.tolist()} (energies {[round(float(x), 4) for x in _host(energies)[picks]]} "
+          f"kcal/mol); run + "
+          f"embedding {dt:.3f}s; bitwise repeat {same}; "
+          f"launches={json.dumps({k: v for k, v in launches.items() if v})}")
+    if not (same and len(picks) == len(np.unique(labels)) <= 3
+            and torch.isfinite(embs).all()):
+        raise AssertionError("[ex04] a check failed")
+    return launches
+
+
+def ex05_phase(tmp) -> None:
+    """64. Example 05 (host only): SrTiO3 bulk, its 2x2x4 (001) slab, the
+    slab's sites, the CIF, the SupercellSurfaceGenerator 2x2 slab; a repeat
+    equal."""
+    from surface_sampling_tpu_torch.structure import (
+        SupercellSurfaceGenerator,
+        bulk,
+        find_adsorption_sites,
+        surface_from_bulk,
+    )
+    from surface_sampling_tpu_torch.structure.io import write_cif
+
+    def once(i):
+        sto = bulk(["Sr", "Ti", "O"], "perovskite", a=3.905)
+        slab, mask = surface_from_bulk(sto, (0, 0, 1), size=(2, 2), layers=4, vacuum=12.0)
+        sites = find_adsorption_sites(slab, planar_distance=1.5)
+        write_cif(tmp / f"SrTiO3_001_slab_{i}.cif", slab)
+        sc = SupercellSurfaceGenerator(sto, (0, 0, 1), min_slab_layers=3).get_supercell_slab(
+            2.0, 2.0, rotation=0.0)
+        return slab, mask, sites, sc
+
+    t0 = time.perf_counter()
+    slab, mask, sites, sc = once(0)
+    dt = time.perf_counter() - t0
+    slab2, mask2, sites2, sc2 = once(1)
+    same = (np.array_equal(slab.positions, slab2.positions) and np.array_equal(mask, mask2)
+            and all(np.array_equal(sites[f], sites2[f]) for f in sites)
+            and np.array_equal(sc.positions, sc2.positions)
+            and (tmp / "SrTiO3_001_slab_0.cif").read_text()
+            == (tmp / "SrTiO3_001_slab_1.cif").read_text())
+    print(f"[ex05] slab {slab.formula}, {len(slab)} atoms, {int(mask.sum())} surface atoms; "
+          f"sites {({f: len(sites[f]) for f in ('ontop', 'bridge', 'hollow')})}; supercell slab "
+          f"{sc.formula}, {len(sc)} atoms; {dt:.3f}s on the host; repeat equal {same}")
+    if not (same and len(sc) > 0 and len(slab) > 0):
+        raise AssertionError("[ex05] a check failed")
+
+
+def ex07_phase(dev) -> dict:
+    """65. Example 07: the Sr-Ir-O Pourbaix atoms (tests/data/pourbaix) at pH
+    7, 0.5 V; the toy IrO2 slab with Lennard-Jones, the grand-potential hook,
+    EX07_SWEEPS sweeps of EX07_SWEEP_SIZE on the geometric ladder from 0.2;
+    a prefilled state's surface energy card vs CPU (1e-3 eV); a bitwise
+    repeat. Returns the launch counts (Lennard-Jones: none)."""
+    from pathlib import Path
+
+    from surface_sampling_tpu_torch.core.engine import EngineConfig, MCMCRun, geometric_schedule
+    from surface_sampling_tpu_torch.core.spec import make_spec
+    from surface_sampling_tpu_torch.potentials.pair import make_lennard_jones
+    from surface_sampling_tpu_torch.pourbaix import (
+        generate_pourbaix_atoms,
+        make_pourbaix_surface_energy,
+    )
+    from surface_sampling_tpu_torch.structure import Structure, find_adsorption_sites
+
+    data = Path(__file__).resolve().parent / "tests" / "data" / "pourbaix"
+    pH, phi = 7.0, 0.5
+    atoms = generate_pourbaix_atoms(str(data / "pd_dict.json"), str(data / "pbx_dict.json"),
+                                    phi, pH, ("Sr", "Ir", "O"))
+    slab = Structure.from_symbols(
+        ["Ir"] * 4 + ["O"] * 4,
+        [[0, 0, 5], [2.3, 0, 5], [0, 2.3, 5], [2.3, 2.3, 5],
+         [1.15, 0, 6.3], [0, 1.15, 6.3], [2.3, 1.15, 6.3], [1.15, 2.3, 6.3]],
+        np.diag([4.6, 4.6, 22.0]))
+    sites = find_adsorption_sites(slab, planar_distance=1.6)["all"]
+    spec = make_spec(slab, sites, ["O", "H", "HO", "H2O"], potential_numbers=[77, 8, 1],
+                     cutoff=4.5, surface_name="IrO2_toy")
+    pot = make_lennard_jones(epsilon=2.0, sigma=1.9, cutoff=4.5)
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        se_fn = make_pourbaix_surface_energy(spec, atoms, phi=phi, pH=pH,
+                                             adsorbate_corrections={"OH": 0.23 - 0.30},
+                                             device=where)
+        runs[where.type] = MCMCRun(spec, pot, surface_energy_fn=se_fn, device=where)
+    prefilled = np.random.default_rng(0).integers(0, spec.n_codes, (4, spec.n_sites))
+    e_pre = {w: r.state_energy_fn(torch.as_tensor(prefilled, device=r.d.device))
+             .surface_energy.cpu().numpy() for w, r in runs.items()}
+    d_pre = float(np.abs(e_pre[dev.type] - e_pre["cpu"]).max())
+    temps = geometric_schedule(0.2, EX07_SWEEPS, alpha=0.9)
+    run = runs[dev.type]
+    cfg = EngineConfig(sweep_size=EX07_SWEEP_SIZE)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, rec = run.run(0, temps, cfg=cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    _, rec2 = run.run(0, temps, cfg=cfg)
+    same = _bitwise(rec, rec2)
+    e = _host(rec.energy)[0]
+    print(f"[ex07] Pourbaix atoms at pH {pH}, {phi} V: "
+          f"{ {k: round(float(a.atom_std_state_energy), 6) for k, a in atoms.items()} }; toy "
+          f"IrO2 slab, {spec.n_sites} sites, LJ: {EX07_SWEEPS} sweeps x {EX07_SWEEP_SIZE} in "
+          f"{dt:.3f}s, grand potential per sweep {[round(float(x), 3) for x in e]}, best "
+          f"{e.min():.3f} eV, "
+          f"occupied sites {int(_host(rec.n_ads)[0, -1])}; 4 prefilled states card vs CPU max "
+          f"|diff| {d_pre:.3e} eV (tol {CLI_E_TOL}); bitwise repeat {same}")
+    if not (same and d_pre <= CLI_E_TOL and np.isfinite(e).all()):
+        raise AssertionError("[ex07] a check failed")
+    return launches
+
+
+def ex08_phase(dev) -> dict:
+    """66. Example 08's active-learning loop at its widths (PaiNN F = 16, 8
+    RBFs, 2 layers, 2 members; Cu(100) 3x3x2 on-top sites; 16 seed frames
+    labelled by Lennard-Jones; EX08_ROUNDS rounds of EX08_EPOCHS epochs):
+    each round trains, samples 8 sweeps of 6 steps, embeds every recorded
+    state, clusters (maxclust 3), labels the most uncertain member of each
+    cluster and grows the dataset. The loss falls in every round, the
+    dataset grows by the number of clusters, a repeat is bitwise. Returns
+    the launch counts of one loop."""
+    from surface_sampling_tpu_torch.analysis import perform_clustering, select_representatives
+    from surface_sampling_tpu_torch.core.engine import (
+        EngineConfig,
+        MCMCRun,
+        geometric_schedule,
+        make_generator,
+    )
+    from surface_sampling_tpu_torch.core.spec import make_spec
+    from surface_sampling_tpu_torch.core.state import device_spec, realize_alive, realize_positions
+    from surface_sampling_tpu_torch.models.ensemble import ensemble_apply
+    from surface_sampling_tpu_torch.models.nn_calculator import make_painn_potential
+    from surface_sampling_tpu_torch.models.painn import PaiNNConfig, init_ensemble, tree_leaves
+    from surface_sampling_tpu_torch.models.train import TrainConfig, pad_structures, train_painn
+    from surface_sampling_tpu_torch.ops.neighbors import image_search_edges
+    from surface_sampling_tpu_torch.potentials.pair import make_lennard_jones
+    from surface_sampling_tpu_torch.structure import Structure, fcc100, find_adsorption_sites
+
+    truth = make_lennard_jones(epsilon=0.4, sigma=2.3, cutoff=5.0)
+    slab = fcc100("Cu", size=(3, 3, 2), a=3.6147, vacuum=10.0)
+    sites = find_adsorption_sites(slab, planar_distance=2.0)["ontop"]
+    spec = make_spec(slab, sites, ["Cu"], potential_numbers=[29], cutoff=5.0)
+    cfg = PaiNNConfig(feat_dim=16, n_rbf=8, cutoff=5.0, n_layers=2, readout_hidden=8,
+                      max_neighbors=32)
+    d = device_spec(spec, dev)
+    shifts = torch.as_tensor(spec.shifts, dtype=torch.float32, device=dev)
+
+    def realize(states):
+        ss = torch.as_tensor(np.asarray(states), dtype=torch.int64, device=dev)
+        pos, alive = realize_positions(d, ss), realize_alive(d, ss)
+        return ss, pos, alive
+
+    def label(states):
+        _, pos, alive = realize(states)
+        e, f = truth.energy_and_forces(pos, torch.zeros_like(alive, dtype=torch.int64), alive,
+                                       shifts)
+        structs = [Structure(np.full(int(a.sum()), 29), p[a].cpu().numpy(), spec.cell)
+                   for p, a in zip(pos, alive)]
+        return structs, e.cpu().tolist(), [fi[a].cpu().numpy() for fi, a in zip(f, alive)]
+
+    def loop():
+        rng = np.random.default_rng(0)
+        params = init_ensemble(make_generator(0, dev), cfg, 2)
+        frames, es, fs = label([rng.integers(0, 2, len(sites)) for _ in range(EX08_SEED_FRAMES)])
+        rounds, t_train = [], 0.0
+        for al_round in range(EX08_ROUNDS):
+            batch = pad_structures(frames, es, fs, cfg.cutoff, n_max=spec.n_slots)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, hist = train_painn(params, cfg, [batch],
+                                       TrainConfig(epochs=EX08_EPOCHS, learning_rate=3e-3),
+                                       ensemble=True)
+            torch.cuda.synchronize()
+            t_train += time.perf_counter() - t0
+            pot = make_painn_potential(params, cfg, [29], units="eV", ensemble=True)
+            run = MCMCRun(spec, pot, device=dev)
+            _, rec = run.run(al_round + 1, geometric_schedule(1.0, 8, 0.97),
+                             cfg=EngineConfig(sweep_size=6, record_positions=False))
+            ss, pos, alive = realize(_host(rec.site_state[0]))
+            edges = image_search_edges(pos, alive, shifts, cfg.cutoff, cfg.max_neighbors)
+            with torch.no_grad():
+                out = ensemble_apply(params, cfg, torch.where(alive, 29, 0), alive, edges)
+            embs = torch.stack([out["embedding"][i][alive[i]].mean(dim=0)
+                                for i in range(len(ss))])
+            labels = perform_clustering(embs, clustering_cutoff=3, cutoff_criterion="maxclust")
+            picks = select_representatives(labels, out["energy_std"], metric="force_std")
+            new, new_e, new_f = label(_host(ss)[picks])
+            n_before = len(frames)
+            frames, es, fs = frames + new, es + new_e, fs + new_f
+            rounds.append({"loss": [hist[0], hist[-1]], "clusters": len(np.unique(labels)),
+                           "distinct_states": len(np.unique(_host(ss), axis=0)),
+                           "grown": len(frames) - n_before, "picks": picks.tolist(),
+                           "std": [round(float(x), 4) for x in _host(out["energy_std"])[picks]]})
+        return params, rounds, t_train, len(frames)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    params, rounds, t_train, n_frames = loop()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    params2, rounds2, _, _ = loop()
+    same = rounds == rounds2 and all(torch.equal(a, b) for a, b in
+                                     zip(tree_leaves(params), tree_leaves(params2)))
+    frames_trained = EX08_EPOCHS * sum(EX08_SEED_FRAMES + sum(r["grown"] for r in rounds[:i])
+                                       for i in range(EX08_ROUNDS))
+    print(f"[ex08] {EX08_ROUNDS} rounds x {EX08_EPOCHS} epochs, {EX08_SEED_FRAMES} seed frames "
+          f"-> {n_frames}: {frames_trained / t_train:.1f} structures/s of training "
+          f"({t_train:.2f}s of the loop's {dt:.2f}s); rounds "
+          f"{json.dumps(rounds)}; "
+          f"bitwise repeat {same}; launches={json.dumps({k: v for k, v in launches.items() if v})}")
+    if not (same and all(r["loss"][1] < r["loss"][0] and r["grown"] == r["clusters"]
+                         for r in rounds)):
+        raise AssertionError("[ex08] a check failed")
+    return launches
+
+
+def slice19_phases(dev) -> dict:
+    """Phases 60-66 in a temporary folder; returns the launch counts of
+    their paths."""
+    import tempfile
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="post_smoke_") as tmp_name:
+        tmp = Path(tmp_name)
+        paths = {}
+        paths["cluster_cli"], reuse = cluster_cli_phase(dev, tmp)
+        torch.cuda.empty_cache()
+        paths["uncertainty"] = uncertainty_phase(dev, reuse)
+        del reuse
+        torch.cuda.empty_cache()
+        paths["structure_tools"] = structure_tools_phase(dev, tmp)
+        torch.cuda.empty_cache()
+        paths["ex04"] = ex04_phase(dev)
+        ex05_phase(tmp)
+        paths["ex07"] = ex07_phase(dev)
+        paths["ex08"] = ex08_phase(dev)
+        torch.cuda.empty_cache()
+    print(f"[post-time] phases 60-66 {time.perf_counter() - t0:.1f}s")
+    return paths
+
+
 def entry_registers(log: str) -> dict:
     """ptxas -v's report per entry function: {short name: [registers, spill
     store bytes, spill load bytes]}, the name the mangled one's kernel
@@ -5518,6 +6172,10 @@ def main() -> int:
 
     # the sampling CLI on the campaigns' settings files
     engine_paths.update(slice18_phases(dev))
+    torch.cuda.empty_cache()
+
+    # clustering, uncertainty, the structure tools, examples 04 / 05 / 07 / 08
+    engine_paths.update(slice19_phases(dev))
 
     main_path = {"painn_message_bwd": "relaxed_mc", "painn_message_l1_banded": "sc_mc",
                  "painn_message_fused_banded": "sc_mc", "painn_message_subset": "inc_mc",

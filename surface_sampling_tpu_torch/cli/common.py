@@ -79,8 +79,13 @@ def load_settings(path: str | Path) -> dict:
                                      **settings.get("sampling_settings", {})}
     settings.setdefault("system_settings", {})
     settings.setdefault("calc_settings", {})
-    base = Path(path).resolve().parent
-    calc = settings["calc_settings"]
+    _resolve_paths(settings["calc_settings"], Path(path).resolve().parent)
+    return settings
+
+
+def _resolve_paths(calc: dict, base: Path) -> None:
+    """Make calc_settings' relative file references that exist under
+    ``base`` absolute, in place."""
 
     def resolve(v):
         p = Path(v)
@@ -94,7 +99,17 @@ def load_settings(path: str | Path) -> dict:
     for key in ("files", "model_paths"):
         if isinstance(calc.get(key), list):
             calc[key] = [resolve(f) if isinstance(f, str) else f for f in calc[key]]
-    return settings
+
+
+def load_calc_settings(path: str | Path) -> dict:
+    """The calc_settings section of a settings file, or the whole file when
+    it holds no such section (the structure tools' bare form, as in the JAX
+    package), its relative file references resolved as by
+    :func:`load_settings`."""
+    raw = json.loads(Path(path).read_text())
+    calc = raw.get("calc_settings", raw)
+    _resolve_paths(calc, Path(path).resolve().parent)
+    return calc
 
 
 def load_slab(path: str | Path) -> Structure:

@@ -35,6 +35,9 @@ def _stats(out: dict) -> dict:
         "energy_std": energies.std(dim=1, unbiased=False),
         "per_atom_energy": out["per_atom_energy"].mean(dim=1),
     }
+    if "embedding" in out:
+        stats["embedding"] = out["embedding"].mean(dim=1)
+        stats["member_embedding"] = out["embedding"]
     for key in ("layer_s", "layer_v"):
         if key in out:
             stats[key] = out[key]
@@ -62,9 +65,11 @@ def ensemble_apply(params: dict, cfg: PaiNNConfig, numbers: torch.Tensor,
     ``DeviceBand``, which runs the banded trunk). The padded message
     geometry is member-invariant: it is built once (or passed as
     ``msg_geom``) and shared by the K members. Returns the same fields as
-    :func:`ensemble_apply_rigid`; ``collect_layers`` adds the member-stacked
-    inputs of every message block, ``layer_s`` (C, K, L, N, F) and
-    ``layer_v`` (C, K, L, N, 3F) x-major, in slot order."""
+    :func:`ensemble_apply_rigid` plus ``embedding`` (C, N, F), the
+    member-mean final scalar features, and ``member_embedding`` (C, K, N,
+    F), as JAX's; ``collect_layers`` adds the member-stacked inputs of every
+    message block, ``layer_s`` (C, K, L, N, F) and ``layer_v`` (C, K, L, N,
+    3F) x-major, in slot order."""
     if msg_geom is None:
         msg_geom = prepare_message_geometry(cfg, edges, band)
     return _stats(painn_apply(params, cfg, numbers, alive, msg_geom, edges, band,

@@ -6,7 +6,17 @@ from surface_sampling_tpu_torch.structure.sites import (
     find_surface_symmetry_ops,
     symmetry_reduce_sites,
 )
-from surface_sampling_tpu_torch.structure.slabs import bulk, diamond111, fcc100, surface_from_bulk
+from surface_sampling_tpu_torch.structure.slabs import (
+    SupercellSurfaceGenerator,
+    bulk,
+    diamond111,
+    fcc100,
+    fcc110,
+    fcc111,
+    surface_from_bulk,
+    symmetrize_slab,
+)
 
-__all__ = ["Structure", "bulk", "diamond111", "fcc100", "find_adsorption_sites",
-           "find_surface_symmetry_ops", "surface_from_bulk", "symmetry_reduce_sites"]
+__all__ = ["Structure", "SupercellSurfaceGenerator", "bulk", "diamond111", "fcc100", "fcc110",
+           "fcc111", "find_adsorption_sites", "find_surface_symmetry_ops", "surface_from_bulk",
+           "symmetrize_slab", "symmetry_reduce_sites"]

@@ -191,7 +191,24 @@ def write_lammps_data(path: str | Path, st: Structure, type_order: list[str] | N
 
 
 def save_structures_npz(path: str | Path, structures: list[Structure], energies=None) -> None:
-    """Bundle a trajectory of same-shape structures into one npz file."""
+    """Bundle structures into one npz file. Structures of one size are
+    stacked (``numbers`` (B, N), ``positions`` (B, N, 3), ``cells``), the
+    JAX package's layout, which either package reads. Structures of
+    different sizes (a semigrand run's states) are concatenated along the
+    atoms, with ``n_atoms`` (B,) to split them: a layout only this
+    package's :func:`load_structures_npz` reads (the JAX package's writer
+    refuses such a list)."""
+    energies = np.array(energies if energies is not None else [])
+    if len({len(s) for s in structures}) > 1:
+        np.savez_compressed(
+            path,
+            numbers=np.concatenate([s.numbers for s in structures]),
+            positions=np.concatenate([s.positions for s in structures]),
+            cells=np.stack([s.cell for s in structures]),
+            n_atoms=np.array([len(s) for s in structures], np.int64),
+            energies=energies,
+        )
+        return
     if structures:
         numbers = np.stack([s.numbers for s in structures])
         positions = np.stack([s.positions for s in structures])
@@ -200,17 +217,17 @@ def save_structures_npz(path: str | Path, structures: list[Structure], energies=
         numbers = np.zeros((0, 0), np.int32)
         positions = np.zeros((0, 0, 3))
         cells = np.zeros((0, 3, 3))
-    np.savez_compressed(
-        path,
-        numbers=numbers,
-        positions=positions,
-        cells=cells,
-        energies=np.array(energies if energies is not None else []),
-    )
+    np.savez_compressed(path, numbers=numbers, positions=positions, cells=cells,
+                        energies=energies)
 
 
 def load_structures_npz(path: str | Path) -> tuple[list[Structure], np.ndarray]:
+    """(structures, energies) of a bundle in either layout of
+    :func:`save_structures_npz`."""
     with np.load(path) as data:
-        sts = [Structure(n, p, c)
-               for n, p, c in zip(data["numbers"], data["positions"], data["cells"])]
+        numbers, positions = data["numbers"], data["positions"]
+        if "n_atoms" in data.files:
+            cut = np.cumsum(data["n_atoms"])[:-1]
+            numbers, positions = np.split(numbers, cut), np.split(positions, cut)
+        sts = [Structure(n, p, c) for n, p, c in zip(numbers, positions, data["cells"])]
         return sts, data["energies"]

@@ -1,9 +1,10 @@
 """Bulk crystals and slabs (host side, numpy).
 
-The counterparts of ``bulk``, ``surface_from_bulk`` (the general
-Miller-index cut), ``fcc100`` and ``diamond111`` in
-``surface_sampling_tpu/structure/slabs.py``: the slabs of the EAM, GaN
-Tersoff and Si(111) Stillinger-Weber systems.
+The counterparts of every function of
+``surface_sampling_tpu/structure/slabs.py``: ``bulk``, ``surface_from_bulk``
+(the general Miller-index cut), the fcc(100) / (110) / (111) and
+diamond(111) slabs, ``SupercellSurfaceGenerator`` (rotated or odd-sized
+supercell slabs) and ``symmetrize_slab``.
 """
 
 from __future__ import annotations
@@ -223,6 +224,41 @@ def fcc100(symbol: str, size: tuple[int, int, int], a: float, vacuum: float = 15
     return Structure(np.array(nums), np.array(pos), cell).center_z(vacuum)
 
 
+def fcc110(symbol: str, size: tuple[int, int, int], a: float, vacuum: float = 15.0) -> Structure:
+    """fcc(110) slab: rows along x with spacing a/sqrt(2), layers a/(2 sqrt(2)) apart."""
+    dx, dy, dz = a / np.sqrt(2.0), a, a / (2.0 * np.sqrt(2.0))
+    nx, ny, nz = size
+    pos, nums = [], []
+    for iz in range(nz):
+        for iy in range(ny):
+            for ix in range(nx):
+                offx = 0.5 * dx if iz % 2 else 0.0
+                offy = 0.5 * dy if iz % 2 else 0.0
+                pos.append([ix * dx + offx, iy * dy + offy, iz * dz])
+                nums.append(Z_FROM_SYMBOL[symbol])
+    cell = np.diag([nx * dx, ny * dy, nz * dz])
+    return Structure(np.array(nums), np.array(pos), cell).center_z(vacuum)
+
+
+def fcc111(symbol: str, size: tuple[int, int, int], a: float, vacuum: float = 15.0) -> Structure:
+    """fcc(111) slab with ABC stacking; hexagonal surface cell."""
+    d = a / np.sqrt(2.0)  # nearest-neighbor distance
+    dz = a / np.sqrt(3.0)
+    nx, ny, nz = size
+    a1 = np.array([d, 0, 0])
+    a2 = np.array([d / 2, d * np.sqrt(3) / 2, 0])
+    stack = [np.zeros(3), (a1 + a2) / 3.0, 2.0 * (a1 + a2) / 3.0]
+    pos, nums = [], []
+    for iz in range(nz):
+        base = stack[iz % 3] + np.array([0, 0, iz * dz])
+        for iy in range(ny):
+            for ix in range(nx):
+                pos.append(base + ix * a1 + iy * a2)
+                nums.append(Z_FROM_SYMBOL[symbol])
+    cell = np.array([nx * a1, ny * a2, [0, 0, nz * dz]])
+    return Structure(np.array(nums), np.array(pos), cell).center_z(vacuum)
+
+
 def diamond111(
     symbol: str, size: tuple[int, int], bilayers: int, a: float, vacuum: float = 12.0
 ) -> Structure:
@@ -260,3 +296,93 @@ def diamond111(
     cell = np.array([nx * a1, ny * a2, [0.0, 0.0, height + 2.0 * vacuum]])
     st = Structure(np.array(nums), np.array(pos), cell)
     return st.center_z(vacuum).sorted_by_z()
+
+
+class SupercellSurfaceGenerator:
+    """Rotated/odd-sized supercell slabs from a bulk structure.
+
+    Re-design of the reference's pymatgen-based SupercellSurfaceGenerator
+    (mcmc/utils/slab.py:100-298): cut a primitive slab for the Miller
+    index, tile it, generate 3x3 periodic images, rotate in-plane by
+    ``rotation`` degrees, and keep the atoms that land in the new box.
+    """
+
+    def __init__(self, bulk_st: Structure, miller: tuple[int, int, int],
+                 min_slab_layers: int = 3, vacuum: float = 15.0):
+        self.bulk = bulk_st
+        self.miller = miller
+        self.layers = min_slab_layers
+        self.vacuum = vacuum
+
+    @property
+    def hkl_to_hkil(self) -> tuple[int, int, int, int]:
+        """Miller (hkl) -> hexagonal Miller-Bravais (hkil)."""
+        h, k, l = self.miller  # noqa: E741
+        return (h, k, -(h + k), l)
+
+    def get_primitive_slab(self) -> Structure:
+        slab, _ = surface_from_bulk(
+            self.bulk, self.miller, size=(1, 1), layers=self.layers, vacuum=self.vacuum
+        )
+        return slab
+
+    @staticmethod
+    def generate_periodic_sites(st: Structure) -> tuple[np.ndarray, np.ndarray]:
+        """Positions + numbers of the 3x3 in-plane periodic images."""
+        offsets = [(0, 0), (1, 1), (1, -1), (-1, 1), (-1, -1), (0, 1), (1, 0), (0, -1), (-1, 0)]
+        pos, nums = [], []
+        for tx, ty in offsets:
+            shift = tx * st.cell[0] + ty * st.cell[1]
+            pos.append(st.positions + shift)
+            nums.append(st.numbers)
+        return np.concatenate(pos), np.concatenate(nums)
+
+    @staticmethod
+    def filter_sites_in_box(cart: np.ndarray, cell: np.ndarray, eps: float = 1e-8):
+        frac = np.linalg.solve(cell.T, cart.T).T
+        inside = np.all((frac >= -eps) & (frac < 1.0 - eps), axis=1)
+        return cart[inside], np.where(inside)[0]
+
+    def get_supercell_slab(self, new_a: float, new_b: float, rotation: float = 0.0) -> Structure:
+        """Scaled (new_a x new_b) and optionally rotated supercell slab."""
+        prim = self.get_primitive_slab()
+        tiled = prim.repeat((int(np.ceil(new_a)) + 2, int(np.ceil(new_b)) + 2, 1))
+        new_cell = prim.cell.copy()
+        new_cell[0] = prim.cell[0] * new_a
+        new_cell[1] = prim.cell[1] * new_b
+        pos, nums = self.generate_periodic_sites(
+            Structure(tiled.numbers, tiled.positions, new_cell))
+        theta = np.radians(rotation)
+        rot = np.array(
+            [[np.cos(theta), -np.sin(theta), 0],
+             [np.sin(theta), np.cos(theta), 0],
+             [0, 0, 1.0]]
+        )
+        pos = pos @ rot.T
+        kept, idx = self.filter_sites_in_box(pos, new_cell)
+        # dedup overlapping image atoms
+        key = np.round(np.linalg.solve(new_cell.T, kept.T).T, 6)
+        _, uniq = np.unique(np.hstack([key, nums[idx][:, None]]), axis=0, return_index=True)
+        return Structure(nums[idx][uniq], kept[uniq], new_cell)
+
+    @classmethod
+    def save_slab(cls, slab: Structure, filename: str = "POSCAR") -> None:
+        from surface_sampling_tpu_torch.structure.io import write_poscar
+
+        write_poscar(filename, slab)
+
+
+def symmetrize_slab(slab: Structure, num_base_atoms: int, sort_z_axis: bool = True) -> Structure:
+    """Mirror the top half of a slab below its base layer.
+
+    Reimplementation of the reference's ``symmetrize_slab``
+    (mcmc/utils/slab.py:67-98): assumes/produces a z-sorted slab, reflects
+    every atom above the first ``num_base_atoms`` across the mean base-z.
+    """
+    s = slab.sorted_by_z() if sort_z_axis else slab.copy()
+    base_z = s.scaled_positions[:num_base_atoms, 2].mean()
+    top = s.select(np.arange(num_base_atoms, len(s)))
+    tfrac = top.scaled_positions
+    tfrac[:, 2] = base_z - (tfrac[:, 2] - base_z)
+    top.set_scaled_positions(tfrac)
+    return s + top

@@ -29,10 +29,15 @@ def test_every_module_imports_with_jax_blocked():
         " 'cli.common', 'cli.default_settings', 'cli.sample_surface',"
         " 'cli.sample_pourbaix_surface', 'cli.sample_bulk', 'cli.predict', 'io',"
         " 'io.checkpoint', 'utils.logging', 'utils.misc', 'utils.plot', 'utils.setup',"
-        " 'utils.tracing', 'analysis', 'analysis.statistics', 'runtime', 'runtime.native'}\n"
+        " 'utils.tracing', 'analysis', 'analysis.statistics', 'runtime', 'runtime.native',"
+        " 'analysis.clustering', 'analysis.uncertainty', 'cli.clustering', 'cli.cut_surfaces',"
+        " 'cli.filter_stoichiometries', 'cli.perturb_structures',"
+        " 'cli.create_surface_formation_entries', 'models.convert_nff',"
+        " 'models.convert_chgnet', 'models.convert_mace'}\n"
         "assert new <= {n.split('.', 1)[1] for n in names}, names\n"
         "import chip_smoke\n"
         "assert 'matplotlib' not in sys.modules, 'matplotlib is imported at module import'\n"
+        "assert 'sklearn' not in sys.modules, 'sklearn is imported at module import'\n"
         "leaked = [m for m in sys.modules if m == 'surface_sampling_tpu'"
         " or m.startswith('surface_sampling_tpu.')]\n"
         "assert not leaked, leaked\n"
@@ -140,3 +145,30 @@ def test_training_modules_import_and_finetune_defaults_to_cuda(monkeypatch, tmp_
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         finetune.main(["--data", str(tmp_path / "d.json"), "--out", str(tmp_path / "o")])
+
+
+@pytest.mark.parametrize("cli", ["clustering", "perturb_structures",
+                                 "create_surface_formation_entries"])
+def test_model_clis_default_to_cuda(monkeypatch, tmp_path, cli):
+    """The three structure-tool CLIs that evaluate a model run on the card
+    unless ``--device cpu`` is given: without a card they raise before any
+    work."""
+    import importlib
+    import json
+
+    from surface_sampling_tpu_torch.structure import bulk
+    from surface_sampling_tpu_torch.structure.io import write_cif
+
+    write_cif(tmp_path / "s.cif", bulk("Cu", "fcc", 3.6147))
+    (tmp_path / "c.json").write_text(json.dumps({"calc_settings": {"calc_name": "lj"}}))
+    common = ["--structures", str(tmp_path / "s.cif"), "--settings", str(tmp_path / "c.json")]
+    argv = {"clustering": common + ["--out", str(tmp_path / "o")],
+            "perturb_structures": common + ["--out", str(tmp_path / "o")],
+            "create_surface_formation_entries": common + [
+                "--phase-diagram", str(REPO / "tests/data/pourbaix/pd_dict.json"),
+                "--out", str(tmp_path / "o.json")]}[cli]
+    main = importlib.import_module(f"surface_sampling_tpu_torch.cli.{cli}").main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+    assert not (tmp_path / "o").exists() and not (tmp_path / "o.json").exists()
