@@ -41,6 +41,7 @@ from surface_sampling_tpu_torch.core.spec import SurfaceSpec
 from surface_sampling_tpu_torch.core.state import MCState, device_spec, num_occupied_sites
 from surface_sampling_tpu_torch.device import resolve_device
 from surface_sampling_tpu_torch.parallel.chains import chain_states
+from surface_sampling_tpu_torch.utils.tracing import span
 
 
 class SweepRecord(NamedTuple):
@@ -107,7 +108,8 @@ def run_sweeps(step_fn: Callable, state, temps, generator: torch.Generator, swee
         n_acc = torch.zeros(C, device=dev)
         n_oob = torch.zeros(C, device=dev)
         for _ in range(sweep_size):
-            state, info = step_fn(state, temp, *draws(generator, C, n_sites, n_codes))
+            with span("mc.step"):
+                state, info = step_fn(state, temp, *draws(generator, C, n_sites, n_codes))
             n_acc += info.accepted
             n_oob += info.oob
         recs.append(record(state, n_acc / sweep_size, n_oob / sweep_size))

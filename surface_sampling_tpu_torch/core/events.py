@@ -25,6 +25,7 @@ from surface_sampling_tpu_torch.core.state import (
     realize_alive,
     realize_type_idx,
 )
+from surface_sampling_tpu_torch.utils.tracing import span
 
 CRITERIA = ("metropolis", "testing", "distance", "metropolis_distance")
 DISTANCE_CRITERIA = ("distance", "metropolis_distance")
@@ -107,16 +108,17 @@ def make_distance_accept(d: DeviceSpec, filter_distance: float) -> Callable:
     si, sj = d.site_coords[ci_t][None, :, None, :], d.site_coords[cj_t][None, :, None, :]
 
     def accept(site_state):
-        code_i, code_j = site_state[:, ci_t], site_state[:, cj_t]               # (C, P)
-        occ = (code_i > 0) & (code_j > 0)
-        pi = si + d.code_offsets[code_i]                                        # (C, P, G, 3)
-        pj = sj + d.code_offsets[code_j] + csh_t[None, :, None, :]
-        d2 = ((pi[:, :, :, None, :] - pj[:, :, None, :, :]) ** 2).sum(dim=-1)   # (C, P, G, G)
-        m_i = members < d.code_natoms[code_i][..., None]
-        m_j = members < d.code_natoms[code_j][..., None]
-        mask = occ[..., None, None] & m_i[..., :, None] & m_j[..., None, :] & pm_t
-        dmin2 = torch.where(mask, d2, torch.full_like(d2, torch.inf)).amin(dim=(1, 2, 3))
-        return dmin2 > fd2
+        with span("mc.filter"):
+            code_i, code_j = site_state[:, ci_t], site_state[:, cj_t]           # (C, P)
+            occ = (code_i > 0) & (code_j > 0)
+            pi = si + d.code_offsets[code_i]                                    # (C, P, G, 3)
+            pj = sj + d.code_offsets[code_j] + csh_t[None, :, None, :]
+            d2 = ((pi[:, :, :, None, :] - pj[:, :, None, :, :]) ** 2).sum(dim=-1)  # (C, P, G, G)
+            m_i = members < d.code_natoms[code_i][..., None]
+            m_j = members < d.code_natoms[code_j][..., None]
+            mask = occ[..., None, None] & m_i[..., :, None] & m_j[..., None, :] & pm_t
+            dmin2 = torch.where(mask, d2, torch.full_like(d2, torch.inf)).amin(dim=(1, 2, 3))
+            return dmin2 > fd2
 
     return accept
 
@@ -253,7 +255,8 @@ def make_semigrand_step(d: DeviceSpec, state_energy_fn: Callable, criterion: str
 
     def step(state: MCState, temp, site, u_code, u_acc):
         trial_ss = propose_change(state.site_state, site, u_code)
-        trial = state_energy_fn(trial_ss)
+        with span("mc.energy"):
+            trial = state_energy_fn(trial_ss)
         temp = torch.as_tensor(temp, dtype=state.energy.dtype, device=trial_ss.device)
         accept = accept_fn(u_acc, state.energy, trial.surface_energy, temp, trial_ss)
         return select_trial(accept, trial_ss, trial, state)
@@ -354,7 +357,8 @@ def make_canonical_step(d: DeviceSpec, state_energy_fn: Callable, criterion: str
         site1, site2, valid = pick_exchange(ss, n_codes, g_types, g_site1, g_site2,
                                             site_weights(state, temp), dwm)
         trial_ss = exchange_sites(ss, site1, site2)
-        trial = state_energy_fn(trial_ss)
+        with span("mc.energy"):
+            trial = state_energy_fn(trial_ss)
         accept = accept_fn(u_acc, state.energy, trial.surface_energy, temp, trial_ss) & valid
         return select_trial(accept, trial_ss, trial, state)
 
@@ -433,14 +437,16 @@ def _make_mtm_step(propose: Callable, state_energy_fn: Callable, k_trials: int,
         beta = 1.0 / torch.clamp(temp, min=1e-12)
         beta = beta[:, None] if beta.dim() else beta
         trial_ss = propose(ss, *trial_draws)                                  # (C, K, S)
-        trials = state_energy_fn(trial_ss.reshape(C * k_trials, S))
+        with span("mc.energy"):
+            trials = state_energy_fn(trial_ss.reshape(C * k_trials, S))
         e_y = trials.surface_energy.view(C, k_trials)
         logw_y = -beta * e_y
         sel = torch.argmax(logw_y + g_sel, dim=1)
         rows = torch.arange(C, device=ss.device)
         y_ss = trial_ss[rows, sel]
         ref_ss = propose(y_ss, *ref_draws)                                    # (C, K-1, S)
-        refs = state_energy_fn(ref_ss.reshape(C * (k_trials - 1), S))
+        with span("mc.energy"):
+            refs = state_energy_fn(ref_ss.reshape(C * (k_trials - 1), S))
         logw_x = -beta * torch.cat([refs.surface_energy.view(C, k_trials - 1),
                                     state.energy[:, None]], dim=1)
         log_ratio = torch.logsumexp(logw_y, dim=1) - torch.logsumexp(logw_x, dim=1)

@@ -71,6 +71,7 @@ from surface_sampling_tpu_torch.models.painn import (
     painn_update,
     update_weights,
 )
+from surface_sampling_tpu_torch.utils.tracing import span
 
 
 class FFTables(NamedTuple):
@@ -466,8 +467,9 @@ def _select_state(accept, trial_ss, st: StateEnergy, caches, state: FFState) -> 
 
 
 def _ff_step(evaluate_fn, dist_accept, state: FFState, temp, trial_ss, moved, u_acc, valid=None):
-    st, caches = evaluate_fn(trial_ss, state.relaxed_positions,
-                             (state.cache_s, state.cache_v), moved)
+    with span("mc.energy"):
+        st, caches = evaluate_fn(trial_ss, state.relaxed_positions,
+                                 (state.cache_s, state.cache_v), moved)
     temp = torch.as_tensor(temp, dtype=state.energy.dtype, device=trial_ss.device)
     accept = metropolis_accept(u_acc, state.energy, st.surface_energy, temp)
     if valid is not None:

@@ -71,6 +71,7 @@ from surface_sampling_tpu_torch.models.painn import (
 )
 from surface_sampling_tpu_torch.ops.painn_kernels import painn_message_subset, painn_update_fused
 from surface_sampling_tpu_torch.ops.static_edges import build_static_edge_pack, static_edge_geometry
+from surface_sampling_tpu_torch.utils.tracing import count, span
 
 
 class IncTables(NamedTuple):
@@ -133,7 +134,8 @@ def take_blocks(x: torch.Tensor, blocks: torch.Tensor, dim: int, n_blocks: int) 
     C, NB = blocks.shape
     idx = blocks.view(C, *([1] * (dim - 1)), NB, 1).expand(*lead, NB, flat.shape[-1])
     per = x.shape[dim] // n_blocks
-    return flat.gather(dim, idx).reshape(*lead, NB * per, *x.shape[dim + 1:])
+    with span("delta.gather"):
+        return flat.gather(dim, idx).reshape(*lead, NB * per, *x.shape[dim + 1:])
 
 
 def _put_blocks(table: torch.Tensor, blocks: torch.Tensor, first: torch.Tensor,
@@ -145,9 +147,10 @@ def _put_blocks(table: torch.Tensor, blocks: torch.Tensor, first: torch.Tensor,
     C, K = table.shape[:2]
     NB = blocks.shape[1]
     vals = rows.reshape(C, K, NB, -1)
-    vals = vals.gather(2, first.view(C, 1, NB, 1).expand_as(vals))
-    out = table.clone()
-    out.view(C, K, n_blocks, -1).scatter_(2, blocks.view(C, 1, NB, 1).expand_as(vals), vals)
+    with span("delta.cache_write"):
+        vals = vals.gather(2, first.view(C, 1, NB, 1).expand_as(vals))
+        out = table.clone()
+        out.view(C, K, n_blocks, -1).scatter_(2, blocks.view(C, 1, NB, 1).expand_as(vals), vals)
     return out
 
 
@@ -168,8 +171,9 @@ def select_caches(accept: torch.Tensor, new: IncCaches, old: IncCaches) -> IncCa
     def pick(n, o):
         return n if n is o else torch.where(accept.view(-1, *([1] * (n.ndim - 1))), n, o)
 
-    return IncCaches(*(tuple(pick(n, o) for n, o in zip(nf, of)) if isinstance(nf, tuple)
-                       else pick(nf, of) for nf, of in zip(new, old)))
+    with span("delta.cache_write"):
+        return IncCaches(*(tuple(pick(n, o) for n, o in zip(nf, of)) if isinstance(nf, tuple)
+                           else pick(nf, of) for nf, of in zip(new, old)))
 
 
 class IncState(NamedTuple):
@@ -326,9 +330,14 @@ def make_incremental_painn(
         for li, (mp, up) in enumerate(zip(params["message"], params["update"])):
             blocks = blocks_tbl[li][sites].reshape(C, -1)            # (C, NB)
             first = first_occurrence(blocks)
+            count("delta.blocks", blocks)
 
             def take(x, dim):
                 return take_blocks(x, blocks, dim, n_blocks)
+
+            def halo(x):
+                with span("delta.gather"):
+                    return with_halo(x, dband.halo, 2)
 
             alive_rows = take(alive_s, 1)                            # (C, rows)
             if dynamic:
@@ -346,9 +355,8 @@ def make_incremental_painn(
                                               filter_features(mp, s_rows), n_blocks)
             vc_rows = take(vcat_t[li], 2)
             ds, dv = painn_message_subset(
-                with_halo(phi, dband.halo, 2), with_halo(vcat_t[li], dband.halo, 2),
-                take(rbf, 1), take(envm, 1), take(nbr, 1), take(unit, 2), rw["dw"][li],
-                rw["db"][li], dband.win_start[blocks], dband)
+                halo(phi), halo(vcat_t[li]), take(rbf, 1), take(envm, 1), take(nbr, 1),
+                take(unit, 2), rw["dw"][li], rw["db"][li], dband.win_start[blocks], dband)
             s_out, v_out = painn_update_fused((s_rows + ds).contiguous(),
                                               (vc_rows + dv).contiguous(),
                                               *update_weights(up), alive_rows)
@@ -386,7 +394,8 @@ def make_incremental_painn_from_system(system) -> IncEngine:
 def _inc_step(engine: IncEngine, dist_accept, state: IncState, temp, trial_ss, sites, u_acc,
               valid=None):
     ss = state.site_state
-    se, new_caches, oob = engine.delta(state.caches, trial_ss, sites)
+    with span("mc.energy"):
+        se, new_caches, oob = engine.delta(state.caches, trial_ss, sites)
     temp = torch.as_tensor(temp, dtype=state.energy.dtype, device=ss.device)
     accept = metropolis_accept(u_acc, state.energy, se, temp)
     if valid is not None:

@@ -60,6 +60,7 @@ from surface_sampling_tpu_torch.core.state import (
     realize_positions,
     realize_type_idx,
 )
+from surface_sampling_tpu_torch.utils.tracing import span
 
 
 def build_ball_masks(spec, static_nbr, hops: int = 1) -> np.ndarray:
@@ -134,7 +135,8 @@ def make_local_relax_eval(
 
 def _local_step(evaluate: Callable, dist_accept, state: MCState, temp, trial_ss, sites2,
                 u_acc, valid=None):
-    e = evaluate(trial_ss, state.relaxed_positions, sites2)
+    with span("mc.energy"):
+        e = evaluate(trial_ss, state.relaxed_positions, sites2)
     temp = torch.as_tensor(temp, dtype=state.energy.dtype, device=trial_ss.device)
     accept = metropolis_accept(u_acc, state.energy, e.surface_energy, temp)
     if valid is not None:

@@ -30,7 +30,6 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as tnf
-from torch.profiler import record_function
 
 from surface_sampling_tpu_torch.models.painn import with_halo
 from surface_sampling_tpu_torch.ops.banding import DeviceBand
@@ -40,6 +39,7 @@ from surface_sampling_tpu_torch.ops.chgnet_kernels import (
     layer_norm,
 )
 from surface_sampling_tpu_torch.ops.neighbors import Edges, neighbor_list, padded_rows
+from surface_sampling_tpu_torch.utils.tracing import span
 
 
 @dataclass(frozen=True)
@@ -279,14 +279,15 @@ def chgnet_apply(params: dict, cfg: CHGNetConfig, numbers: torch.Tensor, alive: 
     the banded conv, which is forward only: the rigid MC path of
     supercells.
 
-    The stages are marked for ``torch.profiler`` (``chgnet.bases``,
+    The stages are spans (``utils.tracing.span``: ``chgnet.bases``,
     ``chgnet.atom_conv``, ``chgnet.bond_angle``, ``chgnet.readout``), so
-    that a trace splits the forward between them."""
+    that a trace splits the forward between them; they are on only while
+    a ``torch.profiler`` runs."""
     F = cfg.atom_fea_dim
     disp, r, _, nbr_mask, overflow = edges[:5]
     C, N, M = r.shape
 
-    with record_function("chgnet.bases"):
+    with span("chgnet.bases"):
         be, bw, maskf, nbr, n_pad = atom_graph_edges(params, cfg, edges, band)
         # bond graph and the angles between bond pairs at each centre
         r_b, disp_b, mask_b = bond_graph(cfg, disp, r, nbr_mask)
@@ -306,7 +307,7 @@ def chgnet_apply(params: dict, cfg: CHGNetConfig, numbers: torch.Tensor, alive: 
 
     n_layers = cfg.n_conv
     for layer in range(n_layers):
-        with record_function("chgnet.atom_conv"):
+        with span("chgnet.atom_conv"):
             ac = params["atom_convs"][layer]
             ai2, aj2 = (tnf.pad(x, (0, 0, 0, pad_n))
                         for x in atom_preactivations(ac["gmlp"], atom, F))
@@ -322,7 +323,7 @@ def chgnet_apply(params: dict, cfg: CHGNetConfig, numbers: torch.Tensor, alive: 
             atom = torch.where(alive[..., None], atom, torch.zeros_like(atom))
 
         if layer < n_layers - 1 and params["bond_convs"]:
-            with record_function("chgnet.bond_angle"):
+            with span("chgnet.bond_angle"):
                 bc, al = params["bond_convs"][layer], params["angle_layers"][layer]
                 bcore, bgate, acore, agate = _bond_angle_preactivations(
                     bc, al, atom, bond_feat, angle_feat, F)
@@ -330,7 +331,7 @@ def chgnet_apply(params: dict, cfg: CHGNetConfig, numbers: torch.Tensor, alive: 
                 bond_feat = bond_feat + bmsg.sum(dim=3) @ bc["out"]["w"]
                 angle_feat = angle_feat + _apply_gated(al, acore, agate, single=True) * pair_mask
 
-    with record_function("chgnet.readout"):
+    with span("chgnet.readout"):
         site_val = _linear(params["site_wise"], atom)[..., 0]        # magmom head
         h = layer_norm(_ln_params(params["readout_norm"]), atom)
         for lin in params["mlp"][:-1]:

@@ -1,12 +1,33 @@
-"""Phase timing and device tracing (the counterpart of
-``surface_sampling_tpu/utils/tracing.py``).
+"""Phase timing, and the spans and counters of the MC step.
 
 * ``PhaseTimer``: named wall-clock phases with a one-line report (the run
   driver logs its first chunk against the later ones).
-* ``device_trace``: ``torch.profiler`` around a block, a Chrome trace of
-  the host and, on the card, of the kernels, written to a folder.
-* ``block_and_time``: time a call whose outputs live on the card (ends in
-  ``torch.cuda.synchronize()`` there).
+* ``span(name)``: a ``torch.profiler.record_function`` range while a
+  ``torch.profiler`` runs, else one shared no-op context. Spans are on
+  exactly while a profiler runs, so they appear in any trace an operator
+  opens, on the profiler's clock (on the card, with their device mirror
+  over the kernels launched inside them), and cost one check otherwise.
+* ``count(name, value)``: while a profiler runs, keeps a reference to
+  ``value`` (a tensor the step has already made, or an int) under
+  ``name``; launches nothing. ``counters()`` returns what was kept and
+  ``reset_counters()`` clears it; readers reduce the values after the
+  traced window, so any synchronisation happens outside it. The values
+  kept are those of the last profiled stretch of counted steps: the first
+  count with the profiler on after one with it off drops the older ones.
+  They hold their memory until then (the delta's counter: one (C, NB)
+  int64 tensor a layer a step, about 190 KB a step at 128 chains on
+  campaign A).
+
+The port's spans: ``mc.step`` (``core/engine.run_sweeps``: one step's
+draws and step function), ``mc.energy`` (every step builder: the trial's
+evaluation), ``mc.filter`` (``core/events``: the distance filter),
+``delta.gather`` and ``delta.cache_write`` (``core/incremental``: the
+delta's block gathers and halo copies, its block writes into the caches
+and the step's select of them), and ``chgnet.bases`` / ``.atom_conv`` /
+``.bond_angle`` / ``.readout`` (``models/chgnet.chgnet_apply``'s stages).
+Its counter: ``delta.blocks``, the delta's (C, NB) block list of each
+layer. The benchmark's per-layer metrics (``benchmark/metrics/``) read
+them.
 """
 
 from __future__ import annotations
@@ -14,9 +35,44 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import OrderedDict
-from pathlib import Path
 
 import torch
+
+_OFF = contextlib.nullcontext()
+_COUNTERS: dict[str, list] = {}
+_stale = False           # a count ran with the profiler off since the last one kept
+
+
+def span(name: str):
+    """A profiler range named ``name`` while a ``torch.profiler`` runs,
+    else one shared no-op context."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def count(name: str, value) -> None:
+    """Keep ``value`` under ``name`` while a ``torch.profiler`` runs; the
+    first value kept after a count with the profiler off drops every value
+    kept before it."""
+    global _stale
+    if torch.autograd._profiler_enabled():
+        if _stale:
+            _COUNTERS.clear()
+            _stale = False
+        _COUNTERS.setdefault(name, []).append(value)
+    else:
+        _stale = True
+
+
+def counters() -> dict[str, list]:
+    """``{name: [values]}`` kept by :func:`count` in the last profiled
+    stretch of counted steps (or since the last reset)."""
+    return {k: list(v) for k, v in _COUNTERS.items()}
+
+
+def reset_counters() -> None:
+    _COUNTERS.clear()
 
 
 class PhaseTimer:
@@ -48,44 +104,3 @@ class PhaseTimer:
 
     def as_dict(self) -> dict:
         return dict(self.phases)
-
-
-@contextlib.contextmanager
-def device_trace(log_dir: str | Path):
-    """Profile the enclosed block with ``torch.profiler`` (CPU activity,
-    and CUDA when a card is present) and write ``trace.json`` (Chrome trace
-    format) into ``log_dir``. Yields the profiler, whose
-    ``key_averages()`` gives the per-kernel table."""
-    from torch.profiler import ProfilerActivity, profile
-
-    log_dir = Path(log_dir)
-    log_dir.mkdir(parents=True, exist_ok=True)
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        yield prof
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    prof.export_chrome_trace(str(log_dir / "trace.json"))
-
-
-def _on_card(tree) -> bool:
-    if isinstance(tree, torch.Tensor):
-        return tree.is_cuda
-    if isinstance(tree, dict):
-        return any(_on_card(v) for v in tree.values())
-    if isinstance(tree, (tuple, list)):
-        return any(_on_card(v) for v in tree)
-    return False
-
-
-def block_and_time(fn, *args, **kwargs):
-    """Run ``fn`` and wait for its outputs; returns (outputs, seconds). The
-    wait is ``torch.cuda.synchronize()`` when an output lies on the card
-    (kernels run asynchronously there); CPU tensors are ready on return."""
-    t0 = time.perf_counter()
-    out = fn(*args, **kwargs)
-    if _on_card(out):
-        torch.cuda.synchronize()
-    return out, time.perf_counter() - t0

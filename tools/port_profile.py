@@ -154,6 +154,10 @@ def _by_row(out: dict, rows: dict) -> dict:
     return ms
 
 
+# the prefixes of the port's span names (utils.tracing)
+SPANS = ("chgnet.", "mc.", "delta.")
+
+
 def _window(name: str, fn, top: int = 12) -> dict:
     for _ in range(2):
         fn()
@@ -168,9 +172,10 @@ def _window(name: str, fn, top: int = 12) -> dict:
         t_us = getattr(evt, "self_device_time_total", None)
         if t_us is None:
             t_us = getattr(evt, "self_cuda_time_total", 0)
-        if evt.key.startswith("chgnet."):
-            # a marked range: its device time is its span on the device
-            # timeline (gaps between its kernels included), not a kernel
+        if getattr(evt, "is_user_annotation", False) or evt.key.startswith(SPANS):
+            # a span (utils.tracing.span): its device time is its span on
+            # the device timeline (gaps between its kernels included), not
+            # a kernel
             stages[evt.key] = t_us / 1e3
         elif t_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             kernels[evt.key] = (kernels.get(evt.key, (0.0, 0))[0] + t_us / 1e3,
@@ -185,8 +190,8 @@ def _window(name: str, fn, top: int = 12) -> dict:
     for k, (t, n) in rows[:top]:
         print(f"    {t:9.3f} ms  {n:5d}x  {k[:110]}")
     if stages:
-        out["forward_stage_spans_ms"] = stages
-        print(f"    forward stages, span on the device timeline (ms): {json.dumps(stages)}")
+        out["spans_ms"] = stages
+        print(f"    spans, on the device timeline (ms): {json.dumps(stages)}")
     return out
 
 
