@@ -11,16 +11,26 @@ package's tree of tensors, one model with no member axis
 (``models/weights.load_chgnet_npz``); every function carries a leading
 chain axis C.
 
+The forward computes only what its outputs read. In this reconstruction
+each atom conv reads the atom graph's bond embeddings and weights, which
+are the same at every layer, and the readout reads only the atom
+features, so the bond graph, its angles and the bond and angle updates
+reach no output: XLA deletes them from the JAX package's compiled
+forward, and the port never builds them. Their parameters
+(``bond_convs``, ``angle_layers``, ``bond_weights_bg``,
+``angle_embedding``, ``angle_freq``, ``rbf_freq_bg``) stay in the tree,
+as the JAX package's and the checkpoints' format has them.
+
 The atom trunk runs the JAX package's fused formulation ("pallas" conv
 mode): per-atom pre-activations ai2 / aj2 of the centre and neighbour
 thirds of each atom conv's first layer, and the fused per-edge op
 ``ops.chgnet_kernels.chgnet_conv`` (its CUDA kernel on the card, its plain
 version on the CPU), whose backward is a kernel too. With a routing band
 (rigid supercells) the conv runs in the band's sorted row order through
-``chgnet_conv_banded``. The bond graph, the bond and angle convolutions
-and the readout are plain PyTorch, as the JAX package leaves them to XLA.
-``chgnet_apply_structures`` is the JAX package's ``chgnet_apply`` entry
-from positions, which training differentiates twice.
+``chgnet_conv_banded``. The readout is plain PyTorch, as the JAX package
+leaves it to XLA. ``chgnet_apply_structures`` is the JAX package's
+``chgnet_apply`` entry from positions, which training differentiates
+twice.
 """
 
 from __future__ import annotations
@@ -82,14 +92,6 @@ def radial_bessel(r: torch.Tensor, frequencies: torch.Tensor, cutoff: float,
     return basis * polynomial_envelope(r, cutoff, p)[..., None]
 
 
-def fourier_angles(theta: torch.Tensor, frequencies: torch.Tensor) -> torch.Tensor:
-    """[1/sqrt(2), sin(n t), cos(n t)] / sqrt(pi)."""
-    t = theta[..., None] * frequencies
-    const = torch.full(theta.shape + (1,), 1.0 / math.sqrt(2.0), dtype=theta.dtype,
-                       device=theta.device)
-    return torch.cat([const, torch.sin(t), torch.cos(t)], dim=-1) / math.sqrt(math.pi)
-
-
 # ----------------------------------------------------------------------
 # layers
 # ----------------------------------------------------------------------
@@ -101,20 +103,6 @@ def _linear(p: dict, x: torch.Tensor) -> torch.Tensor:
 def _ln_params(p: dict) -> torch.Tensor:
     """(2, F) gain and bias rows of a LayerNorm."""
     return torch.stack([p["g"], p["b"]])
-
-
-def _apply_gated(p: dict, pre_core: torch.Tensor, pre_gate: torch.Tensor,
-                 single: bool = False) -> torch.Tensor:
-    """The JAX package's gated MLP silu(LN(core(x))) * sigmoid(LN(gate(x)))
-    from the pre-activations of its first linear layers (``core0(x)``,
-    ``gate0(x)``); ``single`` is the one-layer form of the angle updates."""
-    if single:
-        core, gate = pre_core, pre_gate
-    else:
-        core = _linear(p["core1"], tnf.silu(pre_core))
-        gate = _linear(p["gate1"], tnf.silu(pre_gate))
-    return (tnf.silu(layer_norm(_ln_params(p["ln_core"]), core))
-            * torch.sigmoid(layer_norm(_ln_params(p["ln_gate"]), gate)))
 
 
 def conv_weights(gmlp: dict, F: int) -> tuple:
@@ -136,22 +124,6 @@ def atom_preactivations(gmlp: dict, atom: torch.Tensor, F: int):
                     dim=-1)
     aj2 = torch.cat([atom @ w0c[F:2 * F], atom @ w0g[F:2 * F]], dim=-1)
     return ai2, aj2
-
-
-def _bond_angle_preactivations(bc: dict, al: dict, atom, bond_feat, angle_feat, F: int):
-    """First-layer pre-activations of the bond conv's and the angle
-    update's four branches over the [a_c | b_m | b_k | angle] concat of
-    every bond pair (C, N, Mb, Mb, 4F), computed as the sum of each third's
-    own product so that the (C, N, Mb, Mb, 4F) concat never exists."""
-    w = torch.cat([bc["gmlp"]["core0"]["w"], bc["gmlp"]["gate0"]["w"],
-                   al["core0"]["w"], al["gate0"]["w"]], dim=1)         # (4F, 4F)
-    b = torch.cat([bc["gmlp"]["core0"]["b"], bc["gmlp"]["gate0"]["b"],
-                   al["core0"]["b"], al["gate0"]["b"]])
-    pre = (angle_feat @ w[3 * F:]
-           + (bond_feat @ w[F:2 * F])[:, :, :, None, :]
-           + (bond_feat @ w[2 * F:3 * F])[:, :, None, :, :]
-           + (atom @ w[:F] + b)[:, :, None, None, :])
-    return pre.split(F, dim=-1)
 
 
 # ----------------------------------------------------------------------
@@ -219,20 +191,6 @@ def init_chgnet(generator: torch.Generator, cfg: CHGNetConfig) -> dict:
 # ----------------------------------------------------------------------
 # forward
 # ----------------------------------------------------------------------
-def bond_graph(cfg: CHGNetConfig, disp, r, mask):
-    """The bond-graph subset: each centre's ``max_bond_neighbors`` nearest
-    selected edges under ``bond_graph_cutoff``, as ``lax.top_k`` of -r picks
-    them in the JAX package (ties to the lower edge index, which the stable
-    sort keeps). Returns (r_b, disp_b, mask_b) (C, N, Mb[, 3])."""
-    in_bg = mask & (r < cfg.bond_graph_cutoff)
-    key = torch.where(in_bg, r, torch.full_like(r, math.inf))
-    mb = min(cfg.max_bond_neighbors, r.shape[-1])
-    bsel = torch.sort(key.detach(), dim=-1, stable=True).indices[..., :mb]
-    r_b = torch.gather(r, 2, bsel)
-    disp_b = torch.gather(disp, 2, bsel[..., None].expand(*bsel.shape, 3))
-    return r_b, disp_b, torch.gather(in_bg, 2, bsel)
-
-
 def atom_graph_edges(params: dict, cfg: CHGNetConfig, edges: Edges,
                      band: DeviceBand | None = None):
     """The fused conv's layer-invariant edge tensors: be, bw (C, E, F), the
@@ -279,34 +237,27 @@ def chgnet_apply(params: dict, cfg: CHGNetConfig, numbers: torch.Tensor, alive: 
     the banded conv, which is forward only: the rigid MC path of
     supercells.
 
+    The bond graph, its angles and the bond and angle updates are not
+    computed: each atom conv reads the atom graph's layer-invariant
+    ``be`` / ``bw`` and the readout reads only the atom features, so no
+    output reads them (XLA removes them from the JAX function's compiled
+    forward too), and every output and its derivatives are those of the
+    full model.
+
     The stages are spans (``utils.tracing.span``: ``chgnet.bases``,
-    ``chgnet.atom_conv``, ``chgnet.bond_angle``, ``chgnet.readout``), so
-    that a trace splits the forward between them; they are on only while
-    a ``torch.profiler`` runs."""
+    ``chgnet.atom_conv``, ``chgnet.readout``), so that a trace splits the
+    forward between them; they are on only while a ``torch.profiler``
+    runs."""
     F = cfg.atom_fea_dim
-    disp, r, _, nbr_mask, overflow = edges[:5]
-    C, N, M = r.shape
+    r, overflow = edges.r, edges.overflow
+    N = r.shape[1]
 
     with span("chgnet.bases"):
         be, bw, maskf, nbr, n_pad = atom_graph_edges(params, cfg, edges, band)
-        # bond graph and the angles between bond pairs at each centre
-        r_b, disp_b, mask_b = bond_graph(cfg, disp, r, nbr_mask)
-        rbf_bg = radial_bessel(r_b, params["rbf_freq_bg"], cfg.bond_graph_cutoff,
-                               cfg.cutoff_coeff)
-        bond_w_bg = rbf_bg @ params["bond_weights_bg"]["w"]           # (C, N, Mb, F)
-        bond_feat = rbf_bg @ params["bond_embedding"]["w"]
-        unit_b = disp_b / torch.clamp(r_b, min=1e-8)[..., None]
-        cos_t = torch.clamp(torch.einsum("cnmx,cnkx->cnmk", unit_b, unit_b), -1 + 1e-6,
-                            1 - 1e-6)
-        angle_feat = fourier_angles(torch.arccos(cos_t), params["angle_freq"]) \
-            @ params["angle_embedding"]["w"]                           # (C, N, Mb, Mb, F)
-        eye = torch.eye(mask_b.shape[-1], dtype=torch.bool, device=mask_b.device)
-        pair_mask = (mask_b[..., :, None] & mask_b[..., None, :] & ~eye)[..., None].to(r.dtype)
         atom = initial_atoms(params, cfg, numbers, alive)
     pad_n = n_pad - N
 
-    n_layers = cfg.n_conv
-    for layer in range(n_layers):
+    for layer in range(cfg.n_conv):
         with span("chgnet.atom_conv"):
             ac = params["atom_convs"][layer]
             ai2, aj2 = (tnf.pad(x, (0, 0, 0, pad_n))
@@ -321,15 +272,6 @@ def chgnet_apply(params: dict, cfg: CHGNetConfig, numbers: torch.Tensor, alive: 
                                          maskf, nbr, *weights, band)[:, band.inv_perm]
             atom = atom + agg[:, :N] @ ac["out"]["w"]
             atom = torch.where(alive[..., None], atom, torch.zeros_like(atom))
-
-        if layer < n_layers - 1 and params["bond_convs"]:
-            with span("chgnet.bond_angle"):
-                bc, al = params["bond_convs"][layer], params["angle_layers"][layer]
-                bcore, bgate, acore, agate = _bond_angle_preactivations(
-                    bc, al, atom, bond_feat, angle_feat, F)
-                bmsg = _apply_gated(bc["gmlp"], bcore, bgate) * bond_w_bg[:, :, None] * pair_mask
-                bond_feat = bond_feat + bmsg.sum(dim=3) @ bc["out"]["w"]
-                angle_feat = angle_feat + _apply_gated(al, acore, agate, single=True) * pair_mask
 
     with span("chgnet.readout"):
         site_val = _linear(params["site_wise"], atom)[..., 0]        # magmom head

@@ -24,7 +24,7 @@ evaluation), ``mc.filter`` (``core/events``: the distance filter),
 ``delta.gather`` and ``delta.cache_write`` (``core/incremental``: the
 delta's block gathers and halo copies, its block writes into the caches
 and the step's select of them), and ``chgnet.bases`` / ``.atom_conv`` /
-``.bond_angle`` / ``.readout`` (``models/chgnet.chgnet_apply``'s stages).
+``.readout`` (``models/chgnet.chgnet_apply``'s stages).
 Its counter: ``delta.blocks``, the delta's (C, NB) block list of each
 layer. The benchmark's per-layer metrics (``benchmark/metrics/``) read
 them.

@@ -101,9 +101,9 @@ def _nearest_first_table(pos: np.ndarray) -> StaticNeighborTable:
     return StaticNeighborTable(slot_j, np.zeros((n, n - 1, 3)), np.ones((n, n - 1), bool), n - 1)
 
 
-def test_tiny_config_matches_jax_gather_with_forces():
-    """18 atoms in an open 9 A box, four of them dead: the port (fused conv,
-    plain on the CPU) against the JAX gather formulation."""
+def _tiny_case():
+    """18 atoms in an open 9 A box, four of them dead: positions, atomic
+    numbers, the alive mask and the JAX gather configuration of TINY."""
     rng = np.random.default_rng(1)
     N = 18
     pos = rng.uniform(0.0, 9.0, (N, 3)).astype(np.float32)
@@ -111,8 +111,11 @@ def test_tiny_config_matches_jax_gather_with_forces():
     alive = rng.random(N) > 0.2
     alive[:2] = True
     jcfg = jchgnet.CHGNetConfig(**{**dataclasses.asdict(TINY), "conv_mode": "gather"})
-    jparams = jchgnet.init_chgnet(jax.random.PRNGKey(0), jcfg)
-    params = from_jax_params(jax.tree.map(np.asarray, jparams), CPU)
+    return pos, numbers, alive, jcfg
+
+
+def _jax_tiny(jparams, jcfg, pos, numbers, alive):
+    """The JAX outputs and forces of the tiny case, compiled."""
 
     def jenergy(p):
         out = jchgnet.chgnet_apply(jparams, jcfg, p, jnp.asarray(numbers), jnp.asarray(alive),
@@ -120,8 +123,12 @@ def test_tiny_config_matches_jax_gather_with_forces():
         return out["energy"], out
 
     (_, jout), jgrad = jax.jit(jax.value_and_grad(jenergy, has_aux=True))(jnp.asarray(pos))
-    jforce = -np.asarray(jgrad)
+    return jout, -np.asarray(jgrad)
 
+
+def _port_tiny(params, pos, numbers, alive):
+    """The port's outputs and forces of the tiny case, on edges ranked over
+    the open cluster's nearest-first table."""
     table = stage_candidate_table(_nearest_first_table(pos), TINY.atom_graph_cutoff,
                                   TINY.max_neighbors, CPU)
     p = torch.as_tensor(pos)[None].requires_grad_(True)
@@ -130,12 +137,53 @@ def test_tiny_config_matches_jax_gather_with_forces():
     assert not bool(edges.overflow[0])
     out = chgnet_apply(params, TINY, torch.as_tensor(numbers, dtype=torch.int64)[None], al, edges)
     (g,) = torch.autograd.grad(out["energy"].sum(), p)
+    return out, -g[0].numpy()
+
+
+def _assert_port_matches_jax(out, force, jout, jforce):
     tol = dict(rtol=1e-4, atol=1e-5)
     for key in ("energy", "per_atom_energy", "magmom"):
         np.testing.assert_allclose(out[key][0].detach().numpy(), np.asarray(jout[key]),
                                    err_msg=key, **tol)
-    np.testing.assert_allclose(-g[0].numpy(), jforce, err_msg="forces", **tol)
+    np.testing.assert_allclose(force, jforce, err_msg="forces", **tol)
+
+
+def test_tiny_config_matches_jax_gather_with_forces():
+    """18 atoms in an open 9 A box, four of them dead: the port (fused conv,
+    plain on the CPU) against the JAX gather formulation."""
+    pos, numbers, alive, jcfg = _tiny_case()
+    jparams = jchgnet.init_chgnet(jax.random.PRNGKey(0), jcfg)
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), CPU)
+    jout, jforce = _jax_tiny(jparams, jcfg, pos, numbers, alive)
+    out, force = _port_tiny(params, pos, numbers, alive)
+    _assert_port_matches_jax(out, force, jout, jforce)
     assert np.abs(jforce[alive]).max() > 0.01
+
+
+def test_bond_and_angle_parameters_reach_no_output():
+    """The premise of the port's forward, which computes no bond graph and
+    no bond or angle update: in the JAX package, the bond convs, angle
+    layers and bond-graph embeddings redrawn under another key leave every
+    output and the forces bitwise unchanged, and the port matches JAX on
+    both parameter sets."""
+    pos, numbers, alive, jcfg = _tiny_case()
+    jparams = jchgnet.init_chgnet(jax.random.PRNGKey(0), jcfg)
+    other = jchgnet.init_chgnet(jax.random.PRNGKey(7), jcfg)
+    dead = ("bond_convs", "angle_layers", "bond_weights_bg", "angle_embedding")
+    redrawn = {**jparams, **{k: other[k] for k in dead}}
+    for k in dead:
+        assert not all(np.array_equal(a, b) for a, b in zip(
+            jax.tree.leaves(jparams[k]), jax.tree.leaves(redrawn[k]), strict=True)), k
+    jout, jforce = _jax_tiny(jparams, jcfg, pos, numbers, alive)
+    jout2, jforce2 = _jax_tiny(redrawn, jcfg, pos, numbers, alive)
+    for key in ("energy", "per_atom_energy", "energy_per_atom", "magmom", "embedding"):
+        np.testing.assert_array_equal(np.asarray(jout2[key]), np.asarray(jout[key]),
+                                      err_msg=key)
+    np.testing.assert_array_equal(jforce2, jforce, err_msg="forces")
+    for tree in (jparams, redrawn):
+        params = from_jax_params(jax.tree.map(np.asarray, tree), CPU)
+        out, force = _port_tiny(params, pos, numbers, alive)
+        _assert_port_matches_jax(out, force, jout, jforce)
 
 
 def test_load_chgnet_npz_matches_jax():

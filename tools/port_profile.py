@@ -20,7 +20,7 @@ occupancies with 75% of the sites empty) and on its supercells:
                (128 chains), local_relax_3x3 (16 chains)
   chgnet_rigid one rigid-lattice state evaluation of the LaMnO3(001) CHGNet
                system (276 slots, 64 chains): edges ranked over the static
-               table, the atom convs (row 10) and the plain bond/angle branch
+               table, the atom convs (row 10) and the plain readout
   chgnet_force_call  one force call of its relaxed path (8 chains): rows 10
                and 12, and autograd through the rest; both CHGNet windows
                also print their device ms by row (10, 12's centre and
