@@ -29,18 +29,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from benchmark.reference.chgnet import CHGNetReference
+from benchmark import family_module
 from benchmark.reference.common import FP32, TF32, Precision, load_lattice, realise, strict_fp32
 from benchmark.reference.fire import fire
 from benchmark.reference.mc import replay_sweep
-from benchmark.reference.painn import PaiNNReference
-from benchmark.reference.surface import (
-    HARTREE_TO_EV,
-    Z_OF,
-    chem_pot_coefficients,
-    offset_coefficients,
-    surface_energy,
-)
+from benchmark.reference.surface import chem_pot_coefficients, offset_coefficients, surface_energy
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
@@ -48,16 +41,15 @@ MAX_FORCE = 1000.0    # eV/A: a relaxation ending above it is out of bounds
 
 
 def make_reference(cfg: dict, device):
-    """The configuration's model and surface-energy coefficients."""
-    if cfg["model"] == "painn":
-        stoi = json.loads((ROOT / cfg["composition_offset_data"]).read_text())["stoidict"]
-        offsets = {Z_OF[k] if k != "offset" else "const": v * HARTREE_TO_EV
-                   for k, v in stoi.items()}
-        model = PaiNNReference([ROOT / p for p in cfg["weights"]], cfg, device, offsets)
-    elif cfg["model"] == "chgnet":
-        model = CHGNetReference(ROOT / cfg["weights"][0], cfg, device)
-    else:
-        raise ValueError(f"no reference for model {cfg['model']!r}")
+    """The configuration's model, built by ``make_model(cfg, root, device)``
+    of ``reference/<cfg["model"]>.py``, and its surface-energy
+    coefficients."""
+    family = family_module("reference", cfg["model"])
+    if family is None:
+        raise ValueError(f"no reference for model {cfg['model']!r}: add "
+                         f"benchmark/reference/{cfg['model']}.py with make_model(cfg, root, "
+                         f"device)")
+    model = family.make_model(cfg, ROOT, device)
     se = cfg["surface_energy"]
     if se["kind"] == "offset":
         offset = json.loads((ROOT / se["offset_data"]).read_text())

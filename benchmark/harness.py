@@ -105,11 +105,67 @@ class Cell(NamedTuple):
     recorder: Recorder
 
 
+def _from_settings(wl: dict, device):
+    """The campaign settings file and slab that the workload's ``system``
+    names, through ``cli.common.assemble_system``, once the settings (with
+    the cell's ``overrides``) agree with the cell's chains, sweep,
+    criterion, filter and schedule."""
+    from surface_sampling_tpu_torch.cli.common import assemble_system, load_settings, load_slab
+
+    sys_spec = wl["system"]
+    settings = load_settings(ROOT / sys_spec["settings"])
+    samp = settings["sampling_settings"]
+    samp.update(sys_spec.get("overrides", {}))
+    ours = {"sweep_size": wl["sweep_size"], "criterion": wl["criterion"], "n_chains": wl["chains"],
+            "filter_distance": wl["filter_distance"], **wl["schedule"]}
+    differ = {k: (samp.get(k), v) for k, v in ours.items() if samp.get(k) != v}
+    if differ:
+        raise RuntimeError(f"the campaign's settings (with the cell's overrides) differ "
+                           f"from the cell's in {differ}")
+    return assemble_system(settings, load_slab(ROOT / sys_spec["slab"]), device=device)
+
+
+def _from_builder(wl: dict, device):
+    """``systems.<builder>(**args)``, FIRE-relaxed as the cell's ``relax``
+    says on the relaxed engine."""
+    from surface_sampling_tpu_torch import systems
+
+    args = dict(wl["system"].get("args", {}))
+    if wl["engine"] == "relaxed":
+        from surface_sampling_tpu_torch.core.energy import RelaxConfig
+
+        fire = wl["relax"]
+        args["relax"] = RelaxConfig(steps=fire["steps"], fmax=fire["fmax"],
+                                    max_step=fire["max_step"])
+    return getattr(systems, wl["system"]["builder"])(device=device, **args)
+
+
+def _check_fire(wl: dict, relax) -> None:
+    """The program's relaxation (``relax``, a RelaxConfig or None) and its
+    FIRE constants agree with the cell's: none on the rigid engine, its
+    ``relax`` on the relaxed one."""
+    from surface_sampling_tpu_torch.core.relax import FireConfig
+
+    fire = wl["relax"] if wl["engine"] == "relaxed" else None
+    if (fire is None) != (relax is None):
+        raise RuntimeError(f"the program relaxes {relax}, the cell {fire}")
+    if fire is None:
+        return
+    ours = {**FireConfig()._asdict(), "steps": relax.steps, "fmax": relax.fmax,
+            "max_step": relax.max_step, "method": relax.method}
+    fire = {"method": "fire", **fire}
+    differ = {k: (v, fire[k]) for k, v in ours.items() if fire[k] != v}
+    if differ:
+        raise RuntimeError(f"the program's FIRE differs from the cell's in {differ}")
+
+
 def build_cell(wl: dict, device) -> Cell:
     """The system and the run the workload names, through the port's
-    entry points: ``systems.<builder>(**args)`` with ``make_run_fn`` for the
-    full-evaluation engines, or a campaign's settings file through
-    ``cli.common.assemble_system`` with the delta engine."""
+    entry points: a campaign's settings file through
+    ``cli.common.assemble_system`` (``system.settings`` and ``.slab``) with
+    any engine, or ``systems.<builder>(**args)`` with the full-evaluation
+    engines; ``make_run_fn`` runs the full evaluation, the incremental
+    step the delta engine."""
     import torch
 
     from surface_sampling_tpu_torch.core.engine import EngineConfig, make_run_fn
@@ -118,27 +174,24 @@ def build_cell(wl: dict, device) -> Cell:
     C, sys_spec, rec = wl["chains"], wl["system"], Recorder()
     criterion = wl["criterion"]
     filt = float(wl.get("filter_distance") or 1.5)
+    if wl["engine"] not in ("delta", "rigid", "relaxed"):
+        raise ValueError(f"unknown engine {wl['engine']!r}")
+    if "settings" in sys_spec:
+        system = _from_settings(wl, device)
+    elif wl["engine"] == "delta":
+        raise ValueError("the delta engine takes a campaign's settings file")
+    else:
+        system = _from_builder(wl, device)
     if wl["engine"] == "delta":
-        from surface_sampling_tpu_torch.cli.common import assemble_system, load_settings, load_slab
         from surface_sampling_tpu_torch.core.incremental import (
             make_incremental_painn,
             make_incremental_run,
             make_incremental_semigrand_step,
         )
 
-        settings = load_settings(ROOT / sys_spec["settings"])
-        samp = settings["sampling_settings"]
-        samp.update(sys_spec.get("overrides", {}))
-        ours = {"sweep_size": wl["sweep_size"], "criterion": criterion, "n_chains": C,
-                "filter_distance": wl["filter_distance"], **wl["schedule"]}
-        differ = {k: (samp.get(k), v) for k, v in ours.items() if samp.get(k) != v}
-        if differ:
-            raise RuntimeError(f"the campaign's settings (with the cell's overrides) differ "
-                               f"from the cell's in {differ}")
-        asys = assemble_system(settings, load_slab(ROOT / sys_spec["slab"]), device=device)
-        inc = vars(asys.potential)["inc_args"]
-        d = asys.run.d
-        engine = make_incremental_painn(inc["spec"], d, asys.potential, inc["static_nbr"],
+        inc = vars(system.potential)["inc_args"]
+        d = system.run.d
+        engine = make_incremental_painn(inc["spec"], d, system.potential, inc["static_nbr"],
                                         inc["band"], inc["surface_energy_fn"])
         step = make_incremental_semigrand_step(engine, d=d, criterion=criterion,
                                                filter_distance=filt)
@@ -149,25 +202,8 @@ def build_cell(wl: dict, device) -> Cell:
             return engine.init_state(torch.zeros((C, engine.n_sites), dtype=torch.int64,
                                                  device=d.device))
 
-        return Cell(fresh, crun, asys.spec, rec)
-    if wl["engine"] not in ("rigid", "relaxed"):
-        raise ValueError(f"unknown engine {wl['engine']!r}")
-    from surface_sampling_tpu_torch import systems
-
-    args = dict(sys_spec.get("args", {}))
-    if wl["engine"] == "relaxed":
-        from surface_sampling_tpu_torch.core.energy import RelaxConfig
-        from surface_sampling_tpu_torch.core.relax import FireConfig
-
-        fire = wl["relax"]
-        differ = {k: v for k, v in FireConfig(steps=fire["steps"], fmax=fire["fmax"],
-                                                max_step=fire["max_step"])._asdict().items()
-                  if fire[k] != v}
-        if differ:
-            raise RuntimeError(f"the program's FIRE differs from the cell's in {differ}")
-        args["relax"] = RelaxConfig(steps=fire["steps"], fmax=fire["fmax"],
-                                    max_step=fire["max_step"])
-    system = getattr(systems, sys_spec["builder"])(device=device, **args)
+        return Cell(fresh, crun, system.spec, rec)
+    _check_fire(wl, system.run.relax)
     if wl["engine"] == "relaxed":
         pot = system.potential
         pot.energy_with_edges = rec.count(pot.energy_with_edges)

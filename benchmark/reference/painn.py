@@ -21,7 +21,9 @@ atoms.
 
 from __future__ import annotations
 
+import json
 import math
+from pathlib import Path
 
 import torch
 import torch.nn.functional as tnf
@@ -35,6 +37,7 @@ from benchmark.reference.common import (
     load_npz_tree,
     segment_sum,
 )
+from benchmark.reference.surface import HARTREE_TO_EV, Z_OF
 
 
 class PaiNNReference:
@@ -113,3 +116,12 @@ class PaiNNReference:
         net = self.network_energy(numbers, positions, cell, pbc, prec)
         comp = (self.z_offset[numbers] * (numbers > 0)).sum(dim=1) + self.const_offset
         return net * self.cfg["units_to_ev"] + comp
+
+
+def make_model(cfg: dict, root: Path, device) -> PaiNNReference:
+    """The configuration's ensemble (``weights``, paths under ``root``) with
+    its composition offsets (``composition_offset_data``'s ``stoidict``, in
+    Hartree)."""
+    stoi = json.loads((root / cfg["composition_offset_data"]).read_text())["stoidict"]
+    offsets = {Z_OF[k] if k != "offset" else "const": v * HARTREE_TO_EV for k, v in stoi.items()}
+    return PaiNNReference([root / p for p in cfg["weights"]], cfg, device, offsets)

@@ -1,5 +1,5 @@
 """The benchmark's frozen work arithmetic equals ``chip_smoke.py``'s on the
-same inputs."""
+same inputs, and a CHGNet evaluation counts only the work the model runs."""
 
 import sys
 from pathlib import Path
@@ -38,6 +38,20 @@ def test_update_work(C, K, N, F, alive_share):
             torch.zeros((K, F, F)), torch.zeros((K, F, F)), torch.zeros((K, 2 * F, F)),
             torch.zeros((K, F)), torch.zeros((K, F, 3 * F)), torch.zeros((K, 3 * F)), alive)
     products, rest, nbytes = cs.update_work(args)
-    counts = wk.StateCounts(C, N, int(alive.sum()), 0, 0, 0, 0)
+    counts = wk.StateCounts(C, N, int(alive.sum()), 0, 0)
     want = 1e-3 * cs.bwd_bounds(products, rest, nbytes)[1]
     assert wk.painn_update_s(counts, K, F) == pytest.approx(want, rel=1e-12)
+
+
+@pytest.mark.parametrize("F,n_conv,hidden", [(64, 4, 64), (32, 2, 16)])
+@pytest.mark.parametrize("counts", [wk.StateCounts(64, 276, 5000, 380000, 9000),
+                                    wk.StateCounts(1, 276, 80, 6100, 150)], ids=["64", "1"])
+def test_chgnet_counts_the_atom_convs_and_the_readout(F, n_conv, hidden, counts):
+    # the published bond graph and bond / angle updates reach no output and
+    # the model does not run them: no count of bonds or angles enters
+    assert wk.StateCounts._fields == ("chains", "slots", "alive", "live_edges", "present")
+    atom = counts.alive * 10 * F * F + counts.live_edges * wk.conv_flops_per_edge(F)
+    readout = counts.alive * 2 * (F * hidden + 2 * hidden * hidden + hidden)
+    assert wk.chgnet_eval_flops(counts, F, n_conv, hidden) == n_conv * atom + readout
+    other = counts._replace(chains=3, slots=512, present=1)
+    assert wk.chgnet_eval_flops(other, F, n_conv, hidden) == n_conv * atom + readout

@@ -45,12 +45,9 @@ class StateCounts(NamedTuple):
     alive: int            # alive atoms over the batch
     live_edges: int       # directed pairs under the cutoff
     present: int          # (chain, centre, neighbour species present) triples
-    bonds: int            # pairs under the bond-graph cutoff (CHGNet), capped per centre
-    angle_pairs: int      # ordered bond pairs m != k at a centre (CHGNet)
 
 
-def state_counts(lat: Lattice, site_state: torch.Tensor, cutoff: float,
-                 bond_cutoff: float | None = None, max_bonds: int = 0) -> StateCounts:
+def state_counts(lat: Lattice, site_state: torch.Tensor, cutoff: float) -> StateCounts:
     """Counts of one batch of (C, S) occupancies."""
     numbers, positions = realise(lat, site_state)
     alive = numbers > 0
@@ -58,15 +55,8 @@ def state_counts(lat: Lattice, site_state: torch.Tensor, cutoff: float,
     nb = numbers.reshape(-1)[e.neighbour]
     key = e.centre * 128 + nb
     present = int(torch.unique(key).numel())
-    bonds = pairs = 0
-    if bond_cutoff is not None:
-        per = torch.zeros(e.n_rows, dtype=torch.int64, device=e.r.device)
-        per.index_add_(0, e.centre[e.r < bond_cutoff],
-                       torch.ones_like(e.centre[e.r < bond_cutoff]))
-        per = per.clamp(max=max_bonds)
-        bonds, pairs = int(per.sum()), int((per * (per - 1)).sum())
     return StateCounts(site_state.shape[0], numbers.shape[1], int(alive.sum()), e.r.numel(),
-                       present, bonds, pairs)
+                       present)
 
 
 def n_pad(n: int) -> int:
@@ -155,15 +145,12 @@ def chgnet_conv_s(c: StateCounts, F: int, M: int) -> float:
 def chgnet_eval_flops(c: StateCounts, F: int, n_conv: int, hidden: int) -> float:
     """Operations of one CHGNet evaluation as the model runs it: per atom
     conv the per-atom pre-activations (8 F^2), the fused conv on live
-    edges and the output layer (2 F^2); per bond / angle layer the bond
-    pairs' angle third and second layers (8 F^2 + 4 F^2 + ~60 F), each
-    bond's two thirds and output (16 F^2 + 2 F^2) and each atom's third
-    (8 F^2); the readout MLP."""
+    edges and the output layer (2 F^2); the readout MLP. The published
+    model's bond graph and bond / angle updates reach no output, and the
+    model does not run them."""
     atom = c.alive * (8 * F * F + 2 * F * F) + c.live_edges * conv_flops_per_edge(F)
-    bond_angle = (c.angle_pairs * (12 * F * F + 60 * F) + c.bonds * 18 * F * F
-                  + c.alive * 8 * F * F)
     readout = c.alive * 2 * (F * hidden + 2 * hidden * hidden + hidden)
-    return n_conv * atom + (n_conv - 1) * bond_angle + readout
+    return n_conv * atom + readout
 
 
 def painn_general_flops(c: StateCounts, K: int, F: int, R: int, n_layers: int,

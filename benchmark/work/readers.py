@@ -32,8 +32,7 @@ def counts(ctx, chunk: int = 16) -> list:
         lat = load_lattice(ctx["lattice"], ctx["device"])
         out = []
         for ss in ctx["trace"].states:
-            parts = [state_counts(lat, ss[lo:lo + chunk], cutoff, cfg.get("bond_graph_cutoff"),
-                                  cfg.get("max_bond_neighbors", 0))
+            parts = [state_counts(lat, ss[lo:lo + chunk], cutoff)
                      for lo in range(0, ss.shape[0], chunk)]
             out.append(type(parts[0])(*(sum(p[i] for p in parts) if i != 1 else parts[0][1]
                                         for i in range(len(parts[0])))))
@@ -73,17 +72,16 @@ def device_idle(ctx) -> float | None:
 
 def mfu(ctx) -> float | None:
     """Percent of the H100's dense TF32 peak (495 TFLOP/s at 700 W) that
-    the model's operations over the traced sweeps' wall time reach."""
-    from benchmark.work.kernels import PEAK_TF32_FLOPS, chgnet_eval_flops, painn_eval_flops
+    the model's operations over the traced sweeps' wall time reach: an
+    evaluation's operations from ``eval_flops(counts, config)`` of
+    ``work/<config["model"]>.py``. None for a family without that file."""
+    from benchmark import family_module
+    from benchmark.work.kernels import PEAK_TF32_FLOPS
 
     c, tr = ctx["config"], ctx["trace"]
+    family = family_module("work", c["model"])
     cs = counts(ctx)
-    if not cs or not tr.kernels or tr.window_s <= 0:
+    if family is None or not cs or not tr.kernels or tr.window_s <= 0:
         return None
-    if c["model"] == "painn":
-        flops = sum(painn_eval_flops(s, c["n_members"], c["feat_dim"], c["n_rbf"], c["n_layers"],
-                                     c["readout_hidden"]) for s in cs)
-    else:
-        flops = sum(chgnet_eval_flops(s, c["atom_fea_dim"], c["n_conv"], c["mlp_hidden_dims"][0])
-                    for s in cs)
+    flops = sum(family.eval_flops(s, c) for s in cs)
     return 100.0 * flops / (tr.window_s * PEAK_TF32_FLOPS)
